@@ -1,0 +1,659 @@
+"""Batched decode server with slot-based continuous batching; the port's
+counterpart of ``repro/runtime/server.py``.
+
+B cache *slots* are the state registers of the serving state-space system;
+each decode tick applies f once for all slots.  Requests claim free slots,
+retire on EOS / max tokens / end of cache, and new requests are admitted
+between ticks.
+
+Two decode drivers share the slot machinery:
+
+* ``step()`` — one ``decode_step`` per tick and one host↔device sync per
+  tick: the logits come back to the host, which samples per slot.
+* ``step_block()`` — ``block_k`` decode steps whose tokens, live masks and
+  EOS / max-token / out-of-cache stopping stay on the device, with greedy
+  argmax or ``torch.multinomial`` sampling on the device; the K×B token block
+  comes back to the host in ONE sync.  The K steps are a Python loop of
+  device work; the cache layout is the ``splice_cache`` layout, so admission
+  between blocks is unchanged.
+
+Prefill is one-shot (``lm.prefill`` per admitted prompt, then the B=1 state
+is spliced into the slot) or chunked (``prefill_chunk=N``: N prompt tokens per
+tick through ``lm.prefill_chunk``, interleaved with decode ticks).  Under
+``use_pallas`` every prefill runs the fused LSTM kernel, one call per layer.
+
+Counters, spans and ``stats()`` keys keep the reference's names.  Not ported
+yet, and refused by the constructor: mesh placement (``plan``), the prefix
+cache (``prefix_cache_bytes``), fault injection and the watchdog
+(``faults``/``watchdog_s``) and adaptive prefill (``prefill_adaptive``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import obs as obs_lib
+from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+
+from .scheduler import REJECT_DUPLICATE_UID, Scheduler, SchedulerConfig
+
+PyTree = Any
+
+DEFAULT_BLOCK_K = 8
+
+
+def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int) -> PyTree:
+    """Insert a B=1 prefill state into batch slot ``b`` of the server cache.
+
+    A recurrent carry (``h``/``c`` of ``[G, 1, H]`` → row ``b`` of
+    ``[G, B, H]``) has no sequence axis, so admission is a pure batch-row
+    write and never disturbs other slots.  The destination tensors are
+    updated in place; the returned tree holds the same tensors.  Caches with
+    a sequence axis (attention KV, ring buffers) are not ported yet.
+    """
+
+    def one(dst, src):
+        if src.ndim == dst.ndim and src.shape[1] == 1 and src.shape[2:] == dst.shape[2:]:
+            dst[:, b] = src[:, 0].to(dst.dtype)
+            return dst
+        raise NotImplementedError(
+            f"splice_cache: source {tuple(src.shape)} → destination "
+            f"{tuple(dst.shape)}; only batch-row (recurrent) states are ported")
+
+    return tree_map(one, caches, prefill_caches)
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: list[int]
+    max_new_tokens: int = 16
+    temperature: float = 0.0   # 0 = greedy
+    priority: int = 1          # scheduler class; smaller = more urgent
+    # TTL budget in seconds from submission (None = no deadline); expired
+    # requests retire as "expired:queue" or "expired:decode".
+    deadline_s: float | None = None
+    deadline_at: float | None = None     # absolute (stamped at submit)
+    out_tokens: list[int] = dataclasses.field(default_factory=list)
+    submitted_at: float = 0.0
+    dispatched_at: float | None = None   # popped from the queue (slot found)
+    first_token_at: float | None = None
+    done_at: float | None = None
+    retired_at: float | None = None      # == done_at; every path stamps it
+    finish_reason: str | None = None
+    truncated: bool = False     # prompt cut to the admission limit
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    """A resumable prompt scan bound to a reserved slot."""
+
+    req: Request
+    slot: int
+    caches: PyTree            # B=1 decode-layout state
+    pos: int = 0              # prompt tokens consumed so far
+    logits: Any = None        # last-token logits of the latest chunk (device)
+
+
+class DecodeServer:
+    def __init__(self, cfg: ModelConfig, params: PyTree, num_slots: int, max_seq: int,
+                 eos_id: int | None = None, seed: int = 0,
+                 block_k: int = DEFAULT_BLOCK_K, persistent: bool = False,
+                 prefill_chunk: int = 0,
+                 prefix_cache_bytes: int = 0,
+                 scheduler: SchedulerConfig | None = None,
+                 prefill_adaptive: bool = False,
+                 obs: obs_lib.Observability | None = None,
+                 faults: Any = None,
+                 watchdog_s: float | None = None,
+                 plan: Any = None,
+                 device: str | torch.device | None = None):
+        unported = [name for name, on in (
+            ("plan", plan is not None),
+            ("prefix_cache_bytes", bool(prefix_cache_bytes)),
+            ("faults", faults is not None),
+            ("watchdog_s", bool(watchdog_s)),
+            ("prefill_adaptive", bool(prefill_adaptive))) if on]
+        if unported:
+            raise NotImplementedError(
+                f"DecodeServer({', '.join(unported)}): not ported to "
+                "repro_torch yet (ROADMAP.md, Queue 1: Deferred serving features)")
+        self.device = resolve_device(device)
+        leaf = tree_leaves(params)[0]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params are on {leaf.device}, the server runs on {self.device}")
+        self.cfg, self.params = cfg, params
+        self.B, self.S = num_slots, max_seq
+        self.eos_id = eos_id
+        self.block_k = block_k
+        self.persistent = persistent
+        self.prefill_chunk = int(prefill_chunk)
+        # Per-server observability scope: counters always on (they ARE the
+        # stats() numbers), tracing opt-in (obs=Observability(trace=True)).
+        self.obs = obs if obs is not None else obs_lib.Observability()
+        self._tr = self.obs.tracer
+        self._tr.thread_name(0, "server")
+        self.scheduler = Scheduler(scheduler, prompt_limit=max_seq - 1,
+                                   metrics=self.obs.metrics)
+        self.caches = lm.init_cache(cfg, num_slots, max_seq, self.device)
+        self.pos = np.zeros(num_slots, np.int32)        # next write position
+        self.live = np.zeros(num_slots, bool)
+        self.reserved = np.zeros(num_slots, bool)       # prefill job in flight
+        self.quarantined = np.zeros(num_slots, bool)    # awaiting state scrub
+        self.slot_req: list[Request | None] = [None] * num_slots
+        self._inflight: dict[int, Request] = {}         # uid -> admitted req
+        self.cur_tokens = np.zeros(num_slots, np.int32)
+        self.completed: list[Request] = []
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._jobs: list[_PrefillJob] = []
+        self._job_rr = 0                                # round-robin cursor
+        # Decode-phase sync accounting (prefill excluded): host round-trips
+        # per generated token — ~1/live for step(), ~1/(K·live) for
+        # step_block().
+        m = self.obs.metrics
+        self._m_syncs = m.counter("decode_syncs",
+                                  "host round-trips in the decode phase")
+        self._m_tokens = m.counter("decoded_tokens", "tokens generated")
+        self._m_prompt_steps = m.counter("prompt_steps_computed",
+                                         "prompt tokens run on device")
+        self._m_chunks = m.counter("prefill_chunks_run", "chunk dispatches")
+        self._m_tick_max = m.gauge(
+            "max_prompt_steps_per_tick",
+            "high-watermark of per-tick prompt work (boundedness proof)")
+        self._m_tick_contended = m.gauge(
+            "max_prompt_steps_contended_tick",
+            "high-watermark of per-tick prompt work on ticks where a live "
+            "slot was decoding")
+        self._m_live = m.gauge("live_slots", "slots decoding")
+        self._h_ttft = m.histogram("ttft_ms", "submit -> first token")
+        self._h_tpot = m.histogram("tpot_ms", "per-token decode latency")
+        self._h_queue = m.histogram("queue_wait_ms",
+                                    "submit -> dispatch (or terminal event "
+                                    "for requests that never dispatched)")
+        self._m_quar = m.counter("slots_quarantined",
+                                 "slots retired on non-finite state")
+        self._tick_prompt_steps = 0
+        self._tick_uncontended = True       # no slot is live before tick 0
+
+    # registry-backed views ---------------------------------------------------
+
+    @property
+    def decode_syncs(self) -> int:
+        return int(self._m_syncs.value)
+
+    @property
+    def decoded_tokens(self) -> int:
+        return int(self._m_tokens.value)
+
+    @property
+    def prompt_steps_computed(self) -> int:
+        return int(self._m_prompt_steps.value)
+
+    @property
+    def prefill_chunks_run(self) -> int:
+        return int(self._m_chunks.value)
+
+    @property
+    def max_prompt_steps_per_tick(self) -> int:
+        return int(self._m_tick_max.value)
+
+    @property
+    def max_prompt_steps_contended_tick(self) -> int:
+        return int(self._m_tick_contended.value)
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request) -> bool:
+        """Admission-controlled enqueue.  Rejected requests complete
+        immediately with ``finish_reason='rejected:<reason>'`` and expired
+        ones with ``'expired:queue'``."""
+        now = time.perf_counter()
+        req.submitted_at = now
+        if req.deadline_s is not None:
+            req.deadline_at = now + req.deadline_s
+            if req.deadline_s <= 0:   # dead on arrival: expire before admit
+                self._retire(req, now, "expired:queue")
+                return False
+        if req.uid in self._inflight:
+            req.finish_reason = f"rejected:{REJECT_DUPLICATE_UID}"
+            self.obs.metrics.counter("sched_rejected", "admission rejections",
+                                     reason=REJECT_DUPLICATE_UID).inc()
+            self._retire(req, now, req.finish_reason)
+            return False
+        admitted, _reason = self.scheduler.admit(req, now=now)
+        for victim in self.scheduler.drain_evicted():
+            self._retire(victim, now, victim.finish_reason)
+        if not admitted:
+            self._retire(req, now, req.finish_reason)
+        else:
+            self._inflight[req.uid] = req
+        return admitted
+
+    def _free_slot(self) -> int | None:
+        for b in range(self.B):
+            if not self.live[b] and not self.reserved[b] and not self.quarantined[b]:
+                return b
+        return None
+
+    def _retire(self, req: Request, now: float, reason: str) -> None:
+        req.done_at = req.retired_at = now
+        req.finish_reason = req.finish_reason or reason
+        if self._inflight.get(req.uid) is req:
+            del self._inflight[req.uid]
+        self.completed.append(req)
+        self._observe_retire(req, now)
+
+    def _observe_retire(self, req: Request, now: float) -> None:
+        """Latency metrics + the retroactive per-request trace track
+        (``tid = uid + 1``: request ⊇ queue_wait → prefill → decode)."""
+        self.obs.metrics.counter(
+            "requests_completed", "retired requests by finish reason",
+            reason=(req.finish_reason or "unknown").split(":")[0]).inc()
+        n_out = len(req.out_tokens)
+        if req.first_token_at is not None:
+            self._h_ttft.observe((req.first_token_at - req.submitted_at) * 1e3)
+            if n_out > 1 and req.done_at is not None:
+                self._h_tpot.observe(
+                    (req.done_at - req.first_token_at) / (n_out - 1) * 1e3)
+        if req.dispatched_at is not None:
+            self._h_queue.observe((req.dispatched_at - req.submitted_at) * 1e3)
+        elif req.submitted_at:
+            self._h_queue.observe((now - req.submitted_at) * 1e3)
+        tr = self._tr
+        if not tr.enabled:
+            return
+        tid = req.uid + 1
+        tr.thread_name(tid, f"req {req.uid}")
+        t_sub = tr.to_us(req.submitted_at)
+        t_done = max(tr.to_us(now), t_sub)
+        tr.complete("request", t_sub, t_done - t_sub, cat="request", tid=tid,
+                    args={"uid": req.uid, "prompt_tokens": len(req.prompt),
+                          "out_tokens": n_out, "finish_reason": req.finish_reason})
+        t_disp = min(tr.to_us(req.dispatched_at), t_done) \
+            if req.dispatched_at is not None else t_done
+        tr.complete("queue_wait", t_sub, t_disp - t_sub, cat="request", tid=tid)
+        if req.first_token_at is not None:
+            t_first = min(tr.to_us(req.first_token_at), t_done)
+            tr.complete("prefill", t_disp, t_first - t_disp, cat="request", tid=tid)
+            tr.complete("decode", t_first, t_done - t_first, cat="request",
+                        tid=tid, args={"tokens": n_out})
+
+    # ------------------------------------------------------------------
+    # quarantine, deadlines, cancellation
+    # ------------------------------------------------------------------
+
+    def _quarantine(self, b: int, now: float) -> None:
+        """Retire slot ``b``'s request with ``error:nonfinite`` and pull the
+        slot from service until its state is scrubbed (start of next tick)."""
+        req = self.slot_req[b]
+        if req is not None:
+            self._retire(req, now, "error:nonfinite")
+        self.slot_req[b] = None
+        self.live[b] = False
+        self.quarantined[b] = True
+        self._m_quar.inc()
+
+    def _scrub_quarantined(self) -> None:
+        """Zero quarantined slots' cache rows, so a poisoned state never
+        leaks into the next request admitted to the slot."""
+        for b in np.flatnonzero(self.quarantined):
+            for leaf in tree_leaves(self.caches):
+                leaf[:, b] = 0
+            self.quarantined[b] = False
+
+    def _reap_deadlines(self, now: float) -> None:
+        """Retire every expired request — queued (``expired:queue``), mid-
+        prefill or mid-decode (``expired:decode``)."""
+        for req in self.scheduler.reap_expired(now):
+            self._retire(req, now, "expired:queue")
+        for job in [j for j in self._jobs
+                    if j.req.deadline_at is not None and now >= j.req.deadline_at]:
+            self._jobs.remove(job)
+            self.reserved[job.slot] = False
+            self._retire(job.req, now, "expired:decode")
+        for b in range(self.B):
+            req = self.slot_req[b]
+            if req is not None and self.live[b] \
+                    and req.deadline_at is not None and now >= req.deadline_at:
+                self._retire(req, now, "expired:decode")
+                self.live[b] = False
+                self.slot_req[b] = None
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a request anywhere in flight; it retires as ``cancelled``."""
+        now = time.perf_counter()
+        req = self.scheduler.remove(uid)
+        if req is not None:
+            self._retire(req, now, "cancelled")
+            return True
+        for job in self._jobs:
+            if job.req.uid == uid:
+                self._jobs.remove(job)
+                self.reserved[job.slot] = False
+                self._retire(job.req, now, "cancelled")
+                return True
+        for b in range(self.B):
+            req = self.slot_req[b]
+            if req is not None and req.uid == uid:
+                self._retire(req, now, "cancelled")
+                self.live[b] = False
+                self.slot_req[b] = None
+                return True
+        return False
+
+    def health(self) -> dict:
+        quarantined = int(self.quarantined.sum())
+        shed = int(self.obs.metrics.value("sched_rejected", reason="shed"))
+        degraded = quarantined or shed or int(self._m_quar.value)
+        return {
+            "status": "degraded" if degraded else "ok",
+            "live_slots": int(self.live.sum()),
+            "reserved_slots": int(self.reserved.sum()),
+            "quarantined_slots": quarantined,
+            "queued": len(self.scheduler),
+            "slots_quarantined_total": int(self._m_quar.value),
+        }
+
+    # ------------------------------------------------------------------
+    # prefill
+    # ------------------------------------------------------------------
+
+    def _tokens(self, toks) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
+
+    def _start_request(self, req: Request, b: int, first_logits: np.ndarray) -> None:
+        """Go live after the prompt state is in slot ``b`` — or retire at
+        admission when the prefill-sampled first token meets the budget."""
+        first = int(np.argmax(first_logits))
+        now = time.perf_counter()
+        req.out_tokens.append(first)
+        req.first_token_at = now
+        hit_eos = self.eos_id is not None and first == self.eos_id
+        if len(req.out_tokens) >= req.max_new_tokens or hit_eos:
+            self._retire(req, now, "eos" if hit_eos else "max_tokens")
+            return
+        self.slot_req[b] = req
+        self.live[b] = True
+        self.pos[b] = len(req.prompt)
+        self.cur_tokens[b] = first
+
+    def _admit(self) -> None:
+        """Fill free slots from the scheduler: start a chunked prefill job,
+        or run the one-shot B=1 prefill and SPLICE its state into the slot
+        (other slots' states are untouched)."""
+        while True:
+            b = self._free_slot()
+            if b is None:
+                return
+            req = self.scheduler.next_request()
+            if req is None:
+                return
+            if req.max_new_tokens <= 0:
+                # budget already met: retire before spending any device work
+                self._retire(req, time.perf_counter(), "max_tokens")
+                continue
+            if self.prefill_chunk > 0:
+                self.reserved[b] = True
+                self._jobs.append(_PrefillJob(
+                    req=req, slot=b, caches=lm.init_cache(self.cfg, 1, self.S, self.device)))
+                continue
+            plen = len(req.prompt)
+            with self._tr.span("prefill_oneshot", cat="prefill",
+                               args={"uid": req.uid, "tokens": plen}):
+                logits, pcaches = lm.prefill(self.params, self.cfg, self._tokens([req.prompt]))
+            self._m_prompt_steps.inc(plen)
+            self._tick_prompt_steps += plen
+            self.caches = splice_cache(self.caches, pcaches, b)
+            self._start_request(req, b, logits[0].float().cpu().numpy())
+
+    def _advance_prefill(self) -> None:
+        """Advance one chunk of one in-flight job, round-robin over jobs:
+        per-tick prompt work stays bounded by the chunk size regardless of
+        prompt length."""
+        if not self._jobs:
+            return
+        self._job_rr %= len(self._jobs)
+        job = self._jobs[self._job_rr]
+        plen = len(job.req.prompt)
+        c = min(self.prefill_chunk, plen - job.pos)
+        with self._tr.span("prefill_chunk", cat="prefill",
+                           args={"uid": job.req.uid, "pos": job.pos, "chunk": c}):
+            job.logits, job.caches = lm.prefill_chunk(
+                self.params, self.cfg, self._tokens([job.req.prompt[job.pos:job.pos + c]]),
+                job.caches, job.pos)
+        job.pos += c
+        self._m_prompt_steps.inc(c)
+        self._tick_prompt_steps += c
+        self._m_chunks.inc()
+        if job.pos >= plen:
+            self._jobs.remove(job)
+            self.caches = splice_cache(self.caches, job.caches, job.slot)
+            self.reserved[job.slot] = False
+            self._start_request(job.req, job.slot, job.logits[0].float().cpu().numpy())
+        else:
+            self._job_rr += 1
+
+    def _begin_tick(self) -> None:
+        self._tick_prompt_steps = 0
+        # scrub quarantined slots and reap expired requests BEFORE admission
+        # — freed slots are reused this same tick
+        self._scrub_quarantined()
+        self._reap_deadlines(time.perf_counter())
+        # contention is a tick-level property, captured before admissions
+        self._tick_uncontended = not self.live.any()
+        self._admit()
+        self._advance_prefill()
+        self._admit()
+        self._m_tick_max.set_max(self._tick_prompt_steps)
+        if not self._tick_uncontended:
+            self._m_tick_contended.set_max(self._tick_prompt_steps)
+        self._m_live.set(int(self.live.sum()))
+
+    # ------------------------------------------------------------------
+    # decode drivers
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def step(self) -> int:
+        """One batched decode tick for all live slots.  Returns #live."""
+        self._begin_tick()
+        if not self.live.any():
+            return 0
+        with self._tr.span("decode_step", cat="decode",
+                           args={"live": int(self.live.sum())}):
+            logits, self.caches = lm.decode_step(
+                self.params, self.cfg, self._tokens(self.cur_tokens[:, None]),
+                self.caches, self._tokens(self.pos))
+            with self._tr.span("device_sync", cat="sync"):
+                logits = logits.float().cpu().numpy()
+        self._m_syncs.inc()
+        self.pos += self.live.astype(np.int32)
+        now = time.perf_counter()
+        # per-slot non-finite detection quarantines ONLY the affected slot
+        finite = np.isfinite(logits).all(axis=-1)
+        for b in range(self.B):
+            if not self.live[b]:
+                continue
+            if not finite[b]:
+                self._quarantine(b, now)
+                continue
+            req = self.slot_req[b]
+            if req.temperature > 0:
+                probs = torch.softmax(
+                    torch.as_tensor(logits[b], device=self.device) / req.temperature, -1)
+                nxt = int(torch.multinomial(probs, 1, generator=self._gen))
+                # the int() is its own host↔device round-trip — count it
+                self._m_syncs.inc()
+            else:
+                nxt = int(np.argmax(logits[b]))
+            req.out_tokens.append(nxt)
+            self._m_tokens.inc()
+            if req.first_token_at is None:
+                req.first_token_at = now
+            self.cur_tokens[b] = nxt
+            full = len(req.out_tokens) >= req.max_new_tokens
+            hit_eos = self.eos_id is not None and nxt == self.eos_id
+            oom = self.pos[b] >= self.S - 1
+            if full or hit_eos or oom:
+                self._retire(req, now,
+                             "eos" if hit_eos else
+                             ("max_tokens" if full else "out_of_cache"))
+                self.live[b] = False
+                self.slot_req[b] = None
+        return int(self.live.sum())
+
+    def _decode_block(self, k: int, temps: np.ndarray, remaining: np.ndarray):
+        """K decode steps with sampling and retirement decided on the device.
+        The carry is the server's device state (caches, cur, pos, live,
+        remaining); returns the caches and ONE host array holding the
+        [K, 4, B] block (token, emitted, done, finite) followed by the final
+        cur/pos/live rows."""
+        dev, S = self.device, self.S
+        eos = -1 if self.eos_id is None else self.eos_id
+        caches = self.caches
+        cur = self._tokens(self.cur_tokens)
+        pos = self._tokens(self.pos)
+        live = torch.as_tensor(self.live, device=dev)
+        left = self._tokens(remaining)
+        temps_t = torch.as_tensor(temps, device=dev)
+        sampling = bool((temps > 0).any())
+        outs = []
+        for _ in range(k):
+            logits, caches = lm.decode_step(self.params, self.cfg, cur[:, None], caches, pos)
+            logits = logits.float()
+            pos = pos + live.long()
+            finite = torch.isfinite(logits).all(dim=-1)
+            nxt = torch.argmax(logits, dim=-1)
+            if sampling:
+                scaled = logits / temps_t.clamp_min(1e-6)[:, None]
+                scaled = torch.where(finite[:, None], scaled, torch.zeros_like(scaled))
+                sampled = torch.multinomial(torch.softmax(scaled, -1), 1,
+                                            generator=self._gen)[:, 0]
+                nxt = torch.where(temps_t > 0, sampled, nxt)
+            nxt = torch.where(live, nxt, cur)          # dead slots idle
+            emitted = live
+            left = left - live.long()
+            done_now = live & ((left <= 0) | (nxt == eos) | (pos >= S - 1))
+            live = live & ~done_now
+            cur = nxt
+            outs.append(torch.stack([nxt, emitted.long(), done_now.long(), finite.long()]))
+        block = torch.stack(outs).reshape(4 * k, -1)
+        tail = torch.stack([cur, pos, live.long()])
+        return caches, torch.cat([block, tail])
+
+    @torch.no_grad()
+    def step_block(self) -> int:
+        """``block_k`` decode ticks with one host sync; returns #live after.
+
+        Timestamps (first_token_at / done_at) are stamped at the block
+        boundary, so per-request latency is quantized up to K-1 device ticks
+        coarser than the per-token driver reports.
+        """
+        self._begin_tick()
+        if not self.live.any():
+            return 0
+        k = self.block_k
+        temps = np.array([r.temperature if r is not None else 0.0
+                          for r in self.slot_req], np.float32)
+        remaining = np.array([r.max_new_tokens - len(r.out_tokens) if r is not None else 0
+                              for r in self.slot_req], np.int64)
+        with self._tr.span("decode_block", cat="decode",
+                           args={"live": int(self.live.sum()), "k": k}):
+            self.caches, packed = self._decode_block(k, temps, remaining)
+            # ONE sync: the K×B block plus the carry vectors to the host
+            with self._tr.span("device_sync", cat="sync"):
+                host = packed.cpu().numpy()
+        self._m_syncs.inc()
+        blk = host[: 4 * k].reshape(k, 4, self.B)
+        toks = blk[:, 0]
+        emitted, done_now, finite = (blk[:, i].astype(bool) for i in (1, 2, 3))
+        self.cur_tokens = host[4 * k].astype(np.int32)
+        self.pos = host[4 * k + 1].astype(np.int32)
+        self.live = host[4 * k + 2].astype(bool)
+        now = time.perf_counter()
+        # quarantine pass: a slot that went non-finite at inner tick t
+        # produced garbage from t on — drop those emissions and retire it
+        quarantine: list[int] = []
+        for b in range(self.B):
+            bad = emitted[:, b] & ~finite[:, b]
+            if bad.any():
+                tb = int(np.argmax(bad))
+                emitted[tb:, b] = False
+                done_now[tb:, b] = False
+                quarantine.append(b)
+        for t in range(k):
+            for b in range(self.B):
+                if not emitted[t, b]:
+                    continue
+                req = self.slot_req[b]
+                nxt = int(toks[t, b])
+                req.out_tokens.append(nxt)
+                self._m_tokens.inc()
+                if req.first_token_at is None:
+                    req.first_token_at = now
+                if done_now[t, b]:
+                    reason = ("eos" if (self.eos_id is not None and nxt == self.eos_id) else
+                              ("max_tokens" if len(req.out_tokens) >= req.max_new_tokens
+                               else "out_of_cache"))
+                    self._retire(req, now, reason)
+                    self.slot_req[b] = None
+        for b in quarantine:
+            self._quarantine(b, now)
+        return int(self.live.sum())
+
+    # ------------------------------------------------------------------
+    def stats(self, reset: bool = False) -> dict:
+        """Serving telemetry, a view over the server's metrics registry:
+        decode host round-trips per generated token, prefill boundedness,
+        scheduler, request-latency summaries.  ``reset=True`` zeroes the
+        counters after building the dict."""
+        toks = max(self.decoded_tokens, 1)
+        out = {
+            "decode_syncs": self.decode_syncs,
+            "decoded_tokens": self.decoded_tokens,
+            "syncs_per_token": self.decode_syncs / toks,
+            "prefill": {
+                "prompt_steps_computed": self.prompt_steps_computed,
+                "chunks_run": self.prefill_chunks_run,
+                "chunk_size": self.prefill_chunk,
+                "max_prompt_steps_per_tick": self.max_prompt_steps_per_tick,
+                "max_prompt_steps_contended_tick": self.max_prompt_steps_contended_tick,
+            },
+            "latency": {
+                "ttft_ms": self._h_ttft.summary(),
+                "tpot_ms": self._h_tpot.summary(),
+                "queue_wait_ms": self._h_queue.summary(),
+            },
+            "scheduler": self.scheduler.telemetry(),
+            "health": self.health(),
+        }
+        if reset:
+            self.reset_stats()
+        return out
+
+    def reset_stats(self) -> None:
+        self.obs.metrics.reset()
+        self.scheduler.reset_stats()
+
+    def run_until_drained(self, max_ticks: int = 10_000,
+                          persistent: bool | None = None) -> list[Request]:
+        use_block = self.persistent if persistent is None else persistent
+        step = self.step_block if use_block else self.step
+        ticks = 0
+        while (len(self.scheduler) or self._jobs or self.live.any()) and ticks < max_ticks:
+            step()
+            ticks += 1
+        return self.completed
+
+
+__all__ = ["DEFAULT_BLOCK_K", "DecodeServer", "Request", "splice_cache"]

@@ -1,0 +1,76 @@
+"""The port stands alone: no JAX, nothing of the reference package, and no
+silent CPU path when the card is asked for."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_neither_jax_nor_the_reference_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+    # the match is on the exact module name: repro_torch is not repro
+    assert "repro_torch" in _imported_roots(PORT / "models" / "lm.py")
+
+
+def test_importing_every_port_module_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(len(bad), bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "0 []", out.stdout + out.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device=``, the entry points ask for CUDA and raise on a
+    machine without it — they never run on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import DecodeServer
+
+    cfg = get_smoke_config("paper-lstm")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeServer(cfg, params, num_slots=2, max_seq=16)
+    # a tensor that is not on the CPU goes to the kernel, never to the plain path
+    x = torch.empty((1, 3, 8), device="meta")
+    w_x, w_h, b = (torch.empty(s, device="meta") for s in ((8, 32), (8, 32), (32,)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.lstm_seq(x, w_x, w_h, b)

@@ -1,0 +1,139 @@
+"""The port's ``paper-lstm`` language model on the CPU against the JAX one.
+
+Parameters are drawn by the reference (``repro.models.lm.init_params``) and
+bridged with ``repro_torch.bridge.params_from_jax``.  Bars: prefill and
+decode logits at 1e-5 (fp32), chained ``prefill_chunk`` against one-shot
+prefill at 1e-4 (the reference's own chunked-prefill bar).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as jax_configs  # noqa: E402
+from repro.models import lm as jax_lm  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs.paper_lstm import gru_config  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.config import ModelConfig  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def bridged():
+    jcfg = jax_configs.get_smoke_config("paper-lstm")
+    p_j = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_smoke_config("paper-lstm")
+    return jcfg, cfg, p_j, bridge.params_from_jax(jax.tree.map(np.asarray, p_j), cfg, "cpu")
+
+
+def _tokens(B, T, vocab, seed):
+    return np.random.default_rng(seed).integers(0, vocab, size=(B, T)).astype(np.int32)
+
+
+def _close(pt, ref, **tol):
+    np.testing.assert_allclose(pt.numpy(), np.asarray(ref), **(tol or TOL))
+
+
+def test_config_matches_reference_for_every_family():
+    """layer_pattern, n_groups, kv_cache_bytes and every field agree with the
+    reference's ModelConfig for all of its registered architectures."""
+    for arch in jax_configs.ARCH_IDS:
+        for jcfg in (jax_configs.get_config(arch), jax_configs.get_smoke_config(arch)):
+            cfg = ModelConfig(**dataclasses.asdict(jcfg))
+            assert cfg.layer_pattern == jcfg.layer_pattern, arch
+            assert cfg.n_groups == jcfg.n_groups, arch
+            assert cfg.kv_cache_bytes(3, 777) == jcfg.kv_cache_bytes(3, 777), arch
+            assert cfg.rnn_hidden_actual == jcfg.rnn_hidden_actual
+            assert cfg.act_dtype == getattr(torch, jcfg.dtype)
+    assert ARCH_IDS == ("paper-lstm",)
+    assert get_config("paper-lstm") == ModelConfig(**dataclasses.asdict(
+        jax_configs.get_config("paper-lstm")))
+    assert get_smoke_config("paper-lstm") == ModelConfig(**dataclasses.asdict(
+        jax_configs.get_smoke_config("paper-lstm")))
+    assert gru_config().rnn_cell == "gru" and gru_config().name == "paper-gru"
+
+
+def test_init_params_layout_matches_reference(bridged):
+    jcfg, cfg, p_j, _ = bridged
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    shapes_pt = jax.tree.map(lambda t: tuple(t.shape), p)
+    shapes_j = jax.tree.map(lambda a: tuple(a.shape), p_j)
+    assert shapes_pt == shapes_j
+    assert lm.param_count(p) == jax_lm.param_count(p_j)
+    b = p["groups"]["b0_recurrent"]["rnn"]["cell"]["b"]
+    H = cfg.rnn_hidden_actual
+    assert bool((b[:, H:2 * H] == 1).all()) and bool((b[:, :H] == 0).all())
+    # the same generator seed draws the same weights
+    p2 = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    torch.testing.assert_close(p2["embed"]["table"], p["embed"]["table"], atol=0, rtol=0)
+
+
+def test_full_width_config_param_count():
+    """paper-lstm at its published width: 8 layers, d 1024, H 1024, vocab
+    32 000, tied embeddings — about 108 M parameters (counted from shapes)."""
+    cfg = get_config("paper-lstm")
+    D, H = cfg.d_model, cfg.rnn_hidden_actual
+    per_layer = D + D * 4 * H + H * 4 * H + 4 * H + H * D
+    assert cfg.n_layers * per_layer + cfg.vocab * D + D == 108_307_456
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_prefill_and_decode_logits_match_reference(bridged, use_pallas):
+    jcfg, cfg, p_j, p_pt = bridged
+    cfg = dataclasses.replace(cfg, use_pallas=use_pallas)
+    toks = _tokens(2, 7, cfg.vocab, seed=1)
+    lg_j, c_j = jax_lm.prefill(p_j, jcfg, jnp.asarray(toks))
+    lg_pt, c_pt = lm.prefill(p_pt, cfg, torch.as_tensor(toks))
+    _close(lg_pt, lg_j)
+    for k in ("h", "c"):
+        _close(c_pt["groups"]["b0_recurrent"][k], c_j["groups"]["b0_recurrent"][k])
+    nxt = _tokens(2, 1, cfg.vocab, seed=2)
+    for t in range(3):
+        lg_j, c_j = jax_lm.decode_step(p_j, jcfg, jnp.asarray(nxt), c_j, jnp.int32(7 + t))
+        lg_pt, c_pt = lm.decode_step(p_pt, cfg, torch.as_tensor(nxt), c_pt, 7 + t)
+        _close(lg_pt, lg_j)
+        nxt = np.argmax(np.asarray(lg_j), -1).astype(np.int32)[:, None]
+    # full-sequence forward (train mode) returns per-position logits
+    logits, _aux = lm.forward(p_pt, cfg, torch.as_tensor(toks))
+    logits_j, _ = jax_lm.forward(p_j, jcfg, jnp.asarray(toks))
+    _close(logits, logits_j)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_chained_prefill_chunks_match_one_shot(bridged, use_pallas):
+    _, cfg, _, p_pt = bridged
+    cfg = dataclasses.replace(cfg, use_pallas=use_pallas)
+    toks = torch.as_tensor(_tokens(1, 11, cfg.vocab, seed=3))
+    lg_one, c_one = lm.prefill(p_pt, cfg, toks)
+    caches = lm.init_cache(cfg, 1, 32, "cpu")
+    for s in range(0, 11, 4):
+        lg, caches = lm.prefill_chunk(p_pt, cfg, toks[:, s:s + 4], caches, s)
+    torch.testing.assert_close(lg, lg_one, atol=1e-4, rtol=1e-4)
+    for k in ("h", "c"):
+        torch.testing.assert_close(caches["groups"]["b0_recurrent"][k],
+                                   c_one["groups"]["b0_recurrent"][k], atol=1e-4, rtol=1e-4)
+
+
+def test_cache_layout_and_bridge(bridged):
+    jcfg, cfg, _, _ = bridged
+    c_j = jax_lm.init_cache(jcfg, 3, 16)
+    c_pt = lm.init_cache(cfg, 3, 16, "cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), c_pt) == jax.tree.map(lambda a: a.shape, c_j)
+    c_b = bridge.cache_from_jax(jax.tree.map(np.asarray, c_j), "cpu")
+    assert c_b["groups"]["b0_recurrent"]["h"].dtype == torch.float32
+    with pytest.raises(ValueError, match="pattern"):
+        bridge.params_from_jax({"groups": {"b0_attn": {}}}, cfg, "cpu")
+
+
+def test_unported_families_raise():
+    cfg = ModelConfig(**dataclasses.asdict(jax_configs.get_smoke_config("smollm-135m")))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
