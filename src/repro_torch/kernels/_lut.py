@@ -2,9 +2,8 @@
 reference's ``kernels/_lut.py``.
 
 On the card the same arithmetic is the ``__device__ lut_interpolate`` in
-``kernels/lstm_cell/csrc/lstm_seq.cu``; there the gather is a direct indexed
-load from the table in shared memory, where the TPU kernel used a one-hot ×
-table matmul.  The semantics match the reference exactly, including its edge
+``kernels/csrc/lut.cuh``; there the gather is a direct indexed load, where
+the TPU kernel used a one-hot × table matmul.  The semantics match the reference exactly, including its edge
 behaviour: ``frac`` is not clipped, so values below the first sample centre
 are extrapolated linearly (frac < 0) while values above the last one stay
 flat (the shifted table repeats its last entry).

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel repro/kernels/lstm_cell/kernel.py::lstm_seq
 // (Pallas body _lstm_kernel): y, h_T, c_T = LSTM(x; w_x, w_h, b; h0, c0) with
 // gate order i, f, g, o, sigma(v) = 0.5 * (1 + tanh(0.5 * v)), h and c in
-// fp32, and an optional ROM-LUT tanh (paper section IV-B).
+// fp32, and an optional ROM-LUT tanh (paper section IV-B; lut.cuh).
 //
 // What bounds it on this card.  Per call the work is 2*B*T*(D+H)*4H FLOPs
 // (4.3 GFLOP at B=1, T=256, D=H=1024) against 67 TFLOP/s of fp32 FMA outside
@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "lut.cuh"
 
 namespace {
 
@@ -109,20 +111,10 @@ input_projection(const float* __restrict__ x, const float* __restrict__ w,
 // gate activations, exact or from the ROM table
 // ---------------------------------------------------------------------------
 
-// The reference's kernels/_lut.py::lut_interpolate: clamp to [-4, 4 - 1e-6),
-// take the fractional table position, interpolate between entries i0 and
-// min(i0 + 1, n - 1).  frac is not clipped, as in the reference.
-__device__ __forceinline__ float lut_interpolate(float v, const float* lut, int n) {
-  const float xf = fminf(fmaxf(v, -4.0f), 4.0f - 1e-6f);
-  const float pos = (xf + 4.0f) / 8.0f * (float)n - 0.5f;
-  const int i0 = min(max((int)floorf(pos), 0), n - 1);
-  const float frac = pos - (float)i0;
-  const int i1 = min(i0 + 1, n - 1);
-  return lut[i0] * (1.0f - frac) + lut[i1] * frac;
-}
-
+// lut_interpolate (lut.cuh) with the table and its shifted partner, both in
+// shared memory: lut1[i] = lut[min(i + 1, n - 1)].
 __device__ __forceinline__ float act_tanh(float v, const float* lut, int n) {
-  return n ? lut_interpolate(v, lut, n) : tanhf(v);
+  return n ? lut_interpolate(v, lut, lut + n, n) : tanhf(v);
 }
 
 __device__ __forceinline__ float act_sigmoid(float v, const float* lut, int n) {
@@ -152,7 +144,7 @@ lstm_step(const float* __restrict__ zx, const float* __restrict__ w_h,
           float* __restrict__ y, int B, int T, int H, int t, int rows) {
   extern __shared__ float smem[];
   float* h_s = smem;                  // [rows, H] slice of h_prev
-  float* lut_s = smem + (size_t)rows * H;
+  float* lut_s = smem + (size_t)rows * H;  // [lut, lut shifted by one], 2 * n_lut
   __shared__ float part[STEP_KSPLIT][STEP_MAX_ROWS][STEP_COLS];
 
   const int tid = threadIdx.x;
@@ -165,7 +157,10 @@ lstm_step(const float* __restrict__ zx, const float* __restrict__ w_h,
   const size_t H4 = 4 * (size_t)H;
 
   for (int i = tid; i < nb * H; i += STEP_THREADS) h_s[i] = h_prev[(size_t)b0 * H + i];
-  for (int i = tid; i < n_lut; i += STEP_THREADS) lut_s[i] = lut[i];
+  for (int i = tid; i < n_lut; i += STEP_THREADS) {
+    lut_s[i] = lut[i];
+    lut_s[n_lut + i] = lut[min(i + 1, n_lut - 1)];
+  }
   __syncthreads();
 
   float acc[STEP_MAX_ROWS];
@@ -243,10 +238,13 @@ int lstm_seq_f32(const float* x, const float* w_x, const float* w_h, const float
   if (err != cudaSuccess) return err;
 
   int rows = B < STEP_MAX_ROWS ? B : STEP_MAX_ROWS;
-  while (rows > 0 && ((size_t)rows * H + n_lut) * sizeof(float) > STEP_SMEM_LIMIT) --rows;
+  while (rows > 0 && ((size_t)rows * H + 2 * n_lut) * sizeof(float) > STEP_SMEM_LIMIT) --rows;
   if (rows == 0) return cudaErrorInvalidValue;
-  const size_t smem = ((size_t)rows * H + n_lut) * sizeof(float);
-  if (smem > 48 * 1024) {
+  const size_t smem = ((size_t)rows * H + 2 * n_lut) * sizeof(float);
+  // above 48 KB of shared memory in all (the static `part` included) a
+  // launch needs the opt-in, or it is refused
+  const size_t static_smem = sizeof(float) * STEP_KSPLIT * STEP_MAX_ROWS * STEP_COLS;
+  if (smem + static_smem > 48 * 1024) {
     err = cudaFuncSetAttribute(lstm_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;

@@ -1,10 +1,10 @@
-"""Build and bind the Hopper ``lstm_seq`` kernel (``csrc/lstm_seq.cu``).
+"""Bind the Hopper ``lstm_seq`` kernel (``csrc/lstm_seq.cu``).
 
 Route: ``nvcc`` compiles the source into a shared library with a plain C
-interface, loaded with ``ctypes``.  The library is built at first use into
-``build/`` at the root of the checkout, named by a hash of the source and the
-flags, so a changed source is rebuilt and an unchanged one is loaded as is.
-Nothing is built or loaded when this module is imported.
+interface, loaded with ``ctypes`` (``kernels/_build.py``: built at first use
+into ``build/`` at the root of the checkout, named by a hash of the source,
+the shared headers and the flags).  Nothing is built or loaded when this
+module is imported.
 
 :func:`lstm_seq` takes CUDA tensors only and raises on anything else: the
 plain PyTorch version for CPU tensors lives in ``ref.py`` and is chosen by
@@ -14,59 +14,29 @@ plain PyTorch version for CPU tensors lives in ``ref.py`` and is chosen by
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lstm_seq.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _lib: ctypes.CDLL | None = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    toolkit = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if path is None and os.path.exists(toolkit):
-        path = toolkit
-    if path is None:
-        raise RuntimeError("nvcc not found: the lstm_seq kernel is built from "
-                           f"{SOURCE} on a machine with the CUDA toolkit")
-    return path
-
-
 def build() -> Path:
-    """Compile the library unless it is already built; returns its path.  The
-    compiler's output (with ``-Xptxas -v``: registers, shared memory, spills
-    per kernel) is kept beside it as ``.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"liblstm_seq-{tag.hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, timeout=600)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile the library unless it is already built; returns its path."""
+    return _build.build("lstm_seq", SOURCE)
 
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load("lstm_seq", SOURCE)
         lib.lstm_seq_f32.argtypes = [_P] * 7 + [_I] + [_P] * 6 + [_I] * 4 + [_P]
         lib.lstm_seq_f32.restype = _I
         lib.lstm_seq_error_string.argtypes = [_I]
@@ -127,4 +97,4 @@ def lstm_seq(x: torch.Tensor, w_x: torch.Tensor, w_h: torch.Tensor, b: torch.Ten
     return y, h_out, c_out
 
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCE", "build", "load", "lstm_seq"]
+__all__ = ["SOURCE", "build", "load", "lstm_seq"]

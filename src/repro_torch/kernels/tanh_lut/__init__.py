@@ -1,1 +1,3 @@
-"""ROM-LUT tanh: the table constructor ``ref.make_lut``."""
+"""ROM-LUT tanh: ``ops.tanh_lut`` (wrapper, launch counter), ``kernel`` (CUDA
+build and binding of ``csrc/tanh_lut.cu``), ``ref`` (``make_lut`` and the
+plain version ``tanh_lut_ref``)."""

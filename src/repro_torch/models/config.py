@@ -88,7 +88,7 @@ class ModelConfig:
     remat: bool = True               # activation checkpointing (training)
     scan_unroll: int = 1             # the paper's j knob
     use_pallas: bool = False         # hand-written kernels (CUDA in the port)
-    use_codegen: bool = False        # generated fused cell kernels (not ported)
+    use_codegen: bool = False        # generated stage kernels (codegen)
     quant_gate_bits: int = 0         # int8 gate MACC in the generated kernel
     sequence_parallel: bool = False
     attn_tp: bool = True

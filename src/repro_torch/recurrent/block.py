@@ -5,10 +5,13 @@ Prefill runs the whole sequence and emits the final ``(h, c)`` carry as the
 decode state; decode applies the one-step transition map.  The carry is the
 entire serving state — O(1) per slot.
 
-``cfg.use_pallas`` routes LSTM prefill through the hand-written fused kernel
-(``kernels/lstm_cell``: the Hopper CUDA kernel for CUDA tensors, its plain
-version on the CPU).  ``cfg.use_codegen`` (the generated kernel of the
-reference's ``codegen`` package) is not ported yet and raises.
+Fast paths: ``cfg.use_codegen`` routes LSTM and GRU prefill through the
+*generated* stage kernel of :mod:`repro_torch.codegen` (produced from the
+cell's datapath IR; ``cfg.quant_gate_bits`` in (0, 8] selects its int8 MACC
+path); ``cfg.use_pallas`` routes LSTM prefill through the hand-written fused
+kernel (``kernels/lstm_cell``).  ``use_codegen`` takes precedence, as in the
+reference.  Each runs its CUDA kernel for CUDA tensors and its plain version
+on the CPU; ``cells.cell_seq`` is the plain path and the oracle for both.
 """
 
 from __future__ import annotations
@@ -55,15 +58,44 @@ def _carry_out(cfg: "ModelConfig", carry) -> PyTree:
     return {"h": carry}
 
 
+# Generated-kernel runners, one per (cell, D, H, quant_bits) datapath shape.
+# A runner holds graph structure only (the lowered plan and its CUDA source)
+# — weights are re-bound every call, so trained parameters flow through
+# without regenerating.
+_CODEGEN_RUNNERS: dict[tuple, Any] = {}
+
+
+def _codegen_seq(cell: str, p_cell: PyTree, u: torch.Tensor, carry0,
+                 quant_bits: int = 0):
+    """Prefill via the codegen kernel backend (lstm AND gru).
+    ``quant_bits`` in (0, 8] routes the gate contractions through the int8
+    MACC path of the generated kernel (the paper's fixed-point stage)."""
+    from repro_torch import codegen
+
+    B, _, D = u.shape
+    H = cells.cell_hidden_size(p_cell, cell)
+    key = (cell, D, H, quant_bits)
+    run = _CODEGEN_RUNNERS.get(key)
+    if run is None:
+        run, _ = codegen.cell_stage_runner(
+            cell, D, H, device=u.device, quant_bits=quant_bits or None)
+        _CODEGEN_RUNNERS[key] = run
+    if carry0 is None:
+        carry0 = cells.init_carry(cell, p_cell, (B,))
+    x0 = {"h": carry0[0], "c": carry0[1]} if cell == "lstm" else {"h": carry0}
+    finals, ys = run(codegen.bind_cell_params(cell, p_cell), x0, u.float())
+    carry = (finals["h"], finals["c"]) if cell == "lstm" else finals["h"]
+    return ys, carry
+
+
 def recurrent_prefill(p: PyTree, cfg: "ModelConfig", u: torch.Tensor,
                       state: PyTree | None = None):
     """u: [B, T, D] → (y [B, T, D], state).  Resumes from ``state`` if given."""
-    if cfg.use_codegen:
-        raise NotImplementedError(
-            "use_codegen: the generated fused scan-step kernel is not ported "
-            "yet (ROADMAP.md, Queue 1: Generated-kernel backend)")
     carry0 = None if state is None else _carry_in(cfg, state)
-    if cfg.use_pallas and cfg.rnn_cell == "lstm":
+    if cfg.use_codegen and cfg.rnn_cell in ("lstm", "gru"):
+        y, carry = _codegen_seq(cfg.rnn_cell, p["cell"], u, carry0,
+                                quant_bits=cfg.quant_gate_bits)
+    elif cfg.use_pallas and cfg.rnn_cell == "lstm":
         c = p["cell"]
         h0, c0 = (None, None) if carry0 is None else carry0
         y, h_f, c_f = lstm_ops.lstm_seq(

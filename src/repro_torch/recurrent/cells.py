@@ -18,9 +18,12 @@ reset gate acts inside the tanh, torch-style):
     n = tanh(u@Wx_n + b_n + r * (h@Wh_n + bh_n))
     h' = (1 - z) * n + z * h
 
-``cell_seq`` runs the step map as a time loop.  The ``StateSpaceModel``
-views of the reference (``lstm_cell``/``gru_cell``/``run_cell``) come with
-the scan executors.
+``lstm_cell``/``gru_cell``/``make_cell`` are the paper-form views
+(``StateSpaceModel``s whose weights ride in the closure — the shared ROM), and
+``run_cell`` runs one through ``core.state_space.run_scan``.  ``cell_seq`` is
+the batch-major time loop the serving block uses: one step map per time step,
+where the paper-form view evaluates it twice (``f`` and ``g``), which XLA
+merges in the reference and eager PyTorch does not.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.core.state_space import StateSpaceModel, run_scan
 
 PyTree = Any
 
@@ -100,6 +105,47 @@ def gru_step(params: PyTree, h: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return (1.0 - z) * n + z * h
 
 
+# ---------------------------------------------------------------------------
+# StateSpaceModel factories (the paper-form view)
+# ---------------------------------------------------------------------------
+
+def lstm_cell(params: PyTree) -> StateSpaceModel:
+    """LSTM as ``StateSpaceModel``: state (h, c), Mealy output y[k] = h[k+1]."""
+
+    def f(params_k, carry, u, k):
+        del params_k, k
+        return lstm_step(params, carry, u)
+
+    def g(params_k, carry, u, k):
+        del params_k, k
+        h_new, _ = lstm_step(params, carry, u)
+        return h_new
+
+    return StateSpaceModel(f=f, g=g, output_mode="mealy")
+
+
+def gru_cell(params: PyTree) -> StateSpaceModel:
+    """GRU as ``StateSpaceModel``: state h, Mealy output y[k] = h[k+1]."""
+
+    def f(params_k, h, u, k):
+        del params_k, k
+        return gru_step(params, h, u)
+
+    def g(params_k, h, u, k):
+        del params_k, k
+        return gru_step(params, h, u)
+
+    return StateSpaceModel(f=f, g=g, output_mode="mealy")
+
+
+def make_cell(cell: str, params: PyTree) -> StateSpaceModel:
+    if cell == "lstm":
+        return lstm_cell(params)
+    if cell == "gru":
+        return gru_cell(params)
+    raise ValueError(f"unknown recurrent cell '{cell}' (lstm|gru)")
+
+
 def init_carry(cell: str, params: PyTree, batch_shape: tuple[int, ...] = ()):
     H = cell_hidden_size(params, cell)
     h = torch.zeros(batch_shape + (H,), dtype=torch.float32, device=params["w_x"].device)
@@ -109,6 +155,21 @@ def init_carry(cell: str, params: PyTree, batch_shape: tuple[int, ...] = ()):
 # ---------------------------------------------------------------------------
 # sequence execution
 # ---------------------------------------------------------------------------
+
+def run_cell(cell: str, params: PyTree, us: torch.Tensor, carry0=None, *,
+             unroll: int = 1):
+    """Run a cell over a time-major input ``us: [T, ..., D]``.
+
+    Returns (final_carry, ys [T, ..., H]) — literally
+    ``run_scan(make_cell(...), None, x0, us)``: the cell's weights ride in
+    the closure (constant ROM), so ``stacked_params`` is None.  ``unroll``
+    is the j knob (no effect in eager execution).
+    """
+    if carry0 is None:
+        carry0 = init_carry(cell, params, tuple(us.shape[1:-1]))
+    model = make_cell(cell, params)
+    return run_scan(model, None, carry0, us, length=us.shape[0], unroll=unroll)
+
 
 def cell_seq(cell: str, params: PyTree, x: torch.Tensor, carry0=None):
     """Batch-major time loop: x [B, T, D] -> (y [B, T, H], final_carry)."""
@@ -129,9 +190,13 @@ def cell_seq(cell: str, params: PyTree, x: torch.Tensor, carry0=None):
 __all__ = [
     "cell_hidden_size",
     "cell_seq",
+    "gru_cell",
     "gru_params",
     "gru_step",
     "init_carry",
+    "lstm_cell",
     "lstm_params",
     "lstm_step",
+    "make_cell",
+    "run_cell",
 ]

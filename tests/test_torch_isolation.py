@@ -74,3 +74,24 @@ def test_entry_points_default_to_the_card():
     w_x, w_h, b = (torch.empty(s, device="meta") for s in ((8, 32), (8, 32), (32,)))
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.lstm_seq(x, w_x, w_h, b)
+
+    # the generator's entry points: program, backends, synthesize, runner
+    from repro_torch import codegen
+    from repro_torch.codegen import eager_backend, kernel_backend
+    from repro_torch.configs.paper_mlp import CASE_STUDY
+    from repro_torch.core import synthesis
+    from repro_torch.kernels.tanh_lut import ops as lut_ops
+
+    for call in (lambda: codegen.build_program(CASE_STUDY),
+                 lambda: codegen.compile_spec(CASE_STUDY, "kernel"),
+                 lambda: synthesis.synthesize(CASE_STUDY, backend="kernel"),
+                 lambda: synthesis.create_top_module(CASE_STUDY),
+                 lambda: codegen.cell_stage_runner("gru", 4, 3)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    prog = codegen.build_program(CASE_STUDY, device="cpu")
+    for backend in (eager_backend, kernel_backend):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            backend.compile_program(prog)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lut_ops.tanh_lut(torch.empty(4, device="meta"), torch.empty(64, device="meta"))
