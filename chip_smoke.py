@@ -6,16 +6,16 @@
 Phases, one line per case (any failure exits non-zero and prints no result):
 
 1. device — the card, its power limit, and the build of every kernel of the
-   run from the sources in the checkout: ``lstm_seq.cu``, ``tanh_lut.cu``
-   and every generated stage kernel, one ``nvcc`` each, all started together
-   (into ``build/``);
+   run from the sources in the checkout: ``lstm_seq.cu``, ``tanh_lut.cu``,
+   ``ssm_scan.cu``, ``int8_matmul.cu`` and every generated stage kernel, one
+   ``nvcc`` each, all started together (into ``build/``);
 2. ``lstm_seq`` vs its plain PyTorch version at full width, and its time
    beside the plain version's, one library call's and its bound;
 3. serve — full-width ``paper-lstm`` (random weights from a seed) with
    ``use_pallas=True`` through ``DecodeServer``: 16 greedy requests under
    ``step()``, ``step_block()`` and chunked prefill; identical tokens across
-   the three, ``lstm_seq`` launches counted at every prefill, and prefill
-   logits held against the plain path;
+   the three, ``lstm_seq`` launched once per layer of every prefill call,
+   and prefill logits held against the plain path;
 4. ``codegen_stage`` — the generated stage kernel against the plan's
    interpreter (its plain version) and, for fp32, the eager backend, on
    twelve cases (cells at D = H = 1024, the Fig. 10 MLPs, LUT, int8,
@@ -27,11 +27,23 @@ Phases, one line per case (any failure exits non-zero and prints no result):
 6. serve ``use_codegen`` — full-width ``paper-gru`` and ``paper-lstm`` with
    ``use_codegen=True`` under ``step()`` and ``step_block()``, after one
    untimed prefill that builds the stage runners: every layer of every
-   prefill through the generated kernel;
+   prefill through the generated kernel, once;
 7. synth — ``synthesize(..., backend="kernel", fallback=False)`` on the
    paper's specs and full-width recurrent specs, each forward held against
    the eager backend (int8 against its plain version);
 8. profile — the ``use_pallas`` ``step()`` run once more under
+   ``torch.profiler``;
+9. ``ssm_scan`` against its plain version (a falcon-mamba prefill's shapes,
+   ragged D with prime T, T = 1, bf16 inputs, a nonzero carry) and its time
+   beside the plain version's and its bound;
+10. ``int8_matmul`` bit-exact against its plain version, and its time beside
+   the plain version's, ``torch._int_mm``'s and its bound (no path of the
+   port calls it, so its ``launches`` in the summary are 0);
+11. serve mamba — full-width ``falcon-mamba-7b`` (64 layers, 7.3 B fp32
+   parameters from a seed) with ``use_pallas=True`` through ``DecodeServer``
+   under ``step()``, ``step_block()`` and chunked prefill: identical tokens,
+   ``ssm_scan`` launched once per layer of every prefill call, prefill
+   logits held against the plain path; then its ``step()`` run under
    ``torch.profiler``.
 
 Then the kernel summary (one JSON line), the card's name and power limit as
@@ -59,11 +71,21 @@ ROOT = Path(__file__).resolve().parent
 # (NVIDIA data sheet; rates at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# int8 tensor cores, dense (NVIDIA data sheet), for the int8 matmul's bound
+PEAK_INT8_OPS = 1979e12
+# exps: the SFU's 16 lanes per SM per clock (CUDA programming guide's
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz boost
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
 TOL = 1e-4          # kernel vs plain on the card, atol = rtol
+BF16_TOL = 3e-2     # ssm_scan with bf16 inputs (y rounded to bf16), the reference's bar
 LUT_TOL = 1e-6      # tanh_lut vs plain: the same fp32 arithmetic (up to FMA contraction)
 LOGITS_ATOL = 1e-3  # fast-path prefill logits vs the plain path
 SYNTH_TOL = 1e-3    # synthesize()'s forward vs eager (atol = rtol; 8 layers x 256 steps)
+# falcon-mamba use_pallas prefill logits vs the plain path, relative to the
+# largest |logit|: 64 layers compound the kernel's rounding (FMA contraction,
+# the order of the sum over N) with the rest of the stack's
+MAMBA_LOGITS_RTOL = 1e-3
 N_REQUESTS = 16
 MAX_NEW = 32
 NUM_SLOTS = 8
@@ -128,11 +150,31 @@ def check_close(label: str, got, want, tol: float) -> float:
     return max_err(got, want)
 
 
-def bound_ms(flops: float, n_bytes: float) -> tuple[float, str]:
-    """The least time for the work: operations at the fp32 peak, or bytes
-    (each input read once, each output written once) at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def bound_ms(t_ops_s: float, n_bytes: float) -> tuple[float, str]:
+    """The least time for the work: the larger of ``t_ops_s``, the seconds
+    its operations take at their unit's peak, and the bytes (each input read
+    once, each output written once) at the memory rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops_s, t_bytes), ("operations" if t_ops_s >= t_bytes else "bytes")
+
+
+def scan_bound_ms(Bsz, T, D, N) -> tuple[float, str]:
+    """ssm_scan on these shapes: x, delta in and y out (Bsz·T·D each), B and
+    C (Bsz·T·N each), A (D·N), h0 in and h_final out (Bsz·D·N each), fp32;
+    per (b, t, d, n) about 6 fp32 operations and one exp, the slower of the
+    two units counting."""
+    states = float(Bsz) * T * D * N
+    n_bytes = 4.0 * (3 * Bsz * T * D + 2 * Bsz * T * N + D * N + 2 * Bsz * D * N)
+    t_ops = max(6.0 * states / PEAK_FP32_FLOPS, states / PEAK_EXP_PER_S)
+    return bound_ms(t_ops, n_bytes)
+
+
+def int8_bound_ms(M, K, N) -> tuple[float, str]:
+    """int8_matmul on these shapes: a, b (int8), the two scales in and the
+    fp32 output out; 2·M·K·N integer operations at the int8 tensor cores'
+    rate."""
+    n_bytes = 1.0 * (M * K + K * N) + 4.0 * (M + N + M * N)
+    return bound_ms(2.0 * M * K * N / PEAK_INT8_OPS, n_bytes)
 
 
 def lstm_inputs(gen, B, T, D, H, carry: bool):
@@ -156,7 +198,7 @@ def lstm_bound_ms(B, T, D, H) -> tuple[float, str]:
     flops = 2.0 * B * T * (D + H) * 4 * H
     n_bytes = 4.0 * (B * T * D + (D + H) * 4 * H + 4 * H + 2 * B * H
                      + B * T * H + 2 * B * H)
-    return bound_ms(flops, n_bytes)
+    return bound_ms(flops / PEAK_FP32_FLOPS, n_bytes)
 
 
 def stage_bound_ms(graph, consts: dict, B: int, T: int) -> tuple[float, str]:
@@ -169,7 +211,7 @@ def stage_bound_ms(graph, consts: dict, B: int, T: int) -> tuple[float, str]:
     n_bytes = sum(t.numel() * t.element_size() for t in consts.values())
     n_bytes += 4.0 * (B * T * (inp.width if inp is not None else 0)
                       + 2 * B * sum(graph.states.values()) + B * T * out)
-    return bound_ms(flops, n_bytes)
+    return bound_ms(flops / PEAK_FP32_FLOPS, n_bytes)
 
 
 def main() -> int:
@@ -183,6 +225,10 @@ def main() -> int:
     from repro_torch.codegen.ir import Schedule, Stage
     from repro_torch.configs import get_config
     from repro_torch.configs.paper_lstm import gru_config
+    from repro_torch.kernels.int8_matmul import kernel as i8_kernel
+    from repro_torch.kernels.int8_matmul import ops as i8_ops
+    from repro_torch.kernels.ssm_scan import kernel as scan_kernel
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.configs.paper_mlp import CASE_STUDY, FIG10_A, FIG10_B
     from repro_torch.core import synthesis
     from repro_torch.core.cslow import fold_streams, unfold_streams
@@ -223,11 +269,13 @@ def main() -> int:
     sources = [kernel_backend.compile_stage(st, lut=lut, quant_bits=q).source
                for st, lut, q in variants]
     t0 = time.perf_counter()
-    paths = _build.build_many([("lstm_seq", lstm_kernel.SOURCE), ("tanh_lut", lut_kernel.SOURCE)]
+    paths = _build.build_many([("lstm_seq", lstm_kernel.SOURCE), ("tanh_lut", lut_kernel.SOURCE),
+                               ("ssm_scan", scan_kernel.SOURCE),
+                               ("int8_matmul", i8_kernel.SOURCE)]
                               + [(kernel_backend.LIBRARY, s) for s in sources])
     build_s = time.perf_counter() - t0
-    lstm_kernel.load()
-    lut_kernel.load()
+    for kernel_module in (lstm_kernel, lut_kernel, scan_kernel, i8_kernel):
+        kernel_module.load()
     say("device", torch=torch.__version__, cuda=torch.version.cuda,
         kind=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(),
         card=repr(card), build_s=f"{build_s:.2f}", libraries=len(paths))
@@ -289,7 +337,8 @@ def main() -> int:
 
     def serve(mcfg, params, label: str, block: bool, counter, **kw):
         """Drive ``DecodeServer`` over the 16 requests; ``counter`` is the
-        wrapper whose launches this run must show at every prefill."""
+        wrapper whose launches this run must show exactly once per layer of
+        every prefill call."""
         obs = Observability(trace=True)
         srv = DecodeServer(mcfg, params, num_slots=NUM_SLOTS, max_seq=MAX_SEQ,
                            block_k=BLOCK_K, obs=obs, **kw)
@@ -313,7 +362,8 @@ def main() -> int:
                     f"after {len(r.out_tokens)} tokens")
         n_prefills = (sum(math.ceil(n / kw["prefill_chunk"]) for n in lengths)
                       if kw.get("prefill_chunk") else N_REQUESTS)
-        require(launches >= mcfg.n_layers * n_prefills,
+        want = mcfg.n_layers * n_prefills
+        require(launches == want,
                 f"{mcfg.name} {label}: {launches} kernel launches for {n_prefills} prefill "
                 f"calls of {mcfg.n_layers} layers")
         say("serve", arch=mcfg.name, driver=label, requests=len(done), wall_ms=f"{wall_ms:.1f}",
@@ -509,7 +559,8 @@ def main() -> int:
     lut_ms = time_ms(lambda: lut_ops.tanh_lut(big, table), l2)
     lut_plain_ms = time_ms(lambda: tanh_lut_ref(big, table), l2)
     # about 10 fp32 operations and 8 bytes (read x, write y) per element
-    lut_bound, lut_bound_by = bound_ms(10.0 * big.numel(), 8.0 * big.numel())
+    lut_bound, lut_bound_by = bound_ms(10.0 * big.numel() / PEAK_FP32_FLOPS,
+                                       8.0 * big.numel())
     say("kernel_time", kernel="tanh_lut", size=big.numel(), bits=12, ms=f"{lut_ms:.4f}",
         plain_ms=f"{lut_plain_ms:.4f}", library_ms="none", bound_ms=f"{lut_bound:.4f}",
         bound_by=lut_bound_by, reps=REPS, card=repr(card))
@@ -618,25 +669,182 @@ def main() -> int:
     # -- 8. where the time goes: the use_pallas step() run under the profiler ---
     from torch.profiler import ProfilerActivity, profile
 
+    def profiled_step_run(mcfg, mparams, counter, want_tokens):
+        """The ``step()`` serve run once more under torch.profiler: device
+        busy time and idle share over the run's wall, and the top kernels."""
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+            tok_prof, _, prof_wall_ms = serve(mcfg, mparams, "step(profiled)", False,
+                                              counter)
+        require(tok_prof == want_tokens, f"{mcfg.name}: the profiled step() run's tokens differ")
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.self_device_time_total > 0),
+                         key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        say("profile", arch=mcfg.name, driver="step", wall_ms=f"{prof_wall_ms:.1f}",
+            device_busy_ms=f"{busy_ms:.1f}" if kernels else "not_measured",
+            device_idle_share=f"{1 - busy_ms / prof_wall_ms:.3f}" if kernels else "not_measured",
+            card=repr(card))
+        for e in kernels[:8]:
+            say("profile_top", arch=mcfg.name, kernel=repr(e.key[:70]), calls=e.count,
+                device_ms=f"{e.self_device_time_total / 1e3:.2f}",
+                share=f"{e.self_device_time_total / 1e3 / busy_ms:.3f}")
+
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-        tok_prof, _, prof_wall_ms = serve(cfg, params, "step(profiled)", False, lstm_ops.lstm_seq)
-    require(tok_prof == tok_step, "the profiled step() run's tokens differ")
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    say("profile", driver="step", wall_ms=f"{prof_wall_ms:.1f}",
-        device_busy_ms=f"{busy_ms:.1f}" if kernels else "not_measured",
-        device_idle_share=f"{1 - busy_ms / prof_wall_ms:.3f}" if kernels else "not_measured",
-        card=repr(card))
-    for e in kernels[:8]:
-        say("profile_top", kernel=repr(e.key[:70]), calls=e.count,
-            device_ms=f"{e.self_device_time_total / 1e3:.2f}",
-            share=f"{e.self_device_time_total / 1e3 / busy_ms:.3f}")
+    profiled_step_run(cfg, params, lstm_ops.lstm_seq, tok_step)
+    del params
+    torch.cuda.empty_cache()
     phase_done("profile")
+
+    # -- 9. ssm_scan vs plain -------------------------------------------------
+    def scan_inputs(Bsz, T, Dm, N, carry=False, dtype=torch.float32):
+        """Selective-scan inputs as a Mamba-1 layer makes them: Δ in
+        (0.001, 0.8), A = -(1..N) per channel (the A_log init)."""
+        x = torch.randn((Bsz, T, Dm), generator=gen, device=dev)
+        dl = 0.001 + 0.799 * torch.rand((Bsz, T, Dm), generator=gen, device=dev)
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(Dm, N).contiguous()
+        Bm = torch.randn((Bsz, T, N), generator=gen, device=dev)
+        Cm = torch.randn((Bsz, T, N), generator=gen, device=dev)
+        h0 = torch.randn((Bsz, Dm, N), generator=gen, device=dev) if carry else None
+        return x.to(dtype), dl.to(dtype), A, Bm.to(dtype), Cm.to(dtype), h0
+
+    DI, NS = 8192, 16          # falcon-mamba-7b's d_inner and ssm_state
+    scan_err = 0.0
+    with torch.no_grad():
+        for label, Bsz, T, Dm, N, carry, dtype in (
+                ("B1_T256_D8192_N16", 1, 256, DI, NS, False, torch.float32),
+                ("B4_T64_D8192_N16", 4, 64, DI, NS, False, torch.float32),
+                ("B3_T97_D1000_N16", 3, 97, 1000, NS, False, torch.float32),
+                ("B8_T1_D8192_N16_carry", 8, 1, DI, NS, True, torch.float32),
+                ("B2_T64_D8192_N16_bf16", 2, 64, DI, NS, False, torch.bfloat16),
+                ("B4_T64_D8192_N16_carry", 4, 64, DI, NS, True, torch.float32)):
+            x, dl, A, Bm, Cm, h0 = scan_inputs(Bsz, T, Dm, N, carry, dtype)
+            y, h = scan_ops.ssm_scan(x, dl, A, Bm, Cm, h0=h0)
+            torch.cuda.synchronize()
+            y_p, h_p = scan_ops.ssm_scan_ref(x, dl, A, Bm, Cm, h0)
+            require(y.dtype == dtype and h.dtype == torch.float32,
+                    f"ssm_scan {label}: y {y.dtype}, h {h.dtype}")
+            e_y = check_close(f"ssm_scan {label} y", [y.float()], [y_p],
+                              BF16_TOL if dtype == torch.bfloat16 else TOL)
+            e_h = check_close(f"ssm_scan {label} h", [h], [h_p], TOL)
+            if dtype == torch.float32:
+                scan_err = max(scan_err, e_y, e_h)
+            say("kernel_vs_plain", kernel="ssm_scan", case=label,
+                max_abs_err_y_h=f"{e_y:.3e},{e_h:.3e}",
+                tol=BF16_TOL if dtype == torch.bfloat16 else TOL, ok=True)
+        # a scan resumed from h_final at any step gives the one-shot bits
+        x, dl, A, Bm, Cm, _ = scan_inputs(1, 256, DI, NS)
+        y_full, h_full = scan_ops.ssm_scan(x, dl, A, Bm, Cm)
+        k = 100
+        y1, h_mid = scan_ops.ssm_scan(x[:, :k], dl[:, :k], A, Bm[:, :k], Cm[:, :k])
+        y2, h_end = scan_ops.ssm_scan(x[:, k:], dl[:, k:], A, Bm[:, k:], Cm[:, k:], h0=h_mid)
+        require(torch.equal(torch.cat([y1, y2], 1), y_full) and torch.equal(h_end, h_full),
+                "ssm_scan: a scan resumed at step 100 differs from the one-shot scan")
+        say("kernel_vs_plain", kernel="ssm_scan", case="resume_at_100_bit_identical", ok=True)
+        # timing at the main path's shape: one layer of a 256-token prefill
+        scan_ms = time_ms(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm), l2)
+        scan_plain_ms = time_ms(lambda: scan_ops.ssm_scan_ref(x, dl, A, Bm, Cm), l2, reps=5)
+    scan_bound, scan_bound_by = scan_bound_ms(1, 256, DI, NS)
+    say("kernel_time", kernel="ssm_scan", B=1, T=256, D=DI, N=NS, ms=f"{scan_ms:.4f}",
+        plain_ms=f"{scan_plain_ms:.4f}", library_ms="none", bound_ms=f"{scan_bound:.4f}",
+        bound_by=scan_bound_by, reps=REPS, card=repr(card))
+    phase_done("ssm_scan")
+
+    # -- 10. int8_matmul vs plain ---------------------------------------------
+    def int8_inputs(M, K, N):
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        a_s = 0.01 + 0.09 * torch.rand((M, 1), generator=gen, device=dev)
+        b_s = 0.01 + 0.09 * torch.rand((1, N), generator=gen, device=dev)
+        return a, b, a_s, b_s
+
+    with torch.no_grad():
+        for M, K, N in ((256, 4096, 8192), (1, 4096, 8192), (33, 100, 77), (3, 5, 7)):
+            args = int8_inputs(M, K, N)
+            got = i8_ops.int8_matmul(*args)
+            torch.cuda.synchronize()
+            want = i8_ops.int8_matmul_ref(*args)
+            require(got.shape == (M, N) and bool(torch.isfinite(got).all()),
+                    f"int8_matmul {M}x{K}x{N}: shape {tuple(got.shape)} or non-finite")
+            require(torch.equal(got, want), f"int8_matmul {M}x{K}x{N}: not bit-exact, max "
+                    f"difference {float((got - want).abs().max()):.3e}")
+            say("kernel_vs_plain", kernel="int8_matmul", M=M, K=K, N=N, bit_exact=True, ok=True)
+        # timing at a falcon-mamba prefill's x projection (u @ w_x, 256 tokens)
+        M, K, N = 256, 4096, 8192
+        args = int8_inputs(M, K, N)
+        i8_ms = time_ms(lambda: i8_ops.int8_matmul(*args), l2)
+        i8_plain_ms = time_ms(lambda: i8_ops.int8_matmul_ref(*args), l2)
+        a, b, a_s, b_s = args
+        i8_lib = lambda: torch._int_mm(a, b).to(torch.float32) * a_s * b_s   # yardstick only
+        lib_exact = torch.equal(i8_lib(), i8_ops.int8_matmul(*args))
+        i8_lib_ms = time_ms(i8_lib, l2)
+    i8_bound, i8_bound_by = int8_bound_ms(M, K, N)
+    say("kernel_time", kernel="int8_matmul", M=M, K=K, N=N, ms=f"{i8_ms:.4f}",
+        plain_ms=f"{i8_plain_ms:.4f}", library_ms=f"{i8_lib_ms:.4f}",
+        library="torch._int_mm(cuBLASLt)+scales", library_bit_exact=lib_exact,
+        bound_ms=f"{i8_bound:.4f}", bound_by=i8_bound_by, reps=REPS, card=repr(card))
+    phase_done("int8_matmul")
+
+    # -- 11. serve full-width falcon-mamba-7b (use_pallas) -----------------------
+    mcfg = dataclasses.replace(get_config("falcon-mamba-7b"), use_pallas=True)
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()     # what earlier phases still hold
+    t0 = time.perf_counter()
+    mparams = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    m_params = lm.param_count(mparams)
+    peak_init = torch.cuda.max_memory_allocated()
+    require((mcfg.n_layers, mcfg.d_model, mcfg.d_inner) == (64, 4096, 8192),
+            f"falcon-mamba-7b is not at its published widths: {mcfg}")
+    say("serve_setup", arch=mcfg.name, n_layers=mcfg.n_layers, d_model=mcfg.d_model,
+        d_inner=mcfg.d_inner, ssm_state=mcfg.ssm_state, dt_rank=mcfg.dt_rank_actual,
+        vocab=mcfg.vocab, params=m_params, param_gb=f"{4 * m_params / 1e9:.2f}",
+        init_s=f"{init_s:.1f}", alloc_gb_before_init=f"{base_alloc / 1e9:.2f}",
+        peak_alloc_gb_after_init=f"{peak_init / 1e9:.2f}",
+        requests=N_REQUESTS, max_new_tokens=MAX_NEW, num_slots=NUM_SLOTS, max_seq=MAX_SEQ)
+    with torch.no_grad():
+        lm.prefill(mparams, mcfg, toks)      # untimed: first use of each GEMM shape
+        torch.cuda.synchronize()
+        mtok_step, k1, _ = serve(mcfg, mparams, "step", False, scan_ops.ssm_scan)
+        mtok_block, k2, _ = serve(mcfg, mparams, "step_block", True, scan_ops.ssm_scan)
+        mtok_chunk, k3, _ = serve(mcfg, mparams, f"step+prefill_chunk={CHUNK}", False,
+                                  scan_ops.ssm_scan, prefill_chunk=CHUNK)
+        require(mtok_step == mtok_block, f"{mcfg.name}: step() and step_block() tokens differ")
+        require(mtok_step == mtok_chunk, f"{mcfg.name}: one-shot and chunked prefill tokens differ")
+        logits, prefill_ms = {}, {}
+        for path, pcfg in (("use_pallas", mcfg),
+                           ("plain", dataclasses.replace(mcfg, use_pallas=False))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[path], mcaches = lm.prefill(mparams, pcfg, toks)
+            torch.cuda.synchronize()
+            prefill_ms[path] = (time.perf_counter() - t0) * 1e3
+            require(logits[path].shape == (1, mcfg.vocab)
+                    and bool(torch.isfinite(logits[path]).all()),
+                    f"{mcfg.name} {path} prefill logits of shape "
+                    f"{tuple(logits[path].shape)} or non-finite")
+        blk = mcaches["groups"]["b0_mamba1"]
+        require(tuple(blk["h"].shape) == (64, 1, mcfg.d_inner, mcfg.ssm_state)
+                and tuple(blk["conv"].shape) == (64, 1, mcfg.d_conv - 1, mcfg.d_inner),
+                f"{mcfg.name}: prefill cache has the wrong layout")
+        scale = float(logits["plain"].abs().max())
+        m_diff = float((logits["use_pallas"] - logits["plain"]).abs().max())
+        require(m_diff <= MAMBA_LOGITS_RTOL * scale,
+                f"{mcfg.name} use_pallas prefill logits differ from the plain path by "
+                f"{m_diff:.3e} (max |logit| {scale:.3e})")
+    say("serve_check", arch=mcfg.name, path="use_pallas", identical_tokens=True,
+        prompt_len=toks.shape[1], prefill_logits_max_abs_diff=f"{m_diff:.3e}",
+        max_abs_logit=f"{scale:.3e}", rtol_of_max=MAMBA_LOGITS_RTOL,
+        **{f"prefill_ms_{k}": f"{v:.2f}" for k, v in prefill_ms.items()},
+        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    phase_done("serve_mamba")
+
+    profiled_step_run(mcfg, mparams, scan_ops.ssm_scan, mtok_step)
+    del mparams, mcaches
+    torch.cuda.empty_cache()
+    phase_done("profile_mamba")
 
     summary = {"kernels": [{
         "name": "lstm_seq",
@@ -675,6 +883,31 @@ def main() -> int:
         "bound_ms": lut_bound,
         "bound_by": lut_bound_by,
         "library_ms": None,
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:81",
+        "launches": k1 + k2 + k3,
+        "max_abs_err": scan_err,
+        "ms": scan_ms,
+        "plain_ms": scan_plain_ms,
+        "bound_ms": scan_bound,
+        "bound_by": scan_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul/kernel.py:47",
+        "launches": 0,     # no path of the port (or of the reference) calls it
+        "note": "standalone op: no path of the port or the reference calls it",
+        "max_abs_err": 0.0,
+        "ms": i8_ms,
+        "plain_ms": i8_plain_ms,
+        "bound_ms": i8_bound,
+        "bound_by": i8_bound_by,
+        "library_ms": i8_lib_ms,
     }]}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

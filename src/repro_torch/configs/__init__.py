@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
-Only the recurrent configurations are registered in the port so far; the
-other families of the reference's registry come with their blocks.
+The recurrent (``paper-lstm``) and Mamba-1 (``falcon-mamba-7b``)
+configurations are registered in the port so far; the other families of the
+reference's registry come with their blocks.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "paper-lstm": "paper_lstm",
 }
 

@@ -2,7 +2,10 @@
 
   lstm_cell   — fused LSTM over a sequence (CUDA C++, ``csrc/lstm_seq.cu``)
   tanh_lut    — the ROM-LUT tanh (CUDA C++, ``csrc/tanh_lut.cu``) and its table
-  int8_matmul — the int8 weight packer ``quantize_per_channel`` (the kernel waits)
+  ssm_scan    — the Mamba-1 selective scan (CUDA C++, ``csrc/ssm_scan.cu``)
+  int8_matmul — int8 × int8 → int32 MACC matmul (CUDA C++, ``csrc/int8_matmul.cu``)
+                and its quantizers (``quantize_per_channel`` also packs the
+                generated stage kernel's int8 ROMs)
 
 ``csrc/lut.cuh`` holds the one ``__device__ lut_interpolate`` of every kernel
 that reads the tanh table (``lstm_seq``, ``tanh_lut`` and the generated stage

@@ -1,6 +1,6 @@
 """Top-level language model: embed → groups → head; the port's counterpart
-of ``repro/models/lm.py`` for the families ported so far (recurrent; no
-cross-attention ``memory`` argument yet).
+of ``repro/models/lm.py`` for the families ported so far (recurrent and
+ssm; no cross-attention ``memory`` argument yet).
 
 The whole network is one state-space system (paper eq. 8): in prefill the
 state is the activations flowing across layer groups; in decode the state
@@ -50,8 +50,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> PyTre
         raise NotImplementedError("encoder frontends are not ported to repro_torch yet")
     params: dict[str, Any] = {
         "embed": embedding_params(gen, cfg.vocab, cfg.d_model, cfg.p_dtype)}
-    per_group = [group_params(gen, cfg) for _ in range(cfg.n_groups)]
-    params["groups"] = tree_map(lambda *ls: torch.stack(ls), *per_group)
+    # each stacked [G, ...] leaf is allocated once and filled group by group,
+    # so the peak is the tree plus one group (stacking G per-group trees
+    # would hold the tree twice: 58 GB for falcon-mamba-7b in fp32)
+    grp = group_params(gen, cfg)
+    stacked = tree_map(lambda t: t.new_empty((cfg.n_groups,) + tuple(t.shape)), grp)
+    for g in range(cfg.n_groups):
+        if g:
+            grp = group_params(gen, cfg)
+        tree_map(lambda dst, src: dst[g].copy_(src), stacked, grp)
+        del grp
+    params["groups"] = stacked
     params["final_norm"] = rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device)
     if not cfg.tie_embeddings:
         params["head"] = {"w": dense_init(gen, (cfg.d_model, cfg.vocab), cfg.p_dtype)}

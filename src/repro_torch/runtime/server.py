@@ -54,8 +54,9 @@ def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int) -> PyTree:
     """Insert a B=1 prefill state into batch slot ``b`` of the server cache.
 
     A recurrent carry (``h``/``c`` of ``[G, 1, H]`` → row ``b`` of
-    ``[G, B, H]``) has no sequence axis, so admission is a pure batch-row
-    write and never disturbs other slots.  The destination tensors are
+    ``[G, B, H]``) and a Mamba-1 state (``h [G, 1, DI, N]``, ``conv
+    [G, 1, k-1, DI]``) have no sequence axis, so admission is a pure
+    batch-row write and never disturbs other slots.  The destination tensors are
     updated in place; the returned tree holds the same tensors.  Caches with
     a sequence axis (attention KV, ring buffers) are not ported yet.
     """
@@ -66,7 +67,7 @@ def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int) -> PyTree:
             return dst
         raise NotImplementedError(
             f"splice_cache: source {tuple(src.shape)} → destination "
-            f"{tuple(dst.shape)}; only batch-row (recurrent) states are ported")
+            f"{tuple(dst.shape)}; only batch-row (recurrent, SSM) states are ported")
 
     return tree_map(one, caches, prefill_caches)
 

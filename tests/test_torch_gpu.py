@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions:
-``lstm_seq``, the generated stage kernel (``codegen_stage``) and ``tanh_lut``.
+``lstm_seq``, the generated stage kernel (``codegen_stage``), ``tanh_lut``,
+``ssm_scan`` and ``int8_matmul``.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -10,7 +11,10 @@ JAX-configuring ``tests/conftest.py`` is not loaded):
 Tolerance: 1e-5 (atol = rtol) at small widths, 1e-4 at full width, where
 fp32 sums over a 2048-long contraction are taken in another order than
 cuBLAS's and compound over the time steps; 1e-6 for ``tanh_lut``, the same
-arithmetic as its plain version up to FMA contraction.
+arithmetic as its plain version up to FMA contraction; 1e-4 for ``ssm_scan``
+(the same step-by-step recurrence, rounded differently by FMA contraction
+and by the order of the sum over N; 3e-2 for bf16 inputs); ``int8_matmul``
+bit-exact.
 """
 
 import dataclasses
@@ -188,3 +192,127 @@ def test_tanh_lut_kernel_matches_plain(cuda, size, bits):
     y = ops.tanh_lut(x, lut)
     assert ops.tanh_lut.launches == launches + 1
     torch.testing.assert_close(y, tanh_lut_ref(x, lut), atol=1e-6, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the selective scan and the int8 MACC matmul
+# ---------------------------------------------------------------------------
+
+def _scan_case(dev, Bsz, T, D, N, seed=0, carry=False):
+    r = np.random.default_rng(seed)
+    arrs = [r.normal(size=(Bsz, T, D)), r.uniform(0.001, 0.8, size=(Bsz, T, D)),
+            -np.exp(r.normal(size=(D, N)) * 0.5), r.normal(size=(Bsz, T, N)),
+            r.normal(size=(Bsz, T, N)),
+            r.normal(size=(Bsz, D, N)) if carry else np.zeros((Bsz, D, N))]
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrs]
+
+
+@pytest.mark.parametrize("Bsz,T,D,N", [
+    (1, 32, 8, 4), (2, 64, 32, 8), (3, 97, 1000, 16),   # prime T, ragged D
+    (2, 1, 7, 16),                                      # T = 1
+    (1, 40, 24, 1), (1, 33, 40, 5), (2, 19, 9, 40),     # N: 1, odd, two states a lane
+    (1, 9, 6, 128),                                     # the widest N taken
+    (1, 256, 8192, 16),                                 # a falcon-mamba-7b prefill
+])
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssm_scan_kernel_matches_plain(cuda, Bsz, T, D, N, carry):
+    from repro_torch.kernels.ssm_scan import ops
+
+    x, dl, A, B, C, h0 = _scan_case(cuda, Bsz, T, D, N, seed=T + N, carry=carry)
+    launches = ops.ssm_scan.launches
+    got = ops.ssm_scan(x, dl, A, B, C, h0=h0 if carry else None)
+    assert ops.ssm_scan.launches == launches + 1
+    torch.cuda.synchronize()
+    _close(got, ops.ssm_scan_ref(x, dl, A, B, C, h0), 1e-4)
+
+
+def test_ssm_scan_kernel_bf16_and_resume(cuda):
+    """bf16 inputs are computed in fp32 (y in bf16, h in fp32); a scan split
+    at any step and resumed from h_final gives the one-shot bits."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    x, dl, A, B, C, h0 = _scan_case(cuda, 2, 70, 48, 16, seed=3)
+    bf = [t.to(torch.bfloat16) for t in (x, dl, B, C)]
+    y, h = ops.ssm_scan(bf[0], bf[1], A, bf[2], bf[3])
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    y_r, h_r = ops.ssm_scan_ref(bf[0], bf[1], A, bf[2], bf[3], h0)
+    torch.testing.assert_close(y.float(), y_r, atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(h, h_r, atol=1e-4, rtol=1e-4)
+    y_full, h_full = ops.ssm_scan(x, dl, A, B, C)
+    y1, h_mid = ops.ssm_scan(x[:, :37], dl[:, :37], A, B[:, :37], C[:, :37])
+    y2, h_end = ops.ssm_scan(x[:, 37:].contiguous(), dl[:, 37:].contiguous(), A,
+                             B[:, 37:].contiguous(), C[:, 37:].contiguous(), h0=h_mid)
+    assert torch.equal(torch.cat([y1, y2], 1), y_full) and torch.equal(h_end, h_full)
+
+
+def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssm_scan import kernel
+
+    x, dl, A, B, C, _ = _scan_case(cuda, 1, 4, 8, 4)
+    with pytest.raises(ValueError, match="float32"):
+        kernel.ssm_scan(x.double(), dl, A, B, C)
+    x, dl, A, B, C, _ = _scan_case(cuda, 1, 2, 3, 129)
+    with pytest.raises(ValueError, match="N <= 128"):
+        kernel.ssm_scan(x, dl, A, B, C)
+
+
+def test_mamba1_use_pallas_prefill_matches_plain_path(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config("falcon-mamba-7b")
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.as_tensor([[3, 1, 4, 1, 5, 9, 2, 6, 5]], device=cuda)
+    lg_p, c_p = lm.prefill(params, cfg, toks)
+    launches = ops.ssm_scan.launches
+    lg_k, c_k = lm.prefill(params, dataclasses.replace(cfg, use_pallas=True), toks)
+    assert ops.ssm_scan.launches == launches + cfg.n_layers
+    torch.testing.assert_close(lg_k, lg_p, atol=1e-5, rtol=1e-5)
+    _close(c_k["groups"]["b0_mamba1"].values(), c_p["groups"]["b0_mamba1"].values(), 1e-5)
+
+
+@pytest.mark.parametrize("M,K,N", [(32, 64, 16), (33, 100, 77), (3, 5, 7), (1, 4096, 8192),
+                                   (256, 4096, 512), (130, 65, 200), (130, 4112, 144),
+                                   (257, 48, 8200)])
+def test_int8_matmul_kernel_bit_exact(cuda, M, K, N):
+    from repro_torch.kernels.int8_matmul import ops
+
+    r = np.random.default_rng(M + K + N)
+    a = torch.as_tensor(r.integers(-128, 128, size=(M, K)), dtype=torch.int8, device=cuda)
+    b = torch.as_tensor(r.integers(-128, 128, size=(K, N)), dtype=torch.int8, device=cuda)
+    a_s = torch.as_tensor(r.uniform(0.01, 0.1, size=(M, 1)), dtype=torch.float32, device=cuda)
+    b_s = torch.as_tensor(r.uniform(0.01, 0.1, size=(1, N)), dtype=torch.float32, device=cuda)
+    launches = ops.int8_matmul.launches
+    got = ops.int8_matmul(a, b, a_s, b_s)
+    assert ops.int8_matmul.launches == launches + 1
+    want = ops.int8_matmul_ref(a, b, a_s, b_s)
+    assert torch.equal(got, want)
+    # the plain version on the card (float64 accumulate) equals the CPU's int32 one
+    assert torch.equal(want.cpu(), ops.int8_matmul_ref(a.cpu(), b.cpu(), a_s.cpu(), b_s.cpu()))
+
+
+def test_int8_matmul_kernel_unaligned_operands(cuda):
+    """Operands that start one byte into their storage take the byte-wise
+    loads and give the same bits."""
+    from repro_torch.kernels.int8_matmul import ops
+
+    M, K, N = 64, 128, 256
+    r = np.random.default_rng(7)
+    a_buf = torch.as_tensor(r.integers(-128, 128, size=M * K + 1), dtype=torch.int8, device=cuda)
+    b_buf = torch.as_tensor(r.integers(-128, 128, size=K * N + 1), dtype=torch.int8, device=cuda)
+    a, b = a_buf[1:].view(M, K), b_buf[1:].view(K, N)
+    a_s = torch.as_tensor(r.uniform(0.01, 0.1, size=(M, 1)), dtype=torch.float32, device=cuda)
+    b_s = torch.as_tensor(r.uniform(0.01, 0.1, size=(1, N)), dtype=torch.float32, device=cuda)
+    assert a.data_ptr() % 16 and b.data_ptr() % 8
+    assert torch.equal(ops.int8_matmul(a, b, a_s, b_s), ops.int8_matmul_ref(a, b, a_s, b_s))
+
+
+def test_quantized_matmul_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels.int8_matmul import ops
+
+    r = np.random.default_rng(0)
+    a = torch.as_tensor(r.normal(size=(64, 300)), dtype=torch.float32)
+    b = torch.as_tensor(r.normal(size=(300, 96)), dtype=torch.float32)
+    got = ops.quantized_matmul(a.to(cuda), b.to(cuda))
+    assert torch.equal(got.cpu(), ops.quantized_matmul(a, b))

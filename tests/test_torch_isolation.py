@@ -33,6 +33,12 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_the_reference_package():
     files = _port_files()
     assert len(files) > 20
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    for module in ("models/ssm.py", "core/transition.py", "configs/falcon_mamba_7b.py",
+                   "kernels/ssm_scan/ops.py", "kernels/ssm_scan/kernel.py",
+                   "kernels/ssm_scan/ref.py", "kernels/int8_matmul/ops.py",
+                   "kernels/int8_matmul/kernel.py", "kernels/int8_matmul/ref.py"):
+        assert module in names, module
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
     # the match is on the exact module name: repro_torch is not repro
@@ -95,3 +101,18 @@ def test_entry_points_default_to_the_card():
             backend.compile_program(prog)
     with pytest.raises(RuntimeError, match="CUDA"):
         lut_ops.tanh_lut(torch.empty(4, device="meta"), torch.empty(64, device="meta"))
+
+    # the Mamba-1 slice: falcon-mamba's parameters, the selective scan and
+    # the int8 MACC matmul
+    from repro_torch.kernels.int8_matmul import ops as i8_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(get_smoke_config("falcon-mamba-7b"), torch.Generator().manual_seed(0))
+    meta = lambda *shape, **kw: torch.empty(shape, device="meta", **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scan_ops.ssm_scan(meta(1, 3, 8), meta(1, 3, 8), meta(8, 4), meta(1, 3, 4), meta(1, 3, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        i8_ops.int8_matmul(meta(2, 3, dtype=torch.int8), meta(3, 4, dtype=torch.int8),
+                           meta(2, 1), meta(1, 4))
+    assert scan_ops.ssm_scan.launches == 0 and i8_ops.int8_matmul.launches == 0

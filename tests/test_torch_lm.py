@@ -1,4 +1,5 @@
-"""The port's ``paper-lstm`` language model on the CPU against the JAX one.
+"""The port's ``paper-lstm`` and ``falcon-mamba-7b`` language models on the
+CPU against the JAX ones.
 
 Parameters are drawn by the reference (``repro.models.lm.init_params``) and
 bridged with ``repro_torch.bridge.params_from_jax``.  Bars: prefill and
@@ -53,11 +54,13 @@ def test_config_matches_reference_for_every_family():
             assert cfg.kv_cache_bytes(3, 777) == jcfg.kv_cache_bytes(3, 777), arch
             assert cfg.rnn_hidden_actual == jcfg.rnn_hidden_actual
             assert cfg.act_dtype == getattr(torch, jcfg.dtype)
-    assert ARCH_IDS == ("paper-lstm",)
-    assert get_config("paper-lstm") == ModelConfig(**dataclasses.asdict(
-        jax_configs.get_config("paper-lstm")))
-    assert get_smoke_config("paper-lstm") == ModelConfig(**dataclasses.asdict(
-        jax_configs.get_smoke_config("paper-lstm")))
+    assert ARCH_IDS == ("falcon-mamba-7b", "paper-lstm")
+    assert set(ARCH_IDS) <= set(jax_configs.ARCH_IDS)
+    for arch in ARCH_IDS:
+        assert get_config(arch) == ModelConfig(**dataclasses.asdict(
+            jax_configs.get_config(arch)))
+        assert get_smoke_config(arch) == ModelConfig(**dataclasses.asdict(
+            jax_configs.get_smoke_config(arch)))
     assert gru_config().rnn_cell == "gru" and gru_config().name == "paper-gru"
 
 
@@ -137,3 +140,84 @@ def test_unported_families_raise():
     cfg = ModelConfig(**dataclasses.asdict(jax_configs.get_smoke_config("smollm-135m")))
     with pytest.raises(NotImplementedError, match="not ported"):
         lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# falcon-mamba-7b (Mamba-1) at smoke widths
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def falcon():
+    jcfg = jax_configs.get_smoke_config("falcon-mamba-7b")
+    p_j = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_smoke_config("falcon-mamba-7b")
+    return jcfg, cfg, p_j, bridge.params_from_jax(jax.tree.map(np.asarray, p_j), cfg, "cpu")
+
+
+def test_falcon_init_params_layout_matches_reference(falcon):
+    _, cfg, p_j, _ = falcon
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), p) == \
+        jax.tree.map(lambda a: tuple(a.shape), p_j)
+    assert lm.param_count(p) == jax_lm.param_count(p_j)
+    # stacked leaves filled group by group: groups differ, seeds repeat
+    w = p["groups"]["b0_mamba1"]["mamba"]["w_x"]
+    assert not torch.equal(w[0], w[1])
+    p2 = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    torch.testing.assert_close(p2["groups"]["b0_mamba1"]["mamba"]["w_x"], w, atol=0, rtol=0)
+
+
+def test_falcon_full_width_param_count():
+    """falcon-mamba-7b at its published widths: 64 layers of about 105 M
+    parameters plus an untied embedding and head of 266 M each, about 7.3 B
+    (counted from shapes)."""
+    cfg = get_config("falcon-mamba-7b")
+    D, DI, N, R, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_actual, cfg.d_conv
+    per_layer = (D + 2 * D * DI + K * DI + DI + DI * (R + 2 * N) + R * DI
+                 + DI + DI * N + DI + DI * D)
+    total = cfg.n_layers * per_layer + 2 * cfg.vocab * D + D
+    assert (cfg.n_layers, D, DI, N, R, cfg.vocab) == (64, 4096, 8192, 16, 256, 65_024)
+    assert total == 7_272_665_088
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_falcon_prefill_and_decode_logits_match_reference(falcon, use_pallas):
+    """Both sides with ``use_pallas``: the reference's Pallas kernel (interpret
+    mode), the port's wrapper (its plain version on the CPU)."""
+    jcfg, cfg, p_j, p_pt = falcon
+    jcfg, cfg = (dataclasses.replace(c, use_pallas=use_pallas) for c in (jcfg, cfg))
+    toks = _tokens(2, 16, cfg.vocab, seed=4)
+    lg_j, c_j = jax_lm.prefill(p_j, jcfg, jnp.asarray(toks))
+    lg_pt, c_pt = lm.prefill(p_pt, cfg, torch.as_tensor(toks))
+    _close(lg_pt, lg_j)
+    for k in ("h", "conv"):
+        _close(c_pt["groups"]["b0_mamba1"][k], c_j["groups"]["b0_mamba1"][k])
+    nxt = _tokens(2, 1, cfg.vocab, seed=5)
+    for t in range(3):
+        lg_j, c_j = jax_lm.decode_step(p_j, jcfg, jnp.asarray(nxt), c_j, jnp.int32(16 + t))
+        lg_pt, c_pt = lm.decode_step(p_pt, cfg, torch.as_tensor(nxt), c_pt, 16 + t)
+        _close(lg_pt, lg_j)
+        nxt = np.argmax(np.asarray(lg_j), -1).astype(np.int32)[:, None]
+
+
+def test_falcon_chained_prefill_chunks_match_reference(falcon):
+    """Chained ``prefill_chunk`` (conv tail and h carried across chunks)
+    against the reference's chained chunks and the one-shot prefill."""
+    jcfg, cfg, p_j, p_pt = falcon
+    toks = _tokens(1, 11, cfg.vocab, seed=6)
+    caches = lm.init_cache(cfg, 1, 32, "cpu")
+    c_j = jax_lm.init_cache(jcfg, 1, 32)
+    assert jax.tree.map(lambda t: tuple(t.shape), caches) == \
+        jax.tree.map(lambda a: a.shape, c_j)
+    for s in range(0, 11, 4):
+        lg, caches = lm.prefill_chunk(p_pt, cfg, torch.as_tensor(toks[:, s:s + 4]), caches, s)
+        lg_j, c_j = jax_lm.prefill_chunk(p_j, jcfg, jnp.asarray(toks[:, s:s + 4]), c_j,
+                                         jnp.int32(s))
+        _close(lg, lg_j)
+    for k in ("h", "conv"):
+        _close(caches["groups"]["b0_mamba1"][k], c_j["groups"]["b0_mamba1"][k])
+    lg_one, c_one = lm.prefill(p_pt, cfg, torch.as_tensor(toks))
+    torch.testing.assert_close(lg, lg_one, atol=1e-4, rtol=1e-4)
+    bridged = bridge.cache_from_jax(jax.tree.map(np.asarray, c_j), "cpu")
+    torch.testing.assert_close(bridged["groups"]["b0_mamba1"]["conv"],
+                               caches["groups"]["b0_mamba1"]["conv"], **TOL)

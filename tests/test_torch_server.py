@@ -1,9 +1,10 @@
 """The port's DecodeServer on the CPU against the JAX reference server.
 
-Both servers get the same bridged ``paper-lstm`` smoke weights and the same
-greedy requests; they must return identical ``out_tokens`` and
-``finish_reason`` under ``step()``, ``step_block()`` and chunked prefill, and
-count the same ``decode_syncs`` and ``decoded_tokens``.  (Sampled decoding
+Both servers get the same bridged ``paper-lstm`` (and ``falcon-mamba-7b``)
+smoke weights and the same greedy requests; they must return identical
+``out_tokens`` and ``finish_reason`` under ``step()``, ``step_block()`` and
+chunked prefill, and count the same ``decode_syncs`` and
+``decoded_tokens``.  (Sampled decoding
 cannot match across frameworks — the random streams differ — so it is only
 checked for well-formed output.)
 """
@@ -80,6 +81,44 @@ def _port(weights, driver, use_pallas=False, **kw):
 def test_greedy_tokens_and_syncs_match_reference(weights, reference_runs, driver, use_pallas):
     tokens, syncs, decoded = _port(weights, driver, use_pallas)
     ref_tokens, ref_syncs, ref_decoded = reference_runs(driver)
+    assert tokens == ref_tokens
+    assert (syncs, decoded) == (ref_syncs, ref_decoded)
+    assert all(len(tokens[i][0]) == MAX_NEW[i] for i in tokens)
+
+
+@pytest.fixture(scope="module")
+def falcon_runs():
+    """falcon-mamba-7b smoke weights, bridged, and the JAX server's results
+    per driver (computed once)."""
+    jcfg = jax_configs.get_smoke_config("falcon-mamba-7b")
+    p_j = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_smoke_config("falcon-mamba-7b")
+    p_pt = bridge.params_from_jax(jax.tree.map(np.asarray, p_j), cfg, "cpu")
+    memo = {}
+
+    def reference(driver):
+        if driver not in memo:
+            persistent, chunk = DRIVERS[driver]
+            srv = jax_server.DecodeServer(jcfg, p_j, num_slots=2, max_seq=32,
+                                          block_k=4, prefill_chunk=chunk)
+            memo[driver] = _run(srv, jax_server.Request, persistent)
+        return memo[driver]
+
+    return cfg, p_pt, reference
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("driver", list(DRIVERS))
+def test_falcon_mamba_greedy_tokens_and_syncs_match_reference(falcon_runs, driver, use_pallas):
+    """The Mamba-1 decode state ({"h", "conv"} per slot) splices and serves
+    like the recurrent carry: same tokens, reasons and sync counts as the
+    JAX server under every driver."""
+    cfg, p_pt, reference = falcon_runs
+    persistent, chunk = DRIVERS[driver]
+    srv = DecodeServer(dataclasses.replace(cfg, use_pallas=use_pallas), p_pt, num_slots=2,
+                       max_seq=32, block_k=4, prefill_chunk=chunk, device="cpu")
+    tokens, syncs, decoded = _run(srv, Request, persistent)
+    ref_tokens, ref_syncs, ref_decoded = reference(driver)
     assert tokens == ref_tokens
     assert (syncs, decoded) == (ref_syncs, ref_decoded)
     assert all(len(tokens[i][0]) == MAX_NEW[i] for i in tokens)
