@@ -7,8 +7,9 @@ Phases, one line per case (any failure exits non-zero and prints no result):
 
 1. device — the card, its power limit, and the build of every kernel of the
    run from the sources in the checkout: ``lstm_seq.cu``, ``tanh_lut.cu``,
-   ``ssm_scan.cu``, ``int8_matmul.cu`` and every generated stage kernel, one
-   ``nvcc`` each, all started together (into ``build/``);
+   ``ssm_scan.cu``, ``int8_matmul.cu``, ``flash_attention.cu`` and every
+   generated stage kernel, one ``nvcc`` each, all started together (into
+   ``build/``);
 2. ``lstm_seq`` vs its plain PyTorch version at full width, and its time
    beside the plain version's, one library call's and its bound;
 3. serve — full-width ``paper-lstm`` (random weights from a seed) with
@@ -39,12 +40,26 @@ Phases, one line per case (any failure exits non-zero and prints no result):
 10. ``int8_matmul`` bit-exact against its plain version, and its time beside
    the plain version's, ``torch._int_mm``'s and its bound (no path of the
    port calls it, so its ``launches`` in the summary are 0);
-11. serve mamba — full-width ``falcon-mamba-7b`` (64 layers, 7.3 B fp32
+11. ``flash_attention`` against its plain version (the reference's five
+   kernel cases in fp32 and bf16, S != T, S = T = 1, rows that see no key,
+   hd 128 with a 1024 window), and its time at one ``smollm-135m`` layer,
+   one ``phi4-mini-3.8b`` layer and gemma3's local-layer shape beside the
+   plain version's, ``F.scaled_dot_product_attention``'s and its bound;
+12. serve mamba — full-width ``falcon-mamba-7b`` (64 layers, 7.3 B fp32
    parameters from a seed) with ``use_pallas=True`` through ``DecodeServer``
    under ``step()``, ``step_block()`` and chunked prefill: identical tokens,
    ``ssm_scan`` launched once per layer of every prefill call, prefill
    logits held against the plain path; then its ``step()`` run under
-   ``torch.profiler``.
+   ``torch.profiler``;
+13. serve smollm — full-width ``smollm-135m`` (30 layers, 135 M fp32
+   parameters from a seed) with ``use_pallas=True`` under the same three
+   drivers: identical tokens, ``flash_attention`` launched once per layer
+   of every one-shot prefill and never by a chunk (chunks attend over the
+   cache in plain PyTorch), a 256-token prefill's logits held against the
+   plain path; then its ``step()`` run under ``torch.profiler``;
+14. prefill phi4 — full-width ``phi4-mini-3.8b`` (32 layers, 3.8 B fp32
+   parameters, after falcon-mamba's tree is freed): one 256-token prefill
+   through the kernel (32 launches) and on the plain path.
 
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
@@ -86,6 +101,14 @@ SYNTH_TOL = 1e-3    # synthesize()'s forward vs eager (atol = rtol; 8 layers x 2
 # largest |logit|: 64 layers compound the kernel's rounding (FMA contraction,
 # the order of the sum over N) with the rest of the stack's
 MAMBA_LOGITS_RTOL = 1e-3
+# flash_attention vs plain on the card: fp32 at the reference kernel's own
+# bar (an online softmax over key tiles against one softmax over the row);
+# bf16 inputs give a bf16 result, one bf16 rounding apart
+ATTN_TOL = 1e-5
+ATTN_BF16_TOL = 2e-2
+# dense use_pallas prefill logits vs the plain path, relative to the largest
+# |logit|: 30-32 layers compound the kernel's rounding with the stack's
+DENSE_LOGITS_RTOL = 1e-3
 N_REQUESTS = 16
 MAX_NEW = 32
 NUM_SLOTS = 8
@@ -177,6 +200,25 @@ def int8_bound_ms(M, K, N) -> tuple[float, str]:
     return bound_ms(2.0 * M * K * N / PEAK_INT8_OPS, n_bytes)
 
 
+def attn_pairs(S, T, causal: bool, window: int) -> int:
+    """The (query, key) pairs that the masks leave visible, per (b, h)."""
+    qpos = torch.arange(S)[:, None]
+    kpos = torch.arange(T)[None, :]
+    mask = kpos <= qpos if causal else torch.ones((S, T), dtype=torch.bool)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    return int(mask.sum())
+
+
+def attn_bound_ms(B, S, T, H, KV, hd, causal: bool, window: int) -> tuple[float, str]:
+    """flash_attention on these shapes: 4·hd fp32 operations per visible
+    (query, key) pair (the score and the weighted sum of v); q, k, v read
+    and out written once, fp32."""
+    flops = 4.0 * hd * B * H * attn_pairs(S, T, causal, window)
+    n_bytes = 4.0 * (2 * B * S * H * hd + 2 * B * T * KV * hd)
+    return bound_ms(flops / PEAK_FP32_FLOPS, n_bytes)
+
+
 def lstm_inputs(gen, B, T, D, H, carry: bool):
     dev = gen.device
     x = torch.randn((B, T, D), generator=gen, device=dev)
@@ -234,6 +276,8 @@ def main() -> int:
     from repro_torch.core.cslow import fold_streams, unfold_streams
     from repro_torch.core.synthesis import NetworkSpec
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
     from repro_torch.kernels.lstm_cell import ops as lstm_ops
     from repro_torch.kernels.tanh_lut import kernel as lut_kernel
@@ -271,10 +315,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build_many([("lstm_seq", lstm_kernel.SOURCE), ("tanh_lut", lut_kernel.SOURCE),
                                ("ssm_scan", scan_kernel.SOURCE),
-                               ("int8_matmul", i8_kernel.SOURCE)]
+                               ("int8_matmul", i8_kernel.SOURCE),
+                               ("flash_attention", fa_kernel.SOURCE)]
                               + [(kernel_backend.LIBRARY, s) for s in sources])
     build_s = time.perf_counter() - t0
-    for kernel_module in (lstm_kernel, lut_kernel, scan_kernel, i8_kernel):
+    for kernel_module in (lstm_kernel, lut_kernel, scan_kernel, i8_kernel, fa_kernel):
         kernel_module.load()
     say("device", torch=torch.__version__, cuda=torch.version.cuda,
         kind=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(),
@@ -335,10 +380,11 @@ def main() -> int:
     lengths[0] = 256
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lengths]
 
-    def serve(mcfg, params, label: str, block: bool, counter, **kw):
+    def serve(mcfg, params, label: str, block: bool, counter, chunks_launch: bool = True, **kw):
         """Drive ``DecodeServer`` over the 16 requests; ``counter`` is the
         wrapper whose launches this run must show exactly once per layer of
-        every prefill call."""
+        every prefill call (of every one-shot prefill only, and none in a
+        chunked run, when ``chunks_launch`` is False)."""
         obs = Observability(trace=True)
         srv = DecodeServer(mcfg, params, num_slots=NUM_SLOTS, max_seq=MAX_SEQ,
                            block_k=BLOCK_K, obs=obs, **kw)
@@ -362,7 +408,7 @@ def main() -> int:
                     f"after {len(r.out_tokens)} tokens")
         n_prefills = (sum(math.ceil(n / kw["prefill_chunk"]) for n in lengths)
                       if kw.get("prefill_chunk") else N_REQUESTS)
-        want = mcfg.n_layers * n_prefills
+        want = mcfg.n_layers * n_prefills if chunks_launch or not kw.get("prefill_chunk") else 0
         require(launches == want,
                 f"{mcfg.name} {label}: {launches} kernel launches for {n_prefills} prefill "
                 f"calls of {mcfg.n_layers} layers")
@@ -786,7 +832,80 @@ def main() -> int:
         bound_ms=f"{i8_bound:.4f}", bound_by=i8_bound_by, reps=REPS, card=repr(card))
     phase_done("int8_matmul")
 
-    # -- 11. serve full-width falcon-mamba-7b (use_pallas) -----------------------
+    # -- 11. flash_attention vs plain ------------------------------------------
+    attn_cases = [   # tests/test_kernels.py's five, then S != T, S = T = 1, rows
+                     # that see no key, hd 128 with gemma3's 1024 window
+        dict(B=2, S=64, T=64, H=4, KV=2, hd=32, causal=True, window=0, softcap=0.0),
+        dict(B=1, S=128, T=128, H=8, KV=8, hd=64, causal=True, window=32, softcap=0.0),
+        dict(B=2, S=64, T=64, H=4, KV=1, hd=16, causal=False, window=0, softcap=0.0),
+        dict(B=1, S=96, T=96, H=2, KV=2, hd=80, causal=True, window=0, softcap=20.0),
+        dict(B=1, S=64, T=64, H=9, KV=3, hd=64, causal=True, window=0, softcap=0.0),
+        dict(B=1, S=37, T=100, H=4, KV=2, hd=32, causal=True, window=0, softcap=0.0),
+        dict(B=1, S=1, T=1, H=3, KV=1, hd=16, causal=True, window=0, softcap=0.0),
+        dict(B=2, S=100, T=37, H=4, KV=2, hd=32, causal=True, window=8, softcap=0.0),
+        dict(B=1, S=1300, T=1300, H=4, KV=2, hd=128, causal=True, window=1024, softcap=0.0),
+    ]
+
+    def attn_inputs(c, dtype=torch.float32):
+        q = torch.randn((c["B"], c["S"], c["H"], c["hd"]), generator=gen, device=dev)
+        k = torch.randn((c["B"], c["T"], c["KV"], c["hd"]), generator=gen, device=dev)
+        v = torch.randn((c["B"], c["T"], c["KV"], c["hd"]), generator=gen, device=dev)
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    attn_err = 0.0
+    with torch.no_grad():
+        for c in attn_cases:
+            kw = {n: c[n] for n in ("causal", "window", "softcap")}
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = attn_inputs(c, dtype)
+                got = fa_ops.flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                want = fa_ops.flash_attention_ref(q, k, v, **kw)
+                require(got.dtype == dtype, f"flash_attention: output {got.dtype}, input {dtype}")
+                tol = ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+                label = "S{S}_T{T}_B{B}_H{H}_KV{KV}_hd{hd}_causal{causal}_w{window}_cap{softcap}"
+                e = check_close(f"flash_attention {label.format(**c)} {dtype}",
+                                [got.float()], [want.float()], tol)
+                if dtype == torch.float32:
+                    attn_err = max(attn_err, e)
+                say("kernel_vs_plain", kernel="flash_attention", case=label.format(**c),
+                    dtype=str(dtype).removeprefix("torch."), max_abs_err=f"{e:.3e}", tol=tol,
+                    ok=True)
+        # times at (a) one smollm-135m layer of a 256-token prompt, (b) one
+        # phi4-mini-3.8b layer of 2048 tokens, (c) gemma3's local-layer shape
+        attn_time = {}
+        for name, c in (("a_smollm_S256", dict(B=1, S=256, T=256, H=9, KV=3, hd=64, window=0)),
+                        ("b_phi4_S2048", dict(B=1, S=2048, T=2048, H=24, KV=8, hd=128, window=0)),
+                        ("c_gemma3_local_S2048_w1024",
+                         dict(B=1, S=2048, T=2048, H=32, KV=16, hd=128, window=1024))):
+            q, k, v = attn_inputs(c)
+            w = c["window"]
+            k_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, window=w), l2)
+            p_ms = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v, window=w), l2)
+            # the library call, a yardstick only: SDPA on the same fp32 tensors
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            qpos = torch.arange(c["S"], device=dev)[:, None]
+            kpos = torch.arange(c["T"], device=dev)[None, :]
+            win_mask = (kpos <= qpos) & (kpos > qpos - w)
+            sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)) if w == 0 else \
+                   (lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=win_mask, enable_gqa=True))
+            lib_diff = float((sdpa().transpose(1, 2) - fa_ops.flash_attention(q, k, v, window=w))
+                             .abs().max())
+            l_ms = time_ms(sdpa, l2)
+            bnd, by = attn_bound_ms(c["B"], c["S"], c["T"], c["H"], c["KV"], c["hd"], True, w)
+            attn_time[name] = (k_ms, p_ms, l_ms, bnd, by)
+            say("kernel_time", kernel="flash_attention", shape=name,
+                **{n: c[n] for n in ("B", "S", "T", "H", "KV", "hd")}, causal=True, window=w,
+                ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", library_ms=f"{l_ms:.4f}",
+                library="F.scaled_dot_product_attention(enable_gqa)",
+                library_max_abs_diff=f"{lib_diff:.3e}", bound_ms=f"{bnd:.4f}", bound_by=by,
+                bound_share=f"{bnd / k_ms:.3f}", reps=REPS, card=repr(card))
+            del q, k, v, qt, kt, vt, win_mask
+    phase_done("flash_attention")
+
+    # -- 12. serve full-width falcon-mamba-7b (use_pallas) -----------------------
     mcfg = dataclasses.replace(get_config("falcon-mamba-7b"), use_pallas=True)
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()     # what earlier phases still hold
@@ -845,6 +964,108 @@ def main() -> int:
     del mparams, mcaches
     torch.cuda.empty_cache()
     phase_done("profile_mamba")
+
+    # -- 13. serve full-width smollm-135m (use_pallas) ---------------------------
+    scfg = dataclasses.replace(get_config("smollm-135m"), use_pallas=True)
+    require((scfg.n_layers, scfg.d_model, scfg.n_heads, scfg.n_kv_heads, scfg.head_dim,
+             scfg.d_ff, scfg.vocab) == (30, 576, 9, 3, 64, 1536, 49_152),
+            f"smollm-135m is not at its published widths: {scfg}")
+    torch.cuda.reset_peak_memory_stats()
+    sparams = lm.init_params(scfg, torch.Generator(device=dev).manual_seed(0))
+    s_params = lm.param_count(sparams)
+    kv_bytes = 4 * 2 * scfg.n_layers * NUM_SLOTS * MAX_SEQ * scfg.n_kv_heads * scfg.head_dim
+    say("serve_setup", arch=scfg.name, n_layers=scfg.n_layers, d_model=scfg.d_model,
+        heads=f"{scfg.n_heads}/{scfg.n_kv_heads}", head_dim=scfg.head_dim, d_ff=scfg.d_ff,
+        vocab=scfg.vocab, params=s_params, param_gb=f"{4 * s_params / 1e9:.3f}",
+        kv_cache_mb=f"{kv_bytes / 1e6:.1f}",
+        requests=N_REQUESTS, max_new_tokens=MAX_NEW, num_slots=NUM_SLOTS, max_seq=MAX_SEQ)
+    with torch.no_grad():
+        lm.prefill(sparams, scfg, toks)      # untimed: first use of each GEMM shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stok_step, f1, _ = serve(scfg, sparams, "step", False, fa_ops.flash_attention)
+        stok_block, f2, _ = serve(scfg, sparams, "step_block", True, fa_ops.flash_attention)
+        stok_chunk, f3, _ = serve(scfg, sparams, f"step+prefill_chunk={CHUNK}", False,
+                                  fa_ops.flash_attention, chunks_launch=False,
+                                  prefill_chunk=CHUNK)
+        serve_peak = torch.cuda.max_memory_allocated()
+        require(stok_step == stok_block, f"{scfg.name}: step() and step_block() tokens differ")
+        require(stok_step == stok_chunk, f"{scfg.name}: one-shot and chunked prefill tokens differ")
+
+        def dense_prefill_check(mcfg, mparams):
+            """One 256-token prefill through the kernel and on the plain path:
+            times, launches, and the logits gap relative to max |logit|."""
+            logits, ms = {}, {}
+            for path, pcfg in (("use_pallas", mcfg),
+                               ("plain", dataclasses.replace(mcfg, use_pallas=False))):
+                lm.prefill(mparams, pcfg, toks)
+                torch.cuda.synchronize()
+                fa_ops.flash_attention.launches = 0
+                t0 = time.perf_counter()
+                logits[path], caches = lm.prefill(mparams, pcfg, toks)
+                torch.cuda.synchronize()
+                ms[path] = (time.perf_counter() - t0) * 1e3
+                if path == "use_pallas":
+                    n_launch = fa_ops.flash_attention.launches
+                require(logits[path].shape == (1, mcfg.vocab)
+                        and bool(torch.isfinite(logits[path]).all()),
+                        f"{mcfg.name} {path} prefill logits of shape "
+                        f"{tuple(logits[path].shape)} or non-finite")
+            require(n_launch == mcfg.n_layers,
+                    f"{mcfg.name}: {n_launch} flash_attention launches in a "
+                    f"{mcfg.n_layers}-layer prefill")
+            kv = caches["groups"]["b0_attn"]["k"]
+            require(tuple(kv.shape) == (mcfg.n_layers, 1, toks.shape[1], mcfg.n_kv_heads,
+                                        mcfg.head_dim),
+                    f"{mcfg.name}: prefill KV cache of shape {tuple(kv.shape)}")
+            scale = float(logits["plain"].abs().max())
+            diff = float((logits["use_pallas"] - logits["plain"]).abs().max())
+            require(diff <= DENSE_LOGITS_RTOL * scale,
+                    f"{mcfg.name} use_pallas prefill logits differ from the plain path by "
+                    f"{diff:.3e} (max |logit| {scale:.3e})")
+            return n_launch, diff, scale, ms
+
+        _, s_diff, s_scale, s_ms = dense_prefill_check(scfg, sparams)
+    say("serve_check", arch=scfg.name, path="use_pallas", identical_tokens=True,
+        flash_attention_launches=f"{f1}+{f2}+{f3}", prompt_len=toks.shape[1],
+        prefill_logits_max_abs_diff=f"{s_diff:.3e}", max_abs_logit=f"{s_scale:.3e}",
+        rel_gap=f"{s_diff / s_scale:.3e}", rtol_of_max=DENSE_LOGITS_RTOL,
+        **{f"prefill_ms_{k}": f"{v:.2f}" for k, v in s_ms.items()},
+        peak_alloc_gb_serving=f"{serve_peak / 1e9:.3f}", card=repr(card))
+    phase_done("serve_smollm")
+
+    profiled_step_run(scfg, sparams, fa_ops.flash_attention, stok_step)
+    del sparams
+    torch.cuda.empty_cache()
+    phase_done("profile_smollm")
+
+    # -- 14. one full-width phi4-mini-3.8b prefill (use_pallas) -------------------
+    pcfg = dataclasses.replace(get_config("phi4-mini-3.8b"), use_pallas=True)
+    require((pcfg.n_layers, pcfg.d_model, pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim,
+             pcfg.d_ff, pcfg.vocab, pcfg.partial_rotary)
+            == (32, 3072, 24, 8, 128, 8192, 200_064, 0.75),
+            f"phi4-mini-3.8b is not at its published widths: {pcfg}")
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pparams = lm.init_params(pcfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p_params = lm.param_count(pparams)
+    peak_init = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        p_launch, p_diff, p_scale, p_ms = dense_prefill_check(pcfg, pparams)
+    say("prefill_check", arch=pcfg.name, path="use_pallas", params=p_params,
+        param_gb=f"{4 * p_params / 1e9:.2f}", init_s=f"{init_s:.1f}",
+        alloc_gb_before_init=f"{base_alloc / 1e9:.2f}",
+        peak_alloc_gb_after_init=f"{peak_init / 1e9:.2f}", prompt_len=toks.shape[1],
+        flash_attention_launches=p_launch, prefill_logits_max_abs_diff=f"{p_diff:.3e}",
+        max_abs_logit=f"{p_scale:.3e}", rel_gap=f"{p_diff / p_scale:.3e}",
+        rtol_of_max=DENSE_LOGITS_RTOL, **{f"prefill_ms_{k}": f"{v:.2f}" for k, v in p_ms.items()},
+        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
+    del pparams
+    torch.cuda.empty_cache()
+    phase_done("prefill_phi4")
 
     summary = {"kernels": [{
         "name": "lstm_seq",
@@ -908,6 +1129,20 @@ def main() -> int:
         "bound_ms": i8_bound,
         "bound_by": i8_bound_by,
         "library_ms": i8_lib_ms,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+        # smollm-135m's three serve runs (30 per one-shot prefill, 0 for
+        # chunks) and phi4-mini-3.8b's prefill (32); times at shape (a)
+        "launches": f1 + f2 + f3 + p_launch,
+        "max_abs_err": attn_err,
+        "ms": attn_time["a_smollm_S256"][0],
+        "plain_ms": attn_time["a_smollm_S256"][1],
+        "bound_ms": attn_time["a_smollm_S256"][3],
+        "bound_by": attn_time["a_smollm_S256"][4],
+        "library_ms": attn_time["a_smollm_S256"][2],
     }]}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

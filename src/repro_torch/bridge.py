@@ -22,7 +22,9 @@ PyTree = Any
 
 def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     """The reference's ``lm.init_params`` tree (numpy leaves) → port params
-    in ``cfg.p_dtype`` on ``device`` (default: the card)."""
+    in ``cfg.p_dtype`` on ``device`` (default: the card).  Any ported block
+    kind crosses over leaf for leaf (``b0_recurrent``, ``b0_mamba1``,
+    ``b0_attn`` with its ``attn`` and ``mlp`` subtrees)."""
     dev = resolve_device(device)
     want = {f"b{i}_{kind}" for i, kind in enumerate(cfg.layer_pattern)}
     if set(np_tree["groups"]) != want:
@@ -64,7 +66,8 @@ def program_from_jax(np_params: PyTree, spec, device=None):
 
 
 def cache_from_jax(np_tree: PyTree, device=None) -> PyTree:
-    """The reference's decode caches (numpy leaves) → port caches, fp32."""
+    """The reference's decode caches (numpy leaves: recurrent ``h``/``c``,
+    Mamba ``h``/``conv``, attention ``k``/``v``) → port caches, fp32."""
     dev = resolve_device(device)
     return tree_map(
         lambda a: torch.as_tensor(np.array(a)).to(device=dev, dtype=torch.float32),

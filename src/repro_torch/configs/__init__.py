@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
-The recurrent (``paper-lstm``) and Mamba-1 (``falcon-mamba-7b``)
-configurations are registered in the port so far; the other families of the
-reference's registry come with their blocks.
+The recurrent (``paper-lstm``), Mamba-1 (``falcon-mamba-7b``) and dense
+transformer (``smollm-135m``, ``phi4-mini-3.8b``) configurations are
+registered in the port so far; the other families of the reference's
+registry come with their blocks.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
     "paper-lstm": "paper_lstm",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "smollm-135m": "smollm_135m",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -6,6 +6,8 @@
   int8_matmul — int8 × int8 → int32 MACC matmul (CUDA C++, ``csrc/int8_matmul.cu``)
                 and its quantizers (``quantize_per_channel`` also packs the
                 generated stage kernel's int8 ROMs)
+  flash_attention — online-softmax GQA attention with causal / window masks
+                and softcap (CUDA C++, ``csrc/flash_attention.cu``)
 
 ``csrc/lut.cuh`` holds the one ``__device__ lut_interpolate`` of every kernel
 that reads the tanh table (``lstm_seq``, ``tanh_lut`` and the generated stage

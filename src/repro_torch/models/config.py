@@ -1,10 +1,11 @@
 """Model configuration: the port's copy of ``repro/models/config.py``.
 
 The same fields and derived properties as the reference's ``ModelConfig``,
-so that one configuration means the same network in both packages.  Only the
-recurrent family runs in the port so far, but ``layer_pattern``, ``n_groups``
-and ``kv_cache_bytes`` agree with the reference for every family.  The two
-dtype properties return ``torch.dtype``s.
+so that one configuration means the same network in both packages.  The
+recurrent, ssm (Mamba-1) and dense families run in the port so far, but
+``layer_pattern``, ``n_groups`` and ``kv_cache_bytes`` agree with the
+reference for every family.  The two dtype properties return
+``torch.dtype``s.
 """
 
 from __future__ import annotations

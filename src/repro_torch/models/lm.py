@@ -1,17 +1,19 @@
 """Top-level language model: embed → groups → head; the port's counterpart
-of ``repro/models/lm.py`` for the families ported so far (recurrent and
-ssm; no cross-attention ``memory`` argument yet).
+of ``repro/models/lm.py`` for the families ported so far (recurrent, ssm
+and dense; no cross-attention ``memory`` argument and no ``tail_pattern``
+yet).
 
 The whole network is one state-space system (paper eq. 8): in prefill the
 state is the activations flowing across layer groups; in decode the state
-is the caches (for a recurrent stack, the ``(h, c)`` carries) and one
-``decode_step`` is one application of the state-update map f with the new
-token as input u[k].
+is the caches (the ``(h, c)`` carries of a recurrent stack, the scan state
+of a Mamba stack, the KV cache of a transformer) and one ``decode_step`` is
+one application of the state-update map f with the new token as input u[k].
 
 The parameter layout mirrors the reference's: ``{"embed": {"table"},
-"groups": {"b0_recurrent": ...}, "final_norm": {"scale"}}`` (+ ``"head"``
-when embeddings are untied), with every per-group leaf stacked on a leading
-``G`` axis.  The reference scans over groups; the port loops over them.
+"groups": {"b0_recurrent" | "b0_mamba1" | "b0_attn": ...}, "final_norm":
+{"scale"}}`` (+ ``"head"`` when embeddings are untied), with every
+per-group leaf stacked on a leading ``G`` axis.  The reference scans over
+groups; the port loops over them.
 """
 
 from __future__ import annotations

@@ -1,23 +1,27 @@
 """Block assembly: layer stacks as groups of blocks; the port's counterpart of
 ``repro/models/transformer.py``.
 
-The recurrent and ``mamba1`` block kinds are ported so far.  A group is one
-period of ``ModelConfig.layer_pattern``; per-group parameters and decode
-caches are stacked on a leading ``G`` axis, exactly as the reference lays
-them out for its scan over groups.  Every other block kind raises.
+The recurrent, ``mamba1`` and ``attn`` (dense transformer: GQA + gated MLP)
+block kinds are ported so far.  A group is one period of
+``ModelConfig.layer_pattern``; per-group parameters and decode caches are
+stacked on a leading ``G`` axis, exactly as the reference lays them out for
+its scan over groups.  Every other block kind (``attn_local``, ``moe``,
+``cross``, ``mamba2``, ``shared_attn``) raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.recurrent import block as rnn_lib
 
+from . import attention as attn_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
-from .layers import rmsnorm, rmsnorm_params
+from .layers import mlp_apply, mlp_params, rmsnorm, rmsnorm_params
 
 PyTree = Any
 
@@ -25,7 +29,7 @@ PyTree = Any
 def _unported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind '{kind}' is not ported to repro_torch yet (ROADMAP.md "
-        "Queue 1); only 'recurrent' and 'mamba1' run")
+        "Queue 1); only 'recurrent', 'mamba1' and 'attn' run")
 
 
 # ---------------------------------------------------------------------------
@@ -33,6 +37,14 @@ def _unported(kind: str) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 
 def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> PyTree:
+    if kind == "attn":
+        ap = attn_lib.mla_params(gen, cfg) if cfg.use_mla else attn_lib.gqa_params(gen, cfg)
+        return {
+            "ln_attn": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+            "attn": ap,
+            "ln_mlp": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+            "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.p_dtype),
+        }
     if kind == "recurrent":
         return {"ln": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
                 "rnn": rnn_lib.recurrent_params(gen, cfg)}
@@ -51,7 +63,13 @@ def group_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
 # cache construction (decode state)
 # ---------------------------------------------------------------------------
 
-def _block_cache(cfg: ModelConfig, kind: str, batch: int, device) -> PyTree:
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) -> PyTree:
+    if kind == "attn":
+        if cfg.use_mla:
+            raise _unported("attn (MLA)")
+        shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
     if kind == "recurrent":
         return rnn_lib.recurrent_init_state(cfg, batch, device)
     if kind == "mamba1":
@@ -59,17 +77,19 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, device) -> PyTree:
     raise _unported(kind)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:  # noqa: ARG001 — max_seq sizes the attention caches of the unported kinds
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
     """Decode cache ``{"groups": {name: leaves stacked over G}}`` — the
     serving state vector.  A recurrent block's leaves are ``h``/``c``
     ``[G, batch, H]``, a ``mamba1`` block's ``h [G, batch, DI, N]`` and
-    ``conv [G, batch, k-1, DI]``, all in fp32."""
+    ``conv [G, batch, k-1, DI]``, all in fp32; an ``attn`` block's are the
+    full-length ``k``/``v`` ``[G, batch, max_seq, KV, hd]`` in the
+    activation dtype."""
     if cfg.tail_pattern:
         raise _unported(f"tail {cfg.tail_pattern}")
     G = cfg.n_groups
     groups = {}
     for i, kind in enumerate(cfg.layer_pattern):
-        one = _block_cache(cfg, kind, batch, device)
+        one = _block_cache(cfg, kind, batch, max_seq, device)
         groups[f"b{i}_{kind}"] = {k: v.expand((G,) + v.shape).clone()
                                   for k, v in one.items()}
     return {"groups": groups}
@@ -86,16 +106,36 @@ def apply_block(
     x: torch.Tensor,
     *,
     cache=None,
-    pos=None,  # noqa: ARG001 — recurrent and SSM blocks carry no positions; attention kinds will
+    pos=None,
     mode: str = "train",
 ):
     """One block, all modes.  Returns (x, new_cache, aux_loss).
 
-    mode="chunk" is the resumable prefill step: a chunk of S ≥ 1 tokens
-    resumes the scan from the carried state; chaining chunks reproduces the
-    one-shot prefill trajectory.
+    mode="chunk" is the resumable prefill step: S ≥ 1 tokens applied against
+    an existing cache at offset ``pos`` — the same state-update map as
+    decode, batched over a chunk of inputs (attention writes the chunk into
+    the cache and masks causally; SSM and recurrent blocks resume their
+    scan from the carried state).  Chaining chunks reproduces the one-shot
+    prefill trajectory.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "attn":
+        acfg = cfg
+        if cfg.global_every and cfg.rope_theta_global:
+            acfg = dataclasses.replace(cfg, rope_theta=cfg.rope_theta_global)
+        h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
+        decode = mode in ("decode", "chunk")
+        if cfg.use_mla:
+            a, cache = (attn_lib.mla_decode(p_blk["attn"], acfg, h, cache, pos) if decode
+                        else attn_lib.mla_prefill(p_blk["attn"], acfg, h))
+        elif decode:
+            a, cache = attn_lib.gqa_decode(p_blk["attn"], acfg, h, cache, pos)
+        else:
+            a, kv = attn_lib.gqa_prefill(p_blk["attn"], acfg, h)
+            cache = {"k": kv[0], "v": kv[1]} if mode == "prefill" else None
+        x = x + a
+        h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
+        return x + mlp_apply(p_blk["mlp"], h, cfg.mlp_act), cache, aux
     if kind == "mamba1":
         # the serving state is the selective scan's {"h", "conv"}
         h = rmsnorm(p_blk["ln"], x, cfg.norm_eps)

@@ -20,7 +20,10 @@ Two decode drivers share the slot machinery:
 Prefill is one-shot (``lm.prefill`` per admitted prompt, then the B=1 state
 is spliced into the slot) or chunked (``prefill_chunk=N``: N prompt tokens per
 tick through ``lm.prefill_chunk``, interleaved with decode ticks).  Under
-``use_pallas`` every prefill runs the fused LSTM kernel, one call per layer.
+``use_pallas`` every one-shot prefill runs the model's kernel once per
+layer (``lstm_seq``, ``ssm_scan`` or ``flash_attention``); chunks run
+``lstm_seq`` and ``ssm_scan`` too, while attention chunks attend over the
+cache in plain PyTorch, as the reference's do.
 
 Counters, spans and ``stats()`` keys keep the reference's names.  Not ported
 yet, and refused by the constructor: mesh placement (``plan``), the prefix
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs as obs_lib
-from repro_torch._tree import tree_leaves, tree_map
+from repro_torch._tree import tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -50,26 +53,54 @@ PyTree = Any
 DEFAULT_BLOCK_K = 8
 
 
+_SEQ_LEAVES = ("k", "v")     # the full-attention KV leaves (MLA's are not ported)
+
+
 def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int) -> PyTree:
     """Insert a B=1 prefill state into batch slot ``b`` of the server cache.
 
     A recurrent carry (``h``/``c`` of ``[G, 1, H]`` → row ``b`` of
     ``[G, B, H]``) and a Mamba-1 state (``h [G, 1, DI, N]``, ``conv
     [G, 1, k-1, DI]``) have no sequence axis, so admission is a pure
-    batch-row write and never disturbs other slots.  The destination tensors are
-    updated in place; the returned tree holds the same tensors.  Caches with
-    a sequence axis (attention KV, ring buffers) are not ported yet.
+    batch-row write and never disturbs other slots.  A full-attention KV
+    leaf carries one: a one-shot prefill's ``[G, 1, L, KV, hd]`` goes
+    left-aligned into ``[G, B, S_max, KV, hd]`` (positions ``0 .. L-1`` of
+    row ``b``); a chunked prefill's ``max_seq``-long B=1 cache is a batch
+    row like the others.  A source longer than the destination raises:
+    wrapping a full cache would overwrite early positions with late ones
+    while the causal mask still exposes every position.  Sliding-window
+    ring buffers, the only caches that may wrap, are not ported yet (gemma3,
+    ROADMAP.md Queue 1 item 8).  The destination tensors are updated in
+    place; the returned tree holds the same tensors.
     """
 
-    def one(dst, src):
+    def one(name, dst, src):
+        if src.ndim >= 3 and dst.ndim == src.ndim and src.shape[2] != dst.shape[2] \
+                and name in _SEQ_LEAVES:
+            # sequence-bearing cache: [G, 1, L, ...] -> [G, B, S_dst, ...]
+            L, S_dst = src.shape[2], dst.shape[2]
+            if L > S_dst:
+                raise ValueError(
+                    f"splice_cache: prompt of length {L} overflows the full-attention "
+                    f"cache leaf '{name}' (S_max={S_dst}); admission must reject or "
+                    "truncate it (ring-buffer wrap for sliding windows is not ported: "
+                    "ROADMAP.md Queue 1 item 8)")
+            dst[:, b, :L] = src[:, 0].to(dst.dtype)
+            return dst
         if src.ndim == dst.ndim and src.shape[1] == 1 and src.shape[2:] == dst.shape[2:]:
             dst[:, b] = src[:, 0].to(dst.dtype)
             return dst
         raise NotImplementedError(
             f"splice_cache: source {tuple(src.shape)} → destination "
-            f"{tuple(dst.shape)}; only batch-row (recurrent, SSM) states are ported")
+            f"{tuple(dst.shape)} of leaf '{name}' is neither a batch-row state "
+            "nor a left-aligned KV prefix")
 
-    return tree_map(one, caches, prefill_caches)
+    def walk(dst, src, name=""):
+        if isinstance(dst, dict):
+            return {key: walk(dst[key], src[key], key) for key in dst}
+        return one(name, dst, src)
+
+    return walk(caches, prefill_caches)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions:
 ``lstm_seq``, the generated stage kernel (``codegen_stage``), ``tanh_lut``,
-``ssm_scan`` and ``int8_matmul``.
+``ssm_scan``, ``int8_matmul`` and ``flash_attention``.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -14,7 +14,9 @@ cuBLAS's and compound over the time steps; 1e-6 for ``tanh_lut``, the same
 arithmetic as its plain version up to FMA contraction; 1e-4 for ``ssm_scan``
 (the same step-by-step recurrence, rounded differently by FMA contraction
 and by the order of the sum over N; 3e-2 for bf16 inputs); ``int8_matmul``
-bit-exact.
+bit-exact; 1e-5 for ``flash_attention`` in fp32 (an online softmax over key
+tiles against one softmax over the row) and 2e-2 with bf16 inputs (the
+result rounded to bf16).
 """
 
 import dataclasses
@@ -316,3 +318,101 @@ def test_quantized_matmul_on_the_card_matches_the_cpu(cuda):
     b = torch.as_tensor(r.normal(size=(300, 96)), dtype=torch.float32)
     got = ops.quantized_matmul(a.to(cuda), b.to(cuda))
     assert torch.equal(got.cpu(), ops.quantized_matmul(a, b))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's five cases, then S != T, S = T = 1, rows that see
+# no key (S > T with a window), and hd 128 with gemma3's 1024 window
+FLASH_CASES = [
+    dict(B=2, S=64, T=64, H=4, KV=2, hd=32, causal=True, window=0, softcap=0.0),
+    dict(B=1, S=128, T=128, H=8, KV=8, hd=64, causal=True, window=32, softcap=0.0),
+    dict(B=2, S=64, T=64, H=4, KV=1, hd=16, causal=False, window=0, softcap=0.0),
+    dict(B=1, S=96, T=96, H=2, KV=2, hd=80, causal=True, window=0, softcap=20.0),
+    dict(B=1, S=64, T=64, H=9, KV=3, hd=64, causal=True, window=0, softcap=0.0),
+    dict(B=1, S=37, T=100, H=4, KV=2, hd=32, causal=True, window=0, softcap=0.0),
+    dict(B=1, S=1, T=1, H=3, KV=1, hd=16, causal=True, window=0, softcap=0.0),
+    dict(B=2, S=100, T=37, H=4, KV=2, hd=32, causal=True, window=8, softcap=0.0),
+    dict(B=1, S=1300, T=1300, H=4, KV=2, hd=128, causal=True, window=1024, softcap=0.0),
+]
+
+
+def _flash_case(dev, c, dtype, seed=0):
+    r = np.random.default_rng(seed)
+    arrs = (r.normal(size=(c["B"], c["S"], c["H"], c["hd"])),
+            r.normal(size=(c["B"], c["T"], c["KV"], c["hd"])),
+            r.normal(size=(c["B"], c["T"], c["KV"], c["hd"])))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev).to(dtype) for a in arrs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: f"S{c['S']}_T{c['T']}_H{c['H']}_hd{c['hd']}_w{c['window']}")
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v = _flash_case(cuda, case, dtype)
+    kw = {n: case[n] for n in ("causal", "window", "softcap")}
+    launches = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.flash_attention.launches == launches + 1
+    want = ops.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_takes_strided_views(cuda):
+    """q, k, v as the attention block hands them over: slices of one fused
+    projection, not contiguous; the wrapper makes them so."""
+    from repro_torch.kernels.flash_attention import ops
+
+    r = np.random.default_rng(3)
+    qkv = torch.as_tensor(r.normal(size=(2, 40, 6 + 2 + 2, 32)), dtype=torch.float32, device=cuda)
+    q, k, v = qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
+    assert not q.is_contiguous()
+    torch.testing.assert_close(ops.flash_attention(q, k, v), ops.flash_attention_ref(q, k, v),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    """No fallback: a CPU tensor handed to the kernel, or a shape it does not
+    take on the card, raises instead of running the plain version."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    q, k, v = _flash_case(cuda, FLASH_CASES[0], torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        kernel.flash_attention(q.double(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.flash_attention(q.transpose(1, 2), k, v)
+    launches = ops.flash_attention.launches
+    for bad in ((q, k[:, :, :1].expand(-1, -1, 3, -1), v),      # H = 4 not a multiple of KV = 3
+                (q, k, v[:, :10]),                                # k and v of different lengths
+                (q[..., :0], k[..., :0], v[..., :0])):            # hd = 0
+        with pytest.raises(ValueError):
+            ops.flash_attention(*bad)
+    big = torch.zeros((1, 2, 1, 257), device=cuda)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        ops.flash_attention(big, big, big)
+    assert ops.flash_attention.launches == launches
+
+
+def test_dense_use_pallas_prefill_matches_plain_path(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm
+
+    for arch in ("smollm-135m", "phi4-mini-3.8b"):
+        cfg = get_smoke_config(arch)
+        params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+        toks = torch.as_tensor([[3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5]], device=cuda)
+        lg_p, c_p = lm.prefill(params, cfg, toks)
+        launches = ops.flash_attention.launches
+        lg_k, c_k = lm.prefill(params, dataclasses.replace(cfg, use_pallas=True), toks)
+        assert ops.flash_attention.launches == launches + cfg.n_layers
+        torch.testing.assert_close(lg_k, lg_p, atol=1e-5, rtol=1e-5)
+        _close(c_k["groups"]["b0_attn"].values(), c_p["groups"]["b0_attn"].values(), 1e-5)

@@ -37,7 +37,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     for module in ("models/ssm.py", "core/transition.py", "configs/falcon_mamba_7b.py",
                    "kernels/ssm_scan/ops.py", "kernels/ssm_scan/kernel.py",
                    "kernels/ssm_scan/ref.py", "kernels/int8_matmul/ops.py",
-                   "kernels/int8_matmul/kernel.py", "kernels/int8_matmul/ref.py"):
+                   "kernels/int8_matmul/kernel.py", "kernels/int8_matmul/ref.py",
+                   "models/attention.py", "configs/smollm_135m.py", "configs/phi4_mini_3_8b.py",
+                   "kernels/flash_attention/ops.py", "kernels/flash_attention/kernel.py",
+                   "kernels/flash_attention/ref.py"):
         assert module in names, module
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -116,3 +119,12 @@ def test_entry_points_default_to_the_card():
         i8_ops.int8_matmul(meta(2, 3, dtype=torch.int8), meta(3, 4, dtype=torch.int8),
                            meta(2, 1), meta(1, 4))
     assert scan_ops.ssm_scan.launches == 0 and i8_ops.int8_matmul.launches == 0
+
+    # the dense slice: smollm's parameters and the attention kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(get_smoke_config("smollm-135m"), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fa_ops.flash_attention(meta(1, 4, 3, 16), meta(1, 4, 1, 16), meta(1, 4, 1, 16))
+    assert fa_ops.flash_attention.launches == 0

@@ -1,7 +1,7 @@
 """The port's DecodeServer on the CPU against the JAX reference server.
 
-Both servers get the same bridged ``paper-lstm`` (and ``falcon-mamba-7b``)
-smoke weights and the same greedy requests; they must return identical
+Both servers get the same bridged ``paper-lstm`` (and ``falcon-mamba-7b``
+and ``smollm-135m``) smoke weights and the same greedy requests; they must return identical
 ``out_tokens`` and ``finish_reason`` under ``step()``, ``step_block()`` and
 chunked prefill, and count the same ``decode_syncs`` and
 ``decoded_tokens``.  (Sampled decoding
@@ -25,7 +25,8 @@ from repro.runtime import server as jax_server  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.runtime import scheduler as pt_sched  # noqa: E402
-from repro_torch.runtime.server import DecodeServer, Request  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.runtime.server import DecodeServer, Request, splice_cache  # noqa: E402
 
 PROMPTS = [[5, 17, 3], [9, 9, 200, 41], [7, 1, 2, 3, 4], [250, 6, 6], [11, 12, 13, 14]]
 MAX_NEW = [6, 3, 5, 7, 4]
@@ -122,6 +123,72 @@ def test_falcon_mamba_greedy_tokens_and_syncs_match_reference(falcon_runs, drive
     assert tokens == ref_tokens
     assert (syncs, decoded) == (ref_syncs, ref_decoded)
     assert all(len(tokens[i][0]) == MAX_NEW[i] for i in tokens)
+
+
+@pytest.fixture(scope="module")
+def smollm_runs():
+    """smollm-135m smoke weights, bridged, and the JAX server's results per
+    driver (computed once)."""
+    jcfg = jax_configs.get_smoke_config("smollm-135m")
+    p_j = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_smoke_config("smollm-135m")
+    p_pt = bridge.params_from_jax(jax.tree.map(np.asarray, p_j), cfg, "cpu")
+    memo = {}
+
+    def reference(driver):
+        if driver not in memo:
+            persistent, chunk = DRIVERS[driver]
+            srv = jax_server.DecodeServer(jcfg, p_j, num_slots=2, max_seq=32,
+                                          block_k=4, prefill_chunk=chunk)
+            memo[driver] = _run(srv, jax_server.Request, persistent)
+        return memo[driver]
+
+    return cfg, p_pt, reference
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("driver", list(DRIVERS))
+def test_smollm_greedy_tokens_and_syncs_match_reference(smollm_runs, driver, use_pallas):
+    """The KV cache splices left-aligned into a slot (one-shot prefill) or
+    as a batch row (chunked prefill) and serves like the recurrent and SSM
+    states: same tokens, reasons and sync counts as the JAX server under
+    every driver."""
+    cfg, p_pt, reference = smollm_runs
+    persistent, chunk = DRIVERS[driver]
+    srv = DecodeServer(dataclasses.replace(cfg, use_pallas=use_pallas), p_pt, num_slots=2,
+                       max_seq=32, block_k=4, prefill_chunk=chunk, device="cpu")
+    tokens, syncs, decoded = _run(srv, Request, persistent)
+    ref_tokens, ref_syncs, ref_decoded = reference(driver)
+    assert tokens == ref_tokens
+    assert (syncs, decoded) == (ref_syncs, ref_decoded)
+    assert all(len(tokens[i][0]) == MAX_NEW[i] for i in tokens)
+
+
+def test_splice_cache_kv_left_aligned_and_overflow_raises():
+    """A one-shot prefill's [G, 1, L, KV, hd] KV lands in positions 0..L-1
+    of its slot and nowhere else; a source longer than the cache raises (the
+    reference's full-attention rule); a chunked prefill's max_seq-long B=1
+    cache is a plain batch row."""
+    cfg = get_smoke_config("smollm-135m")
+    caches = lm.init_cache(cfg, 3, 8, "cpu")
+    for leaf in ("k", "v"):
+        caches["groups"]["b0_attn"][leaf].normal_(generator=torch.Generator().manual_seed(1))
+    before = {k: t.clone() for k, t in caches["groups"]["b0_attn"].items()}
+    src = {"groups": {"b0_attn": {k: torch.full((2, 1, 5, 1, 16), 7.0) for k in ("k", "v")}}}
+    out = splice_cache(caches, src, 1)
+    for leaf in ("k", "v"):
+        got = out["groups"]["b0_attn"][leaf]
+        assert got is caches["groups"]["b0_attn"][leaf]          # updated in place
+        assert bool((got[:, 1, :5] == 7.0).all())
+        assert torch.equal(got[:, 1, 5:], before[leaf][:, 1, 5:])
+        assert torch.equal(got[:, 0], before[leaf][:, 0]) and torch.equal(got[:, 2], before[leaf][:, 2])
+    long = {"groups": {"b0_attn": {k: torch.zeros((2, 1, 9, 1, 16)) for k in ("k", "v")}}}
+    with pytest.raises(ValueError, match="overflows the full-attention cache"):
+        splice_cache(caches, long, 0)
+    row = lm.init_cache(cfg, 1, 8, "cpu")
+    row["groups"]["b0_attn"]["k"].fill_(3.0)
+    splice_cache(caches, row, 2)
+    assert bool((caches["groups"]["b0_attn"]["k"][:, 2] == 3.0).all())
 
 
 @pytest.mark.parametrize("driver", ["step", "step_block"])
