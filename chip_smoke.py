@@ -11,7 +11,11 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    generated stage kernel, one ``nvcc`` each, all started together (into
    ``build/``);
 2. ``lstm_seq`` vs its plain PyTorch version at full width, and its time
-   beside the plain version's, one library call's and its bound;
+   beside the plain version's, one library call's (``over_library``) and
+   its bound, with its CUDA launches per call (which must be 2: the input
+   GEMM and the persistent recurrence), whether ``w_h`` was resident in
+   shared memory, its serial floor (the persistent grid running only its
+   barriers) and its time at the chunked path's T = 64;
 3. serve — full-width ``paper-lstm`` (random weights from a seed) with
    ``use_pallas=True`` through ``DecodeServer``: 16 greedy requests under
    ``step()``, ``step_block()`` and chunked prefill; identical tokens across
@@ -21,7 +25,8 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    interpreter (its plain version) and, for fp32, the eager backend, on
    twelve cases (cells at D = H = 1024, the Fig. 10 MLPs, LUT, int8,
    C-slow); its time at the prefill shape for lstm and gru beside the plain
-   version, ``torch.nn.LSTM``/``GRU`` and ``lstm_seq``;
+   version, ``torch.nn.LSTM``/``GRU`` and ``lstm_seq``, with the same
+   launch count (2), residency, serial floor and T = 64 figures as phase 2;
 5. ``tanh_lut`` against its plain version, its time, and one drive of its
    entry point on a full-width prefill's gate pre-activations (no path of
    the port calls it, so its ``launches`` in the summary are 0);
@@ -156,6 +161,22 @@ def time_ms(fn, buf: torch.Tensor, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launches_per_call(fn) -> int:
+    """The CUDA kernel launches one call of ``fn`` makes, from torch.profiler's
+    CUDA activity: the runtime's launch calls (``cudaLaunchKernel``,
+    ``cudaLaunchCooperativeKernel``); memsets and copies are not launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith("cudaLaunch"))
 
 
 def max_err(got, want) -> float:
@@ -366,11 +387,25 @@ def main() -> int:
         y_k, _, _ = lstm_ops.lstm_seq(*args)
         lib_err = float((y_lib - y_k).abs().max())
         lstm_lib_ms = time_ms(lambda: cudnn(x, (h0[None], c0[None])), l2)
+        lstm_calls = launches_per_call(lambda: lstm_ops.lstm_seq(*args))
+        lstm_floor_ms = time_ms(lambda: lstm_kernel.serial_floor(B, T, H), l2)
+        # the chunked path's shape: one 64-token chunk of a prefill
+        args64 = [a[:, :CHUNK] if a.dim() == 3 else a for a in args]
+        lstm_ms64 = time_ms(lambda: lstm_ops.lstm_seq(*args64), l2)
+        lstm_lib_ms64 = time_ms(lambda: cudnn(args64[0], (h0[None], c0[None])), l2)
+    require(lstm_calls == 2, f"lstm_seq: {lstm_calls} CUDA launches a call, not 2")
+    lstm_cfg = lstm_kernel.config(B, H)
     lstm_bound, lstm_bound_by = lstm_bound_ms(B, T, D, H)
     say("kernel_time", kernel="lstm_seq", B=B, T=T, D=D, H=H, ms=f"{lstm_ms:.4f}",
-        plain_ms=f"{lstm_plain_ms:.4f}", library_ms=f"{lstm_lib_ms:.4f}",
-        library="torch.nn.LSTM(cuDNN)", library_max_abs_diff=f"{lib_err:.3e}",
+        us_per_step=f"{1e3 * lstm_ms / T:.2f}", plain_ms=f"{lstm_plain_ms:.4f}",
+        library_ms=f"{lstm_lib_ms:.4f}", library="torch.nn.LSTM(cuDNN)",
+        library_max_abs_diff=f"{lib_err:.3e}", over_library=f"{lstm_ms / lstm_lib_ms:.3f}",
+        launches_per_call=lstm_calls, weights_resident=lstm_cfg["weights_resident"],
+        grid=lstm_cfg["grid"], serial_floor_ms=f"{lstm_floor_ms:.4f}",
         bound_ms=f"{lstm_bound:.4f}", bound_by=lstm_bound_by, reps=REPS, card=repr(card))
+    say("kernel_time", kernel="lstm_seq", B=B, T=CHUNK, D=D, H=H, ms=f"{lstm_ms64:.4f}",
+        us_per_step=f"{1e3 * lstm_ms64 / CHUNK:.2f}", library_ms=f"{lstm_lib_ms64:.4f}",
+        over_library=f"{lstm_ms64 / lstm_lib_ms64:.3f}", reps=REPS, card=repr(card))
     del cudnn
     phase_done("lstm_seq")
 
@@ -557,7 +592,8 @@ def main() -> int:
                 lib.weight_hh_l0.copy_(consts["W"][D:].T)
                 lib.bias_ih_l0.copy_(consts["b"][0])
                 lib.bias_hh_l0.zero_()
-                call = lambda: lib(us, (x0["h"][None], x0["c"][None]))
+                call_state = ((x0["h"][None], x0["c"][None]),)
+                call = lambda: lib(us, *call_state)
             else:
                 # torch's GRU candidate: n = tanh(W_in u + b_in + r·(W_hn h + b_hn)),
                 # the graph's form (builders.gru_graph) with b → bias_ih, bh_n → b_hn
@@ -567,14 +603,20 @@ def main() -> int:
                 lib.bias_ih_l0.copy_(consts["b"][0])
                 lib.bias_hh_l0.copy_(torch.cat([torch.zeros(2 * H, device=dev),
                                                 consts["bh_n"][0]]))
-                call = lambda: lib(us, x0["h"][None])
+                call_state = (x0["h"][None],)
+                call = lambda: lib(us, *call_state)
             y_lib, _ = call()
             lib_diff = float((y_lib - ys).abs().max())
             require(lib_diff <= LOGITS_ATOL,
                     f"codegen_stage {cell}: torch.nn.{type(lib).__name__} differs by {lib_diff:.3e}")
             l_ms = time_ms(call, l2)
             bnd, by = stage_bound_ms(stage.graph, consts, B, T)
-            codegen_time[cell] = (k_ms, p_ms, l_ms, bnd, by)
+            calls = launches_per_call(lambda: run(consts, x0, us))
+            require(calls == 2, f"codegen_stage {cell}: {calls} CUDA launches a call, not 2")
+            stage_cfg = kernel_backend.launch_config(run.source, B)
+            floor_ms = time_ms(lambda: kernel_backend.serial_floor(run.source, B, T), l2)
+            codegen_time[cell] = (k_ms, p_ms, l_ms, bnd, by, calls,
+                                  stage_cfg["weights_resident"], floor_ms)
             extra = {}
             if cell == "lstm":
                 extra = dict(lstm_seq_ms=f"{lstm_ms:.4f}",
@@ -582,8 +624,19 @@ def main() -> int:
             say("kernel_time", kernel=f"codegen_stage[{cell}]", B=B, T=T, D=D, H=H,
                 ms=f"{k_ms:.4f}", us_per_step=f"{1e3 * k_ms / T:.2f}", plain_ms=f"{p_ms:.4f}",
                 library_ms=f"{l_ms:.4f}", library=f"torch.nn.{type(lib).__name__}(cuDNN)",
-                library_max_abs_diff=f"{lib_diff:.3e}", bound_ms=f"{bnd:.4f}", bound_by=by,
+                library_max_abs_diff=f"{lib_diff:.3e}", over_library=f"{k_ms / l_ms:.3f}",
+                launches_per_call=calls, weights_resident=stage_cfg["weights_resident"],
+                grid=stage_cfg["grid"], barriers_per_step=stage_cfg["barriers_per_step"],
+                serial_floor_ms=f"{floor_ms:.4f}", bound_ms=f"{bnd:.4f}", bound_by=by,
                 **extra, reps=REPS, card=repr(card))
+            # the chunked path's shape: one 64-token chunk of a prefill
+            us64 = us[:, :CHUNK].contiguous()
+            k_ms64 = time_ms(lambda: run(consts, x0, us64), l2)
+            l_ms64 = time_ms(lambda: lib(us64, *call_state), l2)
+            say("kernel_time", kernel=f"codegen_stage[{cell}]", B=B, T=CHUNK, D=D, H=H,
+                ms=f"{k_ms64:.4f}", us_per_step=f"{1e3 * k_ms64 / CHUNK:.2f}",
+                library_ms=f"{l_ms64:.4f}", over_library=f"{k_ms64 / l_ms64:.3f}",
+                reps=REPS, card=repr(card))
             del lib
     phase_done("codegen_time")
 
@@ -603,6 +656,7 @@ def main() -> int:
     big = torch.randn(1 << 26, generator=gen, device=dev) * 3
     table = make_lut(12, device=dev)
     lut_ms = time_ms(lambda: lut_ops.tanh_lut(big, table), l2)
+    lut_calls = launches_per_call(lambda: lut_ops.tanh_lut(big, table))
     lut_plain_ms = time_ms(lambda: tanh_lut_ref(big, table), l2)
     # about 10 fp32 operations and 8 bytes (read x, write y) per element
     lut_bound, lut_bound_by = bound_ms(10.0 * big.numel() / PEAK_FP32_FLOPS,
@@ -790,6 +844,7 @@ def main() -> int:
         say("kernel_vs_plain", kernel="ssm_scan", case="resume_at_100_bit_identical", ok=True)
         # timing at the main path's shape: one layer of a 256-token prefill
         scan_ms = time_ms(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm), l2)
+        scan_calls = launches_per_call(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm))
         scan_plain_ms = time_ms(lambda: scan_ops.ssm_scan_ref(x, dl, A, Bm, Cm), l2, reps=5)
     scan_bound, scan_bound_by = scan_bound_ms(1, 256, DI, NS)
     say("kernel_time", kernel="ssm_scan", B=1, T=256, D=DI, N=NS, ms=f"{scan_ms:.4f}",
@@ -820,6 +875,7 @@ def main() -> int:
         M, K, N = 256, 4096, 8192
         args = int8_inputs(M, K, N)
         i8_ms = time_ms(lambda: i8_ops.int8_matmul(*args), l2)
+        i8_calls = launches_per_call(lambda: i8_ops.int8_matmul(*args))
         i8_plain_ms = time_ms(lambda: i8_ops.int8_matmul_ref(*args), l2)
         a, b, a_s, b_s = args
         i8_lib = lambda: torch._int_mm(a, b).to(torch.float32) * a_s * b_s   # yardstick only
@@ -881,6 +937,8 @@ def main() -> int:
             q, k, v = attn_inputs(c)
             w = c["window"]
             k_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, window=w), l2)
+            if name == "a_smollm_S256":
+                fa_calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v, window=w))
             p_ms = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v, window=w), l2)
             # the library call, a yardstick only: SDPA on the same fp32 tensors
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1079,6 +1137,11 @@ def main() -> int:
         "bound_ms": lstm_bound,
         "bound_by": lstm_bound_by,
         "library_ms": lstm_lib_ms,
+        "launches_per_call": lstm_calls,
+        "weights_resident": lstm_cfg["weights_resident"],
+        "us_per_step": 1e3 * lstm_ms / 256,
+        "over_library": lstm_ms / lstm_lib_ms,
+        "serial_floor_ms": lstm_floor_ms,
     }] + [{
         "name": f"codegen_stage[{cell}]",
         "route": "cuda",
@@ -1091,6 +1154,11 @@ def main() -> int:
         "bound_ms": codegen_time[cell][3],
         "bound_by": codegen_time[cell][4],
         "library_ms": codegen_time[cell][2],
+        "launches_per_call": codegen_time[cell][5],
+        "weights_resident": codegen_time[cell][6],
+        "us_per_step": 1e3 * codegen_time[cell][0] / 256,
+        "over_library": codegen_time[cell][0] / codegen_time[cell][2],
+        "serial_floor_ms": codegen_time[cell][7],
     } for cell in ("lstm", "gru")] + [{
         "name": "tanh_lut",
         "route": "cuda",
@@ -1104,6 +1172,10 @@ def main() -> int:
         "bound_ms": lut_bound,
         "bound_by": lut_bound_by,
         "library_ms": None,
+        "launches_per_call": lut_calls,
+        "weights_resident": None,
+        "us_per_step": None,
+        "over_library": None,
     }, {
         "name": "ssm_scan",
         "route": "cuda",
@@ -1116,6 +1188,10 @@ def main() -> int:
         "bound_ms": scan_bound,
         "bound_by": scan_bound_by,
         "library_ms": None,
+        "launches_per_call": scan_calls,
+        "weights_resident": None,
+        "us_per_step": 1e3 * scan_ms / 256,
+        "over_library": None,
     }, {
         "name": "int8_matmul",
         "route": "cuda",
@@ -1129,6 +1205,10 @@ def main() -> int:
         "bound_ms": i8_bound,
         "bound_by": i8_bound_by,
         "library_ms": i8_lib_ms,
+        "launches_per_call": i8_calls,
+        "weights_resident": None,
+        "us_per_step": None,
+        "over_library": i8_ms / i8_lib_ms,
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1143,6 +1223,10 @@ def main() -> int:
         "bound_ms": attn_time["a_smollm_S256"][3],
         "bound_by": attn_time["a_smollm_S256"][4],
         "library_ms": attn_time["a_smollm_S256"][2],
+        "launches_per_call": fa_calls,
+        "weights_resident": None,
+        "us_per_step": None,
+        "over_library": attn_time["a_smollm_S256"][0] / attn_time["a_smollm_S256"][2],
     }]}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

@@ -6,8 +6,10 @@ backend).
 C++ (``cuda_emit.py``) once; the returned ``run(consts, x0, us)`` launches
 that kernel for CUDA tensors (built by ``nvcc`` at its first call, into
 ``build/``) and runs the plan's interpreter, the kernel's plain version, for
-CPU tensors.  There is no fallback between the two: a failed build or
-launch raises.  :func:`codegen_stage` is the kernel's wrapper, and
+CPU tensors.  A call that reaches the card is one GEMM launch per hoisted or
+split macc, then one persistent launch: two for each registered cell, one
+for an autonomous stage (the MLP).  There is no fallback between the two:
+a failed build or launch raises.  :func:`codegen_stage` is the kernel's wrapper, and
 ``codegen_stage.launches`` counts its launches (one per stage call that
 reached the card).
 
@@ -21,8 +23,8 @@ Semantics kept from the TPU kernel:
   shared ROMs dequantise as they are read (``x @ (w_q · scale)``).  Consts
   packed by :func:`prequantize_consts` are recognised by their ``.scale``
   companion; float consts are quantized at each call.
-* Any B and T: the kernel loops to T exactly and masks the B edge, so no
-  padded step ever advances a register.
+* Any B and T: the kernel loops to T exactly and takes B in row tiles, so
+  no padded step ever advances a register.
 * C-slow folds the stream axis into the batch (``compile_program``).
 
 ``chunk``, ``block_b`` and ``double_buffer`` are the TPU kernel's tiling and
@@ -83,6 +85,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.run_stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_void_p]
         lib.run_stage.restype = ctypes.c_int
+        lib.stage_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.stage_config.restype = ctypes.c_int
+        lib.stage_serial_floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_void_p]
+        lib.stage_serial_floor.restype = ctypes.c_int
         lib.stage_error_string.argtypes = [ctypes.c_int]
         lib.stage_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -142,6 +149,10 @@ def codegen_stage(plan: lower.Plan, source: str, consts: dict, x0: dict,
             t = outs[name] = torch.empty((B, plan.graph.states[name]), **f32)
         elif role == "scratch":
             t = torch.empty((2, B, plan.graph.states[name]), **f32)
+        elif role == "pre":
+            t = torch.empty((B, T, plan.node(name).width), **f32)
+        elif role == "barrier":
+            t = torch.empty((_build.GRID_BARRIER_WORDS,), dtype=torch.int32, device=dev)
         else:  # macc buffer
             t = torch.empty((B, plan.node(name).width), **f32)
         keep.append(t)
@@ -153,11 +164,38 @@ def codegen_stage(plan: lower.Plan, source: str, consts: dict, x0: dict,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.run_stage(bufs, B, T, n_lut, stream)
-    if rc != 0:
-        raise RuntimeError(f"codegen_stage kernel launch failed: cudaError {rc} "
-                           f"({lib.stage_error_string(rc).decode()})")
+    _raise_on(lib, rc)
     codegen_stage.launches += 1
     return outs, ys
+
+
+def _raise_on(lib: ctypes.CDLL, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"codegen_stage kernel launch failed: code {rc} "
+                           f"({lib.stage_error_string(rc).decode()})")
+
+
+def launch_config(source: str, B: int) -> dict:
+    """The persistent kernel's launch configuration on the current card for
+    batch ``B``: ``grid`` blocks, ``weights_resident`` (the step's shared ROM
+    slices held in shared memory), ``smem_bytes`` of dynamic shared memory,
+    ``barriers_per_step``."""
+    lib = _bind(_build.load(LIBRARY, source))
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib, lib.stage_config(B, out))
+    return {"grid": out[0], "weights_resident": bool(out[1]), "smem_bytes": out[2],
+            "barriers_per_step": out[3]}
+
+
+def serial_floor(source: str, B: int, T: int) -> None:
+    """Launch the serial floor of one call on the current stream: the
+    persistent kernel's grid for batch ``B`` running the grid barriers of
+    ``T`` steps and no work (for timing; not counted as a launch)."""
+    lib = _bind(_build.load(LIBRARY, source))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bar = torch.empty((_build.GRID_BARRIER_WORDS,), dtype=torch.int32, device=dev)
+    _raise_on(lib, lib.stage_serial_floor(B, T, bar.data_ptr(),
+                                          torch.cuda.current_stream(dev).cuda_stream))
 
 
 codegen_stage.launches = 0
@@ -267,5 +305,7 @@ __all__ = [
     "codegen_stage",
     "compile_program",
     "compile_stage",
+    "launch_config",
     "prequantize_consts",
+    "serial_floor",
 ]

@@ -28,7 +28,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{CSRC}")
 
+# int32 words of GridBarrier (csrc/grid_barrier.cuh), allocated by the wrappers
+GRID_BARRIER_WORDS = 4
+
 _loaded: dict[Path, ctypes.CDLL] = {}
+_by_text: dict[tuple[str, str], ctypes.CDLL] = {}   # emitted sources, by name and text
 _lock = threading.Lock()
 
 
@@ -80,13 +84,21 @@ def build_many(items: list[tuple[str, str | Path]], workers: int | None = None) 
 
 
 def load(name: str, source: str | Path) -> ctypes.CDLL:
-    """Build (if needed) and load a library once per process."""
+    """Build (if needed) and load a library once per process.  An emitted
+    source is looked up by its text first, so a call on the hot path (the
+    generated stage kernels) neither hashes nor touches the file system."""
+    key = (name, source) if isinstance(source, str) else None
+    lib = _by_text.get(key) if key else None
+    if lib is not None:
+        return lib
     path = build(name, source)
     with _lock:
         lib = _loaded.get(path)
         if lib is None:
             lib = _loaded[path] = ctypes.CDLL(str(path))
+        if key:
+            _by_text[key] = lib
     return lib
 
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_many", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "GRID_BARRIER_WORDS", "NVCC_FLAGS", "build", "build_many", "load"]

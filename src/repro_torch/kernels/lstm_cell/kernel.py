@@ -8,7 +8,10 @@ module is imported.
 
 :func:`lstm_seq` takes CUDA tensors only and raises on anything else: the
 plain PyTorch version for CPU tensors lives in ``ref.py`` and is chosen by
-``ops.lstm_seq``.
+``ops.lstm_seq``.  A call is two CUDA launches (the input GEMM and the
+persistent recurrence) and waits for the stream at its end, to read the
+grid barrier's error word; :func:`config` reports the persistent kernel's
+grid and whether ``w_h`` is resident in shared memory.
 """
 
 from __future__ import annotations
@@ -39,6 +42,12 @@ def load() -> ctypes.CDLL:
         lib = _build.load("lstm_seq", SOURCE)
         lib.lstm_seq_f32.argtypes = [_P] * 7 + [_I] + [_P] * 6 + [_I] * 4 + [_P]
         lib.lstm_seq_f32.restype = _I
+        lib.lstm_seq_config.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.lstm_seq_config.restype = _I
+        lib.lstm_seq_serial_floor.argtypes = [_I, _I, _I, _I, _P, _P]
+        lib.lstm_seq_serial_floor.restype = _I
+        lib.lstm_seq_barrier_probe.argtypes = [_I, _I, _I, _P, _P]
+        lib.lstm_seq_barrier_probe.restype = _I
         lib.lstm_seq_error_string.argtypes = [_I]
         lib.lstm_seq_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -80,7 +89,7 @@ def lstm_seq(x: torch.Tensor, w_x: torch.Tensor, w_h: torch.Tensor, b: torch.Ten
     y = torch.empty((B, T, H), **f32)
     h_out = torch.empty((B, H), **f32)
     c_out = torch.empty((B, H), **f32)
-    zx = torch.empty((B, T, 4 * H), **f32)
+    zx = torch.empty((B * T * 4 * H + _build.GRID_BARRIER_WORDS,), **f32)   # + the grid barrier's words
     h_buf = torch.empty((2, B, H), **f32)
     c_buf = torch.empty((2, B, H), **f32)
     with torch.cuda.device(dev):
@@ -91,10 +100,45 @@ def lstm_seq(x: torch.Tensor, w_x: torch.Tensor, w_h: torch.Tensor, b: torch.Ten
             y.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
             zx.data_ptr(), h_buf.data_ptr(), c_buf.data_ptr(),
             B, T, D, H, stream)
-    if rc != 0:
-        msg = lib.lstm_seq_error_string(rc).decode()
-        raise RuntimeError(f"lstm_seq kernel launch failed: cudaError {rc} ({msg})")
+    _raise_on(lib, rc)
     return y, h_out, c_out
 
 
-__all__ = ["SOURCE", "build", "load", "lstm_seq"]
+def _raise_on(lib: ctypes.CDLL, rc: int) -> None:
+    if rc != 0:
+        msg = lib.lstm_seq_error_string(rc).decode()
+        raise RuntimeError(f"lstm_seq kernel launch failed: code {rc} ({msg})")
+
+
+def config(B: int, H: int, n_lut: int = 0) -> dict:
+    """The persistent kernel's launch configuration on the current card at
+    these sizes: ``grid`` blocks, ``weights_resident`` (w_h slices held in
+    shared memory), ``smem_bytes`` of dynamic shared memory."""
+    lib = load()
+    out = (_I * 3)()
+    _raise_on(lib, lib.lstm_seq_config(B, H, n_lut, out))
+    return {"grid": out[0], "weights_resident": bool(out[1]), "smem_bytes": out[2]}
+
+
+def _barrier_call(fn, *args) -> None:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bar = torch.empty((_build.GRID_BARRIER_WORDS,), dtype=torch.int32, device=dev)
+    _raise_on(load(), fn(*args, bar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+
+
+def serial_floor(B: int, T: int, H: int, n_lut: int = 0) -> None:
+    """Launch the serial floor of one call on the current stream: the
+    persistent kernel's grid at these sizes running its T - 1 grid barriers
+    and no work (for timing; not counted as a launch of the kernel)."""
+    _barrier_call(load().lstm_seq_serial_floor, B, T, H, n_lut)
+
+
+def barrier_probe(grid: int, n: int, missing: int = -1) -> None:
+    """``n`` grid barriers over ``grid`` cooperative blocks, block
+    ``missing`` never arriving (-1: none).  Raises as a launch of the kernel
+    does: on a grid too large to be co-resident, and on a barrier past its
+    1 s deadline."""
+    _barrier_call(load().lstm_seq_barrier_probe, grid, n, missing)
+
+
+__all__ = ["SOURCE", "barrier_probe", "build", "config", "load", "lstm_seq", "serial_floor"]

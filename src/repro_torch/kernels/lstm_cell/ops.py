@@ -4,9 +4,10 @@
 The tensor's device picks the path: a CUDA tensor launches the hand-written
 Hopper kernel (``kernel.py``), a CPU tensor takes the plain PyTorch version
 (``ref.py``).  There is no fallback between the two: a failed build or launch
-raises.  ``lstm_seq.launches`` counts the kernel launches made through this
-wrapper (one per call that reached the card), so a run can show that its
-main path went through the kernel.
+raises.  ``lstm_seq.launches`` counts the calls that reached the kernel through
+this wrapper (one per call, which is two CUDA launches: the input GEMM and
+the persistent recurrence), so a run can show that its main path went
+through the kernel.
 """
 
 from __future__ import annotations

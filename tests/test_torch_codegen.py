@@ -183,8 +183,11 @@ KERNEL_CASES = {
 }
 
 
+@pytest.mark.parametrize("hoist", [True, False], ids=["split", "unsplit"])
 @pytest.mark.parametrize("name", sorted(KERNEL_CASES))
-def test_kernel_plan_matches_pallas_interpret(name):
+def test_kernel_plan_matches_pallas_interpret(name, hoist):
+    """The plan's interpreter in both modes (the kernel's split of each
+    macc, and one sum over the whole row) against the Pallas kernel."""
     cell, qbits, lbits, B, T = KERNEL_CASES[name]
     jspec = _spec(cell, **({} if T is None else {"seq_len": T}), num_hidden_layers=
                   4 if cell == "mlp" else 1)
@@ -201,8 +204,14 @@ def test_kernel_plan_matches_pallas_interpret(name):
     pc = kernel_backend.prequantize_consts(pst.graph, pst.params, qbits)
     fin_j, ys_j = j_run(jc, {k: jnp.asarray(v) for k, v in x0.items()},
                         None if us is None else jnp.asarray(us))
-    fin_p, ys_p = p_run(pc, {k: torch.as_tensor(v) for k, v in x0.items()},
-                        None if us is None else torch.as_tensor(us))
+    x0_p = {k: torch.as_tensor(v) for k, v in x0.items()}
+    us_p = None if us is None else torch.as_tensor(us)
+    if hoist:   # the stage runner's CPU path: the interpreter's default, split mode
+        fin_p, ys_p = p_run(pc, x0_p, us_p)
+    else:
+        fin_p, ys_p = lower.interpret(p_run.plan, pc, x0_p, us_p,
+                                      T if T is not None else pst.schedule.steps, p_lut,
+                                      hoist=False)
     tol = 1e-5 if qbits is None and lbits is None else 2e-5
     for s in fin_j:
         _close(fin_p[s], fin_j[s], tol)
@@ -211,10 +220,10 @@ def test_kernel_plan_matches_pallas_interpret(name):
         _close(ys_p, ys_j, tol)
 
 
-def test_plan_lane_maps_on_a_macc_fed_through_gate_algebra():
-    """A graph the registered cells do not cover: a macc whose input row is
-    a concat of slices of another macc and of an input, and whose bias is a
-    lane function — the lowering's lane arithmetic against eval_graph."""
+def _algebra_graph():
+    """A graph the registered cells do not cover: z1 reads concat(u, h), z2
+    reads slices of z1 and of u through gate algebra, with a lane-function
+    bias."""
     g = GraphBuilder()
     u = g.input("u", 3)
     h = g.state("h", 4)
@@ -222,9 +231,15 @@ def test_plan_lane_maps_on_a_macc_fed_through_gate_algebra():
     mix = g.concat("mix", g.slice("s0", z1, 4, 6), g.af("a", g.slice("s1", z1, 0, 3), "gelu"),
                    g.slice("uu", u, 1, 3))
     z2 = g.macc("z2", mix, g.const("W2", (7, 4)), g.sub("bias", h, g.af("t", h, "silu")))
-    h_new = g.add("h_next", g.af("r", z2, "relu"), g.mul("hh", h, g.af("sg", h, "sigmoid")))
-    g.update("h", h_new)
-    graph = g.build(output=z1)
+    g.update("h", g.add("h_next", g.af("r", z2, "relu"), g.mul("hh", h, g.af("sg", h, "sigmoid"))))
+    return g.build(output=z1)
+
+
+def test_plan_lane_maps_on_a_macc_fed_through_gate_algebra():
+    """A graph the registered cells do not cover: a macc whose input row is
+    a concat of slices of another macc and of an input, and whose bias is a
+    lane function — the lowering's lane arithmetic against eval_graph."""
+    graph = _algebra_graph()
     r = np.random.default_rng(3)
     consts = {n.name: torch.as_tensor(r.normal(size=n.attr("shape")).astype(np.float32))
               for n in graph.consts()}
@@ -244,9 +259,109 @@ def test_plan_lane_maps_on_a_macc_fed_through_gate_algebra():
     torch.testing.assert_close(ys, torch.stack(want, 1), atol=1e-6, rtol=1e-6)
     src = cuda_emit.emit(plan)
     assert src == cuda_emit.emit(lower.lower(graph))     # deterministic text
-    assert src.count("__global__") == len(plan.maccs) + 1
+    # one hoisting GEMM per hoisted or split macc (z1), one persistent kernel
+    assert src.count("__global__") == sum(m.hoist is not None for m in plan.maccs) + 1
     assert "int run_stage(void** bufs, int B, int T, int n_lut, void* stream_ptr)" in src
     assert "cublas" not in src.lower() and "cudnn" not in src.lower()
+
+
+def _sum_graph():
+    """A macc over u + h: the input reaches it only through gate algebra."""
+    g = GraphBuilder()
+    u = g.input("u", 4)
+    h = g.state("h", 4)
+    z = g.macc("z", g.add("uh", u, h), g.const("W", (4, 4)), g.const("b", (1, 4)))
+    g.update("h", g.af("h_next", z, "tanh"))
+    return g.build(output=z)
+
+
+@pytest.mark.parametrize("name,want", [
+    # (macc, kind, hoisted rows of W, bias moved with them)
+    ("lstm", [("z", "split", (0, 5), True)]),
+    ("gru", [("zx", "hoisted", (0, 5), True), ("zh", "recurrent", None, False)]),
+    ("ssm", [("drive", "hoisted", (0, 5), True)]),
+    ("mlp", [("z", "recurrent", None, False)]),
+    ("algebra", [("z1", "split", (0, 3), True), ("z2", "recurrent", None, False)]),
+    ("u_plus_h", [("z", "recurrent", None, False)]),
+])
+def test_lowering_classifies_each_macc(name, want):
+    graphs = {"mlp": lambda: pcg.builders.mlp_graph(6, "tanh"), "algebra": _algebra_graph,
+              "u_plus_h": _sum_graph}
+    graph = graphs[name]() if name in graphs else pcg.CELL_GRAPHS[name](5, 4)
+    plan = lower.lower(graph)
+    assert [(m.name, m.kind, m.hoist, m.bias_hoisted) for m in plan.maccs] == want
+    for m in plan.maccs:
+        k0, k1 = m.step_rows
+        hoisted = 0 if m.hoist is None else m.hoist[1] - m.hoist[0]
+        assert k1 - k0 + hoisted == m.k
+    layout = cuda_emit.buffer_layout(plan)
+    assert [n for r, n in layout if r == "pre"] == [m.name for m in plan.maccs if m.hoist]
+    assert layout[-1] == ("barrier", "barrier")
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES) + ["algebra"])
+def test_split_interpreter_matches_unsplit(name):
+    """The kernel's split of each macc, ``(x_in @ W_in + b) + x_state @
+    W_state``, against one sum over the whole row, on every kernel case."""
+    if name == "algebra":
+        graph, qbits, lbits, B, T = _algebra_graph(), None, None, 3, 6
+        steps = T
+    else:
+        cell, qbits, lbits, B, T = KERNEL_CASES[name]
+        graph = pcg.builders.mlp_graph(6, "tanh") if cell == "mlp" \
+            else pcg.CELL_GRAPHS[cell](3, 5)
+        steps = 4 if T is None else T
+    r = np.random.default_rng(11)
+    consts = {}
+    for n in graph.consts():
+        shape = ((steps,) if n.attr("per_step") else ()) + tuple(n.attr("shape"))
+        consts[n.name] = torch.as_tensor(r.normal(size=shape).astype(np.float32))
+    qnames = tuple(graph.quantizable_weights()) if qbits else ()
+    stage = Stage("s", graph, Schedule(steps=steps), consts)
+    consts = kernel_backend.prequantize_consts(graph, consts, qbits)
+    plan = lower.lower(graph, lut=lbits is not None, int8_weights=qnames)
+    lut = None if lbits is None else make_lut(lbits)
+    x0 = {s: torch.as_tensor(r.normal(size=(B, w)).astype(np.float32))
+          for s, w in stage.graph.states.items()}
+    inp = graph.input_node()
+    us = None if inp is None else torch.as_tensor(
+        r.normal(size=(B, steps, inp.width)).astype(np.float32))
+    fin_s, ys_s = lower.interpret(plan, consts, x0, us, steps, lut, hoist=True)
+    fin_u, ys_u = lower.interpret(plan, consts, x0, us, steps, lut, hoist=False)
+    for k in fin_u:
+        torch.testing.assert_close(fin_s[k], fin_u[k], atol=1e-5, rtol=1e-5)
+    assert (ys_s is None) == (ys_u is None)
+    if ys_u is not None:
+        torch.testing.assert_close(ys_s, ys_u, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cell,D,H,B,sms,smem,resident,grid", [
+    ("lstm", 1024, 1024, 1, 132, 227 * 1024, True, 128),    # [1024, 4096] over 128 blocks
+    ("gru", 1024, 1024, 1, 132, 227 * 1024, True, 96),      # zh [1024, 3072] over 96
+    ("lstm", 1024, 1024, 64, 132, 227 * 1024, True, 132),   # B = 64: 8 row tiles, wider update
+    ("lstm", 1000, 400, 8, 132, 227 * 1024, True, 50),      # the 1400-wide case
+    ("lstm", 4096, 4096, 1, 132, 227 * 1024, False, 132),   # 512 tiles: 4 slices of 512 KiB
+    ("gru", 1024, 1024, 1, 132, 100 * 1024, False, 96),     # a card with less shared memory
+    ("lstm", 1024, 1024, 1, 64, 227 * 1024, False, 64),     # fewer SMs: 2 slices a block
+])
+def test_residency_arithmetic(cell, D, H, B, sms, smem, resident, grid):
+    plan = lower.lower(pcg.CELL_GRAPHS[cell](D, H))
+    got = cuda_emit.residency(plan, B, sm_count=sms, smem_limit=smem)
+    assert (got["weights_resident"], got["grid"]) == (resident, grid)
+    assert got["smem_bytes"] <= smem
+    if resident:
+        step = [m for m in plan.maccs if m.kind != "hoisted"][0]
+        per_block = -(-(-(-step.n // cuda_emit.MACC_COLS)) // grid)
+        assert got["smem_bytes"] >= per_block * H * cuda_emit.MACC_COLS * 4
+
+
+def test_residency_keeps_int8_codes_and_skips_per_step_pages():
+    g = pcg.CELL_GRAPHS["lstm"](1024, 2048)     # 2 slices a block: 512 KiB fp32, 128 KiB int8
+    fp32 = cuda_emit.residency(lower.lower(g), 1)
+    int8 = cuda_emit.residency(lower.lower(g, int8_weights=tuple(g.quantizable_weights())), 1)
+    assert not fp32["weights_resident"] and int8["weights_resident"]   # 1/4 of the bytes
+    mlp = cuda_emit.residency(lower.lower(pcg.builders.mlp_graph(1024, "tanh")), 64)
+    assert not mlp["weights_resident"]       # per-step pages are read at their step
 
 
 def test_lowering_rejects_what_the_kernel_cannot_run():

@@ -52,16 +52,21 @@ def _close(got, want, tol):
         torch.testing.assert_close(g, w, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("B,T,D,H,tol", [
-    (1, 16, 8, 8, 1e-5),
-    (3, 7, 12, 16, 1e-5),       # prime T, ragged hidden tile
-    (2, 1, 8, 8, 1e-5),         # T = 1
-    (11, 5, 20, 36, 1e-5),      # B over one batch tile, H not a multiple of 8
-    (8, 37, 1024, 1024, 1e-4),  # full width
+@pytest.mark.parametrize("B,T,D,H,tol,resident", [
+    (1, 16, 8, 8, 1e-5, True),
+    (3, 7, 12, 16, 1e-5, True),       # prime T, ragged hidden tile
+    (2, 1, 8, 8, 1e-5, True),         # T = 1
+    (11, 5, 20, 36, 1e-5, True),      # B over one row tile, H not a multiple of 8
+    (8, 37, 1024, 1024, 1e-4, True),  # full width: 128 blocks of 128 KiB slices
+    (1, 256, 1024, 1024, 1e-4, True),  # the prefill shape
+    (64, 9, 1024, 1024, 1e-4, True),   # 8 row tiles in every block
+    (2, 5, 64, 2048, 1e-4, False),    # 256 unit tiles: w_h read from global memory
+    (1, 1, 1024, 1024, 1e-4, True),   # T = 1 at full width: no barrier at all
 ])
-def test_lstm_seq_kernel_matches_plain(cuda, B, T, D, H, tol):
-    from repro_torch.kernels.lstm_cell import ops
+def test_lstm_seq_kernel_matches_plain(cuda, B, T, D, H, tol, resident):
+    from repro_torch.kernels.lstm_cell import kernel, ops
 
+    assert kernel.config(B, H)["weights_resident"] is resident
     args = _case(cuda, B, T, D, H)
     _close(ops.lstm_seq(*args), ops.lstm_seq_ref(*args), tol)
 
@@ -91,6 +96,71 @@ def test_lstm_seq_kernel_resume_and_launch_count(cuda):
     y_b, h_b, c_b = ops.lstm_seq(x[:, 16:], w_x, w_h, b, h_a, c_a)
     assert ops.lstm_seq.launches == 3
     _close((torch.cat([y_a, y_b], 1), h_b, c_b), (y, h, c), 1e-5)
+
+
+@pytest.mark.parametrize("B,T,D,H,chunk", [(2, 32, 8, 8, 16), (1, 256, 1024, 1024, 64),
+                                           (3, 70, 1024, 1024, 64), (2, 9, 64, 2048, 4)])
+def test_lstm_seq_kernel_chunked_resume_matches_one_shot(cuda, B, T, D, H, chunk):
+    """A prefill in chunks, each resumed from the last chunk's (h, c), gives
+    the one-shot result (the chunked serving path)."""
+    from repro_torch.kernels.lstm_cell import ops
+
+    x, w_x, w_h, b, h0, c0 = _case(cuda, B, T, D, H, seed=9)
+    y, h, c = ops.lstm_seq(x, w_x, w_h, b, h0, c0)
+    ys, hc, cc = [], h0, c0
+    for t0 in range(0, T, chunk):
+        y_k, hc, cc = ops.lstm_seq(x[:, t0:t0 + chunk], w_x, w_h, b, hc, cc)
+        ys.append(y_k)
+    _close((torch.cat(ys, 1), hc, cc), (y, h, c), 1e-5)
+
+
+def _kernel_launches(fn) -> list[str]:
+    """The CUDA kernel launches that ``fn`` makes, as torch.profiler's CUDA
+    activity records them: the runtime's launch calls (``cudaLaunchKernel``,
+    ``cudaLaunchCooperativeKernel``), each with the name of the kernel it
+    started where the trace links the two (memsets and copies are not
+    launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = {e.id: e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
+    launches = []
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cudaLaunch"):
+            names = [k.name for k in getattr(e, "kernels", [])] or [kernels.get(e.id, e.name)]
+            launches.append(names[0])
+    return launches
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 256, 1024), (11, 7, 36), (2, 5, 2048)])
+def test_lstm_seq_kernel_is_two_launches(cuda, B, T, H):
+    from repro_torch.kernels.lstm_cell import ops
+
+    args = _case(cuda, B, T, 64, H)
+    ops.lstm_seq(*args)          # built and loaded outside the window
+    names = _kernel_launches(lambda: ops.lstm_seq(*args))
+    assert len(names) == 2, names
+
+
+def test_grid_barrier_refuses_a_grid_too_large_and_raises_past_its_deadline(cuda):
+    """A cooperative grid that cannot be co-resident is refused (never hangs),
+    and a barrier one block never reaches raises after its 1 s deadline;
+    the card stays usable after both."""
+    from repro_torch.kernels.lstm_cell import kernel
+
+    kernel.barrier_probe(8, 50)                     # a working barrier
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel.barrier_probe(sms * 64, 1)           # 64 blocks of 256 threads an SM
+    with pytest.raises(RuntimeError, match="deadline"):
+        kernel.barrier_probe(8, 3, missing=5)
+    kernel.barrier_probe(8, 50)
+    x = torch.ones(4, device=cuda)
+    assert float((x * 2).sum()) == 8.0
 
 
 def test_lstm_seq_kernel_rejects_wrong_dtype(cuda):
@@ -138,19 +208,26 @@ def _stage_case(dev, cell, D, H, B, T, seed=0):
     return Stage(cell, graph, Schedule(steps=steps), consts), consts, x0, us
 
 
-@pytest.mark.parametrize("cell,D,H,B,T,quant,lut_bits,tol", [
-    ("lstm", 8, 8, 1, 16, None, None, 1e-5),
-    ("lstm", 12, 20, 11, 7, None, None, 1e-5),     # B over one row tile, prime T
-    ("gru", 9, 5, 3, 1, None, None, 1e-5),         # T = 1
-    ("ssm", 16, 33, 9, 5, None, None, 1e-5),
-    ("mlp", 0, 32, 64, 31, None, None, 1e-5),      # per-step ROM pages (FIG10_B width)
-    ("lstm", 8, 12, 2, 9, None, 8, 1e-5),          # LUT gates
-    ("gru", 8, 12, 2, 9, 8, None, 1e-5),           # int8 shared ROMs
-    ("mlp", 0, 16, 5, 6, 8, None, 1e-5),           # int8 per-step pages
-    ("lstm", 1024, 1024, 8, 37, None, None, 1e-4),  # full width
-    ("lstm", 1000, 400, 8, 3, None, None, 1e-4),    # 8 rows x 1400: over 48 KB of smem
+@pytest.mark.parametrize("cell,D,H,B,T,quant,lut_bits,tol,resident", [
+    ("lstm", 8, 8, 1, 16, None, None, 1e-5, True),
+    ("lstm", 12, 20, 11, 7, None, None, 1e-5, True),     # B over one row tile, prime T
+    ("gru", 9, 5, 3, 1, None, None, 1e-5, True),         # T = 1
+    ("ssm", 16, 33, 9, 5, None, None, 1e-5, False),      # all hoisted: nothing in the step
+    ("mlp", 0, 32, 64, 31, None, None, 1e-5, False),     # per-step ROM pages (FIG10_B width)
+    ("lstm", 8, 12, 2, 9, None, 8, 1e-5, True),          # LUT gates
+    ("gru", 8, 12, 2, 9, 8, None, 1e-5, True),           # int8 shared ROMs, resident as codes
+    ("mlp", 0, 16, 5, 6, 8, None, 1e-5, False),          # int8 per-step pages
+    ("lstm", 1024, 1024, 8, 37, None, None, 1e-4, True),  # full width
+    ("lstm", 1024, 1024, 1, 256, None, None, 1e-4, True),  # the prefill shape
+    ("gru", 1024, 1024, 1, 256, None, None, 1e-4, True),
+    ("lstm", 1000, 400, 8, 3, None, None, 1e-4, True),    # the 1400-wide case
+    ("lstm", 64, 2048, 2, 5, None, None, 1e-4, False),    # 2 slices a block: read from global
+    ("gru", 64, 2048, 2, 5, 8, None, 1e-4, True),         # the same as int8 codes: resident
+    ("lstm", 1024, 1024, 64, 5, None, None, 1e-4, True),  # B = 64: 8 row tiles a block
+    ("lstm", 1024, 1024, 3, 1, None, None, 1e-4, True),   # T = 1 at full width
 ])
-def test_codegen_stage_kernel_matches_plain(cuda, cell, D, H, B, T, quant, lut_bits, tol):
+def test_codegen_stage_kernel_matches_plain(cuda, cell, D, H, B, T, quant, lut_bits, tol,
+                                            resident):
     from repro_torch.codegen import eager_backend, kernel_backend, lower
     from repro_torch.kernels.tanh_lut.ref import make_lut
 
@@ -162,12 +239,48 @@ def test_codegen_stage_kernel_matches_plain(cuda, cell, D, H, B, T, quant, lut_b
     fin, ys = run(packed, x0, us)
     assert kernel_backend.codegen_stage.launches == launches + 1
     torch.cuda.synchronize()
-    fin_p, ys_p = lower.interpret(run.plan, packed, x0, us, T, lut)
-    _close(list(fin.values()) + ([] if ys is None else [ys]),
-           [fin_p[k] for k in fin] + ([] if ys_p is None else [ys_p]), tol)
+    assert kernel_backend.launch_config(run.source, B)["weights_resident"] is resident
+    for hoist in (True, False):      # the kernel's split, and one sum over the row
+        fin_p, ys_p = lower.interpret(run.plan, packed, x0, us, T, lut, hoist=hoist)
+        _close(list(fin.values()) + ([] if ys is None else [ys]),
+               [fin_p[k] for k in fin] + ([] if ys_p is None else [ys_p]), tol)
     if quant is None and lut is None and cell != "mlp":   # the independent oracle
         fin_e, ys_e = eager_backend.compile_stage(stage)(consts, x0, us)
         _close([fin[k] for k in fin_e] + [ys], list(fin_e.values()) + [ys_e], tol)
+
+
+def test_codegen_cslow_batch_matches_plain(cuda):
+    """C-slow 4 over B = 16 of the Fig. 10 MLP: the kernel's batch of 64
+    carries every stream."""
+    from repro_torch.codegen import build_program, eager_backend, kernel_backend, lower
+    from repro_torch.configs.paper_mlp import FIG10_B
+    from repro_torch.core.cslow import fold_streams, unfold_streams
+
+    spec = dataclasses.replace(FIG10_B, c_slow=4)
+    prog = build_program(spec, cuda)
+    u = torch.as_tensor(np.random.default_rng(2).normal(size=(4, 16, spec.num_inputs)),
+                        dtype=torch.float32, device=cuda)
+    y_k = kernel_backend.compile_program(prog)(prog.params, u)
+    st = prog.stages[0]
+    x0 = {"x": fold_streams(u) @ prog.beta.T}
+    for hoist in (True, False):
+        fin_p, _ = lower.interpret(kernel_backend.compile_stage(st).plan, st.params, x0, None,
+                                   st.schedule.steps, hoist=hoist)
+        _close([y_k], [unfold_streams(fin_p["x"] @ prog.C.T, 4)], 1e-5)
+    _close([y_k], [eager_backend.compile_program(prog)(prog.params, u)], 1e-5)
+
+
+@pytest.mark.parametrize("cell,want", [("lstm", 2), ("gru", 2), ("ssm", 2), ("mlp", 1)])
+def test_codegen_stage_kernel_launches_per_call(cuda, cell, want):
+    """One GEMM per hoisted or split macc and one persistent launch: two for
+    a stage with an input, one for an autonomous stage."""
+    from repro_torch.codegen import kernel_backend
+
+    stage, consts, x0, us = _stage_case(cuda, cell, 64, 96, 2, 12)
+    run = kernel_backend.compile_stage(stage)
+    run(consts, x0, us)
+    names = _kernel_launches(lambda: run(consts, x0, us))
+    assert len(names) == want, names
 
 
 def test_codegen_use_codegen_prefill_matches_plain_path(cuda):
