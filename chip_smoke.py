@@ -15,18 +15,22 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    its bound, with its CUDA launches per call (which must be 2: the input
    GEMM and the persistent recurrence), whether ``w_h`` was resident in
    shared memory, its serial floor (the persistent grid running only its
-   barriers) and its time at the chunked path's T = 64;
+   barriers), the fixed cost of a call (that grid's launch at T = 1 with
+   the host's wait for the barrier word) and its time at the chunked
+   path's T = 64;
 3. serve — full-width ``paper-lstm`` (random weights from a seed) with
    ``use_pallas=True`` through ``DecodeServer``: 16 greedy requests under
    ``step()``, ``step_block()`` and chunked prefill; identical tokens across
    the three, ``lstm_seq`` launched once per layer of every prefill call,
-   and prefill logits held against the plain path;
+   each launch one host round-trip (``kernel_syncs``), and prefill logits
+   held against the plain path;
 4. ``codegen_stage`` — the generated stage kernel against the plan's
    interpreter (its plain version) and, for fp32, the eager backend, on
-   twelve cases (cells at D = H = 1024, the Fig. 10 MLPs, LUT, int8,
-   C-slow); its time at the prefill shape for lstm and gru beside the plain
-   version, ``torch.nn.LSTM``/``GRU`` and ``lstm_seq``, with the same
-   launch count (2), residency, serial floor and T = 64 figures as phase 2;
+   thirteen cases (cells at D = H = 1024, the Fig. 10 MLPs, LUT, int8,
+   C-slow, two step maccs in a chain over several column tiles); its time
+   at the prefill shape for lstm and gru beside the plain version,
+   ``torch.nn.LSTM``/``GRU`` and ``lstm_seq``, with the same launch count
+   (2), residency, serial floor, fixed cost and T = 64 figures as phase 2;
 5. ``tanh_lut`` against its plain version, its time, and one drive of its
    entry point on a full-width prefill's gate pre-activations (no path of
    the port calls it, so its ``launches`` in the summary are 0);
@@ -36,7 +40,9 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    prefill through the generated kernel, once;
 7. synth — ``synthesize(..., backend="kernel", fallback=False)`` on the
    paper's specs and full-width recurrent specs, each forward held against
-   the eager backend (int8 against its plain version);
+   the eager backend (int8 against its plain version), beside the spread of
+   two plain evaluations (the eager backend on the host's CPU against
+   itself on the card);
 8. profile — the ``use_pallas`` ``step()`` run once more under
    ``torch.profiler``;
 9. ``ssm_scan`` against its plain version (a falcon-mamba prefill's shapes,
@@ -285,7 +291,7 @@ def main() -> int:
     from repro_torch import codegen
     from repro_torch.codegen import eager_backend, kernel_backend, lower
     from repro_torch.codegen.builders import mlp_graph
-    from repro_torch.codegen.ir import Schedule, Stage
+    from repro_torch.codegen.ir import GraphBuilder, Schedule, Stage
     from repro_torch.configs import get_config
     from repro_torch.configs.paper_lstm import gru_config
     from repro_torch.kernels.int8_matmul import kernel as i8_kernel
@@ -325,8 +331,25 @@ def main() -> int:
         graph = mlp_graph(width, "tanh") if cell == "mlp" else codegen.CELL_GRAPHS[cell](d_in, width)
         return Stage(cell, graph, Schedule(steps=T), {})
 
+    def chained_graph(d_in: int, width: int, n1: int):
+        """Two step maccs in a chain: z2's row reads both ends of z1 (columns
+        of several 32-column tiles) and a slice of the input; the update
+        ends in tanh, so the chain stays bounded over T."""
+        g = GraphBuilder()
+        u = g.input("u", d_in)
+        h = g.state("h", width)
+        z1 = g.macc("z1", g.concat("cat", u, h), g.const("W1", (d_in + width, n1)),
+                    g.const("b1", (1, n1)))
+        mix = g.concat("mix", g.slice("s0", z1, n1 - 40, n1),
+                       g.af("a", g.slice("s1", z1, 0, 33), "gelu"), g.slice("uu", u, 1, 3))
+        z2 = g.macc("z2", mix, g.const("W2", (75, width)), g.sub("bias", h, g.af("t", h, "silu")))
+        g.update("h", g.af("h_next", g.add("hz", g.af("r", z2, "relu"),
+                                           g.mul("hh", h, g.af("sg", h, "sigmoid"))), "tanh"))
+        return g.build(output=z1)
+
     lut6 = make_lut(6, device=dev)
     variants = [(stage_of(c, 1), None, None) for c in ("lstm", "gru", "ssm", "mlp")]
+    variants += [(Stage("chained", chained_graph(24, 200, 256), Schedule(steps=1), {}), None, None)]
     variants += [(stage_of("lstm", 1), lut6, None), (stage_of("lstm", 1), None, 8),
                  (stage_of("lstm", 1), lut6, 8), (stage_of("mlp", 1), None, 8),
                  (stage_of("mlp", 1, width=32), None, None),
@@ -389,6 +412,7 @@ def main() -> int:
         lstm_lib_ms = time_ms(lambda: cudnn(x, (h0[None], c0[None])), l2)
         lstm_calls = launches_per_call(lambda: lstm_ops.lstm_seq(*args))
         lstm_floor_ms = time_ms(lambda: lstm_kernel.serial_floor(B, T, H), l2)
+        lstm_fixed_ms = time_ms(lambda: lstm_kernel.serial_floor(B, 1, H), l2)
         # the chunked path's shape: one 64-token chunk of a prefill
         args64 = [a[:, :CHUNK] if a.dim() == 3 else a for a in args]
         lstm_ms64 = time_ms(lambda: lstm_ops.lstm_seq(*args64), l2)
@@ -402,7 +426,8 @@ def main() -> int:
         library_max_abs_diff=f"{lib_err:.3e}", over_library=f"{lstm_ms / lstm_lib_ms:.3f}",
         launches_per_call=lstm_calls, weights_resident=lstm_cfg["weights_resident"],
         grid=lstm_cfg["grid"], serial_floor_ms=f"{lstm_floor_ms:.4f}",
-        bound_ms=f"{lstm_bound:.4f}", bound_by=lstm_bound_by, reps=REPS, card=repr(card))
+        fixed_ms=f"{lstm_fixed_ms:.4f}", bound_ms=f"{lstm_bound:.4f}", bound_by=lstm_bound_by,
+        reps=REPS, card=repr(card))
     say("kernel_time", kernel="lstm_seq", B=B, T=CHUNK, D=D, H=H, ms=f"{lstm_ms64:.4f}",
         us_per_step=f"{1e3 * lstm_ms64 / CHUNK:.2f}", library_ms=f"{lstm_lib_ms64:.4f}",
         over_library=f"{lstm_ms64 / lstm_lib_ms64:.3f}", reps=REPS, card=repr(card))
@@ -447,11 +472,18 @@ def main() -> int:
         require(launches == want,
                 f"{mcfg.name} {label}: {launches} kernel launches for {n_prefills} prefill "
                 f"calls of {mcfg.n_layers} layers")
+        # a persistent kernel (lstm_seq, codegen_stage) waits for its barrier
+        # word on the host once a call; the other kernels never do
+        kernel_syncs = srv.prefill_kernel_syncs
+        want_syncs = launches if counter in (lstm_ops.lstm_seq, kernel_backend.codegen_stage) else 0
+        require(kernel_syncs == want_syncs,
+                f"{mcfg.name} {label}: {kernel_syncs} host round-trips in prefill kernel "
+                f"calls, not {want_syncs}")
         say("serve", arch=mcfg.name, driver=label, requests=len(done), wall_ms=f"{wall_ms:.1f}",
             decode_tok_s=f"{st['decoded_tokens'] / (decode_ms / 1e3):.1f}",
             prefill_ms_per_prompt=f"{(wall_ms - decode_ms) / N_REQUESTS:.2f}",
             decode_syncs=st["decode_syncs"], decoded_tokens=st["decoded_tokens"],
-            syncs_per_token=f"{st['syncs_per_token']:.4f}",
+            syncs_per_token=f"{st['syncs_per_token']:.4f}", kernel_syncs=kernel_syncs,
             kernel_launches=launches, prefill_calls=n_prefills, card=repr(card))
         return {r.uid: r.out_tokens for r in done}, launches, wall_ms
 
@@ -484,26 +516,26 @@ def main() -> int:
     phase_done("serve_use_pallas")
 
     # -- 4a. codegen_stage vs plain -------------------------------------------
-    def rand_consts(graph, T: int, q: int | None):
+    def rand_consts(graph, T: int, q: int | None, rng=gen):
         consts = {}
         for n in graph.consts():
             shape = ((T,) if n.attr("per_step") else ()) + tuple(n.attr("shape"))
             scale = 1.0 / math.sqrt(shape[-2]) if shape[-2] > 1 else 0.2
-            consts[n.name] = torch.randn(shape, generator=gen, device=dev) * scale
+            consts[n.name] = torch.randn(shape, generator=rng, device=dev) * scale
         if "a" in consts:                      # a stable ssm decay in (0.5, 0.95)
-            consts["a"] = 0.5 + 0.45 * torch.rand(consts["a"].shape, generator=gen, device=dev)
+            consts["a"] = 0.5 + 0.45 * torch.rand(consts["a"].shape, generator=rng, device=dev)
         return kernel_backend.prequantize_consts(graph, consts, q)
 
     def run_case(label: str, stage: Stage, B: int, T: int, *, lut=None, q=None,
-                 zero_carry=False, consts=None, x0=None):
+                 zero_carry=False, consts=None, x0=None, rng=gen):
         graph = stage.graph
-        consts = rand_consts(graph, T, q) if consts is None else consts
+        consts = rand_consts(graph, T, q, rng) if consts is None else consts
         if x0 is None:
             x0 = {s: (torch.zeros if zero_carry else torch.randn)(
-                      (B, w), **({} if zero_carry else {"generator": gen}), device=dev)
+                      (B, w), **({} if zero_carry else {"generator": rng}), device=dev)
                   for s, w in graph.states.items()}
         inp = graph.input_node()
-        us = None if inp is None else torch.randn((B, T, inp.width), generator=gen, device=dev)
+        us = None if inp is None else torch.randn((B, T, inp.width), generator=rng, device=dev)
         run = kernel_backend.compile_stage(stage, lut=lut, quant_bits=q)
         fin, ys = run(consts, x0, us)
         torch.cuda.synchronize()
@@ -554,6 +586,12 @@ def main() -> int:
             "lstm_int8_q8_B4_T64", stage_of("lstm", 64), 4, 64, q=8))
         st, consts, x0 = mlp_case(wide, 64, q=8)
         run_case("mlp_int8_8x1024_B64", st, 64, 8, q=8, consts=consts, x0=x0)
+        # z2's row reads z1 of the same step across 8 column tiles of other
+        # blocks: the grid barrier between two step maccs.  Its own generator,
+        # so that the later phases draw the same data with or without it.
+        run_case("chained_z1_256_B11_T37", Stage("chained", chained_graph(24, 200, 256),
+                                                 Schedule(steps=37), {}), 11, 37,
+                 rng=torch.Generator(device=dev).manual_seed(15))
         # C-slow 4 on the Fig. 10 MLP: the kernel's batch carries all C·B streams
         cs_spec = dataclasses.replace(FIG10_B, c_slow=4)
         prog = codegen.build_program(cs_spec, dev)
@@ -613,10 +651,11 @@ def main() -> int:
             bnd, by = stage_bound_ms(stage.graph, consts, B, T)
             calls = launches_per_call(lambda: run(consts, x0, us))
             require(calls == 2, f"codegen_stage {cell}: {calls} CUDA launches a call, not 2")
-            stage_cfg = kernel_backend.launch_config(run.source, B)
-            floor_ms = time_ms(lambda: kernel_backend.serial_floor(run.source, B, T), l2)
+            stage_cfg = kernel_backend.launch_config(run.source)
+            floor_ms = time_ms(lambda: kernel_backend.serial_floor(run.source, T), l2)
+            fixed_ms = time_ms(lambda: kernel_backend.serial_floor(run.source, 1), l2)
             codegen_time[cell] = (k_ms, p_ms, l_ms, bnd, by, calls,
-                                  stage_cfg["weights_resident"], floor_ms)
+                                  stage_cfg["weights_resident"], floor_ms, fixed_ms)
             extra = {}
             if cell == "lstm":
                 extra = dict(lstm_seq_ms=f"{lstm_ms:.4f}",
@@ -627,7 +666,8 @@ def main() -> int:
                 library_max_abs_diff=f"{lib_diff:.3e}", over_library=f"{k_ms / l_ms:.3f}",
                 launches_per_call=calls, weights_resident=stage_cfg["weights_resident"],
                 grid=stage_cfg["grid"], barriers_per_step=stage_cfg["barriers_per_step"],
-                serial_floor_ms=f"{floor_ms:.4f}", bound_ms=f"{bnd:.4f}", bound_by=by,
+                serial_floor_ms=f"{floor_ms:.4f}", fixed_ms=f"{fixed_ms:.4f}",
+                bound_ms=f"{bnd:.4f}", bound_by=by,
                 **extra, reps=REPS, card=repr(card))
             # the chunked path's shape: one 64-token chunk of a prefill
             us64 = us[:, :CHUNK].contiguous()
@@ -750,9 +790,16 @@ def main() -> int:
                 shape = (spec.c_slow,) + shape
             u = torch.randn(shape, generator=gen, device=dev)
             y_k = fwd_k(p_k, u)
+            plain_spread = "n/a"
             if spec.quant_bits is None:
                 fwd_e, p_e = synthesis.build_forward(spec, "eager", device=dev)
                 want, against = fwd_e(p_e, u), "eager"
+                # how far two plain evaluations of the same spec lie apart: the
+                # eager backend on the host's CPU against itself on the card
+                host = lambda v: v.cpu() if torch.is_tensor(v) else v
+                p_cpu = {k: host(v) for k, v in p_e.items() if k != "stages"}
+                p_cpu["stages"] = [{k: host(v) for k, v in sp.items()} for sp in p_e["stages"]]
+                plain_spread = f"{float((fwd_e(p_cpu, u.cpu()).to(dev) - want).abs().max()):.3e}"
             else:   # int8 / LUT: the kernel backend's plain version, on CPU copies
                 p_cpu = {"stages": [{k: v.cpu() for k, v in sp.items()} for sp in p_k["stages"]],
                          "C": p_k["C"].cpu()}
@@ -762,6 +809,7 @@ def main() -> int:
                     f"synth {label}: y of shape {tuple(y_k.shape)}, report says {report.output_shape}")
             err = check_close(f"synth {label} vs {against}", [y_k], [want], SYNTH_TOL)
             say("synth", spec=label, against=against, max_abs_err=f"{err:.3e}",
+                eager_cpu_vs_eager=plain_spread,
                 max_abs_y=f"{float(want.abs().max()):.3e}", tol=SYNTH_TOL,
                 summary=repr(report.summary()))
     phase_done("synth")
@@ -1142,6 +1190,7 @@ def main() -> int:
         "us_per_step": 1e3 * lstm_ms / 256,
         "over_library": lstm_ms / lstm_lib_ms,
         "serial_floor_ms": lstm_floor_ms,
+        "fixed_ms": lstm_fixed_ms,
     }] + [{
         "name": f"codegen_stage[{cell}]",
         "route": "cuda",
@@ -1159,6 +1208,7 @@ def main() -> int:
         "us_per_step": 1e3 * codegen_time[cell][0] / 256,
         "over_library": codegen_time[cell][0] / codegen_time[cell][2],
         "serial_floor_ms": codegen_time[cell][7],
+        "fixed_ms": codegen_time[cell][8],
     } for cell in ("lstm", "gru")] + [{
         "name": "tanh_lut",
         "route": "cuda",

@@ -18,10 +18,12 @@ the card:
   (split or recurrent) over the block's column tiles of 32 columns × 8
   warps splitting the contraction, with the step's input rows staged in
   shared memory and the partial sums meeting in shared memory before the
-  pre-activation, the bias and the write to the macc's ``[B, n]`` buffer,
-  then a grid barrier (``kernels/csrc/grid_barrier.cuh``); then the update
-  phase (every register into its ping-pong buffer, and ``y[:, t]``), then
-  a grid barrier;
+  pre-activation, the bias and the write to the macc's ``[B, n]`` buffer;
+  then the update phase (every register into its ping-pong buffer, and
+  ``y[:, t]``).  A grid barrier (``kernels/csrc/grid_barrier.cuh``) stands
+  wherever a phase reads a macc buffer written since the last one
+  (:func:`barrier_plan`: before a macc that reads an earlier macc of the
+  step, before the update), and after the update;
 * ``run_stage``, a host function with one fixed C signature for every
   generated library, ``int run_stage(void** bufs, int B, int T, int n_lut,
   void* stream)``: the hoisting GEMMs, then the persistent kernel through
@@ -37,16 +39,20 @@ the card:
 What bounds it on this card.  Step t+1 needs all of step t's registers, so
 the T steps form a chain; at serving batch sizes each step's arithmetic
 (``2·B·Σ k·n`` FLOPs over the step's rows of W) is far too small to fill
-the card, and a step costs what the chain costs: one or two grid-wide
-exchanges, about a microsecond each, plus reading the step's rows of W.
+the card, and a step costs what the chain costs: its grid-wide exchanges
+(:func:`barrier_plan`), about a microsecond each, plus reading the step's
+rows of W.
 So the design keeps both small.  The rows of W that read only the input do
 not recur, and run as one GEMM before the loop (the input half of lstm's
 ``[D+H, 4H]`` ROM, all of gru's ``zx``).  The grid is one block per column
-tile of the widest step macc, never more than the card holds at once; when
-every block's column slices of the step's shared ROMs fit in its shared
-memory beside the staged rows (:func:`residency`), they are loaded there
-once, before step 0, and a step reads only the registers (from L2).  A
-stage whose slices do not fit reads them from global memory in the same
+tile of the widest step macc, never more than the card has SMs; when every
+block's column slices of the step's shared ROMs fit in its shared memory
+beside the staged rows, they are loaded there once, before step 0, and a
+step reads only the registers (from L2).  :func:`residency` makes that
+choice, once, for the card the source is emitted for, and the emitter
+writes it into the source as constants: the C++ only checks, at its first
+launch on a device, that the card holds the grid at that shared memory.
+A stage whose slices do not fit reads them from global memory in the same
 kernel; int8 shared ROMs stay resident as codes and are dequantised as
 read; per-step pages (the MLP) are read from global memory at their step.
 The contraction is plain FMA (no tensor cores, no TF32), so the fp32
@@ -110,8 +116,7 @@ def _padded(m) -> int:
 
 
 def _geometry(plan: Plan) -> dict:
-    """What the persistent kernel's launch configuration depends on, shared
-    by :func:`residency` and the emitted ``stage_config``."""
+    """What the persistent kernel's launch configuration depends on."""
     step = _step_maccs(plan)
     res = [m for m in step if not m.per_step]
     return dict(
@@ -124,30 +129,75 @@ def _geometry(plan: Plan) -> dict:
     )
 
 
-def residency(plan: Plan, B: int, sm_count: int = H100_SMS,
+def residency(plan: Plan, sm_count: int = H100_SMS,
               smem_limit: int = H100_SMEM_OPTIN) -> dict:
-    """The persistent kernel's first choice of grid and whether its weight
-    slices are resident, on a card of ``sm_count`` SMs with ``smem_limit``
-    bytes of shared memory a block (the arithmetic ``stage_config`` runs on
-    the card, which may then widen the grid when more blocks fit on an SM).
+    """The persistent kernel's grid, and whether its weight slices are
+    resident, on a card of ``sm_count`` SMs with ``smem_limit`` bytes of
+    shared memory a block: the one place this is decided (``emit`` writes
+    the result into the source).
 
     The grid is one block per column tile of the widest step macc (or per
-    256 lanes of the update, if more), at most one per SM; each block holds
-    ``ceil(tiles / grid)`` column slices of every shared ROM the step reads,
-    and the slices are resident when they fit beside the staged input rows
-    and the static partial-sum tile.  Returns ``grid``, ``weights_resident``
-    and ``smem_bytes`` (dynamic)."""
+    256 lanes of one row tile's update, if more), at most one per SM; each
+    block holds ``ceil(tiles / grid)`` column slices of every shared ROM the
+    step reads, and the slices are resident when they fit beside the staged
+    input rows (one row tile) and the static partial-sum tile.  Returns
+    ``grid``, ``weights_resident``, ``smem_bytes`` (dynamic) and
+    ``static_bytes`` (the ``part`` tile, and the barrier's flag, which
+    ``nvcc`` pads to 16 bytes)."""
     g = _geometry(plan)
-    rows = min(B, g["rows"])
-    static = 4 * MACC_KSPLIT * g["rows"] * MACC_COLS + 4   # part + the barrier's flag
-    limit = smem_limit - static
-    xs = 4 * rows * g["kmax"]
-    want = max(g["max_tiles"], -(-B * g["max_w"] // THREADS))
+    static = 4 * MACC_KSPLIT * g["rows"] * MACC_COLS + 16
+    xs = 4 * g["rows"] * g["kmax"]
+    want = max(g["max_tiles"], -(-g["rows"] * g["max_w"] // THREADS))
     grid = min(want, sm_count)
     slices = sum(-(-tiles // grid) * k * MACC_COLS * es for tiles, k, es in g["slices"])
-    resident = bool(g["slices"]) and xs + slices <= limit
+    resident = bool(g["slices"]) and static + xs + slices <= smem_limit
     return {"grid": grid, "weights_resident": resident,
-            "smem_bytes": xs + (slices if resident else 0)}
+            "smem_bytes": xs + (slices if resident else 0), "static_bytes": static}
+
+
+def barrier_plan(plan: Plan) -> dict:
+    """Where the persistent kernel's grid barriers stand in a step.
+
+    A phase must wait for the grid when it reads a macc buffer that another
+    block may have written since the last barrier: a step macc whose input
+    row or bias reads an earlier step macc (``before[name]``), and the
+    update when it reads one (``before_update``).  One more barrier closes
+    every step but the last (the next step reads the registers).  Returns
+    those and ``per_step``, the barriers a step runs."""
+    step = _step_maccs(plan)
+    names = {m.name for m in step}
+    hoisted = {m.name: m for m in plan.maccs if m.kind == "hoisted"}
+    g = plan.graph
+    memo: dict[str, frozenset] = {}
+
+    def reads(name: str | None) -> frozenset:
+        """The step macc buffers the lane function ``name`` loads."""
+        if name is None:
+            return frozenset()
+        if name not in memo:
+            n = g.node(name)
+            if name in names:
+                out = frozenset([name])
+            elif name in hoisted:
+                m = hoisted[name]
+                out = reads(None if m.bias_hoisted else m.bias)
+            elif n.op in ("input", "state", "const"):
+                out = frozenset()
+            else:
+                out = frozenset().union(*(reads(i) for i in n.inputs))
+            memo[name] = out
+        return memo[name]
+
+    before, pending = {}, set()
+    for m in step:
+        before[m.name] = bool(pending & (reads(m.x) | reads(None if m.bias_hoisted else m.bias)))
+        if before[m.name]:
+            pending = set()
+        pending.add(m.name)
+    tail = [src for _, src in plan.updates] + ([plan.output] if plan.output else [])
+    before_update = bool(pending & frozenset().union(*(reads(x) for x in tail)))
+    return {"before": before, "before_update": before_update,
+            "per_step": sum(before.values()) + before_update + 1}
 
 
 def _act(fn: str, v: str, lut: bool) -> str:
@@ -164,9 +214,11 @@ def _act(fn: str, v: str, lut: bool) -> str:
     }[fn]
 
 
-def emit(plan: Plan) -> str:
-    """The CUDA C++ text of the plan's stage kernel (deterministic: the same
-    plan always gives the same text, so the build cache keys on it)."""
+def emit(plan: Plan, sm_count: int = H100_SMS, smem_limit: int = H100_SMEM_OPTIN) -> str:
+    """The CUDA C++ text of the plan's stage kernel for a card of
+    ``sm_count`` SMs and ``smem_limit`` bytes of opt-in shared memory a
+    block (deterministic: the same arguments always give the same text, so
+    the build cache keys on it)."""
     g = plan.graph
     idx = {n.name: i for i, n in enumerate(g.nodes)}
     cidx = {n.name: i for i, n in enumerate(plan.consts)}
@@ -180,8 +232,11 @@ def emit(plan: Plan) -> str:
     D = plan.input[1] if plan.input is not None else 0
     OW = plan.out_width
     geo = _geometry(plan)
+    cfg = residency(plan, sm_count, smem_limit)
+    bars = barrier_plan(plan)
     step = _step_maccs(plan)
     R, KMAX, MAXW = geo["rows"], geo["kmax"], geo["max_w"]
+    GRID, RESIDENT = cfg["grid"], cfg["weights_resident"]
 
     L = []
     w = L.append
@@ -195,6 +250,8 @@ def emit(plan: Plan) -> str:
     w("#include <cuda_runtime.h>")
     w("#include <stddef.h>")
     w("#include <stdint.h>")
+    w("")
+    w("#include <atomic>")
     w("")
     w('#include "gemm.cuh"')
     w('#include "grid_barrier.cuh"')
@@ -218,7 +275,7 @@ def emit(plan: Plan) -> str:
     w("  const float* lut1;")
     w("  GridBarrier* bar;")
     w("  int n_lut;")
-    w("  int B, T, resident;")
+    w("  int B, T;")
     w("};")
     w("")
 
@@ -303,9 +360,12 @@ def emit(plan: Plan) -> str:
     w(f"constexpr int THREADS = {THREADS};")
     w(f"constexpr int ROWS = {R};        // batch rows per row tile")
     w(f"constexpr int KMAX = {KMAX};      // widest row range a step stages, padded to 4")
-    w(f"constexpr int MAX_TILES = {geo['max_tiles']};")
     w(f"constexpr int MAXW = {MAXW};      // widest register or output")
-    w(f"constexpr int STEP_MACCS = {len(step)};")
+    w(f"// codegen.cuda_emit.residency for {sm_count} SMs and {smem_limit} bytes a block:")
+    w(f"constexpr int GRID = {GRID};")
+    w(f"constexpr int RESIDENT = {int(RESIDENT)};   // the step's shared ROM slices in shared memory")
+    w(f"constexpr int SMEM = {cfg['smem_bytes']};   // dynamic shared memory, bytes")
+    w(f"constexpr int BARRIERS_PER_STEP = {bars['per_step']};   // codegen.cuda_emit.barrier_plan")
     w("")
     w("// One ROM element as fp32: an int8 code times its scale (1 for per-step")
     w("// pages, which are rescaled after the sum).")
@@ -362,7 +422,7 @@ def emit(plan: Plan) -> str:
         w(f"{indent}}}")
 
     w("// Dynamic shared memory: [the resident column slices of each shared ROM")
-    w("// the step reads, when a.resident] [staged input rows: ROWS x KMAX].")
+    w("// the step reads, when RESIDENT] [staged input rows: ROWS x KMAX].")
     w("__global__ void __launch_bounds__(THREADS) stage_persistent(Args args) {")
     w("  extern __shared__ __align__(16) unsigned char smem[];")
     w("  __shared__ float part[MACC_KSPLIT][ROWS][MACC_COLS];")
@@ -371,42 +431,38 @@ def emit(plan: Plan) -> str:
     w("  const int lane = tid % MACC_COLS;")
     w("  const int ks = tid / MACC_COLS;")
     w("  const int rows = min(a.B, ROWS);")
-    w("  size_t off = 0;")
     res_off = {}
-    for m in step:
-        if m.per_step:
-            continue
-        j = midx[m.name]
-        kp = _padded(m)
-        res_off[m.name] = f"off_{j}"
-        w(f"  const size_t off_{j} = off;")
-        w(f"  off += (size_t)(({-(-m.n // MACC_COLS)} + gridDim.x - 1) / gridDim.x) * {kp} "
-          f"* MACC_COLS * {1 if m.int8 else 4};")
-    w("  float* xs = reinterpret_cast<float*>(smem + (a.resident ? off : 0));")
-    if res_off:
-        w("  if (a.resident) {   // every block's column slices, once, before step 0")
+    off = 0
+    if RESIDENT:
         for m in step:
             if m.per_step:
+                continue
+            res_off[m.name] = off
+            off += -(-(-(-m.n // MACC_COLS)) // GRID) * _padded(m) * MACC_COLS * (1 if m.int8 else 4)
+    w(f"  float* xs = reinterpret_cast<float*>(smem + {off});")
+    if res_off:
+        w("  // every block's column slices, once, before step 0")
+        for m in step:
+            if m.name not in res_off:
                 continue
             j, wi = midx[m.name], cidx[m.w]
             k0, k1 = m.step_rows
             kp = _padded(m)
             wt = "int8_t" if m.int8 else "float"
-            w("    {")
-            w(f"      {wt}* ws = reinterpret_cast<{wt}*>(smem + off_{j});")
-            w(f"      const {wt}* w = static_cast<const {wt}*>(a.c[{wi}]) + (size_t){k0} * {m.n};")
-            w("      int lt = 0;")
-            w(f"      for (int tile = blockIdx.x; tile < {-(-m.n // MACC_COLS)}; "
+            w("  {")
+            w(f"    {wt}* ws = reinterpret_cast<{wt}*>(smem + {res_off[m.name]});")
+            w(f"    const {wt}* w = static_cast<const {wt}*>(a.c[{wi}]) + (size_t){k0} * {m.n};")
+            w("    int lt = 0;")
+            w(f"    for (int tile = blockIdx.x; tile < {-(-m.n // MACC_COLS)}; "
               "tile += gridDim.x, ++lt)")
-            w(f"        for (int i = tid; i < {kp} * MACC_COLS; i += THREADS) {{   // i = (q, c, e)")
-            w("          const int e = i % 4;")
-            w("          const int c = tile * MACC_COLS + i / 4 % MACC_COLS;")
-            w("          const int k = i / (4 * MACC_COLS) * 4 + e;")
-            w(f"          ws[(size_t)lt * {kp} * MACC_COLS + i] = "
+            w(f"      for (int i = tid; i < {kp} * MACC_COLS; i += THREADS) {{   // i = (q, c, e)")
+            w("        const int e = i % 4;")
+            w("        const int c = tile * MACC_COLS + i / 4 % MACC_COLS;")
+            w("        const int k = i / (4 * MACC_COLS) * 4 + e;")
+            w(f"        ws[(size_t)lt * {kp} * MACC_COLS + i] = "
               f"c < {m.n} && k < {k1 - k0} ? __ldg(w + (size_t)k * {m.n} + c) : ({wt})0;")
-            w("        }")
-            w("    }")
-        w("  }")
+            w("      }")
+            w("  }")
     w("")
     w("  for (int t = 0; t < a.T; ++t) {")
     for s_, sw in plan.states:
@@ -420,6 +476,9 @@ def emit(plan: Plan) -> str:
         tiles = -(-m.n // MACC_COLS)
         wt = "int8_t" if m.int8 else "float"
         w("")
+        if bars["before"][m.name]:
+            w("    // its row reads a macc of this step that other blocks wrote")
+            w("    if (!grid_sync(a.bar)) return;")
         w(f"    // macc {m.name} ({m.kind}): buf = x(b, t, {k0}:{k1}) @ {m.w}[{k0}:{k1}, :]"
           f"{' (page t)' if m.per_step else ''}{f' int8 ({m.int8})' if m.int8 else ''}"
           f"{' + pre' if m.hoist is not None else ''}"
@@ -449,15 +508,9 @@ def emit(plan: Plan) -> str:
         glob = f"dot_global<{{n}}>(xs, {kp}, {kr}, wp, {m.n}, ks, sc, acc)"
         if m.name in res_off:
             w4 = "char4" if m.int8 else "float4"
-            w("          if (a.resident) {")
-            w(f"            const {w4}* w4 = reinterpret_cast<const {w4}*>(smem + off_{j}) "
+            w(f"          const {w4}* w4 = reinterpret_cast<const {w4}*>(smem + {res_off[m.name]}) "
               f"+ (size_t)lt * {kp // 4} * MACC_COLS + lane;")
-            dispatch(f"dot_resident<{{n}}>(xs, {kp}, w4, ks, sc, acc)", "            ")
-            w("          } else {")
-            w(f"            const {wt}* wp = static_cast<const {wt}*>(a.c[{wi}]) + "
-              f"(size_t){k0} * {m.n} + col;")
-            dispatch(glob, "            ")
-            w("          }")
+            dispatch(f"dot_resident<{{n}}>(xs, {kp}, w4, ks, sc, acc)", "          ")
         else:
             w(f"          const {wt}* wp = static_cast<const {wt}*>(a.c[{wi}]){page} + "
               f"(size_t){k0} * {m.n} + col;")
@@ -485,7 +538,8 @@ def emit(plan: Plan) -> str:
         w("        __syncthreads();   // part is rewritten by the next tile")
         w("      }")
         w("    }")
-    w("    if (!grid_sync(a.bar)) return;")
+    if bars["before_update"]:
+        w("    if (!grid_sync(a.bar)) return;   // the update reads the macc buffers")
     w("")
     w("    // every register's next value into its ping-pong buffer, and y[:, t, :]")
     w("    for (int i = blockIdx.x * THREADS + tid; i < a.B * MAXW; i += gridDim.x * THREADS) {")
@@ -502,55 +556,26 @@ def emit(plan: Plan) -> str:
     w("}")
     w("")
 
-    # -- launch configuration (codegen.cuda_emit.residency on the card) ----
-    w("struct StageConfig {")
-    w("  int grid, resident;")
-    w("  size_t smem;")
-    w("};")
-    w("")
-    w("cudaError_t stage_config_(int B, StageConfig* cfg) {")
-    w("  int dev = 0, sms = 0, optin = 0;")
+    # -- the card's check of the configuration ------------------------------
+    w("// Before the first launch on a device: the opt-in covers SMEM (refused")
+    w("// when the static part and SMEM exceed the card's limit) and the card")
+    w("// holds GRID blocks at once.  Checked once a device.")
+    w("cudaError_t stage_ready_() {")
+    w("  static std::atomic<unsigned long long> ready{0};   // a bit per device")
+    w("  int dev = 0, sms = 0, per_sm = 0;")
     w("  cudaError_t err = cudaGetDevice(&dev);")
+    w("  if (err != cudaSuccess) return err;")
+    w("  if (dev < 64 && (ready.load() >> dev & 1)) return cudaSuccess;")
+    w("  // the opt-in before the occupancy query, which reads it")
+    w("  err = cudaFuncSetAttribute(stage_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize,")
+    w("                             SMEM);")
+    w("  if (err != cudaSuccess) return err;")
+    w("  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stage_persistent, THREADS, SMEM);")
     w("  if (err != cudaSuccess) return err;")
     w("  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);")
     w("  if (err != cudaSuccess) return err;")
-    w("  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);")
-    w("  if (err != cudaSuccess) return err;")
-    w("  cudaFuncAttributes fa;")
-    w("  err = cudaFuncGetAttributes(&fa, stage_persistent);")
-    w("  if (err != cudaSuccess) return err;")
-    w("  const size_t limit = (size_t)optin - fa.sharedSizeBytes;   // the static part counts too")
-    w("  const size_t xs = (size_t)(B < ROWS ? B : ROWS) * KMAX * sizeof(float);")
-    w("  const long long lanes = ((long long)B * MAXW + THREADS - 1) / THREADS;")
-    w("  const int want = (int)(lanes > MAX_TILES ? lanes : MAX_TILES);")
-    w("  const auto slices = [&](int grid) {")
-    w("    size_t s = 0;")
-    for tiles, kr, es in geo["slices"]:
-        w(f"    s += (size_t)(({tiles} + grid - 1) / grid) * {kr} * MACC_COLS * {es};")
-    w("    return s;")
-    w("  };")
-    w("  int grid = want < sms ? want : sms;")
-    w(f"  const int resident = {1 if geo['slices'] else 0} && xs + slices(grid) <= limit;")
-    w("  size_t smem = xs + (resident ? slices(grid) : 0);")
-    w("  if (smem > limit) return cudaErrorInvalidValue;")
-    w("  // the opt-in before the occupancy query, which reads it")
-    w("  err = cudaFuncSetAttribute(stage_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize,")
-    w("                             (int)smem);")
-    w("  if (err != cudaSuccess) return err;")
-    w("  int per_sm = 0;")
-    w("  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stage_persistent, THREADS, smem);")
-    w("  if (err != cudaSuccess) return err;")
-    w("  if (per_sm < 1) return cudaErrorInvalidConfiguration;")
-    w("  // more co-resident blocks than SMs: more tiles at once; slices(grid)")
-    w("  // only shrinks, so the occupancy found still holds")
-    w("  const int more = per_sm * sms < want ? per_sm * sms : want;")
-    w("  if (more > grid) {")
-    w("    grid = more;")
-    w("    smem = xs + (resident ? slices(grid) : 0);")
-    w("  }")
-    w("  cfg->grid = grid;")
-    w("  cfg->resident = resident;")
-    w("  cfg->smem = smem;")
+    w("  if ((long long)per_sm * sms < GRID) return cudaErrorCooperativeLaunchTooLarge;")
+    w("  if (dev < 64) ready.fetch_or(1ull << dev);")
     w("  return cudaSuccess;")
     w("}")
     w("")
@@ -602,37 +627,30 @@ def emit(plan: Plan) -> str:
           "gemm::THREADS, 0, stream>>>(a);")
         w("  err = cudaGetLastError();")
         w("  if (err != cudaSuccess) return err;")
-    w("  StageConfig cfg;")
-    w("  err = stage_config_(B, &cfg);")
+    w("  err = stage_ready_();")
     w("  if (err != cudaSuccess) return err;")
-    w("  a.resident = cfg.resident;")
     w("  void* args[] = {&a};")
-    w("  return grid_barrier_launch((const void*)stage_persistent, cfg.grid, THREADS, args,")
-    w("                             cfg.smem, a.bar, stream);")
+    w("  return grid_barrier_launch((const void*)stage_persistent, GRID, THREADS, args, SMEM,")
+    w("                             a.bar, stream);")
     w("}")
     w("")
-    w("// The persistent kernel's configuration for batch B, for reports:")
+    w("// The persistent kernel's configuration, for reports:")
     w("// out = [grid, resident (0/1), dynamic shared memory bytes, barriers a step].")
-    w("int stage_config(int B, int* out) {")
-    w("  if (B < 1) return cudaErrorInvalidValue;")
-    w("  StageConfig cfg;")
-    w("  const cudaError_t err = stage_config_(B, &cfg);")
+    w("int stage_config(int* out) {")
+    w("  const cudaError_t err = stage_ready_();")
     w("  if (err != cudaSuccess) return err;")
-    w("  out[0] = cfg.grid;")
-    w("  out[1] = cfg.resident;")
-    w("  out[2] = (int)cfg.smem;")
-    w("  out[3] = STEP_MACCS + 1;")
+    w("  out[0] = GRID;")
+    w("  out[1] = RESIDENT;")
+    w("  out[2] = SMEM;")
+    w("  out[3] = BARRIERS_PER_STEP;")
     w("  return 0;")
     w("}")
     w("")
-    w("// The serial floor: the persistent kernel's grid for batch B running the")
-    w("// grid barriers of T steps and nothing else.  `bar` holds 4 words.")
-    w("int stage_serial_floor(int B, int T, void* bar, void* stream_ptr) {")
-    w("  if (B < 1 || T < 1) return cudaErrorInvalidValue;")
-    w("  StageConfig cfg;")
-    w("  const cudaError_t err = stage_config_(B, &cfg);")
-    w("  if (err != cudaSuccess) return err;")
-    w("  return grid_barrier_run_probe(cfg.grid, THREADS, T * (STEP_MACCS + 1) - 1, -1,")
+    w("// The serial floor: the persistent kernel's grid running the grid")
+    w("// barriers of T steps and nothing else.  `bar` holds 4 words.")
+    w("int stage_serial_floor(int T, void* bar, void* stream_ptr) {")
+    w("  if (T < 1) return cudaErrorInvalidValue;")
+    w("  return grid_barrier_run_probe(GRID, THREADS, T * BARRIERS_PER_STEP - 1, -1,")
     w("                                static_cast<GridBarrier*>(bar),")
     w("                                static_cast<cudaStream_t>(stream_ptr));")
     w("}")
@@ -643,5 +661,5 @@ def emit(plan: Plan) -> str:
     return "\n".join(L) + "\n"
 
 
-__all__ = ["MACC_COLS", "MACC_KSPLIT", "THREADS", "buffer_layout", "emit",
-           "residency"]
+__all__ = ["H100_SMEM_OPTIN", "H100_SMS", "MACC_COLS", "MACC_KSPLIT", "THREADS",
+           "barrier_plan", "buffer_layout", "emit", "residency"]

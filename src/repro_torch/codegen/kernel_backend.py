@@ -8,8 +8,13 @@ that kernel for CUDA tensors (built by ``nvcc`` at its first call, into
 ``build/``) and runs the plan's interpreter, the kernel's plain version, for
 CPU tensors.  A call that reaches the card is one GEMM launch per hoisted or
 split macc, then one persistent launch: two for each registered cell, one
-for an autonomous stage (the MLP).  There is no fallback between the two:
-a failed build or launch raises.  :func:`codegen_stage` is the kernel's wrapper, and
+for an autonomous stage (the MLP), and the call waits for the stream at its
+end to read the grid barrier's error word (counted in
+``_build.host_syncs``).  The grid and the shared memory are chosen by
+``cuda_emit.residency`` for the card's SM count and written into the
+source, so a card with another SM count builds its own library.  There is
+no fallback between the two: a failed build or launch raises.
+:func:`codegen_stage` is the kernel's wrapper, and
 ``codegen_stage.launches`` counts its launches (one per stage call that
 reached the card).
 
@@ -85,10 +90,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.run_stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_void_p]
         lib.run_stage.restype = ctypes.c_int
-        lib.stage_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.stage_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.stage_config.restype = ctypes.c_int
-        lib.stage_serial_floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                           ctypes.c_void_p]
+        lib.stage_serial_floor.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.stage_serial_floor.restype = ctypes.c_int
         lib.stage_error_string.argtypes = [ctypes.c_int]
         lib.stage_error_string.restype = ctypes.c_char_p
@@ -165,6 +169,7 @@ def codegen_stage(plan: lower.Plan, source: str, consts: dict, x0: dict,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.run_stage(bufs, B, T, n_lut, stream)
     _raise_on(lib, rc)
+    _build.host_syncs += 1
     codegen_stage.launches += 1
     return outs, ys
 
@@ -175,26 +180,26 @@ def _raise_on(lib: ctypes.CDLL, rc: int) -> None:
                            f"({lib.stage_error_string(rc).decode()})")
 
 
-def launch_config(source: str, B: int) -> dict:
-    """The persistent kernel's launch configuration on the current card for
-    batch ``B``: ``grid`` blocks, ``weights_resident`` (the step's shared ROM
-    slices held in shared memory), ``smem_bytes`` of dynamic shared memory,
-    ``barriers_per_step``."""
+def launch_config(source: str) -> dict:
+    """The persistent kernel's launch configuration written into ``source``
+    (checked against the current card): ``grid`` blocks,
+    ``weights_resident`` (the step's shared ROM slices held in shared
+    memory), ``smem_bytes`` of dynamic shared memory, ``barriers_per_step``."""
     lib = _bind(_build.load(LIBRARY, source))
     out = (ctypes.c_int * 4)()
-    _raise_on(lib, lib.stage_config(B, out))
+    _raise_on(lib, lib.stage_config(out))
     return {"grid": out[0], "weights_resident": bool(out[1]), "smem_bytes": out[2],
             "barriers_per_step": out[3]}
 
 
-def serial_floor(source: str, B: int, T: int) -> None:
+def serial_floor(source: str, T: int) -> None:
     """Launch the serial floor of one call on the current stream: the
-    persistent kernel's grid for batch ``B`` running the grid barriers of
-    ``T`` steps and no work (for timing; not counted as a launch)."""
+    persistent kernel's grid running the grid barriers of ``T`` steps and
+    no work (for timing; not counted as a launch)."""
     lib = _bind(_build.load(LIBRARY, source))
     dev = torch.device("cuda", torch.cuda.current_device())
     bar = torch.empty((_build.GRID_BARRIER_WORDS,), dtype=torch.int32, device=dev)
-    _raise_on(lib, lib.stage_serial_floor(B, T, bar.data_ptr(),
+    _raise_on(lib, lib.stage_serial_floor(T, bar.data_ptr(),
                                           torch.cuda.current_stream(dev).cuda_stream))
 
 
@@ -211,8 +216,10 @@ def compile_stage(stage: Stage, *, lut=None, chunk: int = DEFAULT_CHUNK,
     ``[B, width]`` and ``us`` ``[B, T, D]`` (None for autonomous graphs,
     which then run ``stage.schedule.steps`` steps).  Any ``B``/``T`` is
     accepted.  ``run.plan`` and ``run.source`` are the lowered plan and the
-    emitted CUDA C++.  ``chunk``, ``block_b`` and ``double_buffer`` change
-    nothing on the card (see the module docstring).
+    emitted CUDA C++ for a 132-SM H100; on a card with another SM count the
+    launch emits and builds the source for that count.  ``chunk``,
+    ``block_b`` and ``double_buffer`` change nothing on the card (see the
+    module docstring).
     """
     del chunk, block_b, double_buffer
     graph, sched = stage.graph, stage.schedule
@@ -220,6 +227,7 @@ def compile_stage(stage: Stage, *, lut=None, chunk: int = DEFAULT_CHUNK,
     qnames = tuple(graph.quantizable_weights()) if int8 else ()
     plan = lower.lower(graph, lut=lut is not None, int8_weights=qnames)
     source = cuda_emit.emit(plan)
+    sources = {cuda_emit.H100_SMS: source}   # SM count -> emitted text
 
     def run(consts: dict, x0: dict, us):
         T = us.shape[1] if us is not None else sched.steps
@@ -239,7 +247,13 @@ def compile_stage(stage: Stage, *, lut=None, chunk: int = DEFAULT_CHUNK,
         us = None if us is None else us.to(torch.float32)
         packed = {k: (v if k in plan.int8 else v.to(torch.float32))
                   for k, v in packed.items()}
-        return codegen_stage(plan, source, packed, x0, us, T, lut)
+        src = source          # off the card: codegen_stage raises
+        if first.device.type == "cuda":
+            sms = torch.cuda.get_device_properties(first.device).multi_processor_count
+            if sms not in sources:
+                sources[sms] = cuda_emit.emit(plan, sm_count=sms)
+            src = sources[sms]
+        return codegen_stage(plan, src, packed, x0, us, T, lut)
 
     run.plan = plan
     run.source = source

@@ -31,6 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # int32 words of GridBarrier (csrc/grid_barrier.cuh), allocated by the wrappers
 GRID_BARRIER_WORDS = 4
 
+# Calls of a persistent kernel (lstm_seq, the generated stages), each of
+# which waits for its stream on the host to read the grid barrier's error
+# word: one host round-trip each, which the server reports as kernel_syncs.
+host_syncs = 0
+
 _loaded: dict[Path, ctypes.CDLL] = {}
 _by_text: dict[tuple[str, str], ctypes.CDLL] = {}   # emitted sources, by name and text
 _lock = threading.Lock()

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <mutex>
+
 #include "gemm.cuh"
 #include "grid_barrier.cuh"
 #include "lut.cuh"
@@ -250,21 +252,19 @@ __global__ void __launch_bounds__(STEP_THREADS) lstm_persistent(StepArgs a) {
   }
 }
 
-// The launch configuration of (b) for this device: grid, residency, dynamic
-// shared memory and batch rows per row tile.  The grid is one block per unit
-// tile, at most as many as can be resident at once (so the grid barrier
-// cannot hang); the slices are resident when they fit beside the h rows and
-// the tables in the opt-in shared memory.
+// The launch configuration of (b) for device `dev`: grid, residency,
+// dynamic shared memory and batch rows per row tile (at most `rows`).  The
+// grid is one block per unit tile, at most as many as can be resident at
+// once (so the grid barrier cannot hang); the slices are resident when they
+// fit beside the h rows and the tables in the opt-in shared memory.
 struct StepConfig {
   int grid, resident, rows;
   size_t smem;
 };
 
-cudaError_t step_config(int B, int H, int n_lut, StepConfig* cfg) {
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+cudaError_t step_config_query(int dev, int rows, int H, int n_lut, StepConfig* cfg) {
+  int sms = 0, optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
@@ -272,10 +272,15 @@ cudaError_t step_config(int B, int H, int n_lut, StepConfig* cfg) {
   err = cudaFuncGetAttributes(&fa, lstm_persistent);
   if (err != cudaSuccess) return err;
   const size_t limit = (size_t)optin - fa.sharedSizeBytes;   // the static `part` counts too
+  // the whole opt-in, before the occupancy query, which reads it: above
+  // 48 KB in all, the static `part` included, a launch without it is
+  // refused; set to the most, it serves every configuration of the device
+  err = cudaFuncSetAttribute(lstm_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)limit);
+  if (err != cudaSuccess) return err;
 
   const int tiles = (H + STEP_UNITS - 1) / STEP_UNITS;
   const size_t Hp = (H + 3) / 4 * 4;
-  int rows = B < STEP_MAX_ROWS ? B : STEP_MAX_ROWS;
   while (rows > 0 && (rows * Hp + 2 * (size_t)n_lut) * sizeof(float) > limit) --rows;
   if (rows == 0) return cudaErrorInvalidValue;
   const size_t base = (rows * Hp + 2 * (size_t)n_lut) * sizeof(float);
@@ -285,11 +290,6 @@ cudaError_t step_config(int B, int H, int n_lut, StepConfig* cfg) {
   int grid = tiles < sms ? tiles : sms;
   const int resident = base + slices(grid) <= limit;
   size_t smem = base + (resident ? slices(grid) : 0);
-  // the opt-in before the occupancy query, which reads it (above 48 KB in
-  // all, the static `part` included, a launch without it is refused)
-  err = cudaFuncSetAttribute(lstm_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lstm_persistent, STEP_THREADS,
                                                       smem);
@@ -306,6 +306,35 @@ cudaError_t step_config(int B, int H, int n_lut, StepConfig* cfg) {
   cfg->resident = resident;
   cfg->rows = rows;
   cfg->smem = smem;
+  return cudaSuccess;
+}
+
+// step_config_query, kept for the last 16 (device, row tile, H, n_lut): the
+// attribute and occupancy queries would otherwise cost host time on every
+// call.  B enters only through its row tile, min(B, STEP_MAX_ROWS).
+cudaError_t step_config(int B, int H, int n_lut, StepConfig* cfg) {
+  struct Entry {
+    int dev, rows, H, n_lut;
+    StepConfig cfg;
+  };
+  static std::mutex mu;
+  static Entry cache[16];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int rows = B < STEP_MAX_ROWS ? B : STEP_MAX_ROWS;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used && i < 16; ++i) {
+    const Entry& e = cache[i];
+    if (e.dev == dev && e.rows == rows && e.H == H && e.n_lut == n_lut) {
+      *cfg = e.cfg;
+      return cudaSuccess;
+    }
+  }
+  err = step_config_query(dev, rows, H, n_lut, cfg);
+  if (err != cudaSuccess) return err;
+  cache[used++ % 16] = {dev, rows, H, n_lut, *cfg};
   return cudaSuccess;
 }
 

@@ -10,8 +10,9 @@ module is imported.
 plain PyTorch version for CPU tensors lives in ``ref.py`` and is chosen by
 ``ops.lstm_seq``.  A call is two CUDA launches (the input GEMM and the
 persistent recurrence) and waits for the stream at its end, to read the
-grid barrier's error word; :func:`config` reports the persistent kernel's
-grid and whether ``w_h`` is resident in shared memory.
+grid barrier's error word (counted in ``_build.host_syncs``); :func:`config`
+reports the persistent kernel's grid and whether ``w_h`` is resident in
+shared memory.
 """
 
 from __future__ import annotations
@@ -101,6 +102,7 @@ def lstm_seq(x: torch.Tensor, w_x: torch.Tensor, w_h: torch.Tensor, b: torch.Ten
             zx.data_ptr(), h_buf.data_ptr(), c_buf.data_ptr(),
             B, T, D, H, stream)
     _raise_on(lib, rc)
+    _build.host_syncs += 1
     return y, h_out, c_out
 
 

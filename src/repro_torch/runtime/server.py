@@ -43,6 +43,7 @@ import torch
 from repro_torch import obs as obs_lib
 from repro_torch._tree import tree_leaves
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
@@ -197,6 +198,10 @@ class DecodeServer:
         self._m_prompt_steps = m.counter("prompt_steps_computed",
                                          "prompt tokens run on device")
         self._m_chunks = m.counter("prefill_chunks_run", "chunk dispatches")
+        self._m_kernel_syncs = m.counter(
+            "prefill_kernel_syncs",
+            "host round-trips inside prefill kernel calls (a persistent kernel "
+            "waits for its stream to read its grid barrier's error word)")
         self._m_tick_max = m.gauge(
             "max_prompt_steps_per_tick",
             "high-watermark of per-tick prompt work (boundedness proof)")
@@ -220,6 +225,14 @@ class DecodeServer:
     @property
     def decode_syncs(self) -> int:
         return int(self._m_syncs.value)
+
+    @property
+    def prefill_kernel_syncs(self) -> int:
+        """Host round-trips inside prefill kernel calls: one per call of a
+        persistent kernel (``lstm_seq``, a generated stage), which waits for
+        its stream to read its grid barrier's error word.  Not in
+        ``decode_syncs``, which counts the decode phase only."""
+        return int(self._m_kernel_syncs.value)
 
     @property
     def decoded_tokens(self) -> int:
@@ -440,9 +453,11 @@ class DecodeServer:
                     req=req, slot=b, caches=lm.init_cache(self.cfg, 1, self.S, self.device)))
                 continue
             plen = len(req.prompt)
+            syncs = _build.host_syncs
             with self._tr.span("prefill_oneshot", cat="prefill",
                                args={"uid": req.uid, "tokens": plen}):
                 logits, pcaches = lm.prefill(self.params, self.cfg, self._tokens([req.prompt]))
+            self._m_kernel_syncs.inc(_build.host_syncs - syncs)
             self._m_prompt_steps.inc(plen)
             self._tick_prompt_steps += plen
             self.caches = splice_cache(self.caches, pcaches, b)
@@ -458,11 +473,13 @@ class DecodeServer:
         job = self._jobs[self._job_rr]
         plen = len(job.req.prompt)
         c = min(self.prefill_chunk, plen - job.pos)
+        syncs = _build.host_syncs
         with self._tr.span("prefill_chunk", cat="prefill",
                            args={"uid": job.req.uid, "pos": job.pos, "chunk": c}):
             job.logits, job.caches = lm.prefill_chunk(
                 self.params, self.cfg, self._tokens([job.req.prompt[job.pos:job.pos + c]]),
                 job.caches, job.pos)
+        self._m_kernel_syncs.inc(_build.host_syncs - syncs)
         job.pos += c
         self._m_prompt_steps.inc(c)
         self._tick_prompt_steps += c

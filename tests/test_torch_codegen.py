@@ -335,33 +335,63 @@ def test_split_interpreter_matches_unsplit(name):
         torch.testing.assert_close(ys_s, ys_u, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("cell,D,H,B,sms,smem,resident,grid", [
-    ("lstm", 1024, 1024, 1, 132, 227 * 1024, True, 128),    # [1024, 4096] over 128 blocks
-    ("gru", 1024, 1024, 1, 132, 227 * 1024, True, 96),      # zh [1024, 3072] over 96
-    ("lstm", 1024, 1024, 64, 132, 227 * 1024, True, 132),   # B = 64: 8 row tiles, wider update
-    ("lstm", 1000, 400, 8, 132, 227 * 1024, True, 50),      # the 1400-wide case
-    ("lstm", 4096, 4096, 1, 132, 227 * 1024, False, 132),   # 512 tiles: 4 slices of 512 KiB
-    ("gru", 1024, 1024, 1, 132, 100 * 1024, False, 96),     # a card with less shared memory
-    ("lstm", 1024, 1024, 1, 64, 227 * 1024, False, 64),     # fewer SMs: 2 slices a block
+@pytest.mark.parametrize("cell,D,H,sms,smem,resident,grid", [
+    ("lstm", 1024, 1024, 132, 227 * 1024, True, 128),    # [1024, 4096] over 128 blocks
+    ("gru", 1024, 1024, 132, 227 * 1024, True, 96),      # zh [1024, 3072] over 96
+    ("lstm", 1024, 1024, 114, 227 * 1024, False, 114),   # 114 SMs: 2 slices, 256 KiB
+    ("lstm", 1000, 400, 132, 227 * 1024, True, 50),      # the 1400-wide case
+    ("lstm", 4096, 4096, 132, 227 * 1024, False, 132),   # 512 tiles: 4 slices of 512 KiB
+    ("gru", 1024, 1024, 132, 100 * 1024, False, 96),     # a card with less shared memory
+    ("lstm", 1024, 1024, 64, 227 * 1024, False, 64),     # fewer SMs: 2 slices a block
 ])
-def test_residency_arithmetic(cell, D, H, B, sms, smem, resident, grid):
+def test_residency_arithmetic(cell, D, H, sms, smem, resident, grid):
+    """The one decision of grid and residency, and the constants the
+    emitter writes from it into the source the card runs."""
     plan = lower.lower(pcg.CELL_GRAPHS[cell](D, H))
-    got = cuda_emit.residency(plan, B, sm_count=sms, smem_limit=smem)
+    got = cuda_emit.residency(plan, sm_count=sms, smem_limit=smem)
     assert (got["weights_resident"], got["grid"]) == (resident, grid)
-    assert got["smem_bytes"] <= smem
+    assert got["static_bytes"] + got["smem_bytes"] <= smem
     if resident:
         step = [m for m in plan.maccs if m.kind != "hoisted"][0]
         per_block = -(-(-(-step.n // cuda_emit.MACC_COLS)) // grid)
         assert got["smem_bytes"] >= per_block * H * cuda_emit.MACC_COLS * 4
+    src = cuda_emit.emit(plan, sm_count=sms, smem_limit=smem)
+    for name, v in (("GRID", grid), ("RESIDENT", int(resident)), ("SMEM", got["smem_bytes"])):
+        assert f"constexpr int {name} = {v};" in src
 
 
 def test_residency_keeps_int8_codes_and_skips_per_step_pages():
     g = pcg.CELL_GRAPHS["lstm"](1024, 2048)     # 2 slices a block: 512 KiB fp32, 128 KiB int8
-    fp32 = cuda_emit.residency(lower.lower(g), 1)
-    int8 = cuda_emit.residency(lower.lower(g, int8_weights=tuple(g.quantizable_weights())), 1)
+    fp32 = cuda_emit.residency(lower.lower(g))
+    int8 = cuda_emit.residency(lower.lower(g, int8_weights=tuple(g.quantizable_weights())))
     assert not fp32["weights_resident"] and int8["weights_resident"]   # 1/4 of the bytes
-    mlp = cuda_emit.residency(lower.lower(pcg.builders.mlp_graph(1024, "tanh")), 64)
+    mlp = cuda_emit.residency(lower.lower(pcg.builders.mlp_graph(1024, "tanh")))
     assert not mlp["weights_resident"]       # per-step pages are read at their step
+
+
+@pytest.mark.parametrize("name,before,before_update,per_step", [
+    ("lstm", {"z": False}, True, 2),
+    ("gru", {"zh": False}, True, 2),
+    ("ssm", {}, False, 1),                    # nothing in the step: only the closing barrier
+    ("mlp", {"z": False}, True, 2),
+    ("algebra", {"z1": False, "z2": True}, True, 3),   # z2's row reads z1 of the same step
+    ("u_plus_h", {"z": False}, True, 2),
+])
+def test_barrier_plan_follows_what_each_phase_reads(name, before, before_update, per_step):
+    """A grid barrier stands before each phase that reads a macc buffer
+    other blocks wrote since the last one, and the emitted kernel runs
+    exactly those."""
+    graphs = {"mlp": lambda: pcg.builders.mlp_graph(6, "tanh"), "algebra": _algebra_graph,
+              "u_plus_h": _sum_graph}
+    graph = graphs[name]() if name in graphs else pcg.CELL_GRAPHS[name](5, 4)
+    plan = lower.lower(graph)
+    got = cuda_emit.barrier_plan(plan)
+    assert (got["before"], got["before_update"], got["per_step"]) == \
+        (before, before_update, per_step)
+    src = cuda_emit.emit(plan)
+    body = src[src.index("stage_persistent(Args args)"):src.index("cudaError_t stage_ready_()")]
+    assert body.count("grid_sync(a.bar)") == per_step
+    assert f"constexpr int BARRIERS_PER_STEP = {per_step};" in src
 
 
 def test_lowering_rejects_what_the_kernel_cannot_run():

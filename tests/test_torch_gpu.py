@@ -184,17 +184,60 @@ def test_use_pallas_prefill_matches_plain_path(cuda):
     _close(c_k["groups"]["b0_recurrent"].values(), c_p["groups"]["b0_recurrent"].values(), 1e-5)
 
 
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_server_counts_the_prefill_kernels_host_round_trips(cuda, chunk):
+    """Each lstm_seq call waits for its barrier word on the host: the server
+    reports one round-trip per layer of every prefill call, apart from
+    ``decode_syncs``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import DecodeServer, Request
+
+    cfg = dataclasses.replace(get_smoke_config("paper-lstm"), use_pallas=True)
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    srv = DecodeServer(cfg, params, num_slots=2, max_seq=32, prefill_chunk=chunk)
+    for i in range(3):
+        srv.submit(Request(uid=i, prompt=[3, 1, 4, 1, 5, 9][: 3 + i], max_new_tokens=2))
+    launches = ops.lstm_seq.launches
+    srv.run_until_drained()
+    calls = 3 if chunk == 0 else sum(-(-(3 + i) // chunk) for i in range(3))
+    assert ops.lstm_seq.launches - launches == cfg.n_layers * calls
+    assert srv.prefill_kernel_syncs == cfg.n_layers * calls
+
+
 # ---------------------------------------------------------------------------
 # the generated stage kernel (codegen) and the ROM-LUT tanh
 # ---------------------------------------------------------------------------
 
-def _stage_case(dev, cell, D, H, B, T, seed=0):
-    """A bare cell stage with random weights, registers and inputs on ``dev``."""
+def _chained_graph(D, H, n1):
+    """Two step maccs in a chain, each wider than one 32-column tile: z1
+    reads concat(u, h); z2 reads slices of z1 (both ends, so columns of
+    several tiles) and of u through gate algebra, with a lane-function bias;
+    the register update ends in tanh, so the chain stays bounded over T."""
+    from repro_torch.codegen.ir import GraphBuilder
+
+    g = GraphBuilder()
+    u = g.input("u", D)
+    h = g.state("h", H)
+    z1 = g.macc("z1", g.concat("cat", u, h), g.const("W1", (D + H, n1)), g.const("b1", (1, n1)))
+    mix = g.concat("mix", g.slice("s0", z1, n1 - 40, n1),
+                   g.af("a", g.slice("s1", z1, 0, 33), "gelu"), g.slice("uu", u, 1, 3))
+    z2 = g.macc("z2", mix, g.const("W2", (75, H)), g.sub("bias", h, g.af("t", h, "silu")))
+    g.update("h", g.af("h_next", g.add("hz", g.af("r", z2, "relu"),
+                                       g.mul("hh", h, g.af("sg", h, "sigmoid"))), "tanh"))
+    return g.build(output=z1)
+
+
+def _stage_case(dev, cell, D, H, B, T, seed=0, graph=None):
+    """A bare cell stage (or ``graph``) with random weights, registers and
+    inputs on ``dev``."""
     from repro_torch.codegen import CELL_GRAPHS, Schedule, Stage
     from repro_torch.codegen.builders import mlp_graph
 
     r = np.random.default_rng(seed)
-    graph = mlp_graph(H, "tanh") if cell == "mlp" else CELL_GRAPHS[cell](D, H)
+    if graph is None:
+        graph = mlp_graph(H, "tanh") if cell == "mlp" else CELL_GRAPHS[cell](D, H)
     steps = T
     consts = {}
     for n in graph.consts():
@@ -239,7 +282,7 @@ def test_codegen_stage_kernel_matches_plain(cuda, cell, D, H, B, T, quant, lut_b
     fin, ys = run(packed, x0, us)
     assert kernel_backend.codegen_stage.launches == launches + 1
     torch.cuda.synchronize()
-    assert kernel_backend.launch_config(run.source, B)["weights_resident"] is resident
+    assert kernel_backend.launch_config(run.source)["weights_resident"] is resident
     for hoist in (True, False):      # the kernel's split, and one sum over the row
         fin_p, ys_p = lower.interpret(run.plan, packed, x0, us, T, lut, hoist=hoist)
         _close(list(fin.values()) + ([] if ys is None else [ys]),
@@ -247,6 +290,30 @@ def test_codegen_stage_kernel_matches_plain(cuda, cell, D, H, B, T, quant, lut_b
     if quant is None and lut is None and cell != "mlp":   # the independent oracle
         fin_e, ys_e = eager_backend.compile_stage(stage)(consts, x0, us)
         _close([fin[k] for k in fin_e] + [ys], list(fin_e.values()) + [ys_e], tol)
+
+
+@pytest.mark.parametrize("D,H,n1,B,T", [
+    (16, 64, 96, 3, 7),       # z1 over 3 tiles, z2 over 2
+    (24, 200, 256, 11, 5),    # 8 tiles of z1, B over one row tile
+])
+def test_codegen_chained_step_maccs_match_plain(cuda, D, H, n1, B, T):
+    """A step macc that reads another of the same step, across column tiles
+    that other blocks compute: the grid barrier between them."""
+    from repro_torch.codegen import eager_backend, kernel_backend, lower
+
+    stage, consts, x0, us = _stage_case(cuda, "chained", D, H, B, T,
+                                        graph=_chained_graph(D, H, n1))
+    run = kernel_backend.compile_stage(stage)
+    assert [m.kind for m in run.plan.maccs] == ["split", "recurrent"]
+    cfg = kernel_backend.launch_config(run.source)
+    assert cfg["barriers_per_step"] == 3 and cfg["grid"] >= 3
+    fin, ys = run(consts, x0, us)
+    torch.cuda.synchronize()
+    for hoist in (True, False):
+        fin_p, ys_p = lower.interpret(run.plan, consts, x0, us, T, hoist=hoist)
+        _close([fin["h"], ys], [fin_p["h"], ys_p], 1e-5)
+    fin_e, ys_e = eager_backend.compile_stage(stage)(consts, x0, us)
+    _close([fin["h"], ys], [fin_e["h"], ys_e], 1e-5)
 
 
 def test_codegen_cslow_batch_matches_plain(cuda):
