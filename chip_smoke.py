@@ -46,16 +46,22 @@ Phases, one line per case (any failure exits non-zero and prints no result):
 8. profile — the ``use_pallas`` ``step()`` run once more under
    ``torch.profiler``;
 9. ``ssm_scan`` against its plain version (a falcon-mamba prefill's shapes,
-   ragged D with prime T, T = 1, bf16 inputs, a nonzero carry) and its time
-   beside the plain version's and its bound;
+   ragged D with prime T, T = 1, bf16 inputs, a nonzero carry), a scan
+   resumed at step 100 bit-identical to the one-shot scan, and its time at
+   T = 256 and at the chunked prefill's T = 64 beside the plain version's
+   and its bound, with its launches per call (which must be 1);
 10. ``int8_matmul`` bit-exact against its plain version, and its time beside
    the plain version's, ``torch._int_mm``'s and its bound (no path of the
    port calls it, so its ``launches`` in the summary are 0);
 11. ``flash_attention`` against its plain version (the reference's five
    kernel cases in fp32 and bf16, S != T, S = T = 1, rows that see no key,
-   hd 128 with a 1024 window), and its time at one ``smollm-135m`` layer,
-   one ``phi4-mini-3.8b`` layer and gemma3's local-layer shape beside the
-   plain version's, ``F.scaled_dot_product_attention``'s and its bound;
+   hd 128 with a 1024 window), and its time at two ``smollm-135m`` layers
+   (64 and 256 tokens), one ``phi4-mini-3.8b`` layer and gemma3's
+   local-layer shape beside the plain version's,
+   ``F.scaled_dot_product_attention``'s, its bound on the tensor cores in
+   3xTF32 and the fp32-FMA bound (``fma_bound_ms``), with its q tile, the
+   key shares the host chose and its launches per call (which must be 1,
+   or 2 where the key axis is split);
 12. serve mamba — full-width ``falcon-mamba-7b`` (64 layers, 7.3 B fp32
    parameters from a seed) with ``use_pallas=True`` through ``DecodeServer``
    under ``step()``, ``step_block()`` and chunked prefill: identical tokens,
@@ -97,8 +103,10 @@ ROOT = Path(__file__).resolve().parent
 # (NVIDIA data sheet; rates at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# int8 tensor cores, dense (NVIDIA data sheet), for the int8 matmul's bound
+# int8 and TF32 tensor cores, dense (NVIDIA data sheet), for the int8
+# matmul's and the attention's bounds
 PEAK_INT8_OPS = 1979e12
+PEAK_TF32_FLOPS = 495e12
 # exps: the SFU's 16 lanes per SM per clock (CUDA programming guide's
 # throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz boost
 PEAK_EXP_PER_S = 16 * 132 * 1.98e9
@@ -127,6 +135,7 @@ MAX_SEQ = 512
 BLOCK_K = 8
 CHUNK = 64
 REPS = 20
+HOST_COVER_CYCLES = 1_000_000   # about 0.5 ms of the card's clock (time_ms)
 WIDTH = 1024
 
 PHASE_T0 = [time.perf_counter()]
@@ -153,12 +162,17 @@ def flush_l2(buf: torch.Tensor) -> None:
 
 def time_ms(fn, buf: torch.Tensor, reps: int = REPS) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up,
-    with a cold L2 at the start of every run."""
+    with a cold L2 at the start of every run.  After the flush the card
+    spins for HOST_COVER_CYCLES, so that the host has enqueued all of ``fn``
+    (0.06-0.1 ms through the Python wrappers) before the start event fires:
+    without it a kernel shorter than the host's enqueue was timed with the
+    host's time in it."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
         flush_l2(buf)
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -237,13 +251,18 @@ def attn_pairs(S, T, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
-def attn_bound_ms(B, S, T, H, KV, hd, causal: bool, window: int) -> tuple[float, str]:
-    """flash_attention on these shapes: 4·hd fp32 operations per visible
-    (query, key) pair (the score and the weighted sum of v); q, k, v read
-    and out written once, fp32."""
-    flops = 4.0 * hd * B * H * attn_pairs(S, T, causal, window)
+def attn_bound_ms(B, S, T, H, KV, hd, causal: bool, window: int) -> tuple[float, str, float]:
+    """flash_attention on these shapes: 4·hd operations per visible (query,
+    key) pair (the score and the weighted sum of v) done fp32-accurate on the
+    card's fastest units, the tensor cores in 3xTF32 (three TF32 products),
+    beside one exp per pair at the SFU rate; q, k, v read and out written
+    once, fp32.  Also returns ``fma_bound_ms``: the same operations on the
+    fp32 FMA units, the bound that rows before the tensor-core kernel used."""
+    pairs = B * H * attn_pairs(S, T, causal, window)
+    flops = 4.0 * hd * pairs
     n_bytes = 4.0 * (2 * B * S * H * hd + 2 * B * T * KV * hd)
-    return bound_ms(flops / PEAK_FP32_FLOPS, n_bytes)
+    bnd, by = bound_ms(max(3 * flops / PEAK_TF32_FLOPS, pairs / PEAK_EXP_PER_S), n_bytes)
+    return bnd, by, bound_ms(flops / PEAK_FP32_FLOPS, n_bytes)[0]
 
 
 def lstm_inputs(gen, B, T, D, H, carry: bool):
@@ -890,14 +909,27 @@ def main() -> int:
         require(torch.equal(torch.cat([y1, y2], 1), y_full) and torch.equal(h_end, h_full),
                 "ssm_scan: a scan resumed at step 100 differs from the one-shot scan")
         say("kernel_vs_plain", kernel="ssm_scan", case="resume_at_100_bit_identical", ok=True)
-        # timing at the main path's shape: one layer of a 256-token prefill
+        # timing at the main path's shapes: one layer of a 256-token prefill,
+        # and of the chunked prefill's 64-token chunk
         scan_ms = time_ms(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm), l2)
         scan_calls = launches_per_call(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm))
         scan_plain_ms = time_ms(lambda: scan_ops.ssm_scan_ref(x, dl, A, Bm, Cm), l2, reps=5)
+        x, dl, A, Bm, Cm, _ = scan_inputs(1, CHUNK, DI, NS)
+        scan_ms_64 = time_ms(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm), l2)
+        scan_calls_64 = launches_per_call(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm))
+        scan_plain_ms_64 = time_ms(lambda: scan_ops.ssm_scan_ref(x, dl, A, Bm, Cm), l2, reps=5)
+    require(scan_calls == scan_calls_64 == 1,
+            f"ssm_scan: {scan_calls} and {scan_calls_64} launches a call, expected 1")
     scan_bound, scan_bound_by = scan_bound_ms(1, 256, DI, NS)
+    scan_bound_64, scan_bound_by_64 = scan_bound_ms(1, CHUNK, DI, NS)
     say("kernel_time", kernel="ssm_scan", B=1, T=256, D=DI, N=NS, ms=f"{scan_ms:.4f}",
         plain_ms=f"{scan_plain_ms:.4f}", library_ms="none", bound_ms=f"{scan_bound:.4f}",
-        bound_by=scan_bound_by, reps=REPS, card=repr(card))
+        bound_by=scan_bound_by, bound_share=f"{scan_bound / scan_ms:.3f}",
+        launches_per_call=scan_calls, reps=REPS, card=repr(card))
+    say("kernel_time", kernel="ssm_scan", B=1, T=CHUNK, D=DI, N=NS, ms=f"{scan_ms_64:.4f}",
+        plain_ms=f"{scan_plain_ms_64:.4f}", library_ms="none", bound_ms=f"{scan_bound_64:.4f}",
+        bound_by=scan_bound_by_64, bound_share=f"{scan_bound_64 / scan_ms_64:.3f}",
+        launches_per_call=scan_calls_64, reps=REPS, card=repr(card))
     phase_done("ssm_scan")
 
     # -- 10. int8_matmul vs plain ---------------------------------------------
@@ -975,18 +1007,24 @@ def main() -> int:
                 say("kernel_vs_plain", kernel="flash_attention", case=label.format(**c),
                     dtype=str(dtype).removeprefix("torch."), max_abs_err=f"{e:.3e}", tol=tol,
                     ok=True)
-        # times at (a) one smollm-135m layer of a 256-token prompt, (b) one
-        # phi4-mini-3.8b layer of 2048 tokens, (c) gemma3's local-layer shape
+        # times at (a') and (a) one smollm-135m layer of a 64- and a 256-token
+        # prompt, (b) one phi4-mini-3.8b layer of 2048 tokens, (c) gemma3's
+        # local-layer shape
         attn_time = {}
-        for name, c in (("a_smollm_S256", dict(B=1, S=256, T=256, H=9, KV=3, hd=64, window=0)),
+        for name, c in (("a1_smollm_S64", dict(B=1, S=64, T=64, H=9, KV=3, hd=64, window=0)),
+                        ("a_smollm_S256", dict(B=1, S=256, T=256, H=9, KV=3, hd=64, window=0)),
                         ("b_phi4_S2048", dict(B=1, S=2048, T=2048, H=24, KV=8, hd=128, window=0)),
                         ("c_gemma3_local_S2048_w1024",
                          dict(B=1, S=2048, T=2048, H=32, KV=16, hd=128, window=1024))):
             q, k, v = attn_inputs(c)
             w = c["window"]
             k_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, window=w), l2)
+            calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v, window=w))
+            n_splits = fa_kernel.splits(q, k, window=w)
+            require(calls == (1 if n_splits == 1 else 2),
+                    f"flash_attention {name}: {calls} launches a call with {n_splits} key shares")
             if name == "a_smollm_S256":
-                fa_calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v, window=w))
+                fa_calls = calls
             p_ms = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v, window=w), l2)
             # the library call, a yardstick only: SDPA on the same fp32 tensors
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1000,14 +1038,18 @@ def main() -> int:
             lib_diff = float((sdpa().transpose(1, 2) - fa_ops.flash_attention(q, k, v, window=w))
                              .abs().max())
             l_ms = time_ms(sdpa, l2)
-            bnd, by = attn_bound_ms(c["B"], c["S"], c["T"], c["H"], c["KV"], c["hd"], True, w)
-            attn_time[name] = (k_ms, p_ms, l_ms, bnd, by)
+            bnd, by, fma_bnd = attn_bound_ms(c["B"], c["S"], c["T"], c["H"], c["KV"], c["hd"],
+                                             True, w)
+            attn_time[name] = (k_ms, p_ms, l_ms, bnd, by, fma_bnd, n_splits)
             say("kernel_time", kernel="flash_attention", shape=name,
                 **{n: c[n] for n in ("B", "S", "T", "H", "KV", "hd")}, causal=True, window=w,
                 ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", library_ms=f"{l_ms:.4f}",
                 library="F.scaled_dot_product_attention(enable_gqa)",
                 library_max_abs_diff=f"{lib_diff:.3e}", bound_ms=f"{bnd:.4f}", bound_by=by,
-                bound_share=f"{bnd / k_ms:.3f}", reps=REPS, card=repr(card))
+                bound_share=f"{bnd / k_ms:.3f}", fma_bound_ms=f"{fma_bnd:.4f}",
+                fma_bound_share=f"{fma_bnd / k_ms:.3f}", q_tile=fa_kernel.Q_TILE,
+                key_splits=n_splits, launches_per_call=calls,
+                reps=REPS, card=repr(card))
             del q, k, v, qt, kt, vt, win_mask
     phase_done("flash_attention")
 
@@ -1242,6 +1284,8 @@ def main() -> int:
         "weights_resident": None,
         "us_per_step": 1e3 * scan_ms / 256,
         "over_library": None,
+        "ms_T64": scan_ms_64,
+        "bound_ms_T64": scan_bound_64,
     }, {
         "name": "int8_matmul",
         "route": "cuda",
@@ -1277,6 +1321,11 @@ def main() -> int:
         "weights_resident": None,
         "us_per_step": None,
         "over_library": attn_time["a_smollm_S256"][0] / attn_time["a_smollm_S256"][2],
+        "fma_bound_ms": attn_time["a_smollm_S256"][5],
+        "q_tile": fa_kernel.Q_TILE,
+        "key_splits": attn_time["a_smollm_S256"][6],
+        "ms_by_shape": {n: t[0] for n, t in attn_time.items()},
+        "bound_ms_by_shape": {n: t[3] for n, t in attn_time.items()},
     }]}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

@@ -101,6 +101,105 @@ def test_flash_attention_ref_masked_rows_are_finite():
 
 
 # ---------------------------------------------------------------------------
+# the numeric premise of the CUDA kernel: 3xTF32 products hold the fp32 bar
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_gpu.py's FLASH_CASES: the shapes the kernel is held to on the card
+FLASH_CASES = [
+    dict(B=2, S=64, T=64, H=4, KV=2, hd=32, causal=True, window=0, softcap=0.0),
+    dict(B=1, S=128, T=128, H=8, KV=8, hd=64, causal=True, window=32, softcap=0.0),
+    dict(B=2, S=64, T=64, H=4, KV=1, hd=16, causal=False, window=0, softcap=0.0),
+    dict(B=1, S=96, T=96, H=2, KV=2, hd=80, causal=True, window=0, softcap=20.0),
+    dict(B=1, S=64, T=64, H=9, KV=3, hd=64, causal=True, window=0, softcap=0.0),
+    dict(B=1, S=37, T=100, H=4, KV=2, hd=32, causal=True, window=0, softcap=0.0),
+    dict(B=1, S=1, T=1, H=3, KV=1, hd=16, causal=True, window=0, softcap=0.0),
+    dict(B=2, S=100, T=37, H=4, KV=2, hd=32, causal=True, window=8, softcap=0.0),
+    dict(B=1, S=1300, T=1300, H=4, KV=2, hd=128, causal=True, window=1024, softcap=0.0),
+]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits): to nearest, ties away from
+    zero, on the 13 low bits, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """``einsum(eq, a, b)`` with TF32 operands summed in fp32.  passes=3 is
+    3xTF32 (hi·hi + hi·lo + lo·hi, hi = tf32(x), lo = tf32(x - hi)); passes=1
+    is plain TF32 (hi·hi).  A product of two TF32 values is exact in fp32, so
+    an fp32 einsum of the rounded operands is the tensor cores' arithmetic up
+    to the order of the sum."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, a_hi, b_hi)
+    if passes == 3:
+        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+        out = torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo) + out
+    return out
+
+
+def _attention_tf32(q, k, v, *, causal, window, softcap, passes):
+    """flash_attention_ref with its two products (q·k and p·v) done as on the
+    kernel's tensor cores: the softmax in fp32, p left unnormalised (in
+    [0, 1]) into the second product and divided by the row sum after it."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    scores = _tf32_product("bskgd,btkd->bkgst", qg, k, passes) * hd ** -0.5
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    qpos, kpos = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    out = _tf32_product("bkgst,btkd->bskgd", p, v, passes) / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, S, H, hd)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10                                   # TF32's unit in the last place at 1
+    x = torch.tensor([1.0, 1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 2 - 2 ** -20,
+                      1 + 3 * one_ulp / 2, 3.0e-30, -7.25])
+    want = torch.tensor([1.0, 1 + one_ulp, -(1 + one_ulp), 1.0, 1 + 2 * one_ulp,
+                         float(np.float32(3.0e-30)), -7.25])
+    got = _tf32(x)
+    assert torch.equal(got[:5], want[:5]) and got[6] == -7.25
+    assert abs(float(got[5]) - 3.0e-30) <= 3.0e-30 * 2.0 ** -11
+    assert torch.equal(_tf32(got), got)                    # already TF32: unchanged
+    assert not bool((got.view(torch.int32) & 0x1FFF).any())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: f"S{c['S']}_T{c['T']}_H{c['H']}_hd{c['hd']}_w{c['window']}")
+def test_3xtf32_attention_holds_the_fp32_bar(case):
+    """The CUDA kernel's products, 3xTF32 on the tensor cores, emulated on the
+    CPU: within 1e-5 of the plain version on every shape the card's tests
+    hold the kernel to, as the fp32 FMA products were."""
+    c = dict(case)
+    q, k, v = (torch.as_tensor(a) for a in _qkv(c["B"], c["S"], c["T"], c["H"], c["KV"],
+                                               c["hd"], seed=c["S"] + c["hd"]))
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    got = _attention_tf32(q, k, v, passes=3, **kw)
+    torch.testing.assert_close(got, flash_attention_ref(q, k, v, **kw), **TOL)
+
+
+def test_plain_tf32_attention_misses_the_fp32_bar():
+    """One TF32 product each (no lo terms) on phi4-mini's long-prompt shape
+    (S = T = 2048, hd 128; two heads) is about 1e-3 off: plain TF32 cannot
+    hold the 1e-5 bar, which is why the kernel splits every operand."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(1, 2048, 2048, 2, 1, 128, seed=11))
+    want = flash_attention_ref(q, k, v)
+    err1 = float((_attention_tf32(q, k, v, causal=True, window=0, softcap=0.0, passes=1)
+                  - want).abs().max())
+    assert err1 > 1e-4, err1
+
+
+# ---------------------------------------------------------------------------
 # RoPE and the gated MLP
 # ---------------------------------------------------------------------------
 

@@ -427,6 +427,52 @@ def test_ssm_scan_kernel_bf16_and_resume(cuda):
     assert torch.equal(torch.cat([y1, y2], 1), y_full) and torch.equal(h_end, h_full)
 
 
+@pytest.mark.parametrize("T", [24, 64, 255])
+def test_ssm_scan_kernel_at_served_lengths(cuda, T):
+    """falcon-mamba-7b's width at prompt lengths the server prefills: a short
+    prompt, the chunked prefill's chunk, and one step short of 256 (a ragged
+    last chunk and a tail past the unrolled steps)."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    x, dl, A, B, C, h0 = _scan_case(cuda, 1, T, 8192, 16, seed=T)
+    got = ops.ssm_scan(x, dl, A, B, C)
+    torch.cuda.synchronize()
+    _close(got, ops.ssm_scan_ref(x, dl, A, B, C, h0), 1e-4)
+
+
+@pytest.mark.parametrize("Bsz,T,D,N", [
+    (1, 21, 12, 2), (2, 17, 9, 3),                      # two and three states on one lane
+    (1, 40, 33, 6), (1, 29, 24, 13),                    # a lane's four states cut short
+    (2, 45, 20, 100),                                   # 32 lanes, 28 padded states
+])
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssm_scan_kernel_ragged_states(cuda, Bsz, T, D, N, carry):
+    """N that the kernel's 4 states a lane do not divide: the padded states
+    stay zero and add nothing to y."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    x, dl, A, B, C, h0 = _scan_case(cuda, Bsz, T, D, N, seed=7 * N + T, carry=carry)
+    got = ops.ssm_scan(x, dl, A, B, C, h0=h0 if carry else None)
+    torch.cuda.synchronize()
+    _close(got, ops.ssm_scan_ref(x, dl, A, B, C, h0), 1e-4)
+
+
+@pytest.mark.parametrize("D,N,split", [(8192, 16, 101), (8192, 16, 3), (1000, 16, 61),
+                                       (48, 13, 29), (40, 128, 45)])
+def test_ssm_scan_kernel_resume_off_the_unroll(cuda, D, N, split):
+    """A scan split at a step that is neither a multiple of the 8 unrolled
+    steps nor of the 32-step chunk, resumed from h_final, gives the one-shot
+    bits: every step rounds the same way wherever it falls."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    x, dl, A, B, C, _ = _scan_case(cuda, 1, 200, D, N, seed=split)
+    y_full, h_full = ops.ssm_scan(x, dl, A, B, C)
+    y1, h_mid = ops.ssm_scan(x[:, :split], dl[:, :split], A, B[:, :split], C[:, :split])
+    y2, h_end = ops.ssm_scan(x[:, split:], dl[:, split:], A, B[:, split:], C[:, split:],
+                             h0=h_mid)
+    assert torch.equal(torch.cat([y1, y2], 1), y_full) and torch.equal(h_end, h_full)
+
+
 def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels.ssm_scan import kernel
 
@@ -542,6 +588,97 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     assert got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("S", [24, 64, 256])
+def test_flash_attention_kernel_at_smollm_served_shapes(cuda, S, dtype):
+    """smollm-135m's one-shot prefills: S = T of 24-256 tokens, 9 heads over
+    3 kv heads, hd 64: 9 to 36 blocks, most of the first one's rows past S."""
+    from repro_torch.kernels.flash_attention import ops
+
+    c = dict(B=1, S=S, T=S, H=9, KV=3, hd=64)
+    q, k, v = _flash_case(cuda, c, dtype, seed=S)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention_ref(q, k, v)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("hd,causal,window,softcap", [(20, True, 0, 0.0), (20, False, 5, 0.0),
+                                                      (7, True, 0, 15.0), (130, True, 0, 0.0)])
+def test_flash_attention_kernel_head_dim_not_a_multiple_of_8(cuda, hd, causal, window, softcap):
+    """hd padded with zeros to the instantiated width (20 -> 32, 7 -> 16,
+    130 -> 192); hd 7 and 130 also take the 4-byte copies."""
+    from repro_torch.kernels.flash_attention import ops
+
+    c = dict(B=2, S=45, T=45, H=4, KV=2, hd=hd)
+    q, k, v = _flash_case(cuda, c, torch.float32, seed=hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, **kw),
+                               ops.flash_attention_ref(q, k, v, **kw), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("S,T,window,softcap", [(63, 63, 0, 0.0), (65, 65, 0, 0.0),
+                                                 (129, 129, 40, 0.0), (80, 200, 0, 0.0),
+                                                 (200, 80, 17, 0.0), (130, 130, 0, 25.0)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_kernel_at_tile_edges(cuda, S, T, window, softcap, hd):
+    """Lengths one short of and one past the 64-query tile and the 64- or
+    32-key tile (hd 64 and 128), S != T both ways, with a window whose
+    rows skip different key tiles warp by warp, against the plain version at
+    the fp32 bar."""
+    from repro_torch.kernels.flash_attention import ops
+
+    c = dict(B=1, S=S, T=T, H=4, KV=2, hd=hd)
+    q, k, v = _flash_case(cuda, c, torch.float32, seed=S + T + hd)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, **kw),
+                               ops.flash_attention_ref(q, k, v, **kw), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (0, 1, 3, 5, 7, 8)],
+                         ids=lambda c: f"S{c['S']}_T{c['T']}_H{c['H']}_hd{c['hd']}_w{c['window']}")
+def test_flash_attention_kernel_key_splits(cuda, case, n_splits):
+    """The key axis shared among n blocks and merged by the second launch
+    (more shares than a q tile has key tiles leave some empty), on masks,
+    windows, softcap, S != T and rows that see no key, against the plain
+    version at the fp32 bar."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    q, k, v = _flash_case(cuda, case, torch.float32, seed=n_splits)
+    kw = {n: case[n] for n in ("causal", "window", "softcap")}
+    torch.testing.assert_close(kernel.flash_attention(q, k, v, n_splits=n_splits, **kw),
+                               ops.flash_attention_ref(q, k, v, **kw), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_attention_kernel_splits_only_a_short_grid(cuda):
+    """The host splits the key axis only when the (b, h, q tile) blocks fill
+    fewer than the card's SMs, and then into at most as many shares as the
+    longest q tile has key tiles; each split call is two launches."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for (S, H, KV, hd) in ((2048, 24, 8, 128), (256, 9, 3, 64), (64, 9, 3, 64), (1000, 1, 1, 32)):
+        q, k, _ = _flash_case(cuda, dict(B=1, S=S, T=S, H=H, KV=KV, hd=hd), torch.float32)
+        n = kernel.splits(q, k)
+        blocks = H * -(-S // kernel.Q_TILE)
+        bk = 64 if hd <= 64 else 32
+        assert 1 <= n <= kernel.MAX_SPLITS
+        assert n == 1 if blocks >= sms else n <= -(-S // bk)
+    q, k, v = _flash_case(cuda, dict(B=1, S=256, T=256, H=9, KV=3, hd=64), torch.float32)
+    if kernel.splits(q, k) > 1:
+        from torch.profiler import ProfilerActivity, profile
+
+        kernel.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kernel.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+        assert sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.name.startswith("cudaLaunch")) == 2
 
 
 def test_flash_attention_kernel_takes_strided_views(cuda):

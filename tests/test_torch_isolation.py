@@ -17,7 +17,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
