@@ -57,11 +57,12 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    kernel cases in fp32 and bf16, S != T, S = T = 1, rows that see no key,
    hd 128 with a 1024 window), and its time at two ``smollm-135m`` layers
    (64 and 256 tokens), one ``phi4-mini-3.8b`` layer and gemma3's
-   local-layer shape beside the plain version's,
-   ``F.scaled_dot_product_attention``'s, its bound on the tensor cores in
-   3xTF32 and the fp32-FMA bound (``fma_bound_ms``), with its q tile, the
-   key shares the host chose and its launches per call (which must be 1,
-   or 2 where the key axis is split);
+   local-layer shape, each held to the fp32 bar, beside the plain
+   version's, ``F.scaled_dot_product_attention``'s, its bound on the
+   tensor cores in 3xTF32 and the fp32-FMA bound (``fma_bound_ms``), with
+   its q tile, the key shares the host chose and its launches per call
+   (which must be 1, or 2 where the key axis is split, as the wrapper
+   counts them); then the fp32 bar at 512 to 8192 keys (hd 128);
 12. serve mamba — full-width ``falcon-mamba-7b`` (64 layers, 7.3 B fp32
    parameters from a seed) with ``use_pallas=True`` through ``DecodeServer``
    under ``step()``, ``step_block()`` and chunked prefill: identical tokens,
@@ -70,13 +71,16 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    ``torch.profiler``;
 13. serve smollm — full-width ``smollm-135m`` (30 layers, 135 M fp32
    parameters from a seed) with ``use_pallas=True`` under the same three
-   drivers: identical tokens, ``flash_attention`` launched once per layer
+   drivers: identical tokens, ``flash_attention`` called once per layer
    of every one-shot prefill and never by a chunk (chunks attend over the
-   cache in plain PyTorch), a 256-token prefill's logits held against the
-   plain path; then its ``step()`` run under ``torch.profiler``;
+   cache in plain PyTorch), with one CUDA launch a call or two where the
+   prompt's length splits the key axis, a 256-token prefill's logits held
+   against the plain path; then its ``step()`` run under
+   ``torch.profiler``;
 14. prefill phi4 — full-width ``phi4-mini-3.8b`` (32 layers, 3.8 B fp32
    parameters, after falcon-mamba's tree is freed): one 256-token prefill
-   through the kernel (32 launches) and on the plain path.
+   through the kernel (32 calls, 64 launches: 96 blocks of 64 queries
+   leave SMs idle, so the key axis is split) and on the plain path.
 
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
@@ -459,11 +463,15 @@ def main() -> int:
     lengths[0] = 256
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lengths]
 
-    def serve(mcfg, params, label: str, block: bool, counter, chunks_launch: bool = True, **kw):
+    def serve(mcfg, params, label: str, block: bool, counter, chunks_launch: bool = True,
+              launches_per_prefill=None, **kw):
         """Drive ``DecodeServer`` over the 16 requests; ``counter`` is the
         wrapper whose launches this run must show exactly once per layer of
         every prefill call (of every one-shot prefill only, and none in a
-        chunked run, when ``chunks_launch`` is False)."""
+        chunked run, when ``chunks_launch`` is False).  A wrapper that also
+        counts ``calls`` makes ``launches_per_prefill(n)`` CUDA launches a
+        layer for a one-shot prefill of n tokens, and its calls are held to
+        the rule above."""
         obs = Observability(trace=True)
         srv = DecodeServer(mcfg, params, num_slots=NUM_SLOTS, max_seq=MAX_SEQ,
                            block_k=BLOCK_K, obs=obs, **kw)
@@ -471,11 +479,14 @@ def main() -> int:
             srv.submit(Request(uid=i, prompt=p, max_new_tokens=MAX_NEW))
         torch.cuda.synchronize()
         counter.launches = 0
+        if launches_per_prefill is not None:
+            counter.calls = 0
         t0 = time.perf_counter()
         done = srv.run_until_drained(persistent=block)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = counter.launches
+        calls = counter.calls if launches_per_prefill is not None else launches
         decode_ms = sum(ev["dur"] for ev in obs.tracer.events()
                         if ev.get("name") in ("decode_step", "decode_block")) / 1e3
         st = srv.stats()
@@ -488,9 +499,14 @@ def main() -> int:
         n_prefills = (sum(math.ceil(n / kw["prefill_chunk"]) for n in lengths)
                       if kw.get("prefill_chunk") else N_REQUESTS)
         want = mcfg.n_layers * n_prefills if chunks_launch or not kw.get("prefill_chunk") else 0
-        require(launches == want,
-                f"{mcfg.name} {label}: {launches} kernel launches for {n_prefills} prefill "
+        require(calls == want,
+                f"{mcfg.name} {label}: {calls} kernel calls for {n_prefills} prefill "
                 f"calls of {mcfg.n_layers} layers")
+        if launches_per_prefill is not None:
+            want_launches = (0 if kw.get("prefill_chunk") else
+                             mcfg.n_layers * sum(launches_per_prefill(int(n)) for n in lengths))
+            require(launches == want_launches,
+                    f"{mcfg.name} {label}: {launches} CUDA launches, not {want_launches}")
         # a persistent kernel (lstm_seq, codegen_stage) waits for its barrier
         # word on the host once a call; the other kernels never do
         kernel_syncs = srv.prefill_kernel_syncs
@@ -503,7 +519,8 @@ def main() -> int:
             prefill_ms_per_prompt=f"{(wall_ms - decode_ms) / N_REQUESTS:.2f}",
             decode_syncs=st["decode_syncs"], decoded_tokens=st["decoded_tokens"],
             syncs_per_token=f"{st['syncs_per_token']:.4f}", kernel_syncs=kernel_syncs,
-            kernel_launches=launches, prefill_calls=n_prefills, card=repr(card))
+            kernel_calls=calls, kernel_launches=launches, prefill_calls=n_prefills,
+            card=repr(card))
         return {r.uid: r.out_tokens for r in done}, launches, wall_ms
 
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -836,13 +853,13 @@ def main() -> int:
     # -- 8. where the time goes: the use_pallas step() run under the profiler ---
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled_step_run(mcfg, mparams, counter, want_tokens):
+    def profiled_step_run(mcfg, mparams, counter, want_tokens, **serve_kw):
         """The ``step()`` serve run once more under torch.profiler: device
         busy time and idle share over the run's wall, and the top kernels."""
         with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                                   ProfilerActivity.CUDA]) as prof:
             tok_prof, _, prof_wall_ms = serve(mcfg, mparams, "step(profiled)", False,
-                                              counter)
+                                              counter, **serve_kw)
         require(tok_prof == want_tokens, f"{mcfg.name}: the profiled step() run's tokens differ")
         kernels = sorted((e for e in prof.key_averages()
                           if e.device_type == torch.autograd.DeviceType.CUDA
@@ -988,6 +1005,13 @@ def main() -> int:
         v = torch.randn((c["B"], c["T"], c["KV"], c["hd"]), generator=gen, device=dev)
         return q.to(dtype), k.to(dtype), v.to(dtype)
 
+    def fa_launches(mcfg, S: int) -> int:
+        """CUDA launches of one layer's flash_attention in a one-shot prefill
+        of S tokens: 2 where the host splits the key axis, else 1."""
+        q = torch.empty((1, S, mcfg.n_heads, mcfg.head_dim), device=dev)
+        k = torch.empty((1, S, mcfg.n_kv_heads, mcfg.head_dim), device=dev)
+        return fa_kernel.launches_per_call(fa_kernel.splits(q, k, causal=mcfg.causal))
+
     attn_err = 0.0
     with torch.no_grad():
         for c in attn_cases:
@@ -1018,11 +1042,19 @@ def main() -> int:
                          dict(B=1, S=2048, T=2048, H=32, KV=16, hd=128, window=1024))):
             q, k, v = attn_inputs(c)
             w = c["window"]
+            shape_err = check_close(f"flash_attention {name}",
+                                    [fa_ops.flash_attention(q, k, v, window=w)],
+                                    [fa_ops.flash_attention_ref(q, k, v, window=w)], ATTN_TOL)
+            attn_err = max(attn_err, shape_err)
             k_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, window=w), l2)
             calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v, window=w))
             n_splits = fa_kernel.splits(q, k, window=w)
-            require(calls == (1 if n_splits == 1 else 2),
-                    f"flash_attention {name}: {calls} launches a call with {n_splits} key shares")
+            counted = fa_ops.flash_attention.launches
+            fa_ops.flash_attention(q, k, v, window=w)
+            counted = fa_ops.flash_attention.launches - counted
+            require(calls == fa_kernel.launches_per_call(n_splits) == counted,
+                    f"flash_attention {name}: {calls} launches a call with {n_splits} key "
+                    f"shares, {counted} counted by the wrapper")
             if name == "a_smollm_S256":
                 fa_calls = calls
             p_ms = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v, window=w), l2)
@@ -1040,9 +1072,10 @@ def main() -> int:
             l_ms = time_ms(sdpa, l2)
             bnd, by, fma_bnd = attn_bound_ms(c["B"], c["S"], c["T"], c["H"], c["KV"], c["hd"],
                                              True, w)
-            attn_time[name] = (k_ms, p_ms, l_ms, bnd, by, fma_bnd, n_splits)
+            attn_time[name] = (k_ms, p_ms, l_ms, bnd, by, fma_bnd, n_splits, shape_err)
             say("kernel_time", kernel="flash_attention", shape=name,
                 **{n: c[n] for n in ("B", "S", "T", "H", "KV", "hd")}, causal=True, window=w,
+                max_abs_err=f"{shape_err:.3e}", tol=ATTN_TOL,
                 ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", library_ms=f"{l_ms:.4f}",
                 library="F.scaled_dot_product_attention(enable_gqa)",
                 library_max_abs_diff=f"{lib_diff:.3e}", bound_ms=f"{bnd:.4f}", bound_by=by,
@@ -1051,6 +1084,20 @@ def main() -> int:
                 key_splits=n_splits, launches_per_call=calls,
                 reps=REPS, card=repr(card))
             del q, k, v, qt, kt, vt, win_mask
+        # the fp32 bar at long prompts: a block sums up to T keys, and the
+        # error must not grow with them
+        attn_err_by_keys = {}
+        for S, H, KV in ((512, 8, 4), (1024, 8, 4), (2048, 8, 4), (4096, 8, 4), (8192, 4, 2)):
+            c = dict(B=1, S=S, T=S, H=H, KV=KV, hd=128)
+            q, k, v = attn_inputs(c)
+            e = check_close(f"flash_attention S=T={S} hd 128", [fa_ops.flash_attention(q, k, v)],
+                            [fa_ops.flash_attention_ref(q, k, v)], ATTN_TOL)
+            attn_err = max(attn_err, e)
+            attn_err_by_keys[S] = e
+            say("kernel_vs_plain", kernel="flash_attention", case=f"S{S}_T{S}_H{H}_KV{KV}_hd128",
+                key_splits=fa_kernel.splits(q, k), dtype="float32", max_abs_err=f"{e:.3e}",
+                tol=ATTN_TOL, ok=True)
+            del q, k, v
     phase_done("flash_attention")
 
     # -- 12. serve full-width falcon-mamba-7b (use_pallas) -----------------------
@@ -1131,37 +1178,47 @@ def main() -> int:
         lm.prefill(sparams, scfg, toks)      # untimed: first use of each GEMM shape
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        stok_step, f1, _ = serve(scfg, sparams, "step", False, fa_ops.flash_attention)
-        stok_block, f2, _ = serve(scfg, sparams, "step_block", True, fa_ops.flash_attention)
+        per_prefill = lambda n: fa_launches(scfg, n)
+        stok_step, f1, _ = serve(scfg, sparams, "step", False, fa_ops.flash_attention,
+                                 launches_per_prefill=per_prefill)
+        c1 = fa_ops.flash_attention.calls
+        stok_block, f2, _ = serve(scfg, sparams, "step_block", True, fa_ops.flash_attention,
+                                  launches_per_prefill=per_prefill)
+        c2 = fa_ops.flash_attention.calls
         stok_chunk, f3, _ = serve(scfg, sparams, f"step+prefill_chunk={CHUNK}", False,
                                   fa_ops.flash_attention, chunks_launch=False,
-                                  prefill_chunk=CHUNK)
+                                  launches_per_prefill=per_prefill, prefill_chunk=CHUNK)
+        c3 = fa_ops.flash_attention.calls
         serve_peak = torch.cuda.max_memory_allocated()
         require(stok_step == stok_block, f"{scfg.name}: step() and step_block() tokens differ")
         require(stok_step == stok_chunk, f"{scfg.name}: one-shot and chunked prefill tokens differ")
 
         def dense_prefill_check(mcfg, mparams):
             """One 256-token prefill through the kernel and on the plain path:
-            times, launches, and the logits gap relative to max |logit|."""
+            times, calls and launches, and the logits gap relative to max
+            |logit|."""
             logits, ms = {}, {}
             for path, pcfg in (("use_pallas", mcfg),
                                ("plain", dataclasses.replace(mcfg, use_pallas=False))):
                 lm.prefill(mparams, pcfg, toks)
                 torch.cuda.synchronize()
-                fa_ops.flash_attention.launches = 0
+                fa_ops.flash_attention.calls = fa_ops.flash_attention.launches = 0
                 t0 = time.perf_counter()
                 logits[path], caches = lm.prefill(mparams, pcfg, toks)
                 torch.cuda.synchronize()
                 ms[path] = (time.perf_counter() - t0) * 1e3
                 if path == "use_pallas":
+                    n_call = fa_ops.flash_attention.calls
                     n_launch = fa_ops.flash_attention.launches
                 require(logits[path].shape == (1, mcfg.vocab)
                         and bool(torch.isfinite(logits[path]).all()),
                         f"{mcfg.name} {path} prefill logits of shape "
                         f"{tuple(logits[path].shape)} or non-finite")
-            require(n_launch == mcfg.n_layers,
-                    f"{mcfg.name}: {n_launch} flash_attention launches in a "
-                    f"{mcfg.n_layers}-layer prefill")
+            want_launch = mcfg.n_layers * fa_launches(mcfg, toks.shape[1])
+            require(n_call == mcfg.n_layers and n_launch == want_launch,
+                    f"{mcfg.name}: {n_call} flash_attention calls and {n_launch} CUDA "
+                    f"launches in a {mcfg.n_layers}-layer prefill, not "
+                    f"{mcfg.n_layers} and {want_launch}")
             kv = caches["groups"]["b0_attn"]["k"]
             require(tuple(kv.shape) == (mcfg.n_layers, 1, toks.shape[1], mcfg.n_kv_heads,
                                         mcfg.head_dim),
@@ -1171,18 +1228,20 @@ def main() -> int:
             require(diff <= DENSE_LOGITS_RTOL * scale,
                     f"{mcfg.name} use_pallas prefill logits differ from the plain path by "
                     f"{diff:.3e} (max |logit| {scale:.3e})")
-            return n_launch, diff, scale, ms
+            return n_call, n_launch, diff, scale, ms
 
-        _, s_diff, s_scale, s_ms = dense_prefill_check(scfg, sparams)
+        _, _, s_diff, s_scale, s_ms = dense_prefill_check(scfg, sparams)
     say("serve_check", arch=scfg.name, path="use_pallas", identical_tokens=True,
-        flash_attention_launches=f"{f1}+{f2}+{f3}", prompt_len=toks.shape[1],
+        flash_attention_calls=f"{c1}+{c2}+{c3}", flash_attention_launches=f"{f1}+{f2}+{f3}",
+        prompt_len=toks.shape[1],
         prefill_logits_max_abs_diff=f"{s_diff:.3e}", max_abs_logit=f"{s_scale:.3e}",
         rel_gap=f"{s_diff / s_scale:.3e}", rtol_of_max=DENSE_LOGITS_RTOL,
         **{f"prefill_ms_{k}": f"{v:.2f}" for k, v in s_ms.items()},
         peak_alloc_gb_serving=f"{serve_peak / 1e9:.3f}", card=repr(card))
     phase_done("serve_smollm")
 
-    profiled_step_run(scfg, sparams, fa_ops.flash_attention, stok_step)
+    profiled_step_run(scfg, sparams, fa_ops.flash_attention, stok_step,
+                      launches_per_prefill=per_prefill)
     del sparams
     torch.cuda.empty_cache()
     phase_done("profile_smollm")
@@ -1202,12 +1261,13 @@ def main() -> int:
     p_params = lm.param_count(pparams)
     peak_init = torch.cuda.max_memory_allocated()
     with torch.no_grad():
-        p_launch, p_diff, p_scale, p_ms = dense_prefill_check(pcfg, pparams)
+        p_call, p_launch, p_diff, p_scale, p_ms = dense_prefill_check(pcfg, pparams)
     say("prefill_check", arch=pcfg.name, path="use_pallas", params=p_params,
         param_gb=f"{4 * p_params / 1e9:.2f}", init_s=f"{init_s:.1f}",
         alloc_gb_before_init=f"{base_alloc / 1e9:.2f}",
         peak_alloc_gb_after_init=f"{peak_init / 1e9:.2f}", prompt_len=toks.shape[1],
-        flash_attention_launches=p_launch, prefill_logits_max_abs_diff=f"{p_diff:.3e}",
+        flash_attention_calls=p_call, flash_attention_launches=p_launch,
+        prefill_logits_max_abs_diff=f"{p_diff:.3e}",
         max_abs_logit=f"{p_scale:.3e}", rel_gap=f"{p_diff / p_scale:.3e}",
         rtol_of_max=DENSE_LOGITS_RTOL, **{f"prefill_ms_{k}": f"{v:.2f}" for k, v in p_ms.items()},
         peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
@@ -1311,6 +1371,7 @@ def main() -> int:
         # smollm-135m's three serve runs (30 per one-shot prefill, 0 for
         # chunks) and phi4-mini-3.8b's prefill (32); times at shape (a)
         "launches": f1 + f2 + f3 + p_launch,
+        "calls": c1 + c2 + c3 + p_call,
         "max_abs_err": attn_err,
         "ms": attn_time["a_smollm_S256"][0],
         "plain_ms": attn_time["a_smollm_S256"][1],
@@ -1325,6 +1386,8 @@ def main() -> int:
         "q_tile": fa_kernel.Q_TILE,
         "key_splits": attn_time["a_smollm_S256"][6],
         "ms_by_shape": {n: t[0] for n, t in attn_time.items()},
+        "max_abs_err_by_shape": {n: t[7] for n, t in attn_time.items()},
+        "max_abs_err_by_keys": attn_err_by_keys,
         "bound_ms_by_shape": {n: t[3] for n, t in attn_time.items()},
     }]}
     print(json.dumps(summary), flush=True)

@@ -36,6 +36,15 @@
 //    is the PV product's A fragment once key 2t is taken as k-index t and
 //    key 2t+1 as t + 4, so V's fragment reads rows 2t and 2t+1.  P is re-split
 //    to hi/lo for that product;
+//  - the tensor cores' fp32 accumulation does not round to nearest as an
+//    fp32 add does, so a sum carried inside the mma accumulators drifts with
+//    its length: P·V summed over every key tile there was 8.6e-6 off the
+//    plain version at 2048 keys (hd 128), 4.2e-6 and 2.1e-6 with the keys
+//    shared among 2 and 4 blocks.  So each tile's P·V goes into a zeroed
+//    fragment (at most 64 keys) and is folded into the output by one fp32
+//    FMA, o = alpha·o + tile, rounding as the plain version's sum does.  The
+//    scores sum over hd only; there the cross terms keep their own
+//    fragment, added to hi·hi once per tile;
 //  - the exps are ex2.approx.ftz((s - m)·log2e), one SFU instruction each
 //    (relative error about 2^-22); softcap is tanhf;
 //  - K and V tiles arrive by cp.async into a 2-stage ring: tile j+1 is in
@@ -68,7 +77,8 @@
 //  - keys past T (the ragged last tile) are absent, not masked: p = 0, and
 //    their K and V rows are zero-filled;
 //  - any S and T >= 1 (S != T, prime lengths, S = 1), any H that is a
-//    multiple of KV, any hd <= 256; l == 0 divides by 1.  No fast math.
+//    multiple of KV, any hd <= 256; l == 0 divides by 1.  The exps above are
+//    the one approximate instruction: the build takes no fast-math flag.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,6 +102,9 @@ struct Tile {
   static constexpr int LD = HDP + 4;                         // row stride in shared memory
   static constexpr int BK = HD8 <= 8 ? 64 : (HD8 <= 16 ? 32 : 16);
   static constexpr int NB = BK / 8;                          // score n-blocks a tile
+  // o's column blocks whose tile sums are held at once: all of them (one
+  // independent mma chain each) up to hdp 128; 8 above, where all would spill
+  static constexpr int EB = HD8 <= 16 ? HD8 : 8;
 };
 
 template <int HD8>
@@ -298,6 +311,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) sc[j][i] += sx[j][i];
 
     // online softmax of rows g (r = 0) and g + 8 (r = 1), in registers
+    float alpha[2];                             // each row's rescaling of o
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = wq0 + g + 8 * r;
@@ -319,7 +333,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[r], mx);
-      const float alpha = ex2((m[r] - m_new) * LOG2E);
+      alpha[r] = ex2((m[r] - m_new) * LOG2E);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < NB; ++j)
@@ -332,32 +346,41 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[r] = alpha * l[r] + sum;
+      l[r] = alpha[r] * l[r] + sum;
       m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < HD8; ++e) {
-        acc[e][2 * r] *= alpha;
-        acc[e][2 * r + 1] *= alpha;
-      }
     }
 
-    // o += p v: A = p rows (g, g+8) x k-index (t, t+4) = keys n0 + (2t, 2t+1),
-    // which is sc[j] as it stands; B = v rows n0 + (2t, 2t+1) x column e0 + g
+    // o = alpha·o + p v: A = p rows (g, g+8) x k-index (t, t+4) = keys
+    // n0 + (2t, 2t+1), which is sc[j] as it stands; B = v rows n0 + (2t,
+    // 2t+1) x column e0 + g.  The tile's sum is its own fragment, folded
+    // into acc in fp32 (see the header)
+    uint32_t ph[NB][4], pl[NB][4];
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
-      uint32_t ph[4], pl[4];
-      split(sc[j][0], ph[0], pl[0]);
-      split(sc[j][2], ph[1], pl[1]);
-      split(sc[j][1], ph[2], pl[2]);
-      split(sc[j][3], ph[3], pl[3]);
-      const float* vr = vst + (j * 8 + 2 * t4) * LD + g;
+      split(sc[j][0], ph[j][0], pl[j][0]);
+      split(sc[j][2], ph[j][1], pl[j][1]);
+      split(sc[j][1], ph[j][2], pl[j][2]);
+      split(sc[j][3], ph[j][3], pl[j][3]);
+    }
+    // EB column blocks at a time (see Tile): their mma chains interleave
 #pragma unroll
-      for (int e = 0; e < HD8; ++e) {
-        uint32_t bh[2], bl[2];
-        split(vr[e * 8], bh[0], bl[0]);
-        split(vr[LD + e * 8], bh[1], bl[1]);
-        mma3(acc[e], ph, pl, bh, bl);
-      }
+    for (int e0 = 0; e0 < HD8; e0 += C::EB) {
+      float pv[C::EB][4] = {};
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < C::EB; ++e) {
+          const float* vr = vst + (j * 8 + 2 * t4) * LD + (e0 + e) * 8 + g;
+          uint32_t bh[2], bl[2];
+          split(vr[0], bh[0], bl[0]);
+          split(vr[LD], bh[1], bl[1]);
+          mma3(pv[e], ph[j], pl[j], bh, bl);
+        }
+#pragma unroll
+      for (int e = 0; e < C::EB; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[e0 + e][i] = __fmaf_rn(acc[e0 + e][i], alpha[i >> 1], pv[e][i]);
     }
   }
 
@@ -451,6 +474,7 @@ extern "C" {
 // to reach twice the SM count but no more than the longest block has tiles.
 int flash_attention_splits(int B, int S, int T, int H, int hd, int causal, int window,
                            int sm_count) {
+  if (B < 1 || S < 1 || T < 1 || H < 1 || hd < 1) return 1;   // flash_attention_f32 refuses
   const int q_tiles = (S + BQ - 1) / BQ;
   const long blocks = (long)B * H * q_tiles;
   if (blocks >= sm_count) return 1;

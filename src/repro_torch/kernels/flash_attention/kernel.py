@@ -56,6 +56,12 @@ def splits(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, window: int
                                          int(window), sms)
 
 
+def launches_per_call(n_splits: int) -> int:
+    """The CUDA launches of one call with ``n_splits`` key shares: the
+    kernel, and ``combine_kernel`` after it when the key axis is split."""
+    return 1 if n_splits == 1 else 2
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, n_splits: int | None = None) -> torch.Tensor:
@@ -109,5 +115,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-__all__ = ["MAX_HD", "MAX_SPLITS", "Q_TILE", "SOURCE", "build", "flash_attention", "load",
-           "splits"]
+__all__ = ["MAX_HD", "MAX_SPLITS", "Q_TILE", "SOURCE", "build", "flash_attention",
+           "launches_per_call", "load", "splits"]

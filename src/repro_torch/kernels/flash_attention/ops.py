@@ -6,8 +6,9 @@ Hopper kernel (``kernel.py``), a CPU tensor takes the plain PyTorch version
 (``ref.py``).  There is no fallback between the two: a failed build or launch
 raises.  The TPU kernel's tiling keywords (``bq``, ``bk``) blocked its VMEM
 and change no result, so they are not carried over.
-``flash_attention.launches`` counts the kernel launches made through this
-wrapper.
+``flash_attention.calls`` counts the calls that reached the kernel through
+this wrapper, ``flash_attention.launches`` their CUDA launches: one a call,
+two where the host split the key axis (the kernel and its combining pass).
 """
 
 from __future__ import annotations
@@ -29,13 +30,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
-    f32 = lambda t: t.to(torch.float32).contiguous()
-    out = _k.flash_attention(f32(q), f32(k), f32(v), causal=causal, window=window,
-                             softcap=softcap)
-    flash_attention.launches += 1
+    q32, k32, v32 = (t.to(torch.float32).contiguous() for t in (q, k, v))
+    out = _k.flash_attention(q32, k32, v32, causal=causal, window=window, softcap=softcap)
+    flash_attention.calls += 1
+    # the key shares that call chose, from the shapes it has just accepted
+    flash_attention.launches += _k.launches_per_call(
+        _k.splits(q32, k32, causal=causal, window=window))
     return out.to(q.dtype)
 
 
+flash_attention.calls = 0
 flash_attention.launches = 0
 
 

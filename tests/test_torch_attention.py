@@ -129,8 +129,9 @@ def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int) -> tor
     """``einsum(eq, a, b)`` with TF32 operands summed in fp32.  passes=3 is
     3xTF32 (hi·hi + hi·lo + lo·hi, hi = tf32(x), lo = tf32(x - hi)); passes=1
     is plain TF32 (hi·hi).  A product of two TF32 values is exact in fp32, so
-    an fp32 einsum of the rounded operands is the tensor cores' arithmetic up
-    to the order of the sum."""
+    an fp32 einsum of the rounded operands gives the tensor cores' products;
+    their accumulation does not round to nearest, which the kernel confines
+    to one key tile (``flash_attention.cu``)."""
     a_hi, b_hi = _tf32(a), _tf32(b)
     out = torch.einsum(eq, a_hi, b_hi)
     if passes == 3:

@@ -577,13 +577,15 @@ def _flash_case(dev, c, dtype, seed=0):
 @pytest.mark.parametrize("case", FLASH_CASES,
                          ids=lambda c: f"S{c['S']}_T{c['T']}_H{c['H']}_hd{c['hd']}_w{c['window']}")
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import kernel, ops
 
     q, k, v = _flash_case(cuda, case, dtype)
     kw = {n: case[n] for n in ("causal", "window", "softcap")}
-    launches = ops.flash_attention.launches
+    calls, launches = ops.flash_attention.calls, ops.flash_attention.launches
     got = ops.flash_attention(q, k, v, **kw)
-    assert ops.flash_attention.launches == launches + 1
+    n_splits = kernel.splits(q, k, causal=case["causal"], window=case["window"])
+    assert ops.flash_attention.calls == calls + 1
+    assert ops.flash_attention.launches == launches + kernel.launches_per_call(n_splits)
     want = ops.flash_attention_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
     tol = 1e-5 if dtype == torch.float32 else 2e-2
@@ -604,6 +606,20 @@ def test_flash_attention_kernel_at_smollm_served_shapes(cuda, S, dtype):
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [2048, 4096])
+def test_flash_attention_kernel_at_long_prompts(cuda, S, causal):
+    """A block sums up to S keys at hd 128 (no window, no key split at these
+    grids): the error must not grow with them past the fp32 bar."""
+    from repro_torch.kernels.flash_attention import ops
+
+    c = dict(B=1, S=S, T=S, H=8, KV=4, hd=128)
+    q, k, v = _flash_case(cuda, c, torch.float32, seed=S + causal)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, causal=causal),
+                               ops.flash_attention_ref(q, k, v, causal=causal),
+                               atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("hd,causal,window,softcap", [(20, True, 0, 0.0), (20, False, 5, 0.0),

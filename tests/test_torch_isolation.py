@@ -17,8 +17,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("*.py")))
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
