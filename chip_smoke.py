@@ -82,6 +82,27 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    through the kernel (32 calls, 64 launches: 96 blocks of 64 queries
    leave SMs idle, so the key axis is split) and on the plain path.
 
+15. serve_loadgen — the seeded ``repro_torch.runtime.loadgen`` trace (32
+   requests, Poisson arrivals 0.25 ticks apart, prompts of 8-63 and 128-256
+   tokens and two fleets sharing a 128-token prefix, 32 new tokens each)
+   replayed twice (cold, then the same prompts under fresh uids) at full
+   width with ``use_pallas``: ``paper-lstm`` (after phase 8) under ``step()``
+   without the prefix cache, chunked ``step()`` and adaptive ``step_block()``
+   with a 256 MB cache, and the chunked run under ``AsyncServer`` (equal
+   digests, full and partial hits, fewer prompt steps, each server's
+   ``kernel_syncs`` its own ``lstm_seq`` calls); ``decode.nan_logits``,
+   ``decode.dispatch`` and ``tick.slow`` injected at full width;
+   ``falcon-mamba-7b`` (in phase 12, on its loaded weights) chunked without
+   and with a 1 GiB cache that evicts (``ssm_scan`` launched once a layer
+   of every chunk run); ``smollm-135m`` (in phase 13) unchunked with a 256 MB
+   cache (``flash_attention`` 30 calls a miss, none in the all-hit second
+   pass); then ``python -m repro_torch.launch.serve`` and ``python -m
+   repro_torch.obs.report`` as subprocesses on the card, and ``python -m
+   repro_torch.obs.check`` on the four documents they write.  Each model's
+   prefill logits are held against ``use_pallas=False`` at every distinct
+   prompt length of the trace, one-shot and/or chunked as its servers
+   prefill.
+
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
 seconds.  The script imports nothing of JAX and nothing of the JAX package.
@@ -89,9 +110,11 @@ seconds.  The script imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -141,6 +164,13 @@ CHUNK = 64
 REPS = 20
 HOST_COVER_CYCLES = 1_000_000   # about 0.5 ms of the card's clock (time_ms)
 WIDTH = 1024
+
+# the serve_loadgen phase's traffic (repro_torch.runtime.loadgen.TraceSpec;
+# vocab is each model's)
+LOADGEN_TRACE = dict(num_requests=32, mean_interarrival_ticks=0.25, short_len=(8, 64),
+                     long_len=(128, 257), long_frac=0.25, fleet_frac=0.4, num_fleets=2,
+                     fleet_prefix_len=128, fleet_suffix_len=(1, 33), max_new_tokens=32, seed=0)
+LOADGEN_UID_OFFSET = 1000        # the second pass's uids
 
 PHASE_T0 = [time.perf_counter()]
 
@@ -304,6 +334,320 @@ def stage_bound_ms(graph, consts: dict, B: int, T: int) -> tuple[float, str]:
     n_bytes += 4.0 * (B * T * (inp.width if inp is not None else 0)
                       + 2 * B * sum(graph.states.values()) + B * T * out)
     return bound_ms(flops / PEAK_FP32_FLOPS, n_bytes)
+
+
+
+# ---------------------------------------------------------------------------
+# phase 15: serve_loadgen
+# ---------------------------------------------------------------------------
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def replay_async(srv, trace, offset: int) -> dict:
+    """The trace's requests all at once through ``AsyncServer`` (its ticks on
+    the front-end's tick thread); a loadgen-shaped report."""
+    from repro_torch.runtime import AsyncServer, Request, loadgen
+
+    async def drive():
+        front = AsyncServer(srv)
+        try:
+            return await asyncio.gather(*(front.generate(Request(
+                uid=it.uid + offset, prompt=list(it.prompt), max_new_tokens=it.max_new_tokens))
+                for it in trace.items))
+        finally:
+            front.close()
+
+    t0 = time.perf_counter()
+    done = asyncio.run(drive())
+    sync(srv.device)
+    wall = time.perf_counter() - t0
+    decoded = srv.stats()["decoded_tokens"]
+    return {"wall_s": wall, "ticks": "n/a", "decoded_tokens": decoded,
+            "throughput_tok_s": decoded / wall, "completed": len(done),
+            "tokens_digest": loadgen.tokens_digest(
+                {r.uid - offset: list(r.out_tokens) for r in done})}
+
+
+def loadgen_serve(mcfg, mparams, label: str, counter, dev, card: str, *,
+                  persistent_kernel: bool = False, block: bool = False,
+                  use_async: bool = False, faults=None, **kw) -> dict:
+    """Replay LOADGEN_TRACE twice on one fresh server (cold, then the same
+    prompts under fresh uids) with the kernel wrapper ``counter``'s counts
+    set to 0 just before each pass and read just after; one ``[loadgen]``
+    line per pass.  Every request must retire with its 32 tokens (unless a
+    fault plan is given), and the server's ``prefill_kernel_syncs`` must be
+    its own calls of ``counter`` when that is a persistent kernel (else 0)."""
+    from repro_torch.runtime import DecodeServer, loadgen
+
+    trace = loadgen.make_trace(loadgen.TraceSpec(vocab=mcfg.vocab, **LOADGEN_TRACE))
+    srv = DecodeServer(mcfg, mparams, num_slots=NUM_SLOTS, max_seq=MAX_SEQ, block_k=BLOCK_K,
+                       persistent=block, faults=faults, device=dev, **kw)
+    passes = []
+    for i, offset in enumerate((0, LOADGEN_UID_OFFSET)):
+        srv.reset_stats()
+        sync(dev)
+        counter.launches = 0
+        if hasattr(counter, "calls"):
+            counter.calls = 0
+        rep = (replay_async(srv, trace, offset) if use_async
+               else loadgen.replay(srv, trace, uid_offset=offset))
+        calls = getattr(counter, "calls", counter.launches)
+        st = srv.stats()
+        pc = st.get("prefix_cache", {})
+        mine = [r for r in srv.completed if offset <= r.uid < offset + LOADGEN_UID_OFFSET]
+        if faults is None:
+            require(len(mine) == len(trace.items)
+                    and all(r.finish_reason == "max_tokens"
+                            and len(r.out_tokens) == LOADGEN_TRACE["max_new_tokens"]
+                            for r in mine),
+                    f"{mcfg.name} loadgen {label} pass {i}: not every request retired "
+                    f"with {LOADGEN_TRACE['max_new_tokens']} tokens")
+        require(srv.prefill_kernel_syncs == (calls if persistent_kernel else 0),
+                f"{mcfg.name} loadgen {label} pass {i}: {srv.prefill_kernel_syncs} kernel "
+                f"syncs for {calls} calls of its kernel")
+        row = dict(rep=rep, calls=calls, launches=counter.launches, stats=st, pc=pc,
+                   outs={r.uid - offset: (list(r.out_tokens), r.finish_reason) for r in mine},
+                   chunks_run=st["prefill"]["chunks_run"],
+                   prompt_steps=st["prefill"]["prompt_steps_computed"])
+        passes.append(row)
+        say("loadgen", arch=mcfg.name, run=label, pass_=i, ticks=rep["ticks"],
+            wall_s=f"{rep['wall_s']:.3f}", decoded_tokens=rep["decoded_tokens"],
+            tok_s=f"{rep['throughput_tok_s']:.1f}", digest=rep["tokens_digest"],
+            prompt_steps=row["prompt_steps"], chunks=row["chunks_run"], kernel_calls=calls,
+            kernel_launches=counter.launches, kernel_syncs=srv.prefill_kernel_syncs,
+            hits=pc.get("hits", "n/a"), partial_hits=pc.get("partial_hits", "n/a"),
+            misses=pc.get("misses", "n/a"), evictions=pc.get("evictions", "n/a"),
+            steps_saved=pc.get("prompt_steps_saved", "n/a"),
+            checkpoint_bytes=pc.get("bytes_in_use", "n/a"), entries=pc.get("entries", "n/a"),
+            dispatch_retries=st["health"]["dispatch_retries"], card=repr(card))
+    return {"passes": passes, "digests": [p["rep"]["tokens_digest"] for p in passes],
+            "launches": sum(p["launches"] for p in passes),
+            "calls": sum(p["calls"] for p in passes)}
+
+
+def loadgen_plain_check(mcfg, mparams, dev, card: str, modes: tuple[str, ...], tol: float,
+                        relative: bool) -> None:
+    """Hold the kernel path's prefill logits against the plain path's
+    (``use_pallas=False``) at every distinct prompt length of LOADGEN_TRACE,
+    prefilled as the phase's servers do: ``oneshot`` in one call, ``chunked``
+    in CHUNK-token chunks chained from a fresh cache (a chunk resumed from a
+    stored checkpoint starts from the same state).  The gap is absolute, or
+    relative to the largest plain |logit| when ``relative``."""
+    from repro_torch.models import lm
+    from repro_torch.runtime import loadgen
+
+    def logits_of(cfg, toks, mode):
+        if mode == "oneshot":
+            return lm.prefill(mparams, cfg, toks)[0]
+        caches = lm.init_cache(cfg, 1, MAX_SEQ, dev)
+        for pos in range(0, toks.shape[1], CHUNK):
+            logits, caches = lm.prefill_chunk(mparams, cfg, toks[:, pos:pos + CHUNK], caches, pos)
+        return logits
+
+    trace = loadgen.make_trace(loadgen.TraceSpec(vocab=mcfg.vocab, **LOADGEN_TRACE))
+    prompts = {}
+    for it in trace.items:
+        prompts.setdefault(len(it.prompt), list(it.prompt))
+    plain = dataclasses.replace(mcfg, use_pallas=False)
+    worst = 0.0
+    with torch.no_grad():
+        for n, prompt in sorted(prompts.items()):
+            toks = torch.as_tensor([prompt], device=dev)
+            for mode in modes:
+                got, want = logits_of(mcfg, toks, mode), logits_of(plain, toks, mode)
+                require(got.shape == (1, mcfg.vocab) and bool(torch.isfinite(got).all()),
+                        f"{mcfg.name} {mode} prefill of {n} tokens: logits of shape "
+                        f"{tuple(got.shape)} or non-finite")
+                gap = float((got - want).abs().max())
+                if relative:
+                    gap /= float(want.abs().max())
+                require(gap <= tol, f"{mcfg.name} {mode} prefill of {n} tokens: the kernel "
+                        f"path's logits differ from the plain path's by {gap:.3e} > {tol}")
+                worst = max(worst, gap)
+    say("loadgen_check", arch=mcfg.name, vs="use_pallas=False", prompt_lengths=len(prompts),
+        modes="+".join(modes), max_gap=f"{worst:.3e}", tol=tol,
+        gap="relative" if relative else "absolute", card=repr(card))
+
+
+def serve_loadgen_lstm(cfg, params, prompts, dev, card: str,
+                       cache_bytes: int = 256 << 20) -> int:
+    """paper-lstm: four runs of the trace (no cache one-shot ``step()``;
+    chunked ``step()`` with the cache; chunked adaptive ``step_block()`` with
+    the cache; the chunked run under ``AsyncServer``), then the three fault
+    runs.  Returns the ``lstm_seq`` calls of the four runs."""
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.runtime import DecodeServer, Request
+    from repro_torch.runtime import faults as fl
+
+    lstm = lstm_ops.lstm_seq
+    kw = dict(dev=dev, card=card, persistent_kernel=True)
+    with torch.no_grad():
+        runs = {
+            "step": loadgen_serve(cfg, params, "step", lstm, **kw),
+            "chunked_cache": loadgen_serve(cfg, params, f"step+chunk{CHUNK}+cache", lstm,
+                                           prefill_chunk=CHUNK, prefix_cache_bytes=cache_bytes,
+                                           **kw),
+            "block_adaptive_cache": loadgen_serve(
+                cfg, params, f"step_block+chunk{CHUNK}+adaptive+cache", lstm, block=True,
+                prefill_chunk=CHUNK, prefill_adaptive=True, prefix_cache_bytes=cache_bytes, **kw),
+            "async_chunked_cache": loadgen_serve(
+                cfg, params, f"AsyncServer+chunk{CHUNK}+cache", lstm, use_async=True,
+                prefill_chunk=CHUNK, prefix_cache_bytes=cache_bytes, **kw),
+        }
+        digests = {name: run["digests"] for name, run in runs.items()}
+        want = digests["step"][0]
+        require(all(d == want for ds in digests.values() for d in ds),
+                f"{cfg.name} loadgen: tokens digests differ across runs and passes: {digests}")
+        cached = runs["chunked_cache"]["passes"]
+        full = sum(p["pc"]["hits"] for p in cached)
+        partial = sum(p["pc"]["partial_hits"] for p in cached)
+        require(full > 0 and partial > 0,
+                f"{cfg.name} loadgen: {full} full and {partial} partial prefix hits")
+        require(cached[1]["pc"]["hits"] == LOADGEN_TRACE["num_requests"]
+                and cached[1]["prompt_steps"] == 0,
+                f"{cfg.name} loadgen: the second pass with the cache is not all full hits")
+        steps = {name: sum(p["prompt_steps"] for p in run["passes"])
+                 for name, run in runs.items()}
+        require(steps["chunked_cache"] < steps["step"],
+                f"{cfg.name} loadgen: {steps['chunked_cache']} prompt steps with the cache, "
+                f"{steps['step']} without")
+        loadgen_plain_check(cfg, params, dev, card, ("oneshot", "chunked"), LOGITS_ATOL,
+                            relative=False)
+
+        # faults at full width, against the fault-free step() run's first pass
+        clean = runs["step"]["passes"][0]["outs"]
+        plan = fl.FaultPlan([fl.FaultSpec("decode.nan_logits", after=40)], seed=0)
+        nan_run = loadgen_serve(cfg, params, "step+decode.nan_logits", lstm, faults=plan, **kw)
+        got = nan_run["passes"][0]["outs"]
+        bad = [u for u, (_, reason) in got.items() if reason == "error:nonfinite"]
+        require(plan.hits == {"decode.nan_logits": 1} and len(bad) == 1
+                and len(got) == len(clean)
+                and all(got[u] == clean[u] for u in got if u not in bad)
+                and nan_run["passes"][1]["outs"] == clean,
+                f"{cfg.name} decode.nan_logits: quarantined {bad}; the survivors must "
+                "equal the fault-free run")
+        plan = fl.FaultPlan([fl.FaultSpec("decode.dispatch", after=10, times=3)], seed=0)
+        disp_run = loadgen_serve(cfg, params, "step+decode.dispatch", lstm, faults=plan, **kw)
+        retries = disp_run["passes"][0]["stats"]["health"]["dispatch_retries"]
+        require(plan.hits == {"decode.dispatch": 3} and retries == 3
+                and disp_run["digests"] == [want] * 2,
+                f"{cfg.name} decode.dispatch: {retries} retries, digests {disp_run['digests']}")
+        # a tick slower than the watchdog's bound that makes no progress (its
+        # decode dispatch fails once) aborts the work in flight
+        plan = fl.FaultPlan([fl.FaultSpec("tick.slow", after=2, delay_s=0.5),
+                             fl.FaultSpec("decode.dispatch", after=2)], seed=0)
+        srv = DecodeServer(cfg, params, num_slots=NUM_SLOTS, max_seq=MAX_SEQ, faults=plan,
+                           watchdog_s=0.25, device=dev)
+        stalled = [Request(uid=u, prompt=prompts[u], max_new_tokens=MAX_NEW) for u in range(4)]
+        for r in stalled:
+            srv.submit(r)
+        srv.run_until_drained()
+        health = srv.health()
+        require(all(r.finish_reason == "error:stalled" for r in stalled)
+                and health["status"] == "stalled" and health["stalled_events"] == 1,
+                f"{cfg.name} tick.slow: {[r.finish_reason for r in stalled]}, health {health}")
+    say("loadgen_faults", arch=cfg.name, nan_logits_quarantined_uid=bad[0],
+        nan_logits_survivors_identical=True, dispatch_retries=retries,
+        dispatch_digest_unchanged=True, stall_reason="error:stalled",
+        stall_health=health["status"], watchdog_s=health["watchdog_s"], card=repr(card))
+    return sum(run["launches"] for run in runs.values())
+
+
+def serve_loadgen_mamba(mcfg, mparams, dev, card: str, cache_bytes: int = 1 << 30) -> int:
+    """falcon-mamba-7b: the trace chunked, without and with a cache whose
+    budget forces evictions: a checkpoint at full width is 64 layers ×
+    (8192·16 + 3·8192) fp32, about 38 MiB, so 1 GiB holds about 26 and the
+    trace's ~90 chunk boundaries and prompt ends evict.  Returns the
+    ``ssm_scan`` launches."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    kw = dict(dev=dev, card=card, prefill_chunk=CHUNK)
+    with torch.no_grad():
+        runs = {"chunked": loadgen_serve(mcfg, mparams, f"step+chunk{CHUNK}",
+                                         scan_ops.ssm_scan, **kw),
+                "chunked_cache": loadgen_serve(mcfg, mparams, f"step+chunk{CHUNK}+cache",
+                                               scan_ops.ssm_scan,
+                                               prefix_cache_bytes=cache_bytes, **kw)}
+    digests = [d for run in runs.values() for d in run["digests"]]
+    require(len(set(digests)) == 1, f"{mcfg.name} loadgen: digests differ: {digests}")
+    cached = runs["chunked_cache"]["passes"]
+    require(sum(p["pc"]["partial_hits"] for p in cached) > 0
+            and sum(p["pc"]["evictions"] for p in cached) > 0,
+            f"{mcfg.name} loadgen: no partial hit or no eviction under the budget")
+    for name, run in runs.items():
+        for i, p in enumerate(run["passes"]):
+            require(p["launches"] == mcfg.n_layers * p["chunks_run"],
+                    f"{mcfg.name} loadgen {name} pass {i}: {p['launches']} ssm_scan "
+                    f"launches for {p['chunks_run']} chunks of {mcfg.n_layers} layers")
+    loadgen_plain_check(mcfg, mparams, dev, card, ("chunked",), MAMBA_LOGITS_RTOL, relative=True)
+    return sum(run["launches"] for run in runs.values())
+
+
+def serve_loadgen_smollm(scfg, sparams, dev, card: str,
+                         cache_bytes: int = 256 << 20) -> tuple[int, int]:
+    """smollm-135m: the trace unchunked with a cache that holds every
+    prompt.  Returns ``flash_attention``'s calls and launches."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    with torch.no_grad():
+        run = loadgen_serve(scfg, sparams, "step+cache", fa_ops.flash_attention, dev=dev,
+                            card=card, prefix_cache_bytes=cache_bytes)
+    first, second = run["passes"]
+    require(first["calls"] == scfg.n_layers * first["pc"]["misses"] and first["calls"] > 0,
+            f"{scfg.name} loadgen: {first['calls']} flash_attention calls for "
+            f"{first['pc']['misses']} misses of {scfg.n_layers} layers")
+    require(second["calls"] == 0 and second["pc"]["hits"] == LOADGEN_TRACE["num_requests"],
+            f"{scfg.name} loadgen: {second['calls']} flash_attention calls in the second pass")
+    require(run["digests"][0] == run["digests"][1],
+            f"{scfg.name} loadgen: digests differ: {run['digests']}")
+    loadgen_plain_check(scfg, sparams, dev, card, ("oneshot",), DENSE_LOGITS_RTOL, relative=True)
+    return run["calls"], run["launches"]
+
+
+def serve_loadgen_entry_points(card: str, device: str = "cuda") -> None:
+    """``python -m repro_torch.launch.serve`` and ``python -m
+    repro_torch.obs.report`` as subprocesses (started together), then
+    ``python -m repro_torch.obs.check`` on the four documents they write."""
+    docs = ROOT / "build" / "serve_loadgen"
+    docs.mkdir(parents=True, exist_ok=True)
+    files = {k: docs / f"{k}.json" for k in ("loadgen", "trace", "metrics", "ledger")}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    commands = {
+        "launch.serve": [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "paper-lstm",
+                         "--loadgen", "--prefill-chunk", "4", "--prefix-cache", "64",
+                         "--loadgen-out", str(files["loadgen"]), "--trace-out", str(files["trace"]),
+                         "--metrics-out", str(files["metrics"]), "--device", device],
+        "obs.report": [sys.executable, "-m", "repro_torch.obs.report", "--backends", "eager",
+                       "kernel", "--out", str(files["ledger"]), "--device", device],
+    }
+    procs = {name: subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, cmd in commands.items()}
+    for name, proc in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+            proc.wait()
+        for ln in text.splitlines()[-8:]:
+            say("entry_point", command=name, line=repr(ln))
+        require(proc.returncode == 0, f"python -m repro_torch.{name} exited {proc.returncode}")
+    check = subprocess.run([sys.executable, "-m", "repro_torch.obs.check",
+                            *map(str, files.values())], env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=120)
+    require(check.returncode == 0,
+            f"repro_torch.obs.check refused the documents:\n{check.stdout}{check.stderr}")
+    served = json.loads(files["loadgen"].read_text())
+    ledger = json.loads(files["ledger"].read_text())["ledger"]
+    require(served["completed"] == served["requests"] and ledger
+            and any("|kernel|" in row["program"] for row in ledger),
+            "the entry points' documents are incomplete")
+    say("entry_points", serve_digest=served["tokens_digest"], serve_ticks=served["ticks"],
+        serve_tok_s=f"{served['throughput_tok_s']:.1f}", ledger_programs=len(ledger),
+        obs_check="ok", card=repr(card))
 
 
 def main() -> int:
@@ -877,9 +1221,13 @@ def main() -> int:
 
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     profiled_step_run(cfg, params, lstm_ops.lstm_seq, tok_step)
+    phase_done("profile")
+
+    # -- 15a. serve_loadgen: full-width paper-lstm (use_pallas) ------------------
+    lg_lstm_launches = serve_loadgen_lstm(cfg, params, prompts, dev, card)
     del params
     torch.cuda.empty_cache()
-    phase_done("profile")
+    phase_done("serve_loadgen_paper_lstm")
 
     # -- 9. ssm_scan vs plain -------------------------------------------------
     def scan_inputs(Bsz, T, Dm, N, carry=False, dtype=torch.float32):
@@ -1156,9 +1504,15 @@ def main() -> int:
     phase_done("serve_mamba")
 
     profiled_step_run(mcfg, mparams, scan_ops.ssm_scan, mtok_step)
-    del mparams, mcaches
+    del mcaches
     torch.cuda.empty_cache()
     phase_done("profile_mamba")
+
+    # -- 15b. serve_loadgen: full-width falcon-mamba-7b, on phase 12's weights --
+    lg_mamba_launches = serve_loadgen_mamba(mcfg, mparams, dev, card)
+    del mparams
+    torch.cuda.empty_cache()
+    phase_done("serve_loadgen_falcon_mamba")
 
     # -- 13. serve full-width smollm-135m (use_pallas) ---------------------------
     scfg = dataclasses.replace(get_config("smollm-135m"), use_pallas=True)
@@ -1242,9 +1596,13 @@ def main() -> int:
 
     profiled_step_run(scfg, sparams, fa_ops.flash_attention, stok_step,
                       launches_per_prefill=per_prefill)
+    phase_done("profile_smollm")
+
+    # -- 15c. serve_loadgen: full-width smollm-135m, one-shot prefills ----------
+    lg_smollm_calls, lg_smollm_launches = serve_loadgen_smollm(scfg, sparams, dev, card)
     del sparams
     torch.cuda.empty_cache()
-    phase_done("profile_smollm")
+    phase_done("serve_loadgen_smollm")
 
     # -- 14. one full-width phi4-mini-3.8b prefill (use_pallas) -------------------
     pcfg = dataclasses.replace(get_config("phi4-mini-3.8b"), use_pallas=True)
@@ -1275,12 +1633,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("prefill_phi4")
 
+    # -- 15d. the entry points as subprocesses on the card ----------------------
+    serve_loadgen_entry_points(card)
+    phase_done("serve_loadgen_entry_points")
+
     summary = {"kernels": [{
         "name": "lstm_seq",
         "route": "cuda",
         "source": "src/repro_torch/kernels/lstm_cell/csrc/lstm_seq.cu",
         "replaces": "src/repro/kernels/lstm_cell/kernel.py:87",
-        "launches": n1 + n2 + n3,
+        "launches": n1 + n2 + n3 + lg_lstm_launches,
         "max_abs_err": lstm_err,
         "ms": lstm_ms,
         "plain_ms": lstm_plain_ms,
@@ -1333,7 +1695,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:81",
-        "launches": k1 + k2 + k3,
+        "launches": k1 + k2 + k3 + lg_mamba_launches,
         "max_abs_err": scan_err,
         "ms": scan_ms,
         "plain_ms": scan_plain_ms,
@@ -1369,9 +1731,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
         # smollm-135m's three serve runs (30 per one-shot prefill, 0 for
-        # chunks) and phi4-mini-3.8b's prefill (32); times at shape (a)
-        "launches": f1 + f2 + f3 + p_launch,
-        "calls": c1 + c2 + c3 + p_call,
+        # chunks), its loadgen run (30 per miss) and phi4-mini-3.8b's prefill
+        # (32); times at shape (a)
+        "launches": f1 + f2 + f3 + lg_smollm_launches + p_launch,
+        "calls": c1 + c2 + c3 + lg_smollm_calls + p_call,
         "max_abs_err": attn_err,
         "ms": attn_time["a_smollm_S256"][0],
         "plain_ms": attn_time["a_smollm_S256"][1],

@@ -10,7 +10,7 @@ CPU tensors.  A call that reaches the card is one GEMM launch per hoisted or
 split macc, then one persistent launch: two for each registered cell, one
 for an autonomous stage (the MLP), and the call waits for the stream at its
 end to read the grid barrier's error word (counted in
-``_build.host_syncs``).  The grid and the shared memory are chosen by
+``_build.host_syncs()``).  The grid and the shared memory are chosen by
 ``cuda_emit.residency`` for the card's SM count and written into the
 source, so a card with another SM count builds its own library.  There is
 no fallback between the two: a failed build or launch raises.
@@ -169,7 +169,7 @@ def codegen_stage(plan: lower.Plan, source: str, consts: dict, x0: dict,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.run_stage(bufs, B, T, n_lut, stream)
     _raise_on(lib, rc)
-    _build.host_syncs += 1
+    _build.count_host_sync()
     codegen_stage.launches += 1
     return outs, ys
 

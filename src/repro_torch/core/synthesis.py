@@ -21,9 +21,8 @@ report, on three backends, each the counterpart of one of the reference's:
     ``"kernel"`` (reference ``"pallas"``) the generated CUDA stage kernel
     ``"ref"``    (reference ``"ref"``)    ``create_top_module``, no IR
 
-``"verilog"``, ``optimize=``, ``analyze=True``, ``mesh=`` and
-``fallback=True`` are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP item.  Weights are
+``"verilog"``, ``optimize=``, ``analyze=True`` and ``mesh=`` are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP item.  Weights are
 drawn from ``torch.Generator().manual_seed(spec.seed)``, so a spec gives the
 same network on every backend of the port (not the reference's numbers).
 """
@@ -31,6 +30,7 @@ same network on every backend of the port (not the reference's numbers).
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Any, Callable
 
@@ -223,7 +223,7 @@ class SynthesisReport:
     rtl: str | None = None              # backend="verilog" (not ported)
     resources: Any = None               # backend="verilog" (not ported)
     quant: dict | None = None           # quant_bits analysis (SNR / LUT mode)
-    fallback_from: str | None = None    # always None: no fallback chain yet
+    fallback_from: str | None = None    # the requested backend, after a fallback hop
     analysis: dict | None = None        # analyze=True (not ported)
 
     def summary(self) -> str:
@@ -258,11 +258,23 @@ _NOT_PORTED = {
     "analyze": "analyze=True (the repro.analyze static gate) is not ported yet "
                "(ROADMAP.md, Queue 1: Bit path and tools)",
     "mesh": MESH_NOT_PORTED,
-    "fallback": "fallback=True (retries and the kernel -> eager -> ref chain, "
-                "driven by runtime/faults.py) is not ported yet (ROADMAP.md, "
-                "Queue 1: Deferred serving features); a failed build or launch "
-                "raises",
 }
+
+# Degradation order when an injected fault keeps a backend from building:
+# the generated kernel falls back to the eager scan, and that to the
+# unlowered reference forward ("ref": create_top_module, no IR).
+_SYNTH_FALLBACK: dict[str, tuple[str, ...]] = {
+    "kernel": ("eager", "ref"),
+    "eager": ("ref",),
+    "ref": (),
+}
+
+
+def _faults_mod():
+    """The fault-injection module, WITHOUT importing the runtime package:
+    if ``repro_torch.runtime.faults`` was never imported, no plan can be
+    installed and there is nothing to consult."""
+    return sys.modules.get("repro_torch.runtime.faults")
 
 
 def _cache_key(spec: NetworkSpec, batch: int | None, backend: str,
@@ -349,8 +361,13 @@ def _ledger_key(spec: NetworkSpec, batch: int | None, backend: str,
 def _build_fwd(program, spec: NetworkSpec, backend: str, quant: dict | None,
                double_buffer: bool, chunk: int | None, block_b: int | None,
                device: torch.device):
-    """One backend's ``(fwd, params, sources)``."""
+    """One backend's ``(fwd, params, sources)``; the ``synth.compile``
+    fault point fires here."""
     from repro_torch import codegen
+
+    m = _faults_mod()
+    if m is not None:
+        m.maybe_raise("synth.compile")
 
     if backend == "ref":
         ref_params, ref_fwd = create_top_module(spec, device)
@@ -455,7 +472,9 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
                measure: bool = True,
                optimize: str | None = None,
                budget: int | None = None,
-               fallback: bool = False,
+               retries: int = 2,
+               backoff_s: float = 0.05,
+               fallback: bool = True,
                analyze: bool = False,
                waivers=None,
                device=None):
@@ -474,14 +493,22 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
     tiling knobs: accepted and named in the ledger key, without effect on
     the card.
 
-    A failed build or launch raises: the report's ``backend`` is always the
-    one requested.  The reference's retries and kernel → eager → ref
-    degradation (``fallback=True``, its default) come with the port's fault
-    injection; until then ``fallback=True`` raises.
+    Robustness: an injected transient build fault (the ``synth.compile``
+    point of :mod:`repro_torch.runtime.faults`) is retried up to ``retries``
+    times with exponential ``backoff_s`` backoff; a backend that keeps
+    failing on injected faults degrades down the kernel → eager → ref chain
+    (``fallback=False`` re-raises instead).  The report's ``backend`` is the
+    backend that built, ``fallback_from`` the requested one, and the
+    ``synth_retries`` / ``synth_fallback{from_backend,to}`` counters track
+    both; such a degraded report is not memoized.  Unlike the reference, which degrades on any exception, only a
+    :class:`~repro_torch.runtime.faults.FaultError` hops: a real failure
+    (``nvcc``, a ``cudaError`` at launch, a grid-barrier timeout) raises at
+    once whatever ``fallback`` says, so a fallback never hides the card or
+    the kernel.
 
     Not ported yet, and raising ``NotImplementedError``: ``mesh``,
-    ``optimize`` / ``budget``, ``analyze`` / ``waivers``, ``fallback=True``
-    and ``backend="verilog"``.
+    ``optimize`` / ``budget``, ``analyze`` / ``waivers`` and
+    ``backend="verilog"``.
     """
     from repro_torch import codegen
 
@@ -491,8 +518,6 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
         raise NotImplementedError(_NOT_PORTED["analyze"])
     if mesh is not None:
         raise NotImplementedError(_NOT_PORTED["mesh"])
-    if fallback:
-        raise NotImplementedError(_NOT_PORTED["fallback"])
     if backend == "verilog":
         raise NotImplementedError(_NOT_PORTED["verilog"])
     if backend not in BACKENDS:
@@ -517,13 +542,42 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
     if spec.c_slow > 1:  # C interleaved streams through the one datapath
         u_shape = (spec.c_slow,) + u_shape
 
-    lower_s, compile_s, src_bytes, peak, fwd, params = _build_and_run(
-        program, spec, backend, quant, double_buffer, chunk, block_b, u_shape, dev)
+    m = _faults_mod()
+    injected = (m.FaultError,) if m is not None else ()
+    chain = (backend,) + (_SYNTH_FALLBACK[backend] if fallback else ())
+    built, last_err, used = None, None, backend
+    for hop, bk in enumerate(chain):
+        if hop:
+            O.metrics.counter("synth_fallback", "backend fallback hops",
+                              from_backend=chain[hop - 1], to=bk).inc()
+            try:
+                quant = _quant_analysis(spec, bk, program)
+            except ValueError:
+                quant = None    # degraded: the quant mode is not expressible here
+        for attempt in range(max(0, retries) + 1):
+            try:
+                built = _build_and_run(program, spec, bk, quant, double_buffer, chunk,
+                                       block_b, u_shape, dev)
+                break
+            except injected as e:   # only an injected fault retries or hops
+                last_err = e
+                if isinstance(e, m.TransientFault) and attempt < retries:
+                    O.metrics.counter("synth_retries", "transient compile retries").inc()
+                    if backoff_s > 0:
+                        time.sleep(backoff_s * (2 ** attempt))
+                    continue
+                break
+        if built is not None:
+            used = bk
+            break
+    if built is None:
+        raise last_err
+    lower_s, compile_s, src_bytes, peak, fwd, params = built
     flops = float(sum(st.graph.macc_flops_per_step() for st in program.stages)
                   * spec.serial_steps * (batch or 1) * spec.c_slow)
 
     # predicted-vs-measured ledger: the Fig. 10 loop's instrumentation
-    lkey = _ledger_key(spec, batch, backend, double_buffer, chunk, block_b)
+    lkey = _ledger_key(spec, batch, used, double_buffer, chunk, block_b)
     O.ledger.predict(
         lkey,
         fsm_cycles=codegen.rtlsim.fsm_cycle_estimate(program),
@@ -548,10 +602,12 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
         + (spec.num_outputs,),
         serial_depth=serial_depth_estimate(
             spec.serial_steps * spec.c_slow, spec.unroll),
-        backend=backend,
+        backend=used,
+        fallback_from=backend if used != backend else None,
         quant=quant,
     )
-    _SYNTH_CACHE[key] = report
+    if used == backend:  # a degraded build must not answer a later fault-free call
+        _SYNTH_CACHE[key] = report
     return report
 
 

@@ -34,7 +34,20 @@ GRID_BARRIER_WORDS = 4
 # Calls of a persistent kernel (lstm_seq, the generated stages), each of
 # which waits for its stream on the host to read the grid barrier's error
 # word: one host round-trip each, which the server reports as kernel_syncs.
-host_syncs = 0
+# Counted per thread, so that servers driven on separate threads (one
+# AsyncServer each) count only their own calls.
+_syncs = threading.local()
+
+
+def count_host_sync() -> None:
+    """One host round-trip inside a kernel call, on the calling thread."""
+    _syncs.n = getattr(_syncs, "n", 0) + 1
+
+
+def host_syncs() -> int:
+    """Host round-trips counted on the calling thread so far."""
+    return getattr(_syncs, "n", 0)
+
 
 _loaded: dict[Path, ctypes.CDLL] = {}
 _by_text: dict[tuple[str, str], ctypes.CDLL] = {}   # emitted sources, by name and text
@@ -106,4 +119,5 @@ def load(name: str, source: str | Path) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "CSRC", "GRID_BARRIER_WORDS", "NVCC_FLAGS", "build", "build_many", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "GRID_BARRIER_WORDS", "NVCC_FLAGS", "build", "build_many",
+           "count_host_sync", "host_syncs", "load"]

@@ -10,7 +10,7 @@ module is imported.
 plain PyTorch version for CPU tensors lives in ``ref.py`` and is chosen by
 ``ops.lstm_seq``.  A call is two CUDA launches (the input GEMM and the
 persistent recurrence) and waits for the stream at its end, to read the
-grid barrier's error word (counted in ``_build.host_syncs``); :func:`config`
+grid barrier's error word (counted in ``_build.host_syncs()``); :func:`config`
 reports the persistent kernel's grid and whether ``w_h`` is resident in
 shared memory.
 """
@@ -102,7 +102,7 @@ def lstm_seq(x: torch.Tensor, w_x: torch.Tensor, w_h: torch.Tensor, b: torch.Ten
             zx.data_ptr(), h_buf.data_ptr(), c_buf.data_ptr(),
             B, T, D, H, stream)
     _raise_on(lib, rc)
-    _build.host_syncs += 1
+    _build.count_host_sync()
     return y, h_out, c_out
 
 

@@ -5,8 +5,9 @@ The port keeps its own copy of the JAX package's ``obs`` modules (which are
 pure Python) so that it never imports the reference package.  Metric names,
 snapshot layout, the ledger's row schema and the trace-event format are
 identical, so the port's ``DecodeServer.stats()`` and exported documents
-compare key for key with the reference's.  The ``check``/``report`` tools are
-not ported yet.
+compare key for key with the reference's.  ``python -m repro_torch.obs.check``
+validates exported documents as the reference's checker does; ``python -m
+repro_torch.obs.report`` writes the predicted-vs-measured ledger.
 
 * :class:`~repro_torch.obs.metrics.MetricsRegistry` — counters / gauges /
   histograms (p50/p95/p99), labeled, thread-safe, snapshot + Prometheus text.

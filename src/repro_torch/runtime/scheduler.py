@@ -11,22 +11,25 @@ the port's copy of ``repro/runtime/scheduler.py`` (pure Python).
   time, before any device work is spent; optional load shedding.
 
 The scheduler is synchronous and tick-driven: the server asks for the next
-admissible request whenever a slot frees up.  The reference's asyncio
-front-end (``AsyncServer``) and mesh placement (``record_placement``) are not
-ported yet.
+admissible request whenever a slot frees up.  :class:`AsyncServer` wraps a
+``DecodeServer`` into an asyncio front-end whose ticks run on a background
+thread of its own: ``await generate(req)`` resolves when the request retires.
+Mesh placement (``record_placement``) is not ported yet.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING
 
 from repro_torch.obs import MetricsRegistry
 
 if TYPE_CHECKING:  # pragma: no cover
-    from .server import Request
+    from .server import DecodeServer, Request
 
 
 REJECT_QUEUE_FULL = "queue_full"
@@ -243,7 +246,109 @@ class Scheduler:
         self._g_pending.set(self._size)
 
 
+class AsyncServer:
+    """asyncio front-end over a :class:`DecodeServer`; the port's
+    counterpart of the reference's ``AsyncServer``.
+
+    Submissions arrive concurrently (``await generate(req)``).  One drive
+    task advances the server one tick at a time; a tick is one bounded unit
+    of device work (at most the prefill chunks of a tick and one decode
+    dispatch).  Every call into the server (``submit``, ``cancel``, ``tick``)
+    runs on one background tick thread of this front-end's own, which keeps
+    the server to one thread and the event loop free while the card works:
+    a ``generate()`` that arrives during a tick awaits it, and never blocks
+    the loop.  Kernel host round-trips are counted per thread, so each
+    server's ``prefill_kernel_syncs`` stays its own when several front-ends
+    run at once.
+
+    Cancellation: :meth:`cancel` retires an in-flight request with
+    ``finish_reason="cancelled"``, and cancelling the task awaiting
+    ``generate()`` cancels the request in the server too.  A uid already
+    awaited fails fast with ``rejected:duplicate_uid`` and never reaches the
+    server.  :meth:`close` stops the tick thread.
+    """
+
+    def __init__(self, server: "DecodeServer", idle_sleep: float = 0.001):
+        self.server = server
+        self.idle_sleep = idle_sleep
+        # uid -> (future, the exact Request it awaits): _collect checks the
+        # identity, so a request reusing a retired uid never resolves a
+        # stranger's future
+        self._futures: dict[int, tuple[asyncio.Future, "Request"]] = {}
+        self._drained = 0            # completed-list watermark
+        self._drive_task: asyncio.Task | None = None
+        self._thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="decode-ticks")
+
+    def _collect(self) -> None:
+        """Resolve the futures of newly retired requests (event-loop thread).
+        The tick thread only appends to ``completed``, and a slice of a list
+        is taken whole, so nothing retired is skipped."""
+        new = self.server.completed[self._drained:]
+        self._drained += len(new)
+        for req in new:
+            pair = self._futures.get(req.uid)
+            if pair is not None and pair[1] is req:
+                self._futures.pop(req.uid)
+                if not pair[0].done():
+                    pair[0].set_result(req)
+
+    async def _on_thread(self, fn, *args):
+        """Run a call into the server on the tick thread, then collect."""
+        out = await asyncio.get_running_loop().run_in_executor(self._thread, fn, *args)
+        self._collect()
+        return out
+
+    async def generate(self, req: "Request") -> "Request":
+        if req.uid in self._futures:
+            now = time.perf_counter()
+            req.submitted_at = req.submitted_at or now
+            req.done_at = req.retired_at = now
+            req.finish_reason = f"rejected:{REJECT_DUPLICATE_UID}"
+            self.server.obs.metrics.counter(
+                "requests_completed", "retired requests by finish reason",
+                reason="rejected").inc()
+            return req
+        fut = asyncio.get_running_loop().create_future()
+        self._futures[req.uid] = (fut, req)
+        try:
+            await self._on_thread(self.server.submit, req)  # an instant rejection resolves
+            if self._drive_task is None or self._drive_task.done():
+                self._drive_task = asyncio.ensure_future(self._drive())
+            return await fut
+        except asyncio.CancelledError:
+            # the awaiting task's cancellation reaches the server: free the
+            # slot or queue entry now instead of decoding to max_tokens
+            await self._on_thread(self.server.cancel, req.uid)
+            raise
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel an in-flight request by uid.  Returns True if found; the
+        awaiting ``generate()`` resolves with the retired request
+        (``finish_reason="cancelled"``).  The answer needs the server, so
+        this waits for a running tick to end."""
+        found = self._thread.submit(self.server.cancel, uid).result()
+        self._collect()
+        return found
+
+    async def _drive(self) -> None:
+        try:
+            while self._futures:
+                busy = await self._on_thread(self.server.tick)
+                await asyncio.sleep(0 if busy else self.idle_sleep)
+        except BaseException as exc:  # noqa: BLE001 — every waiter learns that the ticks died
+            for fut, _req in self._futures.values():
+                if not fut.done():
+                    fut.set_exception(exc)
+            self._futures.clear()
+            raise
+
+    def close(self) -> None:
+        """Stop the tick thread (after the tick it may be running)."""
+        self._thread.shutdown(wait=True)
+
+
 __all__ = [
+    "AsyncServer",
     "REJECT_DUPLICATE_UID",
     "REJECT_EMPTY_PROMPT",
     "REJECT_PROMPT_TOO_LONG",

@@ -19,16 +19,26 @@ Two decode drivers share the slot machinery:
 
 Prefill is one-shot (``lm.prefill`` per admitted prompt, then the B=1 state
 is spliced into the slot) or chunked (``prefill_chunk=N``: N prompt tokens per
-tick through ``lm.prefill_chunk``, interleaved with decode ticks).  Under
-``use_pallas`` every one-shot prefill runs the model's kernel once per
-layer (``lstm_seq``, ``ssm_scan`` or ``flash_attention``); chunks run
-``lstm_seq`` and ``ssm_scan`` too, while attention chunks attend over the
-cache in plain PyTorch, as the reference's do.
+tick through ``lm.prefill_chunk``, at most ``prefill_chunks_per_tick`` chunks
+a tick, interleaved with decode ticks; ``prefill_adaptive`` drains whole
+jobs on ticks where no slot is decoding).  Under ``use_pallas`` every
+one-shot prefill runs the model's kernel once per layer (``lstm_seq``,
+``ssm_scan`` or ``flash_attention``); chunks run ``lstm_seq`` and
+``ssm_scan`` too, while attention chunks attend over the cache in plain
+PyTorch, as the reference's do.
 
-Counters, spans and ``stats()`` keys keep the reference's names.  Not ported
-yet, and refused by the constructor: mesh placement (``plan``), the prefix
-cache (``prefix_cache_bytes``), fault injection and the watchdog
-(``faults``/``watchdog_s``) and adaptive prefill (``prefill_adaptive``).
+The radix prefix cache (``prefix_cache_bytes``) stores chunk-boundary and
+prompt-end states on the server's device: a full hit splices the stored
+state (0 recomputed prompt steps), a partial hit resumes chunked prefill
+from the deepest chunk-aligned boundary.  Fault points (``faults`` or the
+ambient plan of ``runtime.faults``) and the stall watchdog (``watchdog_s``)
+follow the reference: an injected NaN quarantines only its slot, a
+transient dispatch fault retries the tick, a stall aborts in-flight work
+with ``error:stalled``.  A real failure of a kernel is never caught.
+
+Counters, spans, ``stats()`` and ``health()`` keys keep the reference's
+names.  Not ported yet, and refused by the constructor: mesh placement
+(``plan``).
 """
 
 from __future__ import annotations
@@ -47,6 +57,9 @@ from repro_torch.kernels import _build
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
+from . import faults as faults_lib
+from .faults import Watchdog
+from .prefix_cache import PrefixCache
 from .scheduler import REJECT_DUPLICATE_UID, Scheduler, SchedulerConfig
 
 PyTree = Any
@@ -123,6 +136,7 @@ class Request:
     retired_at: float | None = None      # == done_at; every path stamps it
     finish_reason: str | None = None
     truncated: bool = False     # prompt cut to the admission limit
+    prefix_hit_tokens: int = 0  # prompt steps served from the prefix cache
 
 
 @dataclasses.dataclass
@@ -142,23 +156,18 @@ class DecodeServer:
                  block_k: int = DEFAULT_BLOCK_K, persistent: bool = False,
                  prefill_chunk: int = 0,
                  prefix_cache_bytes: int = 0,
-                 scheduler: SchedulerConfig | None = None,
+                 scheduler: Scheduler | SchedulerConfig | None = None,
+                 prefill_chunks_per_tick: int = 1,
                  prefill_adaptive: bool = False,
                  obs: obs_lib.Observability | None = None,
-                 faults: Any = None,
+                 faults: faults_lib.FaultPlan | None = None,
                  watchdog_s: float | None = None,
                  plan: Any = None,
                  device: str | torch.device | None = None):
-        unported = [name for name, on in (
-            ("plan", plan is not None),
-            ("prefix_cache_bytes", bool(prefix_cache_bytes)),
-            ("faults", faults is not None),
-            ("watchdog_s", bool(watchdog_s)),
-            ("prefill_adaptive", bool(prefill_adaptive))) if on]
-        if unported:
+        if plan is not None:
             raise NotImplementedError(
-                f"DecodeServer({', '.join(unported)}): not ported to "
-                "repro_torch yet (ROADMAP.md, Queue 1: Deferred serving features)")
+                "DecodeServer(plan): mesh placement is not ported to repro_torch yet "
+                "(ROADMAP.md, Queue 1: Multi-device and launchers)")
         self.device = resolve_device(device)
         leaf = tree_leaves(params)[0]
         if leaf.device.type != self.device.type:
@@ -169,13 +178,35 @@ class DecodeServer:
         self.block_k = block_k
         self.persistent = persistent
         self.prefill_chunk = int(prefill_chunk)
+        self.prefill_chunks_per_tick = max(1, int(prefill_chunks_per_tick))
+        # Adaptive chunk sizing: a tick with no slot decoding drains pending
+        # prefill jobs whole (no live stream to protect from head-of-line
+        # blocking); the chunk bound re-engages once any slot is live.
+        self.prefill_adaptive = bool(prefill_adaptive)
+        if self.prefill_adaptive and self.prefill_chunk <= 0:
+            raise ValueError(
+                "prefill_adaptive=True requires prefill_chunk > 0 "
+                "(adaptive sizing adapts the chunked path; unchunked "
+                "prefill is already one-shot)")
         # Per-server observability scope: counters always on (they ARE the
         # stats() numbers), tracing opt-in (obs=Observability(trace=True)).
         self.obs = obs if obs is not None else obs_lib.Observability()
         self._tr = self.obs.tracer
         self._tr.thread_name(0, "server")
-        self.scheduler = Scheduler(scheduler, prompt_limit=max_seq - 1,
-                                   metrics=self.obs.metrics)
+        self.prefix_cache = (PrefixCache(prefix_cache_bytes, metrics=self.obs.metrics)
+                             if prefix_cache_bytes else None)
+        if isinstance(scheduler, Scheduler):
+            self.scheduler = scheduler
+            self.scheduler.prompt_limit = self.scheduler.prompt_limit or (max_seq - 1)
+        else:
+            self.scheduler = Scheduler(scheduler, prompt_limit=max_seq - 1,
+                                       metrics=self.obs.metrics)
+        # An explicit FaultPlan wins; otherwise the ambient plan installed
+        # through runtime.faults is consulted per fire.  With no plan
+        # anywhere, every fault check is one `is None`.
+        self.faults = faults
+        self._watch = Watchdog(watchdog_s) if watchdog_s else None
+        self._last_work = 0                 # progress marker for the watchdog
         self.caches = lm.init_cache(cfg, num_slots, max_seq, self.device)
         self.pos = np.zeros(num_slots, np.int32)        # next write position
         self.live = np.zeros(num_slots, bool)
@@ -208,7 +239,7 @@ class DecodeServer:
         self._m_tick_contended = m.gauge(
             "max_prompt_steps_contended_tick",
             "high-watermark of per-tick prompt work on ticks where a live "
-            "slot was decoding")
+            "slot was decoding — the bound adaptive prefill must honor")
         self._m_live = m.gauge("live_slots", "slots decoding")
         self._h_ttft = m.histogram("ttft_ms", "submit -> first token")
         self._h_tpot = m.histogram("tpot_ms", "per-token decode latency")
@@ -217,6 +248,11 @@ class DecodeServer:
                                     "for requests that never dispatched)")
         self._m_quar = m.counter("slots_quarantined",
                                  "slots retired on non-finite state")
+        self._m_disp_retries = m.counter(
+            "decode_dispatch_retries",
+            "decode ticks aborted on a transient dispatch error")
+        self._m_stalled = m.counter(
+            "server_stalled", "watchdog firings (no progress in bound)")
         self._tick_prompt_steps = 0
         self._tick_uncontended = True       # no slot is live before tick 0
 
@@ -323,7 +359,8 @@ class DecodeServer:
         t_done = max(tr.to_us(now), t_sub)
         tr.complete("request", t_sub, t_done - t_sub, cat="request", tid=tid,
                     args={"uid": req.uid, "prompt_tokens": len(req.prompt),
-                          "out_tokens": n_out, "finish_reason": req.finish_reason})
+                          "out_tokens": n_out, "finish_reason": req.finish_reason,
+                          "prefix_hit_tokens": req.prefix_hit_tokens})
         t_disp = min(tr.to_us(req.dispatched_at), t_done) \
             if req.dispatched_at is not None else t_done
         tr.complete("queue_wait", t_sub, t_disp - t_sub, cat="request", tid=tid)
@@ -334,8 +371,60 @@ class DecodeServer:
                         tid=tid, args={"tokens": n_out})
 
     # ------------------------------------------------------------------
-    # quarantine, deadlines, cancellation
+    # fault points, quarantine, deadlines, cancellation
     # ------------------------------------------------------------------
+
+    def _fire(self, point: str):
+        """Consult the server's (or the ambient) fault plan at ``point``."""
+        spec = faults_lib.fire(point, self.faults)
+        if spec is not None:
+            self.obs.metrics.counter("faults_injected", "injected faults",
+                                     point=point).inc()
+        return spec
+
+    def _fault_slot(self, spec) -> int | None:
+        """The poisoned slot: the rule's payload may pin ``slot=``; otherwise
+        the point's seeded stream chooses among the live slots, as the
+        reference's does."""
+        if "slot" in spec.payload:
+            b = int(spec.payload["slot"])
+            return b if self.live[b] else None
+        live = [b for b in range(self.B) if self.live[b]]
+        if not live:
+            return None
+        plan = self.faults if self.faults is not None else faults_lib.get_plan()
+        return plan.rng(spec.point).choice(live)
+
+    def _dispatch_fault(self) -> bool:
+        """An injected transient dispatch error at the ``decode.dispatch``
+        point: the tick is aborted, to be retried the next tick (state
+        untouched).  A short sleep keeps a permanent fault from spinning the
+        host; the watchdog bounds the livelock."""
+        if self._fire("decode.dispatch") is None:
+            return False
+        self._m_disp_retries.inc()
+        time.sleep(0.001)
+        return True
+
+    def _slot_leaves(self, floating: bool = False) -> list[torch.Tensor]:
+        """Cache leaves whose axis 1 is the slot axis."""
+        return [leaf for leaf in tree_leaves(self.caches)
+                if leaf.dim() >= 2 and leaf.shape[1] == self.B
+                and (leaf.is_floating_point() or not floating)]
+
+    def _poison_slot(self, b: int, mode: str = "nan") -> None:
+        """Write NaN/Inf into slot ``b``'s float cache rows, in place: the
+        injected effect of the carry and splice fault points.  Other slots'
+        rows are untouched, so survivors stay bit-identical."""
+        bad = float("nan") if mode == "nan" else float("inf")
+        for leaf in self._slot_leaves(floating=True):
+            leaf[:, b] = bad
+
+    def _scrub_slot(self, b: int) -> None:
+        """Zero slot ``b``'s cache rows: quarantined state never leaks into
+        the next request admitted to the slot."""
+        for leaf in self._slot_leaves():
+            leaf[:, b] = 0
 
     def _quarantine(self, b: int, now: float) -> None:
         """Retire slot ``b``'s request with ``error:nonfinite`` and pull the
@@ -349,12 +438,10 @@ class DecodeServer:
         self._m_quar.inc()
 
     def _scrub_quarantined(self) -> None:
-        """Zero quarantined slots' cache rows, so a poisoned state never
-        leaks into the next request admitted to the slot."""
-        for b in np.flatnonzero(self.quarantined):
-            for leaf in tree_leaves(self.caches):
-                leaf[:, b] = 0
-            self.quarantined[b] = False
+        for b in range(self.B):
+            if self.quarantined[b]:
+                self._scrub_slot(b)
+                self.quarantined[b] = False
 
     def _reap_deadlines(self, now: float) -> None:
         """Retire every expired request — queued (``expired:queue``), mid-
@@ -396,18 +483,67 @@ class DecodeServer:
                 return True
         return False
 
+    def _abort_inflight(self, reason: str, now: float) -> None:
+        """Retire every in-flight request with ``reason`` (stall recovery:
+        nothing awaits forever, nothing silently disappears)."""
+        while True:
+            req = self.scheduler.next_request(now=now)
+            if req is None:
+                break
+            self._retire(req, now, reason)
+        for job in list(self._jobs):
+            self.reserved[job.slot] = False
+            self._retire(job.req, now, reason)
+        self._jobs.clear()
+        for b in range(self.B):
+            req = self.slot_req[b]
+            if req is not None:
+                self._retire(req, now, reason)
+                self.live[b] = False
+                self.slot_req[b] = None
+
+    def _watchdog_check(self) -> None:
+        """Fire the stall watchdog when work is in flight but no tick has
+        made progress (tokens decoded, prompt steps run, or requests
+        retired) within the wall-clock bound."""
+        if self._watch is None:
+            return
+        now = time.perf_counter()
+        work = self.decoded_tokens + self.prompt_steps_computed + len(self.completed)
+        if work != self._last_work:
+            self._last_work = work
+            self._watch.progress(now)
+            return
+        pending = bool(self.live.any() or self._jobs or len(self.scheduler))
+        if pending and self._watch.stalled(now):
+            self._m_stalled.inc()
+            self._watch.fired += 1
+            self._abort_inflight("error:stalled", now)
+            self._watch.progress(now)
+
     def health(self) -> dict:
+        """Readiness/liveness snapshot (also ``stats()["health"]``)."""
+        stalled = int(self._m_stalled.value)
         quarantined = int(self.quarantined.sum())
         shed = int(self.obs.metrics.value("sched_rejected", reason="shed"))
-        degraded = quarantined or shed or int(self._m_quar.value)
-        return {
-            "status": "degraded" if degraded else "ok",
+        status = "stalled" if stalled else (
+            "degraded" if quarantined or shed or int(self._m_quar.value) else "ok")
+        out = {
+            "status": status,
             "live_slots": int(self.live.sum()),
             "reserved_slots": int(self.reserved.sum()),
             "quarantined_slots": quarantined,
             "queued": len(self.scheduler),
             "slots_quarantined_total": int(self._m_quar.value),
+            "dispatch_retries": int(self._m_disp_retries.value),
+            "stalled_events": stalled,
+            "watchdog_s": self._watch.bound_s if self._watch else None,
+            "last_progress_idle_s": self._watch.idle_s() if self._watch else None,
         }
+        plan = self.faults if self.faults is not None else faults_lib.get_plan()
+        if plan is not None:
+            out["faults"] = plan.report()
+        return out
 
     # ------------------------------------------------------------------
     # prefill
@@ -432,10 +568,52 @@ class DecodeServer:
         self.pos[b] = len(req.prompt)
         self.cur_tokens[b] = first
 
+    def _run_prefill(self, fn, *args):
+        """One prefill call, with the host round-trips its kernels make
+        (counted on this thread) added to ``prefill_kernel_syncs``."""
+        syncs = _build.host_syncs()
+        out = fn(self.params, self.cfg, *args)
+        self._m_kernel_syncs.inc(_build.host_syncs() - syncs)
+        return out
+
+    def _cache_boundary(self, job: _PrefillJob) -> None:
+        """Checkpoint the job's current state into the prefix cache.  Only
+        chunk-grid-aligned boundaries are resumable (a resumed scan then runs
+        the same chunk shapes as a cold run); every boundary carries its
+        last-token logits, which serve a full hit at the prompt's end."""
+        pc = self.prefix_cache
+        if pc is None or job.pos == 0:
+            return
+        aligned = self.prefill_chunk > 0 and job.pos % self.prefill_chunk == 0
+        pc.insert(job.req.prompt[: job.pos], self._slice_prefix(job.caches, job.pos),
+                  logits=job.logits[0] if job.logits is not None else None,
+                  resumable=aligned)
+
+    def _slice_prefix(self, caches: PyTree, p: int) -> PyTree:
+        """Full-attention KV leaves trimmed to their first ``p`` positions,
+        so a stored checkpoint costs O(prefix), not O(max_seq); recurrent
+        and Mamba-1 states have no sequence axis and are stored whole."""
+
+        def walk(tree, name=""):
+            if isinstance(tree, dict):
+                return {k: walk(v, k) for k, v in tree.items()}
+            if tree.dim() >= 3 and name in _SEQ_LEAVES and tree.shape[2] == self.S:
+                return tree[:, :, :p]
+            return tree
+
+        return walk(caches)
+
+    def _inflate_entry(self, entry) -> PyTree:
+        """A stored checkpoint re-expanded into a fresh B=1, ``max_seq``
+        cache (a copy: the stored tensors are only read)."""
+        return splice_cache(lm.init_cache(self.cfg, 1, self.S, self.device), entry.caches, 0)
+
     def _admit(self) -> None:
-        """Fill free slots from the scheduler: start a chunked prefill job,
-        or run the one-shot B=1 prefill and SPLICE its state into the slot
-        (other slots' states are untouched)."""
+        """Fill free slots from the scheduler.  Admission is a prefix-cache
+        lookup first: a full hit splices the stored state (0 recomputed
+        prompt steps); a partial hit resumes chunked prefill mid-prompt; a
+        miss starts a prefill job (chunked) or runs the one-shot B=1 prefill
+        and SPLICES its state into the slot (other slots are untouched)."""
         while True:
             b = self._free_slot()
             if b is None:
@@ -447,53 +625,95 @@ class DecodeServer:
                 # budget already met: retire before spending any device work
                 self._retire(req, time.perf_counter(), "max_tokens")
                 continue
-            if self.prefill_chunk > 0:
-                self.reserved[b] = True
-                self._jobs.append(_PrefillJob(
-                    req=req, slot=b, caches=lm.init_cache(self.cfg, 1, self.S, self.device)))
-                continue
             plen = len(req.prompt)
-            syncs = _build.host_syncs
+            pc = self.prefix_cache
+            entry = None
+            if pc is not None:
+                candidates = pc.lookup(req.prompt)
+                full = next((e for e in candidates
+                             if e.length == plen and e.logits is not None), None)
+                if full is not None:
+                    self.caches = splice_cache(self.caches, full.caches, b)
+                    spec = self._fire("prefix.splice")
+                    if spec is not None:
+                        # a corrupted checkpoint splice: caught downstream by
+                        # the per-slot non-finite detection, not here
+                        self._poison_slot(b, spec.mode)
+                    req.prefix_hit_tokens = plen
+                    pc.record_hit(plen, full=True)
+                    self._start_request(req, b, full.logits.float().cpu().numpy())
+                    continue
+                if self.prefill_chunk > 0:
+                    entry = next((e for e in candidates if e.resumable), None)
+            if self.prefill_chunk > 0:
+                # adaptive uncontended admission: with no live slot to stall
+                # and no resumable state to splice, a chunk job only adds
+                # work, so the prompt takes the one-shot path
+                adaptive_oneshot = (self.prefill_adaptive and entry is None
+                                    and self._tick_uncontended and not self._jobs)
+                if not adaptive_oneshot:
+                    caches = (self._inflate_entry(entry) if entry is not None
+                              else lm.init_cache(self.cfg, 1, self.S, self.device))
+                    start = entry.length if entry is not None else 0
+                    if pc is not None:
+                        if entry is not None:
+                            req.prefix_hit_tokens = start
+                            pc.record_hit(start, full=False)
+                        else:
+                            pc.record_miss()
+                    self.reserved[b] = True
+                    self._jobs.append(_PrefillJob(req=req, slot=b, caches=caches, pos=start))
+                    continue
+            # one-shot prefill
+            if pc is not None:
+                pc.record_miss()
             with self._tr.span("prefill_oneshot", cat="prefill",
                                args={"uid": req.uid, "tokens": plen}):
-                logits, pcaches = lm.prefill(self.params, self.cfg, self._tokens([req.prompt]))
-            self._m_kernel_syncs.inc(_build.host_syncs - syncs)
+                logits, pcaches = self._run_prefill(lm.prefill, self._tokens([req.prompt]))
             self._m_prompt_steps.inc(plen)
             self._tick_prompt_steps += plen
             self.caches = splice_cache(self.caches, pcaches, b)
+            if pc is not None:
+                pc.insert(req.prompt, pcaches, logits=logits[0], resumable=False)
             self._start_request(req, b, logits[0].float().cpu().numpy())
 
     def _advance_prefill(self) -> None:
-        """Advance one chunk of one in-flight job, round-robin over jobs:
-        per-tick prompt work stays bounded by the chunk size regardless of
-        prompt length."""
-        if not self._jobs:
-            return
-        self._job_rr %= len(self._jobs)
-        job = self._jobs[self._job_rr]
-        plen = len(job.req.prompt)
-        c = min(self.prefill_chunk, plen - job.pos)
-        syncs = _build.host_syncs
-        with self._tr.span("prefill_chunk", cat="prefill",
-                           args={"uid": job.req.uid, "pos": job.pos, "chunk": c}):
-            job.logits, job.caches = lm.prefill_chunk(
-                self.params, self.cfg, self._tokens([job.req.prompt[job.pos:job.pos + c]]),
-                job.caches, job.pos)
-        self._m_kernel_syncs.inc(_build.host_syncs - syncs)
-        job.pos += c
-        self._m_prompt_steps.inc(c)
-        self._tick_prompt_steps += c
-        self._m_chunks.inc()
-        if job.pos >= plen:
-            self._jobs.remove(job)
-            self.caches = splice_cache(self.caches, job.caches, job.slot)
-            self.reserved[job.slot] = False
-            self._start_request(job.req, job.slot, job.logits[0].float().cpu().numpy())
-        else:
-            self._job_rr += 1
+        """Advance at most ``prefill_chunks_per_tick`` chunks, round-robin
+        over in-flight jobs: per-tick prompt work stays bounded by the chunk
+        size regardless of prompt length.  With ``prefill_adaptive`` a tick
+        with no live slot drains every pending job whole instead."""
+        drain = bool(self.prefill_adaptive and self._jobs and self._tick_uncontended)
+        budget = len(self._jobs) if drain else self.prefill_chunks_per_tick
+        for _ in range(budget):
+            if not self._jobs:
+                return
+            self._job_rr %= len(self._jobs)
+            job = self._jobs[self._job_rr]
+            plen = len(job.req.prompt)
+            c = plen - job.pos if drain else min(self.prefill_chunk, plen - job.pos)
+            with self._tr.span("prefill_chunk", cat="prefill",
+                               args={"uid": job.req.uid, "pos": job.pos, "chunk": c}):
+                job.logits, job.caches = self._run_prefill(
+                    lm.prefill_chunk, self._tokens([job.req.prompt[job.pos:job.pos + c]]),
+                    job.caches, job.pos)
+            job.pos += c
+            self._m_prompt_steps.inc(c)
+            self._tick_prompt_steps += c
+            self._m_chunks.inc()
+            self._cache_boundary(job)
+            if job.pos >= plen:
+                self._jobs.remove(job)
+                self.caches = splice_cache(self.caches, job.caches, job.slot)
+                self.reserved[job.slot] = False
+                self._start_request(job.req, job.slot, job.logits[0].float().cpu().numpy())
+            else:
+                self._job_rr += 1
 
     def _begin_tick(self) -> None:
         self._tick_prompt_steps = 0
+        spec = self._fire("tick.slow")
+        if spec is not None and spec.delay_s > 0:
+            time.sleep(spec.delay_s)
         # scrub quarantined slots and reap expired requests BEFORE admission
         # — freed slots are reused this same tick
         self._scrub_quarantined()
@@ -502,7 +722,7 @@ class DecodeServer:
         self._tick_uncontended = not self.live.any()
         self._admit()
         self._advance_prefill()
-        self._admit()
+        self._admit()   # full-hit admissions may free the tick for decode
         self._m_tick_max.set_max(self._tick_prompt_steps)
         if not self._tick_uncontended:
             self._m_tick_contended.set_max(self._tick_prompt_steps)
@@ -518,8 +738,15 @@ class DecodeServer:
         self._begin_tick()
         if not self.live.any():
             return 0
+        spec = self._fire("decode.nan_carry")
+        if spec is not None:
+            b = self._fault_slot(spec)
+            if b is not None:
+                self._poison_slot(b, spec.mode)
         with self._tr.span("decode_step", cat="decode",
                            args={"live": int(self.live.sum())}):
+            if self._dispatch_fault():
+                return int(self.live.sum())
             logits, self.caches = lm.decode_step(
                 self.params, self.cfg, self._tokens(self.cur_tokens[:, None]),
                 self.caches, self._tokens(self.pos))
@@ -528,7 +755,13 @@ class DecodeServer:
         self._m_syncs.inc()
         self.pos += self.live.astype(np.int32)
         now = time.perf_counter()
-        # per-slot non-finite detection quarantines ONLY the affected slot
+        spec = self._fire("decode.nan_logits")
+        if spec is not None:
+            b = self._fault_slot(spec)
+            if b is not None:
+                logits[b] = np.nan if spec.mode == "nan" else np.inf
+        # per-slot non-finite detection (an injected poison or a real one)
+        # quarantines ONLY the affected slot
         finite = np.isfinite(logits).all(axis=-1)
         for b in range(self.B):
             if not self.live[b]:
@@ -611,6 +844,13 @@ class DecodeServer:
         self._begin_tick()
         if not self.live.any():
             return 0
+        spec = self._fire("decode.nan_carry") or self._fire("decode.nan_logits")
+        if spec is not None:
+            # the block samples on the device, so both poison points inject
+            # into the carry; the in-block finite check catches it
+            b = self._fault_slot(spec)
+            if b is not None:
+                self._poison_slot(b, spec.mode)
         k = self.block_k
         temps = np.array([r.temperature if r is not None else 0.0
                           for r in self.slot_req], np.float32)
@@ -618,6 +858,8 @@ class DecodeServer:
                               for r in self.slot_req], np.int64)
         with self._tr.span("decode_block", cat="decode",
                            args={"live": int(self.live.sum()), "k": k}):
+            if self._dispatch_fault():
+                return int(self.live.sum())
             self.caches, packed = self._decode_block(k, temps, remaining)
             # ONE sync: the K×B block plus the carry vectors to the host
             with self._tr.span("device_sync", cat="sync"):
@@ -661,10 +903,20 @@ class DecodeServer:
         return int(self.live.sum())
 
     # ------------------------------------------------------------------
+    def tick(self) -> bool:
+        """One scheduling quantum (prefill chunks + decode) and the watchdog
+        check; True while the server has work in flight."""
+        if self.persistent:
+            self.step_block()
+        else:
+            self.step()
+        self._watchdog_check()
+        return bool(self.live.any() or self._jobs or len(self.scheduler))
+
     def stats(self, reset: bool = False) -> dict:
         """Serving telemetry, a view over the server's metrics registry:
         decode host round-trips per generated token, prefill boundedness,
-        scheduler, request-latency summaries.  ``reset=True`` zeroes the
+        prefix-cache hits, scheduler, request-latency summaries.  ``reset=True`` zeroes the
         counters after building the dict."""
         toks = max(self.decoded_tokens, 1)
         out = {
@@ -675,6 +927,7 @@ class DecodeServer:
                 "prompt_steps_computed": self.prompt_steps_computed,
                 "chunks_run": self.prefill_chunks_run,
                 "chunk_size": self.prefill_chunk,
+                "adaptive": self.prefill_adaptive,
                 "max_prompt_steps_per_tick": self.max_prompt_steps_per_tick,
                 "max_prompt_steps_contended_tick": self.max_prompt_steps_contended_tick,
             },
@@ -686,13 +939,19 @@ class DecodeServer:
             "scheduler": self.scheduler.telemetry(),
             "health": self.health(),
         }
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.telemetry()
         if reset:
             self.reset_stats()
         return out
 
     def reset_stats(self) -> None:
+        """Zero every counter of the server's scope; stored prefix-cache
+        checkpoints and queued requests are untouched."""
         self.obs.metrics.reset()
         self.scheduler.reset_stats()
+        if self.prefix_cache is not None:
+            self.prefix_cache.reset_stats()
 
     def run_until_drained(self, max_ticks: int = 10_000,
                           persistent: bool | None = None) -> list[Request]:
@@ -701,6 +960,7 @@ class DecodeServer:
         ticks = 0
         while (len(self.scheduler) or self._jobs or self.live.any()) and ticks < max_ticks:
             step()
+            self._watchdog_check()
             ticks += 1
         return self.completed
 

@@ -749,3 +749,124 @@ def test_dense_use_pallas_prefill_matches_plain_path(cuda):
         assert ops.flash_attention.launches == launches + cfg.n_layers
         torch.testing.assert_close(lg_k, lg_p, atol=1e-5, rtol=1e-5)
         _close(c_k["groups"]["b0_attn"].values(), c_p["groups"]["b0_attn"].values(), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the serving stack's state on the card: prefix-cache checkpoints, faults
+# ---------------------------------------------------------------------------
+
+SHARED_PROMPT = [3, 1, 4, 1, 5, 9, 2, 6]          # two chunks of 4
+LONG_PROMPT = SHARED_PROMPT + [8, 7, 8, 2, 5]
+
+
+def _served_entries(cfg, params, cuda, prompts, cache=True):
+    """Serve ``prompts`` one after another (chunks of 4) with or without the
+    prefix cache; returns the tokens and the server."""
+    from repro_torch.runtime import DecodeServer, Request
+
+    srv = DecodeServer(cfg, params, num_slots=2, max_seq=48, prefill_chunk=4,
+                       prefix_cache_bytes=(64 << 20) if cache else 0, device=cuda)
+    toks = []
+    for uid, prompt in enumerate(prompts):
+        srv.submit(Request(uid=uid, prompt=list(prompt), max_new_tokens=5))
+        toks.append(list(srv.run_until_drained()[-1].out_tokens))
+    return toks, srv
+
+
+def _entry(srv, length):
+    (node,) = [n for n in srv.prefix_cache._entry_nodes if n.entry.length == length]
+    return node.entry
+
+
+def test_mamba1_prefill_resumed_from_a_stored_checkpoint_on_the_card(cuda):
+    """A chunked falcon-mamba prefill resumed from a stored boundary state
+    (through ``ssm_scan``'s h0) gives the cold run's tokens and the cold
+    run's state bits at the prompt's end."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config("falcon-mamba-7b"), use_pallas=True)
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cold_toks, cold = _served_entries(cfg, params, cuda, [LONG_PROMPT])
+    launches = ops.ssm_scan.launches
+    warm_toks, warm = _served_entries(cfg, params, cuda, [SHARED_PROMPT, LONG_PROMPT])
+    assert warm.stats()["prefix_cache"]["partial_hits"] == 1
+    # 2 chunks for the shared prompt, 2 more (8..12, 12..13) for the resume
+    assert ops.ssm_scan.launches - launches == 4 * cfg.n_layers
+    assert warm_toks[1] == cold_toks[0]
+    got, want = _entry(warm, len(LONG_PROMPT)), _entry(cold, len(LONG_PROMPT))
+    for g, w in zip(tree_leaves(got.caches) + [got.logits], tree_leaves(want.caches) + [want.logits]):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b", "paper-lstm"])
+def test_stored_checkpoints_on_the_card_are_not_aliased(cuda, arch):
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config(arch), use_pallas=True)
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    _, srv = _served_entries(cfg, params, cuda, [LONG_PROMPT])
+    entries = [n.entry for n in srv.prefix_cache._entry_nodes]
+    before = [[t.clone() for t in tree_leaves(e.caches) + [e.logits]] for e in entries]
+    from repro_torch.runtime import Request
+
+    rng = np.random.default_rng(0)
+    for uid in range(1, 5):
+        prompt = SHARED_PROMPT[:4] + [int(t) for t in rng.integers(1, cfg.vocab, 7)]
+        srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=6))
+    srv.submit(Request(uid=9, prompt=list(LONG_PROMPT), max_new_tokens=6))
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    assert srv.stats()["prefix_cache"]["hits"] == 1
+    for e, want in zip(entries, before):
+        for t, w in zip(tree_leaves(e.caches) + [e.logits], want):
+            assert t.device.type == "cuda" and torch.equal(t, w)
+
+
+def test_injected_compile_fault_hops_and_a_real_launch_error_does_not(cuda, monkeypatch):
+    from repro_torch import obs
+    from repro_torch.codegen import kernel_backend
+    from repro_torch.core import synthesis
+    from repro_torch.runtime import faults
+
+    spec = synthesis.NetworkSpec(4, 2, 8, 2, cell="gru", seq_len=5)
+    m = obs.OBS.metrics
+    hops = lambda: int(m.value("synth_fallback", from_backend="kernel", to="eager"))  # noqa: E731
+    synthesis.synthesize_cache_clear()
+    before, retries = hops(), int(m.value("synth_retries"))
+    plan = faults.FaultPlan([faults.FaultSpec("synth.compile", times=3)], seed=0)
+    with faults.active(plan):
+        rep = synthesis.synthesize(spec, batch=2, backend="kernel", backoff_s=0.0, device=cuda)
+    assert (rep.backend, rep.fallback_from) == ("eager", "kernel")
+    assert hops() == before + 1 and int(m.value("synth_retries")) == retries + 2
+    # the degraded report is not memoized: a fault-free call runs the kernel
+    launches = kernel_backend.codegen_stage.launches
+    rep = synthesis.synthesize(spec, batch=2, backend="kernel", device=cuda)
+    assert (rep.backend, rep.fallback_from, rep.cache_hit) == ("kernel", None, False)
+    assert kernel_backend.codegen_stage.launches > launches
+
+    # a launch that the card refuses raises through synthesize(fallback=True)
+    real_bind = kernel_backend._bind
+
+    class Refused:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self._lib, name)
+
+        def run_stage(self, *args):
+            return 2            # as a launch that fails with cudaErrorMemoryAllocation
+
+    monkeypatch.setattr(kernel_backend, "_bind", lambda lib: Refused(real_bind(lib)))
+    synthesis.synthesize_cache_clear()
+    launches = kernel_backend.codegen_stage.launches
+    with faults.active(faults.FaultPlan([], seed=0)), \
+            pytest.raises(RuntimeError, match="codegen_stage kernel launch failed"):
+        synthesis.synthesize(spec, batch=2, backend="kernel", fallback=True, device=cuda)
+    assert hops() == before + 1 and kernel_backend.codegen_stage.launches == launches
+    assert synthesis.synthesize_cache_info() == {"entries": 0}

@@ -40,7 +40,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                    "kernels/int8_matmul/kernel.py", "kernels/int8_matmul/ref.py",
                    "models/attention.py", "configs/smollm_135m.py", "configs/phi4_mini_3_8b.py",
                    "kernels/flash_attention/ops.py", "kernels/flash_attention/kernel.py",
-                   "kernels/flash_attention/ref.py"):
+                   "kernels/flash_attention/ref.py", "runtime/faults.py",
+                   "runtime/prefix_cache.py", "runtime/loadgen.py", "obs/check.py",
+                   "obs/report.py", "launch/serve.py"):
         assert module in names, module
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}

@@ -164,7 +164,7 @@ def test_create_top_module_matches_reference_on_bridged_weights():
 def test_unported_options_raise_and_name_the_roadmap():
     spec = paper_mlp.CASE_STUDY
     for kw in (dict(backend="verilog"), dict(optimize="latency"), dict(analyze=True),
-               dict(mesh=object()), dict(fallback=True)):
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             synthesis.synthesize(spec, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown backend"):
