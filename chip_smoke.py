@@ -103,6 +103,24 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    prompt length of the trace, one-shot and/or chunked as its servers
    prefill.
 
+16. bit_path (run after phase 7) — the paper's fixed-point path at the
+   published widths of the synthesis cells, ``NetworkSpec(1024, 8, 1024,
+   1024, seq_len=256)``: ``rtlsim.simulate`` against
+   ``golden.fixed_forward`` word for word (lstm at 18, 24 and 32 bits; gru,
+   ssm and mlp at 18), with their seconds, FSM cycles and largest |code|;
+   the ``ref``, ``eager`` and ``kernel`` float legs on the same cells
+   (kernel and ref against eager within 1e-4 of max(1, max|y|), the
+   generated kernel launched); rtlsim and the golden model on the card
+   against the same calls on the CPU at 4 × 64 cells and 8, 18 and 32 bits;
+   ``synthesize(backend="verilog")`` on the paper's three specs and the four
+   golden specs against the emission from CPU copies of the weights (sha256,
+   bytes, the resource report); the static gate
+   (``synthesize(backend="kernel", analyze=True)``) on the paper's specs and
+   the 8 × 1024 lstm, refused until their error findings are waived, with
+   the analysis seconds; then ``python -m repro_torch.verify.difftest``
+   (also ``--regen-goldens`` into ``build/bit_path/``) and ``python -m
+   repro_torch.analyze`` as subprocesses, each exiting 0.
+
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
 seconds.  The script imports nothing of JAX and nothing of the JAX package.
@@ -112,6 +130,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -171,6 +190,15 @@ LOADGEN_TRACE = dict(num_requests=32, mean_interarrival_ticks=0.25, short_len=(8
                      long_len=(128, 257), long_frac=0.25, fleet_frac=0.4, num_fleets=2,
                      fleet_prefix_len=128, fleet_suffix_len=(1, 33), max_new_tokens=32, seed=0)
 LOADGEN_UID_OFFSET = 1000        # the second pass's uids
+
+# the bit_path phase: sequence steps and batch of its full-width cells, the
+# float legs' bar (ref and kernel against eager, relative to the largest |y|
+# where that exceeds 1: the 8-layer ssm's linear state reaches ~1e6), and
+# the seeds its difftest subprocess runs (each builds its own stage kernels)
+BIT_T = 256
+BIT_BATCH = 2
+BIT_FLOAT_TOL = 1e-4
+BIT_DIFFTEST_SEEDS = 6
 
 PHASE_T0 = [time.perf_counter()]
 
@@ -648,6 +676,195 @@ def serve_loadgen_entry_points(card: str, device: str = "cuda") -> None:
     say("entry_points", serve_digest=served["tokens_digest"], serve_ticks=served["ticks"],
         serve_tok_s=f"{served['throughput_tok_s']:.1f}", ledger_programs=len(ledger),
         obs_check="ok", card=repr(card))
+
+
+# ---------------------------------------------------------------------------
+# phase 16: bit_path
+# ---------------------------------------------------------------------------
+
+def _program_on(prog, dev):
+    """``prog`` with every weight copied to ``dev``."""
+    return dataclasses.replace(
+        prog, C=prog.C.to(dev), beta=None if prog.beta is None else prog.beta.to(dev),
+        stages=[dataclasses.replace(st, params={k: v.to(dev) for k, v in st.params.items()})
+                for st in prog.stages])
+
+
+def _uniform(gen, shape, scale=1.0) -> torch.Tensor:
+    return (torch.rand(shape, generator=gen) * 2 - 1) * scale
+
+
+def bit_path(dev, card: str, T: int = BIT_T, difftest_seeds: int = BIT_DIFFTEST_SEEDS
+             ) -> dict[str, int]:
+    """The paper's fixed-point path on the card: rtlsim against the golden
+    model at full width, the ref/eager/kernel float legs on the same cells,
+    the card against the CPU word for word, ``synthesize(backend="verilog")``
+    against the emission from CPU copies of the weights, the static gate
+    (``synthesize(backend="kernel", analyze=True)``), and the difftest and
+    analyze CLIs as subprocesses.  Returns the generated stage kernel's
+    launches by cell (the float legs and the gated synthesis)."""
+    from repro_torch.analyze import AnalysisError, WaiverRegistry, analyze_program
+    from repro_torch.codegen import build_program, emit_program, kernel_backend, rtlsim
+    from repro_torch.configs.paper_mlp import CASE_STUDY, FIG10_A, FIG10_B
+    from repro_torch.core import synthesis
+    from repro_torch.core.synthesis import NetworkSpec
+    from repro_torch.obs.check import check_analyze_doc
+    from repro_torch.verify import difftest, golden
+
+    gen = torch.Generator().manual_seed(16)
+    cpu = torch.device("cpu")
+    launches = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # -- 16a/b. full width: the bit contract, then the float legs -------------
+    for cell in ("lstm", "gru", "ssm", "mlp"):
+        spec = NetworkSpec(WIDTH, 8, WIDTH, WIDTH, cell=cell, seq_len=0 if cell == "mlp" else T)
+        prog = build_program(spec, dev)
+        u = _uniform(gen, (BIT_BATCH, WIDTH) if cell == "mlp" else (BIT_BATCH, T, WIDTH))
+        for width in ((18, 24, 32) if cell == "lstm" else (18,)):
+            sync()
+            t0 = time.perf_counter()
+            sim = rtlsim.simulate(prog, u, width=width, device=dev)
+            sync()
+            t1 = time.perf_counter()
+            ref = golden.fixed_forward(prog, u, width=width, device=dev)
+            sync()
+            t2 = time.perf_counter()
+            require(sim.y_codes.device.type == dev.type and torch.equal(sim.y_codes, ref),
+                    f"bit_path {cell} W={width}: rtlsim differs from the golden model in "
+                    f"{int((sim.y_codes != ref).sum())} words")
+            want_cycles = rtlsim.fsm_cycle_estimate(prog, None if cell == "mlp" else T)
+            require(sim.cycles == want_cycles,
+                    f"bit_path {cell} W={width}: {sim.cycles} cycles, the FSM model says "
+                    f"{want_cycles}")
+            say("bit_path", step="bit_contract", cell=cell, layers=8, width_lanes=WIDTH,
+                word_bits=width, B=BIT_BATCH, T=T if cell != "mlp" else 0, bit_exact=True,
+                rtlsim_s=f"{t1 - t0:.2f}", golden_s=f"{t2 - t1:.2f}", fsm_cycles=sim.cycles,
+                max_abs_code=int(ref.abs().max()), card=repr(card))
+        del prog
+        kernel_backend.codegen_stage.launches = 0
+        with torch.no_grad():
+            ys = difftest.float_legs(spec, u.to(dev), dev)
+        sync()
+        launches[cell] = kernel_backend.codegen_stage.launches
+        require(launches[cell] >= 1, f"bit_path {cell}: no generated-kernel launch")
+        y = ys["eager"]
+        scale = max(1.0, float(y.abs().max()))
+        errs = {k: float((ys[k] - y).abs().max()) for k in ("kernel", "ref")}
+        require(all(bool(torch.isfinite(v).all()) and v.shape == y.shape for v in ys.values())
+                and max(errs.values()) <= BIT_FLOAT_TOL * scale,
+                f"bit_path {cell}: float legs differ from eager by {errs} (max |y| {scale:.3e})")
+        say("bit_path", step="float_legs", cell=cell, T=T if cell != "mlp" else 0,
+            kernel_vs_eager=f"{errs['kernel']:.3e}", ref_vs_eager=f"{errs['ref']:.3e}",
+            max_abs_y=f"{scale:.3e}", tol=f"{BIT_FLOAT_TOL}*max(1,max|y|)",
+            codegen_launches=launches[cell])
+        del ys
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- 16c. the card against the CPU, word for word, at 4 x 64 ---------------
+    for cell in ("lstm", "gru", "ssm", "mlp"):
+        for width in (8, 18, 32):
+            spec = NetworkSpec(64, 4, 64, 64, cell=cell, seq_len=0 if cell == "mlp" else 32,
+                               quant_bits=width)
+            prog = build_program(spec, dev)
+            host = _program_on(prog, cpu)
+            u = _uniform(gen, (4, 64) if cell == "mlp" else (4, 32, 64), scale=4.0)
+            a = rtlsim.simulate(prog, u, collect_ranges=True, device=dev)
+            b = rtlsim.simulate(host, u, collect_ranges=True, device=cpu)
+            g = golden.fixed_forward(prog, u, device=dev)
+            same = (torch.equal(a.y_codes.cpu(), b.y_codes) and a.cycles == b.cycles
+                    and all(torch.equal(a.final_states[k].cpu(), v)
+                            for k, v in b.final_states.items())
+                    and all(np.array_equal(a.wire_ranges[k][i], v[i])
+                            for k, v in b.wire_ranges.items() for i in (0, 1))
+                    and torch.equal(g.cpu(), golden.fixed_forward(host, u, device=cpu))
+                    and torch.equal(g, a.y_codes))
+            require(same, f"bit_path {cell} 4x64 W={width}: the card differs from the CPU")
+            say("bit_path", step="card_vs_cpu", cell=cell, shape="4x64", word_bits=width,
+                equal=True, max_abs_code=int(g.abs().max()))
+
+    # -- 16d. synthesize(backend="verilog") ------------------------------------
+    verilog_specs = {"CASE_STUDY": CASE_STUDY, "FIG10_A": FIG10_A, "FIG10_B": FIG10_B,
+                     **difftest.golden_specs()}
+    for label, spec in verilog_specs.items():
+        report = synthesis.synthesize(spec, backend="verilog", measure=False, fallback=False,
+                                      device=dev)
+        host_rtl = emit_program(_program_on(build_program(spec, dev), cpu))
+        require(report.backend == "verilog" and report.rtl == host_rtl,
+                f"bit_path verilog {label}: the RTL differs from the CPU copies' emission")
+        say("bit_path", step="verilog", spec=label,
+            sha256=hashlib.sha256(report.rtl.encode()).hexdigest()[:16],
+            bytes=len(report.rtl.encode()), resources=repr(report.resources.summary()))
+
+    # -- 16e. the static gate ----------------------------------------------------
+    gate_specs = {"CASE_STUDY": CASE_STUDY, "FIG10_A": FIG10_A, "FIG10_B": FIG10_B,
+                  f"lstm_8x{WIDTH}_T{T}": NetworkSpec(WIDTH, 8, WIDTH, WIDTH, cell="lstm",
+                                                      seq_len=T)}
+    for label, spec in gate_specs.items():
+        prog = build_program(spec, dev)
+        t0 = time.perf_counter()
+        res = analyze_program(prog)
+        analysis_s = time.perf_counter() - t0
+        del prog
+        kernel_backend.codegen_stage.launches = 0
+        waived = 0
+        try:
+            report = synthesis.synthesize(spec, backend="kernel", analyze=True, measure=False,
+                                          fallback=False, device=dev)
+            require(res.ok, f"bit_path gate {label}: passed with unwaived errors")
+        except AnalysisError as exc:
+            ids = sorted(f.id for f in exc.findings)
+            require(ids == sorted(f.id for f in res.errors),
+                    f"bit_path gate {label}: the gate's findings differ from the analysis")
+            waivers = WaiverRegistry({i: "seeded weights, known" for i in ids})
+            report = synthesis.synthesize(spec, backend="kernel", analyze=True, measure=False,
+                                          fallback=False, waivers=waivers, device=dev)
+            waived = len(ids)
+        sync()
+        cell = spec.cell
+        launches[cell] = launches.get(cell, 0) + kernel_backend.codegen_stage.launches
+        doc = report.analysis
+        require(report.backend == "kernel" and check_analyze_doc(doc) == []
+                and doc["summary"]["waived"] == waived and doc["summary"]["errors"] == 0
+                and doc["static_snr_db"] == res.to_doc()["static_snr_db"],
+                f"bit_path gate {label}: report {doc['summary']}")
+        say("bit_path", step="static_gate", spec=label, errors=len(res.errors), waived=waived,
+            warnings=doc["summary"]["warnings"], static_snr_db=doc["static_snr_db"],
+            min_safe_width=doc["min_safe_width"], converged=doc["converged"],
+            iters=doc["iters"], analysis_s=f"{analysis_s:.2f}", card=repr(card))
+
+    # -- 16f. the CLIs as subprocesses ---------------------------------------------
+    docs = ROOT / "build" / "bit_path"
+    docs.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    commands = {
+        "verify.difftest": [sys.executable, "-m", "repro_torch.verify.difftest",
+                            "--seeds", str(difftest_seeds)],
+        "verify.difftest --regen-goldens": [sys.executable, "-m", "repro_torch.verify.difftest",
+                                            "--regen-goldens", str(docs / "goldens")],
+        "analyze": [sys.executable, "-m", "repro_torch.analyze", "--all-cells",
+                    "--bits", "8,16,32", "--out", str(docs / "analyze.json")],
+    }
+    if dev.type != "cuda":
+        for cmd in commands.values():
+            cmd += ["--device", "cpu"]
+    for name, cmd in commands.items():
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        for ln in (run.stdout + run.stderr).splitlines()[-4:]:
+            say("bit_path_cli", command=repr(name), line=repr(ln))
+        require(run.returncode == 0, f"python -m repro_torch.{name} exited {run.returncode}")
+        say("bit_path", step="cli", command=repr(name), exit=0,
+            seconds=f"{time.perf_counter() - t0:.1f}")
+    require(check_analyze_doc(json.loads((docs / "analyze.json").read_text())) == []
+            and len(list((docs / "goldens").glob("*.v"))) == 4,
+            "bit_path: the CLIs' documents are incomplete")
+    return launches
 
 
 def main() -> int:
@@ -1194,6 +1411,12 @@ def main() -> int:
                 summary=repr(report.summary()))
     phase_done("synth")
 
+    # -- 16. bit_path: the fixed-point path and its tools ------------------------
+    bit_launches = bit_path(dev, card)
+    for cell in ("lstm", "gru"):
+        codegen_launches[cell] += bit_launches.get(cell, 0)
+    phase_done("bit_path")
+
     # -- 8. where the time goes: the use_pallas step() run under the profiler ---
     from torch.profiler import ProfilerActivity, profile
 
@@ -1673,6 +1896,8 @@ def main() -> int:
         "over_library": codegen_time[cell][0] / codegen_time[cell][2],
         "serial_floor_ms": codegen_time[cell][7],
         "fixed_ms": codegen_time[cell][8],
+        # phase 16's launches by cell (its lstm and gru ones are in "launches")
+        "bit_path_launches_by_cell": bit_launches,
     } for cell in ("lstm", "gru")] + [{
         "name": "tanh_lut",
         "route": "cuda",

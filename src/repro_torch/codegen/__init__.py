@@ -3,18 +3,18 @@ the port's counterpart of ``repro/codegen``.
 
 The paper's headline artifact is a code *generator* (hyper-parameters →
 synthesizable Verilog).  This subsystem is that generator with an explicit
-IR in the middle; on the card the emitted text is CUDA C++:
+IR in the middle; on the card the executable text is CUDA C++:
 
     NetworkSpec ──build_program──▶ Program (FSM schedule + datapath graph)
                                       │
-                     ┌────────────────┴─────────────────┐
-               eager_backend                      kernel_backend
-       (the scan loop; the oracle)     (lower → cuda_emit → one generated
-                                        CUDA stage kernel per stage)
+              ┌───────────────────────┼──────────────────────────┐
+        eager_backend           kernel_backend                 verilog
+   (the scan loop; the    (lower → cuda_emit → one      (Table-I RTL text;
+    float oracle)          generated CUDA stage kernel   rtlsim runs it word
+                           per stage)                    for word)
 
-``register_cell`` adds a new cell type once; both backends pick it up.  The
-reference's Verilog emitter, bit-accurate simulator and tuner are not ported
-yet (ROADMAP, Queue 1); ``rtlsim`` holds its FSM cycle model only.
+``register_cell`` adds a new cell type once; every backend picks it up.
+The reference's design-space tuner is not ported yet (ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
@@ -31,9 +31,10 @@ from .builders import (
     ssm_params,
 )
 from .ir import DatapathGraph, GraphBuilder, Node, Program, Schedule, Stage, eval_graph
-from . import cuda_emit, eager_backend, kernel_backend, lower, rtlsim
+from .verilog import ResourceReport, emit_program, report_program
+from . import cuda_emit, eager_backend, kernel_backend, knobs, lower, rtlsim, verilog
 
-BACKENDS = ("eager", "kernel")
+BACKENDS = ("eager", "kernel", "verilog")
 
 
 def compile_spec(spec: Any, backend: str = "eager", *, device=None):
@@ -49,7 +50,8 @@ def compile_spec(spec: Any, backend: str = "eager", *, device=None):
         return program.params, eager_backend.compile_program(program, device=device)
     if backend == "kernel":
         return program.params, kernel_backend.compile_program(program, device=device)
-    raise ValueError(f"unknown executable backend '{backend}' (eager|kernel)")
+    raise ValueError(f"unknown executable backend '{backend}' (eager|kernel); "
+                     "use emit_program() / synthesize(backend='verilog') for RTL")
 
 
 __all__ = [
@@ -59,6 +61,7 @@ __all__ = [
     "GraphBuilder",
     "Node",
     "Program",
+    "ResourceReport",
     "Schedule",
     "Stage",
     "bind_cell_params",
@@ -67,11 +70,15 @@ __all__ = [
     "compile_spec",
     "cuda_emit",
     "eager_backend",
+    "emit_program",
     "eval_graph",
     "kernel_backend",
+    "knobs",
     "lower",
     "register_cell",
     "registered_cells",
+    "report_program",
     "rtlsim",
     "ssm_params",
+    "verilog",
 ]

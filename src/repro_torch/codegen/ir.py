@@ -254,15 +254,10 @@ class Stage:
     params: dict[str, torch.Tensor]
 
     def validate(self) -> None:
-        """Structural checks: the graph, and every const bound with its
-        shape (per-step consts with a leading ``steps`` axis).
-
-        The reference also runs a static AF-domain check here
-        (``repro.analyze.ranges.af_domain_violations``: an AF node whose
-        input interval lies entirely outside the ROM's domain).  It needs
-        the fixed-point bit path (rtlsim, verilog, intervals), which the
-        port does not have yet, and comes with it (ROADMAP, Queue 1); it
-        never fires on the registered cells with their own weights."""
+        """Structural checks: the graph, every const bound with its shape
+        (per-step consts with a leading ``steps`` axis), and the static
+        AF-domain check of ``repro_torch.analyze.ranges`` (an AF node whose
+        input interval lies entirely outside the ROM's domain)."""
         self.graph.validate()
         for n in self.graph.consts():
             if n.name not in self.params:
@@ -275,6 +270,20 @@ class Stage:
                 raise ValueError(
                     f"stage '{self.name}': const '{n.name}' shape {got} != {want}"
                 )
+        if self.graph.af_nodes():
+            # static AF-domain check (repro_torch.analyze interval
+            # primitives): an AF node whose input interval lies ENTIRELY
+            # outside the 64-entry ROM's addressable domain [-2^(W-2),
+            # 2^(W-2)) can only ever read a clamped edge entry — a wiring
+            # bug, not a quantization choice
+            from repro_torch.analyze.ranges import af_domain_violations
+
+            bad = af_domain_violations(self, width=None, max_iters=8)
+            if bad:
+                raise ValueError(
+                    f"stage '{self.name}': AF node(s) {sorted(bad)} have "
+                    f"input bounds entirely outside the ROM domain — every "
+                    f"lookup would clamp to an edge entry")
 
 
 @dataclasses.dataclass

@@ -15,13 +15,17 @@ it.  The public API mirrors Table I one-to-one:
     Create_mult       -> create_mult(...)       (MACC unit)
 
 ``synthesize()`` is the push-button flow: spec → IR program → lower → build →
-report, on three backends, each the counterpart of one of the reference's:
+report, on four backends, each the counterpart of one of the reference's:
 
-    ``"eager"``  (reference ``"xla"``)    the eager scan executor
-    ``"kernel"`` (reference ``"pallas"``) the generated CUDA stage kernel
-    ``"ref"``    (reference ``"ref"``)    ``create_top_module``, no IR
+    ``"eager"``   (reference ``"xla"``)     the eager scan executor
+    ``"kernel"``  (reference ``"pallas"``)  the generated CUDA stage kernel
+    ``"verilog"`` (reference ``"verilog"``) the Table-I RTL text and its
+                                            resource report, beside the
+                                            eager program it builds and runs
+    ``"ref"``     (reference ``"ref"``)     ``create_top_module``, no IR
 
-``"verilog"``, ``optimize=``, ``analyze=True`` and ``mesh=`` are not ported
+``analyze=True`` gates any backend on the static analyzer
+(:mod:`repro_torch.analyze`).  ``optimize=`` and ``mesh=`` are not ported
 yet and raise ``NotImplementedError`` naming their ROADMAP item.  Weights are
 drawn from ``torch.Generator().manual_seed(spec.seed)``, so a spec gives the
 same network on every backend of the port (not the reference's numbers).
@@ -220,11 +224,12 @@ class SynthesisReport:
     serial_depth: int
     backend: str = "eager"
     cache_hit: bool = False
-    rtl: str | None = None              # backend="verilog" (not ported)
-    resources: Any = None               # backend="verilog" (not ported)
+    rtl: str | None = None              # backend="verilog": Table-I RTL text
+    resources: Any = None               # backend="verilog": codegen.ResourceReport
     quant: dict | None = None           # quant_bits analysis (SNR / LUT mode)
     fallback_from: str | None = None    # the requested backend, after a fallback hop
-    analysis: dict | None = None        # analyze=True (not ported)
+    analysis: dict | None = None        # analyze=True: the repro.analyze/v1
+    #                                     result document
 
     def summary(self) -> str:
         extra = ""
@@ -248,24 +253,24 @@ class SynthesisReport:
 # per cache key is enough.  NetworkSpec is frozen/hashable.
 _SYNTH_CACHE: dict[tuple, SynthesisReport] = {}
 
-BACKENDS = ("eager", "kernel", "ref")
+BACKENDS = ("eager", "kernel", "verilog", "ref")
 
 _NOT_PORTED = {
-    "verilog": "backend='verilog' (Table-I RTL) is not ported yet "
-               "(ROADMAP.md, Queue 1: Bit path and tools)",
-    "optimize": "optimize= (the repro.tune auto-tuner) is not ported yet "
-                "(ROADMAP.md, Queue 1: Bit path and tools)",
-    "analyze": "analyze=True (the repro.analyze static gate) is not ported yet "
-               "(ROADMAP.md, Queue 1: Bit path and tools)",
+    "optimize": "optimize= (the repro.tune auto-tuner) is not ported yet; it "
+                "is the next slice of ROADMAP.md, Queue 1: Bit path and tools "
+                "(tune/ with synthesize(optimize=, budget=))",
     "mesh": MESH_NOT_PORTED,
 }
 
 # Degradation order when an injected fault keeps a backend from building:
 # the generated kernel falls back to the eager scan, and that to the
-# unlowered reference forward ("ref": create_top_module, no IR).
+# unlowered reference forward ("ref": create_top_module, no IR).  verilog's
+# built artifact is the eager program, so it degrades straight to ref (RTL
+# emission is unaffected).
 _SYNTH_FALLBACK: dict[str, tuple[str, ...]] = {
     "kernel": ("eager", "ref"),
     "eager": ("ref",),
+    "verilog": ("ref",),
     "ref": (),
 }
 
@@ -307,6 +312,7 @@ def _quant_analysis(spec: NetworkSpec, backend: str, prog) -> dict | None:
     ``quant_bits <= 8`` additionally runs every gate contraction on the
     int8 MACC datapath, which also covers af-free cells like the ssm.
     recurrent + eager: unsupported — raise rather than silently ignore.
+    (verilog always honors quant_bits as the RTL word width.)
     """
     if spec.quant_bits is None:
         return None
@@ -329,11 +335,13 @@ def _quant_analysis(spec: NetworkSpec, backend: str, prog) -> dict | None:
         return {"bits": spec.quant_bits, "mode": "lut", "int8_macc": int8_macc}
     if int8_macc:  # af-free cells still have MACC units to quantize
         return {"bits": spec.quant_bits, "mode": "int8", "int8_macc": True}
+    if backend == "verilog":
+        return {"bits": spec.quant_bits, "mode": "rtl-width"}
     raise ValueError(
         f"quant_bits={spec.quant_bits} with cell='{spec.cell}' is not supported "
         f"on backend='{backend}' — use backend='kernel' on a cell with "
         "activation units (ROM-LUT gates) or quant_bits<=8 (int8 MACC), "
-        "or cell='mlp' (fixed-point SNR)"
+        "backend='verilog' (RTL word width), or cell='mlp' (fixed-point SNR)"
     )
 
 
@@ -395,6 +403,7 @@ def _build_fwd(program, spec: NetworkSpec, backend: str, quant: dict | None,
                 kb.prequantize_consts(st.graph, sp, int8_bits)
                 for st, sp in zip(program.stages, params["stages"])]
         return fwd, params, fwd.sources
+    # "eager", and the program that "verilog" builds and runs beside its RTL
     return codegen.eager_backend.compile_program(program, device=device), params, []
 
 
@@ -445,6 +454,24 @@ def _measure(fwd, params, u_shape, key: str, device: torch.device) -> None:
             O.ledger.measure(key, time.perf_counter() - t0)
 
 
+def _static_gate(spec: NetworkSpec, program, waivers, O, device) -> dict:
+    """``synthesize(analyze=True)``: run :mod:`repro_torch.analyze` on the
+    IR and raise :class:`repro_torch.analyze.AnalysisError` on unwaived
+    error findings — purely static, before (and regardless of) any backend
+    build."""
+    from repro_torch import codegen
+    from repro_torch.analyze import analyze_program, gate
+
+    if program is None:                 # memo-hit path: rebuild (no backend)
+        program = codegen.build_program(spec, device)
+    with O.tracer.span("synth.analyze", cat="synth", args={"spec": spec.name}):
+        res = analyze_program(program, waivers=waivers)
+    O.metrics.counter("synth_analyze", "synthesize(analyze=True) gate runs",
+                      result="fail" if res.errors else "pass").inc()
+    gate(res)
+    return res.to_doc()
+
+
 def build_forward(spec: NetworkSpec, backend: str = "eager", *, device=None,
                   double_buffer: bool = True, chunk: int | None = None,
                   block_b: int | None = None):
@@ -478,11 +505,16 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
                analyze: bool = False,
                waivers=None,
                device=None):
-    """spec → IR program → {eager scan, generated CUDA stage kernel, ref}.
+    """spec → IR program → {eager scan, generated CUDA stage kernel, Verilog
+    RTL, ref}.
 
-    Both IR backends consume the same :mod:`repro_torch.codegen` program, so
+    The IR backends consume the same :mod:`repro_torch.codegen` program, so
     ``backend="eager"`` and ``backend="kernel"`` are output-equivalent (up to
-    rounding; the kernel's σ is 0.5·(1 + tanh(v/2)), as the TPU kernel's).
+    rounding; the kernel's σ is 0.5·(1 + tanh(v/2)), as the TPU kernel's),
+    and ``backend="verilog"`` builds and runs the eager program and
+    attaches the Table-I RTL text and a :class:`~repro_torch.codegen.ResourceReport`
+    (its ``xla_flops`` / ``xla_peak_bytes`` are the built forward's MACC
+    flops and peak device bytes, under the reference's field names).
     The forward is built, run once on zeros of the input shape (on
     ``device``, default: the card) and, with ``measure``, timed into the
     process ledger (:data:`repro_torch.obs.OBS`), with the FSM cycle
@@ -506,20 +538,24 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
     once whatever ``fallback`` says, so a fallback never hides the card or
     the kernel.
 
-    Not ported yet, and raising ``NotImplementedError``: ``mesh``,
-    ``optimize`` / ``budget``, ``analyze`` / ``waivers`` and
-    ``backend="verilog"``.
+    ``analyze=True`` runs the :mod:`repro_torch.analyze` static range/
+    overflow + hazard analysis on the IR *before* any backend build and
+    raises :class:`repro_torch.analyze.AnalysisError` on unwaived
+    error-grade findings (pass a
+    :class:`repro_torch.analyze.WaiverRegistry` as ``waivers`` to
+    acknowledge known ones); the ``repro.analyze/v1`` result document is
+    attached as ``report.analysis``.  The gate is outside the memo key — a
+    cache hit re-runs it and attaches a fresh analysis.
+
+    Not ported yet, and raising ``NotImplementedError``: ``mesh`` and
+    ``optimize`` / ``budget``.
     """
     from repro_torch import codegen
 
     if optimize is not None or budget is not None:
         raise NotImplementedError(_NOT_PORTED["optimize"])
-    if analyze or waivers is not None:
-        raise NotImplementedError(_NOT_PORTED["analyze"])
     if mesh is not None:
         raise NotImplementedError(_NOT_PORTED["mesh"])
-    if backend == "verilog":
-        raise NotImplementedError(_NOT_PORTED["verilog"])
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend '{backend}'; available: {BACKENDS}")
     dev = resolve_device(device)
@@ -528,12 +564,20 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
     key = _cache_key(spec, batch, backend, dev)
     if key in _SYNTH_CACHE:
         O.metrics.counter("synth_cache", "synthesize() memo", result="hit").inc()
-        return dataclasses.replace(_SYNTH_CACHE[key], cache_hit=True)
+        report = dataclasses.replace(_SYNTH_CACHE[key], cache_hit=True)
+        if analyze:    # the gate is outside the memo key: re-run, re-attach
+            report = dataclasses.replace(
+                report, analysis=_static_gate(spec, None, waivers, O, dev))
+        return report
     O.metrics.counter("synth_cache", "synthesize() memo", result="miss").inc()
 
     with O.tracer.span("synth.build_program", cat="synth",
                        args={"spec": spec.name, "backend": backend}):
         program = codegen.build_program(spec, dev)
+    analysis_doc = (_static_gate(spec, program, waivers, O, dev)
+                    if analyze else None)
+    # the REQUESTED backend's quant validation still raises on unsupported
+    # combinations (user error, not a fault to degrade around)
     quant = _quant_analysis(spec, backend, program)
 
     u_shape = (spec.num_inputs,) if spec.cell == "mlp" \
@@ -587,6 +631,13 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
     if measure:
         _measure(fwd, params, u_shape, lkey, dev)
 
+    rtl = resources = None
+    if backend == "verilog":
+        rtl = codegen.emit_program(program)
+        resources = codegen.report_program(program)
+        resources.xla_flops = flops          # the built forward's MACC flops
+        resources.xla_peak_bytes = peak
+
     from .transition import serial_depth_estimate
 
     report = SynthesisReport(
@@ -605,9 +656,13 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
         backend=used,
         fallback_from=backend if used != backend else None,
         quant=quant,
+        rtl=rtl,
+        resources=resources,
     )
     if used == backend:  # a degraded build must not answer a later fault-free call
         _SYNTH_CACHE[key] = report
+    if analysis_doc is not None:
+        return dataclasses.replace(report, analysis=analysis_doc)
     return report
 
 

@@ -15,8 +15,7 @@ their semantics are the reference's, letter for letter:
 * ``prefix.splice``   — a prefix-cache checkpoint corrupted at splice time;
 * ``tick.slow``       — wall-clock delay injected into a tick;
 * ``rtlsim.seu``      — a single-event-upset bit flip in an rtlsim state
-  register.  The port's ``codegen/rtlsim.py`` has the FSM cycle model only,
-  so nothing consults this point until the bit path is ported.
+  register (``codegen/rtlsim.simulate`` consults it once a step).
 
 Determinism: each point owns a ``random.Random`` stream derived from
 ``(plan.seed, point name)``, and rules fire on a per-point opportunity

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions:
 ``lstm_seq``, the generated stage kernel (``codegen_stage``), ``tanh_lut``,
-``ssm_scan``, ``int8_matmul`` and ``flash_attention``.
+``ssm_scan``, ``int8_matmul`` and ``flash_attention``; and the bit path
+(rtlsim, the golden model, the analyzer, the Verilog emission) on the card
+against the same calls on the CPU, word for word.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -870,3 +872,134 @@ def test_injected_compile_fault_hops_and_a_real_launch_error_does_not(cuda, monk
         synthesis.synthesize(spec, batch=2, backend="kernel", fallback=True, device=cuda)
     assert hops() == before + 1 and kernel_backend.codegen_stage.launches == launches
     assert synthesis.synthesize_cache_info() == {"entries": 0}
+
+
+# ---------------------------------------------------------------------------
+# the bit path on the card: rtlsim, the golden model, the analyzer's
+# products and the Verilog emission, each equal to the same call on the CPU
+# ---------------------------------------------------------------------------
+
+def _program_on(prog, dev):
+    """``prog`` with every weight moved to ``dev``."""
+    return dataclasses.replace(
+        prog, C=prog.C.to(dev), beta=None if prog.beta is None else prog.beta.to(dev),
+        stages=[dataclasses.replace(st, params={k: v.to(dev) for k, v in st.params.items()})
+                for st in prog.stages])
+
+
+def _bit_inputs(spec, scale, seed=0):
+    shape = (3, spec.num_inputs) if spec.cell == "mlp" else (3, spec.seq_len, spec.num_inputs)
+    if spec.c_slow > 1:
+        shape = (spec.c_slow,) + shape
+    return np.random.default_rng(seed).uniform(-scale, scale, size=shape).astype(np.float32)
+
+
+BIT_CELLS = [dict(cell="mlp", num_hidden_layers=3), dict(cell="mlp", activation="sigmoid"),
+             dict(cell="lstm", seq_len=5, unroll=3), dict(cell="gru", seq_len=4, c_slow=2),
+             dict(cell="ssm", seq_len=6)]
+
+
+@pytest.mark.parametrize("width", [8, 18, 32])
+@pytest.mark.parametrize("kw", BIT_CELLS, ids=lambda kw: "_".join(map(str, kw.values())))
+def test_rtlsim_and_golden_on_the_card_equal_the_cpu(cuda, width, kw):
+    """Input scale 6 saturates the ROM addresses and, at 8 bits, wraps the
+    MACC accumulators: the card wraps exactly where the CPU does."""
+    from repro_torch.codegen import build_program, rtlsim
+    from repro_torch.core.synthesis import NetworkSpec
+    from repro_torch.verify import golden
+
+    kw = dict(kw)
+    spec = NetworkSpec(3, kw.pop("num_hidden_layers", 2), 6, 2, quant_bits=width, **kw)
+    prog = build_program(spec, cuda)
+    cpu = _program_on(prog, "cpu")
+    u = _bit_inputs(spec, 6.0)
+    on_card = rtlsim.simulate(prog, u, collect_ranges=True, device=cuda)
+    on_cpu = rtlsim.simulate(cpu, u, collect_ranges=True, device="cpu")
+    assert on_card.y_codes.device.type == "cuda"
+    assert torch.equal(on_card.y_codes.cpu(), on_cpu.y_codes)
+    assert on_card.cycles == on_cpu.cycles
+    for k, v in on_cpu.final_states.items():
+        assert torch.equal(on_card.final_states[k].cpu(), v)
+    for k, (lo, hi) in on_cpu.wire_ranges.items():
+        np.testing.assert_array_equal(on_card.wire_ranges[k][0], lo)
+        np.testing.assert_array_equal(on_card.wire_ranges[k][1], hi)
+    g_card = golden.fixed_forward(prog, u, device=cuda)
+    assert torch.equal(g_card.cpu(), golden.fixed_forward(cpu, u, device="cpu"))
+    assert torch.equal(g_card, on_card.y_codes)
+
+
+@pytest.mark.parametrize("width,unroll", [(8, 1), (32, 1), (32, 3)])
+def test_full_range_macc_wraps_identically_on_the_card(cuda, width, unroll):
+    from repro_torch.codegen import rtlsim
+
+    r = np.random.default_rng(width + unroll)
+    half = 1 << (width - 1)
+    x = torch.as_tensor(r.integers(-half, half, size=(5, 2048), dtype=np.int64))
+    w = torch.as_tensor(r.integers(-half, half, size=(2048, 96), dtype=np.int64))
+    got = rtlsim.macc_layer(x.to(cuda), w.to(cuda), width, unroll=unroll)
+    assert torch.equal(got.cpu(), rtlsim.macc_layer(x, w, width, unroll=unroll))
+
+
+def test_verilog_from_card_parameters_equals_the_cpu_emission(cuda):
+    from repro_torch.codegen import build_program, emit_program, report_program
+    from repro_torch.configs.paper_mlp import FIG10_A
+    from repro_torch.core import synthesis
+    from repro_torch.core.synthesis import NetworkSpec
+
+    for spec in (FIG10_A, NetworkSpec(2, 2, 4, 2, cell="lstm", seq_len=3, quant_bits=32)):
+        prog = build_program(spec, cuda)
+        text = emit_program(prog)
+        assert text == emit_program(_program_on(prog, "cpu"))
+        synthesis.synthesize_cache_clear()
+        rep = synthesis.synthesize(spec, backend="verilog", measure=False, device=cuda)
+        assert rep.backend == "verilog" and rep.rtl == text
+        assert rep.resources == dataclasses.replace(report_program(prog),
+                                                    xla_flops=rep.flops,
+                                                    xla_peak_bytes=rep.peak_bytes)
+        assert rep.peak_bytes is not None
+
+
+def test_analysis_with_card_resident_weights_equals_the_cpu(cuda):
+    from repro_torch.analyze import analyze_program
+    from repro_torch.codegen import build_program
+    from repro_torch.core.synthesis import NetworkSpec
+
+    for spec in (NetworkSpec(16, 2, 64, 4, cell="lstm", seq_len=3),
+                 NetworkSpec(8, 3, 32, 4, cell="ssm", seq_len=3)):
+        prog = build_program(spec, cuda)
+        for width in (8, 18, 32):
+            assert analyze_program(prog, width=width).to_doc() == \
+                analyze_program(_program_on(prog, "cpu"), width=width).to_doc()
+
+
+@pytest.mark.parametrize("seed", [1, 4, 9, 14])
+def test_difftest_case_on_the_card(cuda, seed):
+    from repro_torch.codegen import kernel_backend
+    from repro_torch.verify import difftest
+
+    kernel_backend.codegen_stage.launches = 0
+    res = difftest.run_case(difftest.gen_case(seed), device=cuda)
+    assert res.ok, res.line()
+    assert kernel_backend.codegen_stage.launches >= 1
+
+
+def test_a_requested_card_that_is_absent_raises(cuda, monkeypatch):
+    """With no card, the bit path's entry points raise rather than run on
+    the CPU."""
+    from repro_torch.analyze import analyze_spec
+    from repro_torch.codegen import build_program, rtlsim
+    from repro_torch.core import synthesis
+    from repro_torch.core.synthesis import NetworkSpec
+    from repro_torch.verify import difftest, golden
+
+    spec = NetworkSpec(3, 2, 4, 2)
+    prog = build_program(spec, "cpu")
+    u = np.zeros((1, 3), np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: rtlsim.simulate(prog, u), lambda: golden.fixed_forward(prog, u),
+                 lambda: rtlsim.simulate(prog, u, device="cuda"),
+                 lambda: analyze_spec(spec),
+                 lambda: synthesis.synthesize(spec, backend="verilog", device="cuda"),
+                 lambda: difftest.main(["--seeds", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -42,7 +42,12 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                    "kernels/flash_attention/ops.py", "kernels/flash_attention/kernel.py",
                    "kernels/flash_attention/ref.py", "runtime/faults.py",
                    "runtime/prefix_cache.py", "runtime/loadgen.py", "obs/check.py",
-                   "obs/report.py", "launch/serve.py"):
+                   "obs/report.py", "launch/serve.py", "codegen/knobs.py",
+                   "codegen/af_samples.py", "codegen/verilog.py", "codegen/rtlsim.py",
+                   "verify/__init__.py", "verify/golden.py", "verify/difftest.py",
+                   "analyze/__init__.py", "analyze/__main__.py", "analyze/intervals.py",
+                   "analyze/report.py", "analyze/waivers.py", "analyze/ranges.py",
+                   "analyze/errors.py", "analyze/hazards.py"):
         assert module in names, module
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -130,3 +135,20 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         fa_ops.flash_attention(meta(1, 4, 3, 16), meta(1, 4, 1, 16), meta(1, 4, 1, 16))
     assert fa_ops.flash_attention.launches == 0
+
+    # the bit path and its tools: rtlsim, the golden model, the analyzer's
+    # program, difftest's cases
+    import numpy as np
+
+    from repro_torch.analyze import analyze_spec
+    from repro_torch.codegen import rtlsim
+    from repro_torch.verify import difftest, golden
+
+    u = np.zeros((1, CASE_STUDY.num_inputs), np.float32)
+    for call in (lambda: rtlsim.simulate(prog, u), lambda: golden.fixed_forward(prog, u),
+                 lambda: analyze_spec(CASE_STUDY),
+                 lambda: synthesis.synthesize(CASE_STUDY, backend="verilog"),
+                 lambda: difftest.run_case(difftest.gen_case(0)),
+                 lambda: difftest.main(["--seeds", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -163,15 +163,102 @@ def test_create_top_module_matches_reference_on_bridged_weights():
 
 def test_unported_options_raise_and_name_the_roadmap():
     spec = paper_mlp.CASE_STUDY
-    for kw in (dict(backend="verilog"), dict(optimize="latency"), dict(analyze=True),
-               dict(mesh=object())):
+    for kw in (dict(optimize="latency"), dict(budget=4), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             synthesis.synthesize(spec, device="cpu", **kw)
+    # the bit path and the static gate are ported
+    assert synthesis.synthesize(spec, backend="verilog", measure=False, device="cpu").rtl
+    assert synthesis.synthesize(spec, analyze=True, measure=False, device="cpu").analysis
     with pytest.raises(ValueError, match="unknown backend"):
         synthesis.synthesize(spec, backend="xla", device="cpu")
     with pytest.raises(ValueError, match="quant_bits"):
         synthesis.synthesize(NetworkSpec(3, 1, 4, 2, cell="lstm", seq_len=3, quant_bits=12),
                              backend="eager", device="cpu")
+
+
+VERILOG_CASES = {
+    "case_study": j_paper.CASE_STUDY,
+    "fig10_a_q12_u2": dataclasses.replace(j_paper.FIG10_A, quant_bits=12, unroll=2),
+    "lstm_q16_c2": j_synth.NetworkSpec(2, 1, 4, 2, cell="lstm", seq_len=6, quant_bits=16,
+                                       c_slow=2),
+    "ssm_q24": j_synth.NetworkSpec(2, 2, 4, 2, cell="ssm", seq_len=5, quant_bits=24),
+    "gru": j_synth.NetworkSpec(2, 1, 4, 2, cell="gru", seq_len=4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VERILOG_CASES))
+def test_verilog_backend_matches_reference_report(name):
+    from repro_torch import codegen
+
+    jspec = VERILOG_CASES[name]
+    jr = j_synth.synthesize(jspec, batch=2, backend="verilog", measure=False)
+    pr = synthesis.synthesize(_pspec(jspec), batch=2, backend="verilog", measure=False,
+                              device="cpu")
+    assert (pr.backend, pr.fallback_from, pr.output_shape, pr.serial_depth, pr.num_params) == \
+        (jr.backend, jr.fallback_from, jr.output_shape, jr.serial_depth, jr.num_params)
+    if jspec.cell != "mlp":          # an mlp's SNR depends on its weights
+        assert pr.quant == jr.quant
+        assert jspec.quant_bits is None or pr.quant["mode"] == "rtl-width"
+    # the RTL is the port's emission of the port's program (the reference's
+    # bytes on the same weights are held in test_torch_verilog.py)
+    assert pr.rtl == codegen.emit_program(codegen.build_program(_pspec(jspec), "cpu"))
+    got, want = dataclasses.asdict(pr.resources), dataclasses.asdict(jr.resources)
+    assert {k: v for k, v in got.items() if not k.startswith("xla_")} == \
+        {k: v for k, v in want.items() if not k.startswith("xla_")}
+    assert pr.resources.xla_flops == pr.flops and pr.resources.xla_peak_bytes is None
+    assert synthesis._ledger_key(_pspec(jspec), 2, "verilog") == \
+        j_synth._ledger_key(jspec, 2, "verilog")
+    assert "rtl=" in pr.summary()
+
+
+def test_verilog_falls_back_to_ref_only_on_an_injected_fault(monkeypatch):
+    from repro_torch.codegen import eager_backend
+    from repro_torch.runtime import faults
+
+    synthesis.synthesize_cache_clear()
+    spec = NetworkSpec(3, 1, 4, 2, cell="lstm", seq_len=3, quant_bits=14)
+    plan = faults.FaultPlan([faults.FaultSpec("synth.compile", times=3)])
+    with faults.active(plan):
+        r = synthesis.synthesize(spec, backend="verilog", measure=False, backoff_s=0,
+                                 device="cpu")
+    assert (r.backend, r.fallback_from) == ("ref", "verilog")
+    assert r.rtl and r.resources.width_bits == 14     # emission is unaffected
+    assert r.quant is None                             # not expressible on ref
+    assert synthesis.synthesize_cache_info() == {"entries": 0}
+
+    def broken(*a, **kw):
+        raise RuntimeError("eager build failed")
+
+    monkeypatch.setattr(eager_backend, "compile_program", broken)
+    with pytest.raises(RuntimeError, match="eager build failed"):
+        synthesis.synthesize(spec, backend="verilog", device="cpu")
+
+
+def test_analyze_gate_attaches_raises_and_honours_waivers():
+    from repro_torch.analyze import AnalysisError, WaiverRegistry
+    from repro_torch.obs.check import check_analyze_doc
+
+    synthesis.synthesize_cache_clear()
+    r = synthesis.synthesize(paper_mlp.CASE_STUDY, measure=False, analyze=True, device="cpu")
+    assert r.analysis["schema"] == "repro.analyze/v1" and check_analyze_doc(r.analysis) == []
+    assert r.analysis["summary"]["errors"] == 0
+    # a memo hit re-runs the gate; a plain memo hit carries no stale analysis
+    r2 = synthesis.synthesize(paper_mlp.CASE_STUDY, measure=False, analyze=True, device="cpu")
+    assert r2.cache_hit and r2.analysis == r.analysis
+    r3 = synthesis.synthesize(paper_mlp.CASE_STUDY, measure=False, device="cpu")
+    assert r3.cache_hit and r3.analysis is None
+    # FIG10_A's seeded weights wrap its hidden MACC at 18 bits: gated
+    with pytest.raises(AnalysisError) as exc:
+        synthesis.synthesize(paper_mlp.FIG10_A, backend="kernel", measure=False,
+                             analyze=True, device="cpu")
+    ids = sorted(f.id for f in exc.value.findings)
+    assert ids and synthesis.synthesize_cache_info() == {"entries": 1}
+    waivers = WaiverRegistry({i: "seeded weights, known" for i in ids})
+    for backend in ("kernel", "verilog"):
+        rw = synthesis.synthesize(paper_mlp.FIG10_A, backend=backend, measure=False,
+                                  analyze=True, waivers=waivers, device="cpu")
+        assert rw.analysis["summary"]["waived"] == len(ids)
+        assert rw.analysis["summary"]["errors"] == 0
 
 
 def test_failed_kernel_build_raises(monkeypatch):
