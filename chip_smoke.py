@@ -121,6 +121,27 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    (also ``--regen-goldens`` into ``build/bit_path/``) and ``python -m
    repro_torch.analyze`` as subprocesses, each exiting 0.
 
+17. tune_chaos (run last) — ``synthesize(spec, optimize="latency", budget=6,
+   batch=2)`` (the Fig. 10 auto-tuner: the default grid over unroll, C-slow,
+   quant_bits and the eager and kernel backends) on the reference's two tune
+   case studies (``NetworkSpec(3, 4, 4, 2)``, the h4 lstm at T = 6) and the
+   8 × 1024 lstm of phase 16 at T = 256: per cell the candidates enumerated,
+   pruned and measured, the winner (built, and validated on the card by the
+   difftest gate: float legs and rtlsim against golden), its speedup over
+   default synthesis, the Pareto front, predicted FSM cycles beside measured
+   µs, the seconds in the predict, measure and validate spans and the
+   generated kernel's launches, and the candidates ``analyze_prune`` drops
+   (the error-grade overflow findings of the predict pass); on the two case
+   studies a second run with ``analyze_prune=True``, whose winner must stay
+   (the reference's tune-suite assertion); ``repro.tune/v1`` documents
+   under ``build/tune_chaos/``; the chaos suite's prefills (its 6-token
+   prompts) on the kernel path against ``use_pallas=False``, then the suite
+   (nine scenarios, every fault class) at full width on ``smollm-135m``
+   (``flash_attention``) and ``paper-lstm`` (``lstm_seq``) with
+   ``use_pallas``; ``python -m repro_torch.verify.chaos`` and ``python -m
+   repro_torch.analyze --lint-src`` as subprocesses, each exiting 0, and
+   ``python -m repro_torch.obs.check`` on every document.
+
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
 seconds.  The script imports nothing of JAX and nothing of the JAX package.
@@ -199,6 +220,11 @@ BIT_T = 256
 BIT_BATCH = 2
 BIT_FLOAT_TOL = 1e-4
 BIT_DIFFTEST_SEEDS = 6
+
+# the tune_chaos phase: the measure budget and batch of each tune run (the
+# reference's tune suite: budget 6, batch 2)
+TUNE_BUDGET = 6
+TUNE_BATCH = 2
 
 PHASE_T0 = [time.perf_counter()]
 
@@ -457,13 +483,15 @@ def loadgen_serve(mcfg, mparams, label: str, counter, dev, card: str, *,
 
 
 def loadgen_plain_check(mcfg, mparams, dev, card: str, modes: tuple[str, ...], tol: float,
-                        relative: bool) -> None:
+                        relative: bool, prompts: list[list[int]] | None = None,
+                        tag: str = "loadgen_check") -> None:
     """Hold the kernel path's prefill logits against the plain path's
-    (``use_pallas=False``) at every distinct prompt length of LOADGEN_TRACE,
-    prefilled as the phase's servers do: ``oneshot`` in one call, ``chunked``
-    in CHUNK-token chunks chained from a fresh cache (a chunk resumed from a
-    stored checkpoint starts from the same state).  The gap is absolute, or
-    relative to the largest plain |logit| when ``relative``."""
+    (``use_pallas=False``) on ``prompts`` (default: one prompt of each
+    distinct length of LOADGEN_TRACE), prefilled as the phase's servers do:
+    ``oneshot`` in one call, ``chunked`` in CHUNK-token chunks chained from
+    a fresh cache (a chunk resumed from a stored checkpoint starts from the
+    same state).  The gap is absolute, or relative to the largest plain
+    |logit| when ``relative``."""
     from repro_torch.models import lm
     from repro_torch.runtime import loadgen
 
@@ -475,14 +503,17 @@ def loadgen_plain_check(mcfg, mparams, dev, card: str, modes: tuple[str, ...], t
             logits, caches = lm.prefill_chunk(mparams, cfg, toks[:, pos:pos + CHUNK], caches, pos)
         return logits
 
-    trace = loadgen.make_trace(loadgen.TraceSpec(vocab=mcfg.vocab, **LOADGEN_TRACE))
-    prompts = {}
-    for it in trace.items:
-        prompts.setdefault(len(it.prompt), list(it.prompt))
+    if prompts is None:
+        trace = loadgen.make_trace(loadgen.TraceSpec(vocab=mcfg.vocab, **LOADGEN_TRACE))
+        by_len = {}
+        for it in trace.items:
+            by_len.setdefault(len(it.prompt), list(it.prompt))
+        prompts = [by_len[n] for n in sorted(by_len)]
     plain = dataclasses.replace(mcfg, use_pallas=False)
     worst = 0.0
     with torch.no_grad():
-        for n, prompt in sorted(prompts.items()):
+        for prompt in prompts:
+            n = len(prompt)
             toks = torch.as_tensor([prompt], device=dev)
             for mode in modes:
                 got, want = logits_of(mcfg, toks, mode), logits_of(plain, toks, mode)
@@ -495,9 +526,10 @@ def loadgen_plain_check(mcfg, mparams, dev, card: str, modes: tuple[str, ...], t
                 require(gap <= tol, f"{mcfg.name} {mode} prefill of {n} tokens: the kernel "
                         f"path's logits differ from the plain path's by {gap:.3e} > {tol}")
                 worst = max(worst, gap)
-    say("loadgen_check", arch=mcfg.name, vs="use_pallas=False", prompt_lengths=len(prompts),
-        modes="+".join(modes), max_gap=f"{worst:.3e}", tol=tol,
-        gap="relative" if relative else "absolute", card=repr(card))
+    say(tag, arch=mcfg.name, vs="use_pallas=False", prompts=len(prompts),
+        prompt_lengths=len({len(p) for p in prompts}), modes="+".join(modes),
+        max_gap=f"{worst:.3e}", tol=tol, gap="relative" if relative else "absolute",
+        card=repr(card))
 
 
 def serve_loadgen_lstm(cfg, params, prompts, dev, card: str,
@@ -864,6 +896,180 @@ def bit_path(dev, card: str, T: int = BIT_T, difftest_seeds: int = BIT_DIFFTEST_
     require(check_analyze_doc(json.loads((docs / "analyze.json").read_text())) == []
             and len(list((docs / "goldens").glob("*.v"))) == 4,
             "bit_path: the CLIs' documents are incomplete")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: tune_chaos
+# ---------------------------------------------------------------------------
+
+def tune_chaos(dev, card: str, T: int = BIT_T) -> dict:
+    """The paper's Fig. 10 loop and the chaos suite on the card:
+    ``synthesize(optimize="latency")`` on the reference's two tune case
+    studies and the full-width lstm of phase 16 (the default grid, backends
+    eager and kernel; on the case studies then ``analyze_prune=True``, whose
+    winner must be the same), each ``repro.tune/v1`` document under
+    ``build/tune_chaos/``; the chaos suite on full-width ``smollm-135m`` and
+    ``paper-lstm`` (``use_pallas``), its prefills first held against the
+    plain path; then ``python -m repro_torch.verify.chaos`` and
+    ``python -m repro_torch.analyze --lint-src`` as subprocesses and ``python
+    -m repro_torch.obs.check`` on every document.  Returns the launches of
+    the generated stage kernel by tuned cell (``"tune"``), and of
+    ``flash_attention`` (and its calls) and ``lstm_seq`` in the suite (by
+    arch), each count set to 0 just before its run."""
+    from repro_torch.codegen import kernel_backend
+    from repro_torch.configs import get_config
+    from repro_torch.core import synthesis
+    from repro_torch.core.synthesis import NetworkSpec
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.models import lm
+    from repro_torch.obs import OBS
+    from repro_torch.obs.check import check_chaos_doc, check_tune_doc
+    from repro_torch.tune import TuneResult, enumerate_space, tune, write_doc
+    from repro_torch.verify import chaos
+
+    docs = ROOT / "build" / "tune_chaos"
+    docs.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    launches: dict = {"tune": {}}
+
+    # -- 17a. the Fig. 10 loop ------------------------------------------------------
+    case_studies = {"mlp_case_study": NetworkSpec(3, 4, 4, 2),
+                    "lstm_h4": NetworkSpec(2, 1, 4, 2, cell="lstm", seq_len=6)}
+    cells = {**case_studies,
+             f"lstm_8x{WIDTH}_T{T}": NetworkSpec(WIDTH, 8, WIDTH, WIDTH, cell="lstm",
+                                                 seq_len=T)}
+
+    def span_seconds() -> dict[str, float]:
+        """Seconds in each of the tuner's phases since the last call (its
+        ``tune.predict`` / ``tune.measure`` / ``tune.validate`` spans)."""
+        out = {"predict": 0.0, "measure": 0.0, "validate": 0.0}
+        for ev in OBS.tracer.events():
+            phase = ev["name"].removeprefix("tune.")
+            if ev["name"].startswith("tune.") and phase in out:
+                out[phase] += ev["dur"] / 1e6
+        OBS.tracer.reset()
+        return out
+
+    OBS.tracer.enabled = True
+    for label, spec in cells.items():
+        space = enumerate_space(spec)
+        OBS.tracer.reset()
+        kernel_backend.codegen_stage.launches = 0
+        t0 = time.perf_counter()
+        result = synthesis.synthesize(spec, optimize="latency", budget=TUNE_BUDGET,
+                                      batch=TUNE_BATCH, device=dev)
+        sync(dev)
+        tune_s = time.perf_counter() - t0
+        n_launch = launches["tune"][label] = kernel_backend.codegen_stage.launches
+        spans = span_seconds()
+        best = result.best
+        require(isinstance(result, TuneResult) and best.validated and best.gate.ok
+                and result.report is not None and result.report.backend == best.cand.backend,
+                f"tune {label}: the winner {best.key} was not validated and built")
+        require(n_launch >= 1, f"tune {label}: no generated-kernel launch")
+        # analyze_prune keeps the candidates without error-grade overflow
+        # findings, and the baseline: the first run's predictions decide it
+        base = result.baseline.cand
+        kept = [s.key for s in result.scored
+                if not s.predicted["overflow_errors"] or s.cand == base]
+        winner_pruned = bool(best.predicted["overflow_errors"])
+        runs = {"": result}
+        pruned_fields = {}
+        if label in case_studies:
+            # the reference's tune-suite assertion, on its own case studies:
+            # pruning keeps the winner
+            pruned = runs["_pruned"] = tune(spec, "latency", TUNE_BUDGET, TUNE_BATCH,
+                                            analyze_prune=True, device=dev)
+            require([s.key for s in pruned.scored] == kept,
+                    f"tune {label}: the pruned run kept {len(pruned.scored)} candidates, "
+                    f"the first run's findings {len(kept)}")
+            require(pruned.best.key == best.key,
+                    f"tune {label}: analyzer pruning changed the winner ({best.key} -> "
+                    f"{pruned.best.key})")
+            pruned_fields = dict(pruned_winner=pruned.best.key,
+                                 **{f"pruned_{k}_s": f"{v:.2f}"
+                                    for k, v in span_seconds().items()})
+        for tag, res in runs.items():
+            doc = write_doc(res, str(docs / f"tune_{label}{tag}.json"))
+            require(check_tune_doc(doc) == [], f"tune {label}{tag}: {check_tune_doc(doc)}")
+        say("tune", cell=label, enumerated=len(space), pruned=len(space) - len(kept),
+            measured=len(result.measured), winner=best.key,
+            speedup=f"{result.speedup:.3f}" if result.speedup else "n/a",
+            pareto=len(result.pareto), winner_gate_float_err=f"{best.gate.float_err:.3e}",
+            winner_bit_exact=best.gate.bit_exact, winner_pruned_by_analyzer=winner_pruned,
+            codegen_launches=n_launch, tune_s=f"{tune_s:.2f}",
+            **{f"{k}_s": f"{v:.2f}" for k, v in spans.items()}, **pruned_fields,
+            card=repr(card))
+        for s in result.measured:
+            say("tune_measured", cell=label, candidate=s.key,
+                predicted_fsm_cycles=s.predicted["fsm_cycles"],
+                overflow_errors=s.predicted["overflow_errors"],
+                measured_us=f"{s.measured['wall_us']:.1f}", validated=s.validated)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    OBS.tracer.enabled = False
+
+    # -- 17b. the chaos suite at full width ----------------------------------------
+    for arch, counter, tol, relative in (
+            ("smollm-135m", fa_ops.flash_attention, DENSE_LOGITS_RTOL, True),
+            ("paper-lstm", lstm_ops.lstm_seq, LOGITS_ATOL, False)):
+        cfg = dataclasses.replace(get_config(arch), use_pallas=True)
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        # the suite's prefills (its 6-token prompts, one per request) on the
+        # kernel path against the plain path, before the counts start
+        loadgen_plain_check(cfg, params, dev, card, ("oneshot",), tol, relative,
+                            prompts=[r.prompt for r in chaos._requests(cfg, 4, 0)],
+                            tag="chaos_check")
+        sync(dev)
+        counter.launches = 0
+        if hasattr(counter, "calls"):
+            counter.calls = 0
+        t0 = time.perf_counter()
+        doc = chaos.run_suite(seed=0, arch=arch, device=dev, cfg=cfg, params=params)
+        sync(dev)
+        n_launch = launches[arch] = counter.launches
+        launches[f"{arch}_calls"] = getattr(counter, "calls", n_launch)
+        for sc in doc["scenarios"]:
+            say("chaos", arch=arch, scenario=sc["name"], passed=sc["passed"],
+                faults=repr(sc["faults"]), reasons=repr(sc["detail"].get("reasons")))
+        say("chaos_suite", arch=arch, passed=doc["passed"],
+            all_classes_hit=doc["all_classes_hit"], kernel_launches=n_launch,
+            seconds=f"{time.perf_counter() - t0:.1f}", card=repr(card))
+        require(doc["passed"] and doc["all_classes_hit"] and check_chaos_doc(doc) == [],
+                f"chaos {arch}: {[sc['name'] for sc in doc['scenarios'] if not sc['passed']]}")
+        require(n_launch >= 1, f"chaos {arch}: its kernel was never launched")
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- 17c. the CLIs as subprocesses -------------------------------------------------
+    chaos_doc = docs / "chaos.json"
+    commands = {
+        "verify.chaos": [sys.executable, "-m", "repro_torch.verify.chaos", "--seed", "0",
+                         "--out", str(chaos_doc)],
+        "analyze --lint-src": [sys.executable, "-m", "repro_torch.analyze", "--lint-src"],
+    }
+    if dev.type != "cuda":
+        for cmd in commands.values():
+            cmd += ["--device", "cpu"]
+    for name, cmd in commands.items():
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        for ln in (run.stdout + run.stderr).splitlines()[-3:]:
+            say("tune_chaos_cli", command=repr(name), line=repr(ln))
+        require(run.returncode == 0, f"python -m repro_torch.{name} exited {run.returncode}")
+        say("tune_chaos", step="cli", command=repr(name), exit=0,
+            seconds=f"{time.perf_counter() - t0:.1f}")
+    check = subprocess.run([sys.executable, "-m", "repro_torch.obs.check", str(chaos_doc),
+                            *map(str, sorted(docs.glob("tune_*.json")))], env=env, cwd=ROOT,
+                           capture_output=True, text=True, timeout=120)
+    require(check.returncode == 0,
+            f"repro_torch.obs.check refused the documents:\n{check.stdout}{check.stderr}")
+    say("tune_chaos", step="obs_check", documents=1 + len(list(docs.glob("tune_*.json"))),
+        ok=True)
     return launches
 
 
@@ -1422,9 +1628,10 @@ def main() -> int:
 
     def profiled_step_run(mcfg, mparams, counter, want_tokens, **serve_kw):
         """The ``step()`` serve run once more under torch.profiler: device
-        busy time and idle share over the run's wall, and the top kernels."""
-        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA]) as prof:
+        busy time and idle share over the run's wall, and the top kernels.
+        Only the device is traced: the host's operator events are not read,
+        and sorting them took most of the phase on a full-width model."""
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
             tok_prof, _, prof_wall_ms = serve(mcfg, mparams, "step(profiled)", False,
                                               counter, **serve_kw)
         require(tok_prof == want_tokens, f"{mcfg.name}: the profiled step() run's tokens differ")
@@ -1860,12 +2067,17 @@ def main() -> int:
     serve_loadgen_entry_points(card)
     phase_done("serve_loadgen_entry_points")
 
+    # -- 17. the Fig. 10 loop, the chaos suite and the lints ----------------------
+    tc = tune_chaos(dev, card)
+    codegen_launches["lstm"] += sum(n for label, n in tc["tune"].items() if "lstm" in label)
+    phase_done("tune_chaos")
+
     summary = {"kernels": [{
         "name": "lstm_seq",
         "route": "cuda",
         "source": "src/repro_torch/kernels/lstm_cell/csrc/lstm_seq.cu",
         "replaces": "src/repro/kernels/lstm_cell/kernel.py:87",
-        "launches": n1 + n2 + n3 + lg_lstm_launches,
+        "launches": n1 + n2 + n3 + lg_lstm_launches + tc["paper-lstm"],
         "max_abs_err": lstm_err,
         "ms": lstm_ms,
         "plain_ms": lstm_plain_ms,
@@ -1898,6 +2110,8 @@ def main() -> int:
         "fixed_ms": codegen_time[cell][8],
         # phase 16's launches by cell (its lstm and gru ones are in "launches")
         "bit_path_launches_by_cell": bit_launches,
+        # phase 17's by tuned cell (its lstm ones are in the lstm row's "launches")
+        "tune_launches_by_cell": tc["tune"],
     } for cell in ("lstm", "gru")] + [{
         "name": "tanh_lut",
         "route": "cuda",
@@ -1956,10 +2170,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
         # smollm-135m's three serve runs (30 per one-shot prefill, 0 for
-        # chunks), its loadgen run (30 per miss) and phi4-mini-3.8b's prefill
-        # (32); times at shape (a)
-        "launches": f1 + f2 + f3 + lg_smollm_launches + p_launch,
-        "calls": c1 + c2 + c3 + lg_smollm_calls + p_call,
+        # chunks), its loadgen run (30 per miss), phi4-mini-3.8b's prefill
+        # (32) and the chaos suite (30 per one-shot prefill); times at shape (a)
+        "launches": f1 + f2 + f3 + lg_smollm_launches + p_launch + tc["smollm-135m"],
+        "calls": c1 + c2 + c3 + lg_smollm_calls + p_call + tc["smollm-135m_calls"],
         "max_abs_err": attn_err,
         "ms": attn_time["a_smollm_S256"][0],
         "plain_ms": attn_time["a_smollm_S256"][1],

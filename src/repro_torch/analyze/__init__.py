@@ -1,6 +1,5 @@
 """``repro_torch.analyze`` — static analysis for the codegen IR; the port's
-counterpart of ``repro/analyze`` (its source lints, ``lint.py``, are not
-ported yet: ROADMAP, Queue 1).
+counterpart of ``repro/analyze``.
 
 Three analyses over a scheduled :class:`~repro_torch.codegen.ir.Program`, all
 purely static (no input data, no backend compile, no device dispatch):
@@ -18,7 +17,7 @@ purely static (no input data, no backend compile, no device dispatch):
 :func:`analyze_program` runs all of them and returns one
 :class:`AnalyzeResult`; ``synthesize(spec, analyze=True)`` gates on its
 unwaived errors (:class:`AnalysisError`), and ``python -m repro_torch.analyze``
-is the CLI.
+is the CLI (plus ``--lint-src`` for the :mod:`.lint` suite).
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from typing import Any
 from .errors import error_model
 from .hazards import analyze_hazards
 from .intervals import Bd
+from .lint import lint_jit_safety, lint_metrics_drift, lint_src
 from .ranges import analyze_ranges
 from .report import (
     ANALYZE_SCHEMA,
@@ -138,6 +138,9 @@ __all__ = [
     "format_findings",
     "format_table",
     "gate",
+    "lint_jit_safety",
+    "lint_metrics_drift",
+    "lint_src",
     "result_doc",
     "summarize",
     "sweep_doc",

@@ -1,18 +1,19 @@
 """CLI: ``python -m repro_torch.analyze`` — static analysis without
-synthesis; the port's counterpart of ``python -m repro.analyze`` (without
-``--lint-src``: the source lints are not ported yet).
+synthesis; the port's counterpart of ``python -m repro.analyze``.
 
 Examples::
 
     # one cell at one width, human table
     python -m repro_torch.analyze --cell lstm --bits 16 -v
 
-    # every registered cell × {8,16,32} bits, one repro.analyze/v1 artifact
-    python -m repro_torch.analyze --all-cells --bits 8,16,32 --out analyze.json
+    # every registered cell × {8,16,32} bits, plus the codebase lints over
+    # the port's sources, one repro.analyze/v1 artifact
+    python -m repro_torch.analyze --all-cells --bits 8,16,32 --lint-src \\
+        --out analyze.json
 
 The program's weights are drawn on ``--device`` (default: the card); the
 analysis itself runs on the host.  Exit status 1 iff any unwaived
-error-grade finding was produced — waive with
+error-grade finding was produced (analysis or lint) — waive with
 ``--waive kind:stage.node="reason"``.
 """
 
@@ -62,6 +63,11 @@ def main(argv=None) -> int:
     p.add_argument("--max-iters", type=int, default=512)
     p.add_argument("--waive", action="append", default=[],
                    metavar="ID=REASON", help="waive a finding id")
+    p.add_argument("--lint-src", action="store_true",
+                   help="also run the jit-safety + metrics-drift lints "
+                   "over the port's source tree")
+    p.add_argument("--repo-root", default=".",
+                   help="root for --lint-src (default .)")
     p.add_argument("--device", default=None,
                    help="where the program's weights are drawn (default: "
                    "the card; 'cpu' on a machine without one)")
@@ -75,6 +81,7 @@ def main(argv=None) -> int:
         analyze_spec,
         format_findings,
         format_table,
+        lint_src,
         sweep_doc,
         write_doc,
     )
@@ -103,8 +110,19 @@ def main(argv=None) -> int:
                 print(format_table(doc))
                 print(format_findings(res.findings))
 
+    lint_findings = None
+    if args.lint_src:
+        lint_findings = waivers.apply(lint_src(args.repo_root))
+        unwaived = [f for f in lint_findings
+                    if f.severity == "error" and not f.waived]
+        failed = failed or bool(unwaived)
+        print(f"[analyze] lint-src: {len(unwaived)} error(s), "
+              f"{sum(1 for f in lint_findings if f.waived)} waived")
+        if lint_findings and (args.verbose or unwaived):
+            print(format_findings(lint_findings))
+
     if args.out:
-        write_doc(sweep_doc(runs), args.out)
+        write_doc(sweep_doc(runs, lint_findings), args.out)
         print(f"[analyze] wrote {args.out} ({len(runs)} run(s))")
     return 1 if failed else 0
 

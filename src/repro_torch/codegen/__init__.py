@@ -14,7 +14,7 @@ IR in the middle; on the card the executable text is CUDA C++:
                            per stage)                    for word)
 
 ``register_cell`` adds a new cell type once; every backend picks it up.
-The reference's design-space tuner is not ported yet (ROADMAP, Queue 1).
+The design-space tuner over these backends is :mod:`repro_torch.tune`.
 """
 
 from __future__ import annotations

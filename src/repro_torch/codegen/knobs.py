@@ -9,8 +9,9 @@ activation units so the kernel's LUT mode needs the int8 MACC
 (``bits <= 8``), the rtlsim word width is clamped to
 ``[WORD_BITS_MIN, WORD_BITS_MAX]``, and ``double_buffer``/``chunk``/
 ``block_b`` only exist on the kernel backend (where the card accepts them
-without effect).  This module is the single source of those rules, and they
-mirror :func:`repro_torch.core.synthesis._quant_analysis`.
+without effect).  This module is the single source of those rules and of
+the tuner's default grids, and the rules mirror
+:func:`repro_torch.core.synthesis._quant_analysis`.
 """
 
 from __future__ import annotations
@@ -38,6 +39,19 @@ def word_bits_reason(bits: int) -> str | None:
                 f"{WORD_BITS_MAX}] (AF addr select needs W-2 >= 6 bits; "
                 "2W-bit accumulators must stay exact in int64)")
     return None
+
+
+# Default search grid per knob (the reference's): the predict pass is cheap
+# but the measure pass builds, so the default space stays a few dozen
+# candidates wide.  Callers override any axis.  The last three are the
+# reference's TPU tiling grids; they build the same kernel on the card, so
+# the port's tuner (repro_torch.tune.space) has no such axes.
+DEFAULT_UNROLL = (1, 2, 4)
+DEFAULT_C_SLOW = (1, 2, 4)
+DEFAULT_QUANT_BITS = (None, 8)
+DEFAULT_DOUBLE_BUFFER = (True, False)
+DEFAULT_CHUNK = (None,)
+DEFAULT_BLOCK_B = (None,)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +126,12 @@ def normalize_pallas_knobs(backend: str, double_buffer: bool,
 
 
 __all__ = [
+    "DEFAULT_BLOCK_B",
+    "DEFAULT_CHUNK",
+    "DEFAULT_C_SLOW",
+    "DEFAULT_DOUBLE_BUFFER",
+    "DEFAULT_QUANT_BITS",
+    "DEFAULT_UNROLL",
     "WORD_BITS_MAX",
     "WORD_BITS_MIN",
     "knob_reason",

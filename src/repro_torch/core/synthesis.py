@@ -25,8 +25,9 @@ report, on four backends, each the counterpart of one of the reference's:
     ``"ref"``     (reference ``"ref"``)     ``create_top_module``, no IR
 
 ``analyze=True`` gates any backend on the static analyzer
-(:mod:`repro_torch.analyze`).  ``optimize=`` and ``mesh=`` are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item.  Weights are
+(:mod:`repro_torch.analyze`), and ``optimize=`` runs the Fig. 10 auto-tuner
+(:mod:`repro_torch.tune`).  ``mesh=`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.  Weights are
 drawn from ``torch.Generator().manual_seed(spec.seed)``, so a spec gives the
 same network on every backend of the port (not the reference's numbers).
 """
@@ -254,13 +255,6 @@ class SynthesisReport:
 _SYNTH_CACHE: dict[tuple, SynthesisReport] = {}
 
 BACKENDS = ("eager", "kernel", "verilog", "ref")
-
-_NOT_PORTED = {
-    "optimize": "optimize= (the repro.tune auto-tuner) is not ported yet; it "
-                "is the next slice of ROADMAP.md, Queue 1: Bit path and tools "
-                "(tune/ with synthesize(optimize=, budget=))",
-    "mesh": MESH_NOT_PORTED,
-}
 
 # Degradation order when an injected fault keeps a backend from building:
 # the generated kernel falls back to the eager scan, and that to the
@@ -519,7 +513,9 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
     ``device``, default: the card) and, with ``measure``, timed into the
     process ledger (:data:`repro_torch.obs.OBS`), with the FSM cycle
     estimate and the MACC flops as its predicted columns.  Results are
-    memoized by :func:`_cache_key`.
+    memoized by :func:`_cache_key`; with ``measure``, a memoized build that
+    has no timed row under this call's ledger key is built and timed again,
+    so every measured synthesis leaves its row.
 
     ``double_buffer`` / ``chunk`` / ``block_b`` are the reference's TPU
     tiling knobs: accepted and named in the ledger key, without effect on
@@ -547,22 +543,37 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
     attached as ``report.analysis``.  The gate is outside the memo key — a
     cache hit re-runs it and attaches a fresh analysis.
 
-    Not ported yet, and raising ``NotImplementedError``: ``mesh`` and
-    ``optimize`` / ``budget``.
+    ``optimize="latency" | "throughput" | "resources"`` runs the paper's
+    Fig. 10 optimization loop instead of one fixed synthesis: the
+    :mod:`repro_torch.tune` auto-tuner searches the knob space around
+    ``spec`` (unroll × c_slow × quant_bits × backend) on ``device``,
+    measures the top-``budget`` predicted candidates, difftest-validates
+    the winner, and returns a :class:`repro_torch.tune.TuneResult` whose
+    ``.report`` is the winning configuration's SynthesisReport.
+    ``budget`` without ``optimize`` is ignored, as in the reference.
+
+    Not ported yet, and raising ``NotImplementedError``: ``mesh``.
     """
     from repro_torch import codegen
 
-    if optimize is not None or budget is not None:
-        raise NotImplementedError(_NOT_PORTED["optimize"])
+    if optimize is not None:
+        from repro_torch.tune import tune
+
+        return tune(spec, optimize=optimize, budget=budget, batch=batch,
+                    device=device)
     if mesh is not None:
-        raise NotImplementedError(_NOT_PORTED["mesh"])
+        raise NotImplementedError(MESH_NOT_PORTED)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend '{backend}'; available: {BACKENDS}")
     dev = resolve_device(device)
 
     O = obs_lib.OBS
     key = _cache_key(spec, batch, backend, dev)
-    if key in _SYNTH_CACHE:
+    lkey = _ledger_key(spec, batch, backend, double_buffer, chunk, block_b)
+    # a memo hit writes no ledger row: a build that was never timed under
+    # this ledger key (``measure=False``, a tiling alias, a reset ledger) is
+    # built and timed again when a measurement is asked for
+    if key in _SYNTH_CACHE and not (measure and not O.ledger.timed(lkey)):
         O.metrics.counter("synth_cache", "synthesize() memo", result="hit").inc()
         report = dataclasses.replace(_SYNTH_CACHE[key], cache_hit=True)
         if analyze:    # the gate is outside the memo key: re-run, re-attach
@@ -621,7 +632,8 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
                   * spec.serial_steps * (batch or 1) * spec.c_slow)
 
     # predicted-vs-measured ledger: the Fig. 10 loop's instrumentation
-    lkey = _ledger_key(spec, batch, used, double_buffer, chunk, block_b)
+    if used != backend:
+        lkey = _ledger_key(spec, batch, used, double_buffer, chunk, block_b)
     O.ledger.predict(
         lkey,
         fsm_cycles=codegen.rtlsim.fsm_cycle_estimate(program),

@@ -5,10 +5,10 @@ The paper's design flow is an optimization loop: synthesize, *measure*
 cycles/resources, re-tune.  The repo produces the predictions already —
 rtlsim's FSM cycle model (``fsm_cycle_estimate``) and the program's MACC
 flops and peak bytes — and this ledger joins them, per synthesized
-program, against wall-clock measured through the same span layer, so a
-design-space tuner (ROADMAP) can rank candidates by *predicted* cost and
-validate the ranking against *measured* runtime without re-running a whole
-benchmark suite.
+program, against wall-clock measured through the same span layer, so the
+design-space tuner (:mod:`repro_torch.tune`) can rank candidates by
+*predicted* cost and validate the ranking against *measured* runtime
+without re-running a whole benchmark suite.
 
 Keys are free-form program ids (``synthesize()`` uses
 ``"<spec.name>|<backend>|u<unroll>|c<c_slow>[|q<bits>][|b<batch>]"`` plus
@@ -67,6 +67,12 @@ class Ledger:
             if m["wall_s_best"] is None or wall_s < m["wall_s_best"]:
                 m["wall_s_best"] = wall_s
             m.update({k: v for k, v in vals.items() if v is not None})
+
+    def timed(self, key: str) -> bool:
+        """Has ``key`` at least one measured execution?"""
+        with self._lock:
+            row = self._rows.get(key)
+            return row is not None and row["measured"]["wall_s_best"] is not None
 
     def __len__(self) -> int:
         with self._lock:

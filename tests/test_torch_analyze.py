@@ -6,11 +6,14 @@ exactly, for the registered cells and the paper's specs at 8, 16 and 32
 bits, for an AF-domain violation and a waived finding built on purpose, and
 for hand-built hazardous programs.  The interval transfers are held against
 the reference's on random intervals, and the proven bounds against the
-port's rtlsim.
+port's rtlsim.  The source lints give the reference's findings on the
+reference's fixtures, flag each of torch's host-sync spellings, read only
+the port's tree, and find nothing on this one.
 """
 
 import dataclasses
 import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ from repro import analyze as ja  # noqa: E402
 from repro import codegen as jcg  # noqa: E402
 from repro.analyze import intervals as ji  # noqa: E402
 from repro.analyze import ranges as jranges  # noqa: E402
+from repro.analyze import lint as jlint  # noqa: E402
 from repro.analyze.hazards import analyze_hazards as j_hazards  # noqa: E402
 from repro.codegen import ir as jir  # noqa: E402
 from repro.configs import paper_mlp as j_paper  # noqa: E402
@@ -30,6 +34,7 @@ from repro.core.synthesis import NetworkSpec as JSpec  # noqa: E402
 from repro_torch import analyze as pa  # noqa: E402
 from repro_torch.analyze import __main__ as pa_main  # noqa: E402
 from repro_torch.analyze import intervals as pi  # noqa: E402
+from repro_torch.analyze import lint as plint  # noqa: E402
 from repro_torch.analyze import ranges as pranges  # noqa: E402
 from repro_torch.analyze.hazards import analyze_hazards as p_hazards  # noqa: E402
 from repro_torch.bridge import program_from_jax  # noqa: E402
@@ -303,3 +308,104 @@ def test_cli_runs_gates_and_writes_a_checked_document(tmp_path, capsys):
             "--bits", "18", "--device", "cpu"]
     assert pa_main.main(argv) == (1 if res.errors else 0)
     assert pa_main.main(argv + waive) == 0
+
+
+# ---------------------------------------------------------------------------
+# the source lints
+# ---------------------------------------------------------------------------
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+# the reference's jit-safety fixture (tests/test_analyze.py)
+JIT_UNSAFE_SRC = '''
+import time
+from repro import obs as obs_lib
+
+def build(program):
+    OBS = obs_lib.OBS
+    OBS.metrics.counter("compiles", "ok").inc()   # depth 1: sanctioned
+
+    def kernel(x_ref, o_ref):
+        OBS.metrics.counter("steps", "bad").inc() # traced: flagged
+        t = time.perf_counter()                   # traced: flagged
+        o_ref[...] = x_ref[...] * t
+
+    def run(u):
+        u.block_until_ready()                     # traced: flagged
+        print("step")                             # traced: flagged
+        return u
+
+    return kernel, run
+'''
+
+
+def _drift_fixture():
+    """The reference's metrics-drift fixture, assembled from pieces so that
+    neither package's ``lint_src`` matches this file."""
+    sub = '["counters"]'
+    reg = {"m.py": 'M.counter' + '("hits", "d", kind="full")'}
+    refs = {"t.py": f'snap{sub}["hits{{kind=full}}"]\n'
+                    f'snap{sub}["renamed_metric"]'}
+    return reg, refs
+
+
+def test_lints_give_the_reference_findings_on_its_fixtures():
+    got = [f.to_dict() for f in plint.lint_jit_safety({"fixture.py": JIT_UNSAFE_SRC})]
+    want = [f.to_dict() for f in jlint.lint_jit_safety({"fixture.py": JIT_UNSAFE_SRC})]
+    assert got == want and len(got) == 4
+    got = [f.to_dict() for f in plint.lint_metrics_drift(*_drift_fixture())]
+    want = [f.to_dict() for f in jlint.lint_metrics_drift(*_drift_fixture())]
+    assert got == want and [f["node"] for f in got] == ["renamed_metric"]
+    broken = {"bad.py": "def f(:\n"}
+    assert [f.to_dict() for f in plint.lint_jit_safety(broken)] == \
+        [f.to_dict() for f in jlint.lint_jit_safety(broken)]
+
+
+@pytest.mark.parametrize("call,name", [
+    ("torch.cuda.synchronize()", "torch.cuda.synchronize"),
+    ("y.item()", "y.item"),
+    ("y.cpu()", "y.cpu"),
+    ("y.tolist()", "y.tolist"),
+    ("(y - 1).abs().max().item()", "<expr>.item"),
+])
+def test_jit_safety_flags_each_torch_host_sync(call, name):
+    nested = f"def wrap(lib):\n    def fwd(y):\n        {call}\n        return y\n    return fwd\n"
+    [f] = plint.lint_jit_safety({"k.py": nested})
+    assert (f.kind, f.severity, f.node) == ("jit-unsafe-call", "error", f"fwd.{name}")
+    assert "host sync" in f.detail
+    # at the wrapper's own level (depth 1) the same call is sanctioned
+    assert plint.lint_jit_safety({"k.py": f"def wrap(y):\n    {call}\n"}) == []
+
+
+def _write(root: pathlib.Path, rel: str, text: str) -> None:
+    path = root / rel
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+
+
+def test_lint_src_reads_only_the_port_s_tree(tmp_path):
+    sub = '["counters"]'
+    unsafe = "def wrap(lib):\n    def fwd(y):\n        return y.item()\n    return fwd\n"
+    _write(tmp_path, "src/repro_torch/kernels/k/ops.py", unsafe)
+    _write(tmp_path, "src/repro_torch/codegen/kernel_backend.py", unsafe)
+    _write(tmp_path, "src/repro_torch/obs/check.py",
+           'OBS.metrics.counter' + '("served", "ok")\n' + f'snap{sub}["served"]\n')
+    _write(tmp_path, "src/repro/kernels/k/ops.py", unsafe)          # the reference's
+    _write(tmp_path, "tests/test_torch_x.py", f'snap{sub}["port_only"]\n')
+    _write(tmp_path, "tests/test_x.py", f'snap{sub}["reference_only"]\n')
+    found = sorted((f.kind, pathlib.Path(f.stage).name, f.node)
+                   for f in plint.lint_src(str(tmp_path)))
+    assert found == [("jit-unsafe-call", "kernel_backend.py", "fwd.y.item"),
+                     ("jit-unsafe-call", "ops.py", "fwd.y.item"),
+                     ("metrics-drift", "test_torch_x.py", "port_only")]
+    assert pa_main.main(["--lint-src", "--repo-root", str(tmp_path), "--device", "cpu"]) == 1
+
+
+def test_lint_src_is_clean_on_this_tree(tmp_path):
+    assert [f.detail for f in pa.lint_src(str(REPO_ROOT))] == []
+    out = tmp_path / "analyze.json"
+    assert pa_main.main(["--lint-src", "--repo-root", str(REPO_ROOT), "--device", "cpu",
+                         "--out", str(out)]) == 0
+    doc = json.loads(out.read_text())
+    assert check_analyze_doc(doc) == []
+    assert doc["lint"]["findings"] == [] and doc["lint"]["summary"]["clean"] is True

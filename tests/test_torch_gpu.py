@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions:
 ``lstm_seq``, the generated stage kernel (``codegen_stage``), ``tanh_lut``,
-``ssm_scan``, ``int8_matmul`` and ``flash_attention``; and the bit path
+``ssm_scan``, ``int8_matmul`` and ``flash_attention``; the bit path
 (rtlsim, the golden model, the analyzer, the Verilog emission) on the card
-against the same calls on the CPU, word for word.
+against the same calls on the CPU, word for word; and the Fig. 10 tuner and
+the chaos suite on the card.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -1003,3 +1004,52 @@ def test_a_requested_card_that_is_absent_raises(cuda, monkeypatch):
                  lambda: difftest.main(["--seeds", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the Fig. 10 loop and the chaos suite on the card
+# ---------------------------------------------------------------------------
+
+def test_tune_kernel_only_winner_passes_the_gate_on_the_card(cuda):
+    """A kernel-only tune of the h4 lstm: every measured candidate built and
+    timed through the generated stage kernel on the card, and the winner
+    validated there (float legs within 1e-5, rtlsim bit-exact)."""
+    from repro_torch.codegen import kernel_backend
+    from repro_torch.core.synthesis import NetworkSpec
+    from repro_torch.tune import tune
+
+    kernel_backend.codegen_stage.launches = 0
+    result = tune(NetworkSpec(2, 1, 4, 2, cell="lstm", seq_len=6), "latency", budget=3,
+                  batch=2, backends=("kernel",),
+                  space_kwargs={"unroll": (1, 2), "c_slow": (1, 2), "quant_bits": (None, 8)},
+                  device=cuda)
+    best = result.best
+    assert best.validated and best.gate.ok and best.gate.bit_exact, best.gate.line()
+    assert best.gate.float_err <= 1e-5
+    assert result.report.backend == "kernel" and result.report.fallback_from is None
+    assert len(result.measured) == 3 and all(s.measured["wall_us"] > 0 for s in result.measured)
+    assert kernel_backend.codegen_stage.launches >= len(result.measured)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "paper-lstm"])
+def test_chaos_suite_passes_on_the_card(cuda, arch):
+    """The nine scenarios on the smoke config with use_pallas: every fault
+    class fires and is contained, and the arch's prefill kernel ran."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.obs.check import check_chaos_doc
+    from repro_torch.verify.chaos import run_suite
+
+    kernel, counter = ((fa_kernel, fa_ops.flash_attention) if arch == "smollm-135m"
+                       else (lstm_kernel, lstm_ops.lstm_seq))
+    kernel.load()   # build before the timed scenarios (the watchdog's 30 s bound)
+    counter.launches = 0
+    cfg = dataclasses.replace(get_smoke_config(arch), use_pallas=True)
+    doc = run_suite(seed=0, arch=arch, device=cuda, cfg=cfg)
+    failed = [sc for sc in doc["scenarios"] if not sc["passed"]]
+    assert doc["passed"] and doc["all_classes_hit"] and not failed, failed
+    assert check_chaos_doc(doc) == []
+    assert counter.launches >= 1

@@ -47,7 +47,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                    "verify/__init__.py", "verify/golden.py", "verify/difftest.py",
                    "analyze/__init__.py", "analyze/__main__.py", "analyze/intervals.py",
                    "analyze/report.py", "analyze/waivers.py", "analyze/ranges.py",
-                   "analyze/errors.py", "analyze/hazards.py"):
+                   "analyze/errors.py", "analyze/hazards.py", "analyze/lint.py",
+                   "verify/chaos.py", "tune/__init__.py", "tune/__main__.py",
+                   "tune/space.py", "tune/pareto.py", "tune/search.py", "tune/report.py"):
         assert module in names, module
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
