@@ -56,8 +56,9 @@ Phases, one line per case (any failure exits non-zero and prints no result):
 11. ``flash_attention`` against its plain version (the reference's five
    kernel cases in fp32 and bf16, S != T, S = T = 1, rows that see no key,
    hd 128 with a 1024 window), and its time at two ``smollm-135m`` layers
-   (64 and 256 tokens), one ``phi4-mini-3.8b`` layer and gemma3's
-   local-layer shape, each held to the fp32 bar, beside the plain
+   (64 and 256 tokens), one ``phi4-mini-3.8b`` layer, gemma3's local and
+   global layers and one ``internlm2-20b`` layer (2048 tokens each), each
+   held to the fp32 bar, beside the plain
    version's, ``F.scaled_dot_product_attention``'s, its bound on the
    tensor cores in 3xTF32 and the fp32-FMA bound (``fma_bound_ms``), with
    its q tile, the key shares the host chose and its launches per call
@@ -142,6 +143,24 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    repro_torch.analyze --lint-src`` as subprocesses, each exiting 0, and
    ``python -m repro_torch.obs.check`` on every document.
 
+18. serve gemma3 (after phase 14) — ``gemma3-27b`` at its published widths
+   (d_model 5376, 32/16 heads at hd 128, d_ff 21 504, vocab 262 144, window
+   1024, RoPE 10k/1M, qk-norm, GELU-tanh, tied) cut to 14 layers (two 5:1
+   groups and the 2-layer local tail: 7.19 B fp32 parameters), random
+   weights from a seed, ``use_pallas``: ten requests (prompts of 17, 512,
+   1023, 1024, 1025, 1537 and 2048 tokens, two sharing a 1024-token prefix,
+   one of 1000 tokens whose 64 new tokens cross position 1024 on the ring;
+   32 new tokens otherwise), 4 slots, ``max_seq`` 2112, under one-shot
+   ``step()``, ``step_block()`` and chunked ``step()`` (chunk 256) with a
+   12 GiB prefix cache, twice (the second pass all full hits): equal tokens
+   across the four runs, the 1025-, 2048- and 1000+64-token requests equal
+   to the plain greedy loop on the card, ``flash_attention`` 14 calls a
+   one-shot prefill (12 windowed) with its launches, none in a chunk, and
+   each distinct prompt's prefill logits held against the plain path; then
+   ``internlm2-20b`` at its published widths cut to 4 layers (2.70 B, untied
+   head): a 2048-token prefill against the plain path and a ``step()``
+   serve of four prompts (17-2048 tokens), each held to the plain loop.
+
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
 seconds.  The script imports nothing of JAX and nothing of the JAX package.
@@ -225,6 +244,25 @@ BIT_DIFFTEST_SEEDS = 6
 # reference's tune suite: budget 6, batch 2)
 TUNE_BUDGET = 6
 TUNE_BATCH = 2
+
+# the serve_gemma3 phase: gemma3-27b at its published widths, depth cut to
+# two 5:1 groups and the 2-layer local tail; prompts either side of the
+# 1024 window, two sharing a 1024-token prefix, one whose decode crosses
+# position 1024 on the ring; a prefix cache that keeps every checkpoint
+# (one past the window holds 12 whole rings, ~201 MB)
+GEMMA_LAYERS = 14
+GEMMA_LENGTHS = (17, 512, 1023, 1024, 1025, 1537, 2048)
+GEMMA_SHARED = (1024, 64)
+GEMMA_CROSS = (1000, 64)
+GEMMA_NEW = 32
+GEMMA_SLOTS = 4
+GEMMA_MAX_SEQ = 2112
+GEMMA_CHUNK = 256
+GEMMA_PREFIX_BYTES = 12 << 30
+# internlm2-20b at its published widths, depth cut to 4
+INTERNLM_LAYERS = 4
+INTERNLM_LENGTHS = (17, 256, 1024, 2048)
+INTERNLM_NEW = 16
 
 PHASE_T0 = [time.perf_counter()]
 
@@ -1073,6 +1111,246 @@ def tune_chaos(dev, card: str, T: int = BIT_T) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: serve_gemma3 (and one internlm2-20b prefill and serve)
+# ---------------------------------------------------------------------------
+
+def gemma3_traffic(vocab: int, lengths=GEMMA_LENGTHS, shared=GEMMA_SHARED,
+                   cross=GEMMA_CROSS, new=GEMMA_NEW, seed: int = 0):
+    """The phase's requests as ``(prompt, max_new_tokens)``: one seeded
+    prompt per length of ``lengths`` (either side of the window), two
+    sharing a ``shared[0]``-token prefix with ``shared[1]``-token suffixes,
+    and one of ``cross[0]`` tokens whose ``cross[1]`` new tokens cross the
+    window's edge on the ring."""
+    rng = np.random.default_rng(seed)
+    draw = lambda n: [int(t) for t in rng.integers(1, vocab, n)]  # noqa: E731
+    out = [(draw(n), new) for n in lengths]
+    prefix = draw(shared[0])
+    out += [(prefix + draw(shared[1]), new) for _ in range(2)]
+    out.append((draw(cross[0]), cross[1]))
+    return out
+
+
+def fa_per_prefill(mcfg, n: int, dev) -> tuple[int, int, int]:
+    """``flash_attention`` calls, windowed calls and CUDA launches of one
+    one-shot prefill of ``n`` tokens: one call per attention layer, the
+    local layers' with the window, each 1 launch or 2 where the host splits
+    the key axis.  Launches are 0 off the card."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    kinds = list(mcfg.layer_pattern) * mcfg.n_groups + list(mcfg.tail_pattern)
+    windows = [mcfg.sliding_window if k == "attn_local" else 0 for k in kinds]
+    launches = 0
+    if dev.type == "cuda":
+        q = torch.empty((1, n, mcfg.n_heads, mcfg.head_dim), device=dev)
+        k = torch.empty((1, n, mcfg.n_kv_heads, mcfg.head_dim), device=dev)
+        launches = sum(fa_kernel.launches_per_call(
+            fa_kernel.splits(q, k, causal=mcfg.causal, window=w)) for w in windows)
+    return len(kinds), sum(w > 0 for w in windows), launches
+
+
+def plain_greedy(mcfg, params, prompt, n: int, max_seq: int, dev) -> list[int]:
+    """The model's own greedy loop on the plain path (``use_pallas=False``):
+    the prompt as one ``prefill_chunk`` from a fresh B=1 cache, then
+    ``decode_step``; no server and no ``splice_cache`` on the way."""
+    from repro_torch.models import lm
+
+    pcfg = dataclasses.replace(mcfg, use_pallas=False)
+    caches = lm.init_cache(pcfg, 1, max_seq, dev)
+    lg, caches = lm.prefill_chunk(params, pcfg, torch.as_tensor([prompt], device=dev),
+                                  caches, 0)
+    out = [int(lg[0].argmax())]
+    pos = len(prompt)
+    while len(out) < n:
+        lg, caches = lm.decode_step(params, pcfg, torch.as_tensor([[out[-1]]], device=dev),
+                                    caches, pos)
+        out.append(int(lg[0].argmax()))
+        pos += 1
+    return out
+
+
+def prefill_against_plain(mcfg, params, prompts, dev, card: str) -> tuple[float, int, int, int]:
+    """Each prompt's one-shot prefill logits through the kernel against
+    ``use_pallas=False``, relative to the largest |logit|; the kernel's
+    calls, windowed calls and launches held to ``fa_per_prefill`` per
+    prompt.  Returns the largest gap and the counts."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import lm
+
+    worst, n_calls, n_win, n_launch = 0.0, 0, 0, 0
+    for prompt in prompts:
+        toks = torch.as_tensor([prompt], device=dev)
+        sync(dev)
+        fa = fa_ops.flash_attention
+        fa.calls = fa.window_calls = fa.launches = 0
+        t0 = time.perf_counter()
+        lg_k, _ = lm.prefill(params, mcfg, toks)
+        sync(dev)
+        k_ms = (time.perf_counter() - t0) * 1e3
+        calls, win, launches = fa.calls, fa.window_calls, fa.launches
+        t0 = time.perf_counter()
+        lg_p, _ = lm.prefill(params, dataclasses.replace(mcfg, use_pallas=False), toks)
+        sync(dev)
+        p_ms = (time.perf_counter() - t0) * 1e3
+        want = fa_per_prefill(mcfg, len(prompt), dev)
+        require((calls, win, launches) == want,
+                f"{mcfg.name} prefill of {len(prompt)} tokens: flash_attention calls, "
+                f"windowed calls, launches {(calls, win, launches)}, not {want}")
+        require(lg_k.shape == (1, mcfg.vocab) and bool(torch.isfinite(lg_k).all()),
+                f"{mcfg.name} prefill logits of shape {tuple(lg_k.shape)} or non-finite")
+        scale = float(lg_p.abs().max())
+        gap = float((lg_k - lg_p).abs().max()) / scale
+        require(gap <= DENSE_LOGITS_RTOL,
+                f"{mcfg.name} use_pallas prefill logits of {len(prompt)} tokens differ from "
+                f"the plain path by {gap:.3e} of max |logit| {scale:.3e}")
+        say("prefill_check", arch=mcfg.name, prompt_len=len(prompt),
+            flash_attention_calls=calls, window_calls=win, launches=launches,
+            rel_gap=f"{gap:.3e}", rtol_of_max=DENSE_LOGITS_RTOL, prefill_ms_use_pallas=f"{k_ms:.2f}",
+            prefill_ms_plain=f"{p_ms:.2f}", card=repr(card))
+        worst = max(worst, gap)
+        n_calls, n_win, n_launch = n_calls + calls, n_win + win, n_launch + launches
+    return worst, n_calls, n_win, n_launch
+
+
+def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: bool = False,
+                 srv=None, uid0: int = 0, **kw):
+    """Drive ``DecodeServer`` over ``traffic``; returns the tokens by
+    request index, the server, and the ``flash_attention`` calls, windowed
+    calls and launches of the run (counts set to 0 just before it, read just
+    after).  A one-shot run must call the kernel as ``fa_per_prefill`` says
+    for every prompt; a chunked run never calls it."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.obs import Observability
+    from repro_torch.runtime.server import DecodeServer, Request
+
+    if srv is None:
+        srv = DecodeServer(mcfg, params, num_slots=GEMMA_SLOTS, max_seq=kw.pop("max_seq"),
+                           block_k=BLOCK_K, obs=Observability(trace=True), device=dev, **kw)
+    srv.reset_stats()
+    srv.obs.tracer.reset()
+    for i, (prompt, n) in enumerate(traffic):
+        srv.submit(Request(uid=uid0 + i, prompt=list(prompt), max_new_tokens=n))
+    sync(dev)
+    fa = fa_ops.flash_attention
+    fa.calls = fa.window_calls = fa.launches = 0
+    t0 = time.perf_counter()
+    done = [r for r in srv.run_until_drained(persistent=block) if r.uid >= uid0]
+    sync(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = (fa.calls, fa.window_calls, fa.launches)
+    st = srv.stats()
+    require(len(done) == len(traffic), f"{mcfg.name} {label}: {len(done)} of "
+            f"{len(traffic)} requests retired")
+    toks = {}
+    for r in done:
+        n = traffic[r.uid - uid0][1]
+        require(r.finish_reason == "max_tokens" and len(r.out_tokens) == n,
+                f"{mcfg.name} {label}: request {r.uid} ended {r.finish_reason} after "
+                f"{len(r.out_tokens)} tokens")
+        toks[r.uid - uid0] = list(r.out_tokens)
+    chunked = srv.prefill_chunk > 0
+    if chunked:
+        want = (0, 0, 0)
+    else:
+        per = [fa_per_prefill(mcfg, len(p), dev) for p, _ in traffic]
+        want = tuple(sum(x[i] for x in per) for i in range(3))
+    require(counts == want, f"{mcfg.name} {label}: flash_attention calls, windowed calls, "
+            f"launches {counts}, not {want}")
+    decode_ms = sum(ev["dur"] for ev in srv.obs.tracer.events()
+                    if ev.get("name") in ("decode_step", "decode_block")) / 1e3
+    pc = st.get("prefix_cache", {})
+    say("serve", arch=mcfg.name, driver=label, requests=len(done), wall_ms=f"{wall_ms:.1f}",
+        decode_tok_s=f"{st['decoded_tokens'] / max(decode_ms / 1e3, 1e-9):.1f}",
+        prefill_ms_per_prompt=f"{(wall_ms - decode_ms) / len(done):.2f}",
+        decode_syncs=st["decode_syncs"], decoded_tokens=st["decoded_tokens"],
+        prompt_steps=st["prefill"]["prompt_steps_computed"],
+        chunks=st["prefill"]["chunks_run"], flash_attention_calls=counts[0],
+        window_calls=counts[1], launches=counts[2],
+        hits=pc.get("hits", "n/a"), partial_hits=pc.get("partial_hits", "n/a"),
+        evictions=pc.get("evictions", "n/a"), checkpoint_bytes=pc.get("bytes_in_use", "n/a"),
+        entries=pc.get("entries", "n/a"), card=repr(card))
+    return toks, srv, counts
+
+
+def serve_gemma3(mcfg, params, dev, card: str, traffic, checked, *, max_seq: int = GEMMA_MAX_SEQ,
+                 chunk: int = GEMMA_CHUNK, prefix_bytes: int = GEMMA_PREFIX_BYTES) -> dict:
+    """gemma3's main path: ``traffic`` under one-shot ``step()``,
+    ``step_block()``, and chunked ``step()`` with the prefix cache, twice
+    (the second pass all full hits); equal tokens across every run, the
+    requests at ``checked`` equal to ``plain_greedy``, and every distinct
+    prompt's prefill logits held against the plain path.  Returns the
+    kernel's counts summed over the runs."""
+    total = np.zeros(3, np.int64)
+    runs = {}
+    with torch.no_grad():
+        for label, block in (("step", False), ("step_block", True)):
+            runs[label], srv, counts = dense_serve(mcfg, params, traffic, label, dev, card,
+                                                    block=block, max_seq=max_seq)
+            total += counts
+            del srv
+        label = f"step+prefill_chunk={chunk}+cache"
+        runs["chunked"], srv, counts = dense_serve(
+            mcfg, params, traffic, label, dev, card, max_seq=max_seq, prefill_chunk=chunk,
+            prefix_cache_bytes=prefix_bytes)
+        total += counts
+        first = srv.stats()["prefix_cache"]
+        require(first["partial_hits"] >= 1 and first["evictions"] == 0,
+                f"{mcfg.name}: the cold chunked pass found {first['partial_hits']} partial hits "
+                f"(the shared prefix) and evicted {first['evictions']} checkpoints")
+        runs["chunked_again"], srv, counts = dense_serve(
+            mcfg, params, traffic, label + " (second pass)", dev, card, srv=srv, uid0=1000)
+        total += counts
+        st = srv.stats()
+        require(st["prefix_cache"]["hits"] == len(traffic)
+                and st["prefill"]["prompt_steps_computed"] == 0,
+                f"{mcfg.name}: the second pass hit {st['prefix_cache']['hits']} of "
+                f"{len(traffic)} prompts and ran {st['prefill']['prompt_steps_computed']} "
+                "prompt steps")
+        del srv
+        for label, toks in runs.items():
+            require(toks == runs["step"], f"{mcfg.name}: {label} tokens differ from step()'s")
+        for i in checked:
+            prompt, n = traffic[i]
+            want = plain_greedy(mcfg, params, prompt, n, max_seq, dev)
+            require(runs["step"][i] == want,
+                    f"{mcfg.name}: the served tokens of the {len(prompt)}-token request differ "
+                    f"from the plain greedy loop's:\n{runs['step'][i]}\n{want}")
+        distinct = list({len(p): p for p, _ in traffic}.values())
+        gap, calls, win, launches = prefill_against_plain(mcfg, params, distinct, dev, card)
+        total += (calls, win, launches)
+    say("serve_check", arch=mcfg.name, path="use_pallas", identical_tokens=True,
+        drivers="step,step_block,chunked,chunked_all_hits",
+        plain_greedy_equal=",".join(f"{len(traffic[i][0])}+{traffic[i][1]}" for i in checked),
+        prefill_lengths=",".join(str(len(p)) for p in distinct), max_rel_gap=f"{gap:.3e}",
+        rtol_of_max=DENSE_LOGITS_RTOL, flash_attention_calls=int(total[0]),
+        window_calls=int(total[1]), launches=int(total[2]), card=repr(card))
+    return {"calls": int(total[0]), "window_calls": int(total[1]), "launches": int(total[2])}
+
+
+def serve_internlm2(mcfg, params, dev, card: str, lengths=INTERNLM_LENGTHS,
+                    max_seq: int = GEMMA_MAX_SEQ, new: int = INTERNLM_NEW) -> dict:
+    """internlm2-20b: the longest prompt's prefill through the kernel
+    against the plain path, then a one-shot ``step()`` serve of one request
+    per length, each held to ``plain_greedy``."""
+    rng = np.random.default_rng(1)
+    traffic = [([int(t) for t in rng.integers(1, mcfg.vocab, n)], new) for n in lengths]
+    with torch.no_grad():
+        gap, calls, win, launches = prefill_against_plain(mcfg, params, [traffic[-1][0]],
+                                                          dev, card)
+        toks, srv, counts = dense_serve(mcfg, params, traffic, "step", dev, card,
+                                         max_seq=max_seq)
+        del srv
+        for i, (prompt, n) in enumerate(traffic):
+            want = plain_greedy(mcfg, params, prompt, n, max_seq, dev)
+            require(toks[i] == want, f"{mcfg.name}: the served tokens of the {len(prompt)}-"
+                    f"token request differ from the plain greedy loop's")
+    say("serve_check", arch=mcfg.name, path="use_pallas", plain_greedy_equal=len(traffic),
+        prefill_rel_gap=f"{gap:.3e}", rtol_of_max=DENSE_LOGITS_RTOL,
+        flash_attention_calls=calls + counts[0], launches=launches + counts[2], card=repr(card))
+    return {"calls": calls + counts[0], "window_calls": win + counts[1],
+            "launches": launches + counts[2]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1811,13 +2089,17 @@ def main() -> int:
                     ok=True)
         # times at (a') and (a) one smollm-135m layer of a 64- and a 256-token
         # prompt, (b) one phi4-mini-3.8b layer of 2048 tokens, (c) gemma3's
-        # local-layer shape
+        # local-layer shape, (d) its global layer, (e) one internlm2-20b layer
         attn_time = {}
         for name, c in (("a1_smollm_S64", dict(B=1, S=64, T=64, H=9, KV=3, hd=64, window=0)),
                         ("a_smollm_S256", dict(B=1, S=256, T=256, H=9, KV=3, hd=64, window=0)),
                         ("b_phi4_S2048", dict(B=1, S=2048, T=2048, H=24, KV=8, hd=128, window=0)),
                         ("c_gemma3_local_S2048_w1024",
-                         dict(B=1, S=2048, T=2048, H=32, KV=16, hd=128, window=1024))):
+                         dict(B=1, S=2048, T=2048, H=32, KV=16, hd=128, window=1024)),
+                        ("d_gemma3_global_S2048",
+                         dict(B=1, S=2048, T=2048, H=32, KV=16, hd=128, window=0)),
+                        ("e_internlm2_S2048",
+                         dict(B=1, S=2048, T=2048, H=48, KV=8, hd=128, window=0))):
             q, k, v = attn_inputs(c)
             w = c["window"]
             shape_err = check_close(f"flash_attention {name}",
@@ -2063,6 +2345,59 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("prefill_phi4")
 
+    # -- 18. serve gemma3-27b (14 layers) and internlm2-20b (4 layers) -----------
+    gcfg = dataclasses.replace(get_config("gemma3-27b"), n_layers=GEMMA_LAYERS, use_pallas=True)
+    require((gcfg.d_model, gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim, gcfg.d_ff, gcfg.vocab,
+             gcfg.sliding_window, gcfg.rope_theta, gcfg.rope_theta_global, gcfg.qk_norm,
+             gcfg.mlp_act, gcfg.tie_embeddings, gcfg.n_groups, gcfg.tail_pattern)
+            == (5376, 32, 16, 128, 21_504, 262_144, 1024, 10_000.0, 1_000_000.0, True, "gelu",
+                True, 2, ("attn_local", "attn_local")),
+            f"gemma3-27b is not at its published widths: {gcfg}")
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gparams = lm.init_params(gcfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g_params = lm.param_count(gparams)
+    traffic = gemma3_traffic(gcfg.vocab)
+    say("serve_setup", arch=gcfg.name, n_layers=gcfg.n_layers, d_model=gcfg.d_model,
+        heads=f"{gcfg.n_heads}/{gcfg.n_kv_heads}", head_dim=gcfg.head_dim, d_ff=gcfg.d_ff,
+        vocab=gcfg.vocab, window=gcfg.sliding_window, params=g_params,
+        param_gb=f"{4 * g_params / 1e9:.2f}", init_s=f"{init_s:.1f}",
+        alloc_gb_before_init=f"{base_alloc / 1e9:.2f}",
+        prompt_lens=",".join(f"{len(p)}+{n}" for p, n in traffic), num_slots=GEMMA_SLOTS,
+        max_seq=GEMMA_MAX_SEQ, block_k=BLOCK_K, chunk=GEMMA_CHUNK,
+        prefix_cache_gib=GEMMA_PREFIX_BYTES / 2 ** 30)
+    checked = [GEMMA_LENGTHS.index(1025), GEMMA_LENGTHS.index(2048), len(traffic) - 1]
+    gemma_fa = serve_gemma3(gcfg, gparams, dev, card, traffic, checked)
+    say("serve_memory", arch=gcfg.name,
+        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
+    del gparams
+    torch.cuda.empty_cache()
+    phase_done("serve_gemma3")
+
+    icfg = dataclasses.replace(get_config("internlm2-20b"), n_layers=INTERNLM_LAYERS,
+                               use_pallas=True)
+    require((icfg.d_model, icfg.n_heads, icfg.n_kv_heads, icfg.head_dim, icfg.d_ff, icfg.vocab,
+             icfg.mlp_act, icfg.tie_embeddings, icfg.rope_theta)
+            == (6144, 48, 8, 128, 16_384, 92_544, "silu", False, 1_000_000.0),
+            f"internlm2-20b is not at its published widths: {icfg}")
+    torch.cuda.reset_peak_memory_stats()
+    iparams = lm.init_params(icfg, torch.Generator(device=dev).manual_seed(0))
+    i_params = lm.param_count(iparams)
+    say("serve_setup", arch=icfg.name, n_layers=icfg.n_layers, d_model=icfg.d_model,
+        heads=f"{icfg.n_heads}/{icfg.n_kv_heads}", head_dim=icfg.head_dim, d_ff=icfg.d_ff,
+        vocab=icfg.vocab, params=i_params, param_gb=f"{4 * i_params / 1e9:.2f}",
+        prompt_lens=",".join(map(str, INTERNLM_LENGTHS)), max_new_tokens=INTERNLM_NEW,
+        num_slots=GEMMA_SLOTS, max_seq=GEMMA_MAX_SEQ)
+    internlm_fa = serve_internlm2(icfg, iparams, dev, card)
+    say("serve_memory", arch=icfg.name,
+        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
+    del iparams
+    torch.cuda.empty_cache()
+    phase_done("serve_internlm2")
+
     # -- 15d. the entry points as subprocesses on the card ----------------------
     serve_loadgen_entry_points(card)
     phase_done("serve_loadgen_entry_points")
@@ -2171,9 +2506,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
         # smollm-135m's three serve runs (30 per one-shot prefill, 0 for
         # chunks), its loadgen run (30 per miss), phi4-mini-3.8b's prefill
-        # (32) and the chaos suite (30 per one-shot prefill); times at shape (a)
-        "launches": f1 + f2 + f3 + lg_smollm_launches + p_launch + tc["smollm-135m"],
-        "calls": c1 + c2 + c3 + lg_smollm_calls + p_call + tc["smollm-135m_calls"],
+        # (32), gemma3-27b's serve runs and prefills (14 per one-shot prefill,
+        # 12 of them windowed), internlm2-20b's (4) and the chaos suite (30 per
+        # one-shot prefill); times at shape (a)
+        "launches": (f1 + f2 + f3 + lg_smollm_launches + p_launch + gemma_fa["launches"]
+                     + internlm_fa["launches"] + tc["smollm-135m"]),
+        "calls": (c1 + c2 + c3 + lg_smollm_calls + p_call + gemma_fa["calls"]
+                  + internlm_fa["calls"] + tc["smollm-135m_calls"]),
+        "window_calls": gemma_fa["window_calls"],
+        "launches_by_model": {"gemma3-27b": gemma_fa["launches"],
+                              "internlm2-20b": internlm_fa["launches"]},
         "max_abs_err": attn_err,
         "ms": attn_time["a_smollm_S256"][0],
         "plain_ms": attn_time["a_smollm_S256"][1],
@@ -2191,6 +2533,8 @@ def main() -> int:
         "max_abs_err_by_shape": {n: t[7] for n, t in attn_time.items()},
         "max_abs_err_by_keys": attn_err_by_keys,
         "bound_ms_by_shape": {n: t[3] for n, t in attn_time.items()},
+        "plain_ms_by_shape": {n: t[1] for n, t in attn_time.items()},
+        "library_ms_by_shape": {n: t[2] for n, t in attn_time.items()},
     }]}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

@@ -24,12 +24,19 @@ def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     """The reference's ``lm.init_params`` tree (numpy leaves) → port params
     in ``cfg.p_dtype`` on ``device`` (default: the card).  Any ported block
     kind crosses over leaf for leaf (``b0_recurrent``, ``b0_mamba1``,
-    ``b0_attn`` with its ``attn`` and ``mlp`` subtrees)."""
+    ``b0_attn`` and ``b0_attn_local`` with their ``attn`` and ``mlp``
+    subtrees), and so do the unstacked ``"tail"`` blocks (``t0_attn_local``)
+    of a config with a ``tail_pattern``."""
     dev = resolve_device(device)
     want = {f"b{i}_{kind}" for i, kind in enumerate(cfg.layer_pattern)}
     if set(np_tree["groups"]) != want:
         raise ValueError(f"group blocks {sorted(np_tree['groups'])} do not match "
                          f"{cfg.name}'s pattern {sorted(want)}")
+    want_tail = {f"t{i}_{kind}" for i, kind in enumerate(cfg.tail_pattern)}
+    got_tail = set(np_tree.get("tail", {}))
+    if got_tail != want_tail:
+        raise ValueError(f"tail blocks {sorted(got_tail)} do not match "
+                         f"{cfg.name}'s tail pattern {sorted(want_tail)}")
     return tree_map(
         lambda a: torch.as_tensor(np.array(a)).to(device=dev, dtype=cfg.p_dtype),
         np_tree)
@@ -67,7 +74,9 @@ def program_from_jax(np_params: PyTree, spec, device=None):
 
 def cache_from_jax(np_tree: PyTree, device=None) -> PyTree:
     """The reference's decode caches (numpy leaves: recurrent ``h``/``c``,
-    Mamba ``h``/``conv``, attention ``k``/``v``) → port caches, fp32."""
+    Mamba ``h``/``conv``, attention ``k``/``v``, sliding-window rings; the
+    ``"groups"`` subtree and, with a ``tail_pattern``, the unstacked
+    ``"tail"`` one) → port caches of the same layout, fp32."""
     dev = resolve_device(device)
     return tree_map(
         lambda a: torch.as_tensor(np.array(a)).to(device=dev, dtype=torch.float32),

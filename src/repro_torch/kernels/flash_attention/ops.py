@@ -7,8 +7,9 @@ Hopper kernel (``kernel.py``), a CPU tensor takes the plain PyTorch version
 raises.  The TPU kernel's tiling keywords (``bq``, ``bk``) blocked its VMEM
 and change no result, so they are not carried over.
 ``flash_attention.calls`` counts the calls that reached the kernel through
-this wrapper, ``flash_attention.launches`` their CUDA launches: one a call,
-two where the host split the key axis (the kernel and its combining pass).
+this wrapper, ``flash_attention.window_calls`` those of them with a sliding
+window, ``flash_attention.launches`` their CUDA launches: one a call, two
+where the host split the key axis (the kernel and its combining pass).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q32, k32, v32 = (t.to(torch.float32).contiguous() for t in (q, k, v))
     out = _k.flash_attention(q32, k32, v32, causal=causal, window=window, softcap=softcap)
     flash_attention.calls += 1
+    flash_attention.window_calls += int(window > 0)
     # the key shares that call chose, from the shapes it has just accepted
     flash_attention.launches += _k.launches_per_call(
         _k.splits(q32, k32, causal=causal, window=window))
@@ -40,6 +42,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.calls = 0
+flash_attention.window_calls = 0
 flash_attention.launches = 0
 
 

@@ -1,7 +1,7 @@
-"""Top-level language model: embed → groups → head; the port's counterpart
-of ``repro/models/lm.py`` for the families ported so far (recurrent, ssm
-and dense; no cross-attention ``memory`` argument and no ``tail_pattern``
-yet).
+"""Top-level language model: embed → groups → tail → head; the port's
+counterpart of ``repro/models/lm.py`` for the families ported so far
+(recurrent, ssm and dense, gemma3's ``tail_pattern`` included; no
+cross-attention ``memory`` argument yet).
 
 The whole network is one state-space system (paper eq. 8): in prefill the
 state is the activations flowing across layer groups; in decode the state
@@ -10,10 +10,11 @@ of a Mamba stack, the KV cache of a transformer) and one ``decode_step`` is
 one application of the state-update map f with the new token as input u[k].
 
 The parameter layout mirrors the reference's: ``{"embed": {"table"},
-"groups": {"b0_recurrent" | "b0_mamba1" | "b0_attn": ...}, "final_norm":
-{"scale"}}`` (+ ``"head"`` when embeddings are untied), with every
-per-group leaf stacked on a leading ``G`` axis.  The reference scans over
-groups; the port loops over them.
+"groups": {"b0_recurrent" | "b0_mamba1" | "b0_attn" | "b0_attn_local":
+...}, "final_norm": {"scale"}}`` (+ ``"tail": {"t0_attn_local": ...}`` with
+a ``tail_pattern``, + ``"head"`` when embeddings are untied), with every
+per-group leaf stacked on a leading ``G`` axis and tail leaves unstacked.
+The reference scans over groups; the port loops over them.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from repro_torch.device import resolve_device
 
 from .config import ModelConfig
 from .layers import dense_init, embed, embedding_params, rmsnorm, rmsnorm_params
-from .transformer import apply_block, group_params, init_cache
+from .transformer import apply_block, group_params, init_cache, tail_params
 
 PyTree = Any
 
@@ -63,6 +64,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> PyTre
         tree_map(lambda dst, src: dst[g].copy_(src), stacked, grp)
         del grp
     params["groups"] = stacked
+    tail = tail_params(gen, cfg)
+    if tail is not None:
+        params["tail"] = tail
     params["final_norm"] = rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device)
     if not cfg.tie_embeddings:
         params["head"] = {"w": dense_init(gen, (cfg.d_model, cfg.vocab), cfg.p_dtype)}
@@ -93,9 +97,21 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
             aux = aux + aux_i
             new_caches[name] = c_out
         per_group.append(new_caches)
+    tail_in = None if caches is None else caches.get("tail")
+    tail_out = {}
+    for i, kind in enumerate(cfg.tail_pattern):
+        name = f"t{i}_{kind}"
+        c_in = None if tail_in is None else tail_in.get(name)
+        x, c_out, aux_i = apply_block(params["tail"][name], cfg, kind, x,
+                                      cache=c_in, pos=pos, mode=mode)
+        aux = aux + aux_i
+        tail_out[name] = c_out
     if mode == "train":
         return x, aux, None
-    return x, aux, {"groups": tree_map(lambda *ls: torch.stack(ls), *per_group)}
+    out_caches = {"groups": tree_map(lambda *ls: torch.stack(ls), *per_group)}
+    if tail_out:
+        out_caches["tail"] = tail_out
+    return x, aux, out_caches
 
 
 def _embed_in(params, cfg: ModelConfig, tokens):

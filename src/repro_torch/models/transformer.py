@@ -1,12 +1,18 @@
 """Block assembly: layer stacks as groups of blocks; the port's counterpart of
 ``repro/models/transformer.py``.
 
-The recurrent, ``mamba1`` and ``attn`` (dense transformer: GQA + gated MLP)
-block kinds are ported so far.  A group is one period of
-``ModelConfig.layer_pattern``; per-group parameters and decode caches are
-stacked on a leading ``G`` axis, exactly as the reference lays them out for
-its scan over groups.  Every other block kind (``attn_local``, ``moe``,
-``cross``, ``mamba2``, ``shared_attn``) raises.
+The recurrent, ``mamba1``, ``attn`` (dense transformer: GQA + gated MLP)
+and ``attn_local`` (gemma3's sliding-window attention) block kinds are
+ported so far.  A group is one period of ``ModelConfig.layer_pattern``;
+per-group parameters and decode caches are stacked on a leading ``G`` axis,
+exactly as the reference lays them out for its scan over groups.  Blocks of
+``ModelConfig.tail_pattern`` (gemma3's two trailing local layers) follow
+the groups, each with its own parameters and cache and **no** ``G`` axis.
+Every other block kind (``moe``, ``cross``, ``mamba2``, ``shared_attn``)
+raises.
+
+A local layer's decode cache is a ring buffer of ``min(max_seq,
+sliding_window)`` positions: position ``p`` lives at slot ``p mod W``.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from repro_torch.recurrent import block as rnn_lib
 from . import attention as attn_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
-from .layers import mlp_apply, mlp_params, rmsnorm, rmsnorm_params
+from .layers import apply_rope, mlp_apply, mlp_params, rmsnorm, rmsnorm_params
 
 PyTree = Any
 
@@ -29,7 +35,7 @@ PyTree = Any
 def _unported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind '{kind}' is not ported to repro_torch yet (ROADMAP.md "
-        "Queue 1); only 'recurrent', 'mamba1' and 'attn' run")
+        "Queue 1); only 'recurrent', 'mamba1', 'attn' and 'attn_local' run")
 
 
 # ---------------------------------------------------------------------------
@@ -37,7 +43,7 @@ def _unported(kind: str) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 
 def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> PyTree:
-    if kind == "attn":
+    if kind in ("attn", "attn_local"):
         ap = attn_lib.mla_params(gen, cfg) if cfg.use_mla else attn_lib.gqa_params(gen, cfg)
         return {
             "ln_attn": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
@@ -59,6 +65,15 @@ def group_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
             for i, kind in enumerate(cfg.layer_pattern)}
 
 
+def tail_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree | None:
+    """The blocks of ``cfg.tail_pattern`` (``t{i}_{kind}``), unstacked; None
+    without a tail."""
+    if not cfg.tail_pattern:
+        return None
+    return {f"t{i}_{kind}": _block_params(gen, cfg, kind)
+            for i, kind in enumerate(cfg.tail_pattern)}
+
+
 # ---------------------------------------------------------------------------
 # cache construction (decode state)
 # ---------------------------------------------------------------------------
@@ -70,6 +85,10 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) 
         shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
+    if kind == "attn_local":
+        shape = (batch, min(max_seq, cfg.sliding_window), cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
     if kind == "recurrent":
         return rnn_lib.recurrent_init_state(cfg, batch, device)
     if kind == "mamba1":
@@ -78,21 +97,26 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) 
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
-    """Decode cache ``{"groups": {name: leaves stacked over G}}`` — the
-    serving state vector.  A recurrent block's leaves are ``h``/``c``
+    """Decode cache ``{"groups": {name: leaves stacked over G}, "tail":
+    {name: leaves}}`` — the serving state vector (``"tail"`` only with a
+    ``tail_pattern``).  A recurrent block's leaves are ``h``/``c``
     ``[G, batch, H]``, a ``mamba1`` block's ``h [G, batch, DI, N]`` and
     ``conv [G, batch, k-1, DI]``, all in fp32; an ``attn`` block's are the
-    full-length ``k``/``v`` ``[G, batch, max_seq, KV, hd]`` in the
-    activation dtype."""
-    if cfg.tail_pattern:
-        raise _unported(f"tail {cfg.tail_pattern}")
+    full-length ``k``/``v`` ``[G, batch, max_seq, KV, hd]`` and an
+    ``attn_local`` block's the ring ``[G, batch, min(max_seq, window), KV,
+    hd]``, in the activation dtype.  Tail leaves are the same without the
+    ``G`` axis: the slot is their axis 0, the sequence their axis 1."""
     G = cfg.n_groups
     groups = {}
     for i, kind in enumerate(cfg.layer_pattern):
         one = _block_cache(cfg, kind, batch, max_seq, device)
         groups[f"b{i}_{kind}"] = {k: v.expand((G,) + v.shape).clone()
                                   for k, v in one.items()}
-    return {"groups": groups}
+    cache = {"groups": groups}
+    if cfg.tail_pattern:
+        cache["tail"] = {f"t{i}_{kind}": _block_cache(cfg, kind, batch, max_seq, device)
+                         for i, kind in enumerate(cfg.tail_pattern)}
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -119,19 +143,25 @@ def apply_block(
     prefill trajectory.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind == "attn":
+    if kind in ("attn", "attn_local"):
+        window = cfg.sliding_window if kind == "attn_local" else 0
         acfg = cfg
-        if cfg.global_every and cfg.rope_theta_global:
+        if kind == "attn" and cfg.global_every and cfg.rope_theta_global:
             acfg = dataclasses.replace(cfg, rope_theta=cfg.rope_theta_global)
         h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
         decode = mode in ("decode", "chunk")
         if cfg.use_mla:
             a, cache = (attn_lib.mla_decode(p_blk["attn"], acfg, h, cache, pos) if decode
                         else attn_lib.mla_prefill(p_blk["attn"], acfg, h))
+        elif decode and kind == "attn_local":
+            local = _gqa_local_chunk if mode == "chunk" else _gqa_decode_local
+            a, cache = local(p_blk["attn"], acfg, h, cache, pos)
         elif decode:
             a, cache = attn_lib.gqa_decode(p_blk["attn"], acfg, h, cache, pos)
         else:
-            a, kv = attn_lib.gqa_prefill(p_blk["attn"], acfg, h)
+            # a one-shot prefill returns the full-length k/v of every layer;
+            # splice_cache folds a local layer's into its ring
+            a, kv = attn_lib.gqa_prefill(p_blk["attn"], acfg, h, window=window)
             cache = {"k": kv[0], "v": kv[1]} if mode == "prefill" else None
         x = x + a
         h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
@@ -161,4 +191,83 @@ def apply_block(
     return x + y, cache, aux
 
 
-__all__ = ["apply_block", "group_params", "init_cache"]
+# ---------------------------------------------------------------------------
+# sliding-window attention against a ring-buffer cache
+# ---------------------------------------------------------------------------
+
+def _local_window_cache_update(cache, k, v, pos):
+    """Ring-buffer write for sliding-window caches: the one new token of
+    each row goes to slot ``pos mod W``.  Returns new tensors; the caller's
+    cache is not written."""
+    W = cache["k"].shape[1]
+    B = k.shape[0]
+    slot = torch.remainder(pos, W)
+    bidx = torch.arange(B, device=k.device)
+    ck = cache["k"].index_put((bidx, slot), k[:, 0].to(cache["k"].dtype))
+    cv = cache["v"].index_put((bidx, slot), v[:, 0].to(cache["v"].dtype))
+    return {"k": ck, "v": cv}
+
+
+def _gqa_decode_local(p, cfg: ModelConfig, x, cache, pos):
+    """Decode (S = 1) against a ring-buffer sliding-window cache.
+
+    Slot s holds the position p with p ≡ s (mod W) and pos-W < p <= pos,
+    so its absolute position is kpos = pos - ((pos - s) mod W); RoPE phases
+    and the window mask use those absolute positions.
+    """
+    B, S, _ = x.shape
+    dev = x.device
+    q, k, v = attn_lib._project_qkv(p, cfg, x)
+    posv = attn_lib._posv(pos, B, dev)
+    q = apply_rope(q, posv[:, None], cfg.rope_theta, cfg.partial_rotary)
+    k = apply_rope(k, posv[:, None], cfg.rope_theta, cfg.partial_rotary)
+    cache = _local_window_cache_update(cache, k, v, posv)
+    W = cache["k"].shape[1]
+    slots = torch.arange(W, device=dev)[None, :]
+    kpos = posv[:, None] - torch.remainder(posv[:, None] - slots, W)   # [B, W] absolute
+    mask = (kpos >= 0) & (kpos >= posv[:, None] - W + 1) & (kpos <= posv[:, None])
+    out = attn_lib._sdpa(q, cache["k"], cache["v"], mask[:, None, None, :],
+                         cfg.attn_logit_softcap)
+    return out.reshape(B, S, -1) @ p["wo"], cache
+
+
+def _gqa_local_chunk(p, cfg: ModelConfig, x, cache, pos):
+    """Chunked-prefill step (S >= 1 tokens from ``pos``) against a
+    ring-buffer sliding-window cache.
+
+    Writing the chunk into the ring first could overwrite positions that
+    earlier queries of the same chunk still need, so attention runs over
+    [old ring ∥ chunk keys] with absolute-position masks, and only then are
+    the chunk's last min(S, W) tokens committed to the ring (earlier chunk
+    tokens are out of every later query's window).
+    """
+    B, S, _ = x.shape
+    dev = x.device
+    q, k, v = attn_lib._project_qkv(p, cfg, x)
+    posv = attn_lib._posv(pos, B, dev)
+    qpos = posv[:, None] + torch.arange(S, device=dev)[None, :]          # [B, S]
+    q = apply_rope(q, qpos, cfg.rope_theta, cfg.partial_rotary)
+    k = apply_rope(k, qpos, cfg.rope_theta, cfg.partial_rotary)
+
+    W = cache["k"].shape[1]
+    slots = torch.arange(W, device=dev)[None, :]
+    # ring slot s holds the latest written position p ≡ s (mod W), p <= pos-1;
+    # a negative p was never written (masked below)
+    ring_pos = (posv[:, None] - 1) - torch.remainder(posv[:, None] - 1 - slots, W)
+    kpos = torch.cat([ring_pos.expand(B, W), qpos], dim=1)               # [B, W+S]
+    k_all = torch.cat([cache["k"].to(k.dtype), k], dim=1)
+    v_all = torch.cat([cache["v"].to(v.dtype), v], dim=1)
+    mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None]) \
+        & (kpos[:, None, :] > qpos[:, :, None] - W)
+    out = attn_lib._sdpa(q, k_all, v_all, mask[:, None], cfg.attn_logit_softcap)
+
+    # commit the trailing min(S, W) chunk tokens to the ring
+    Wp = min(S, W)
+    tail_slot = torch.remainder(qpos[:, S - Wp:], W)                     # [B, Wp]
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, Wp)
+    ck = cache["k"].index_put((bidx, tail_slot), k[:, S - Wp:].to(cache["k"].dtype))
+    cv = cache["v"].index_put((bidx, tail_slot), v[:, S - Wp:].to(cache["v"].dtype))
+    return out.reshape(B, S, -1) @ p["wo"], {"k": ck, "v": cv}
+
+
+__all__ = ["apply_block", "group_params", "init_cache", "tail_params"]

@@ -23,9 +23,12 @@ tick through ``lm.prefill_chunk``, at most ``prefill_chunks_per_tick`` chunks
 a tick, interleaved with decode ticks; ``prefill_adaptive`` drains whole
 jobs on ticks where no slot is decoding).  Under ``use_pallas`` every
 one-shot prefill runs the model's kernel once per layer (``lstm_seq``,
-``ssm_scan`` or ``flash_attention``); chunks run ``lstm_seq`` and
-``ssm_scan`` too, while attention chunks attend over the cache in plain
-PyTorch, as the reference's do.
+``ssm_scan`` or ``flash_attention``, with gemma3's window on its local
+layers); chunks run ``lstm_seq`` and ``ssm_scan`` too, while attention
+chunks attend over the cache in plain PyTorch, as the reference's do.
+Cache leaves keep their slot and sequence axes where :data:`CACHE_AXES`
+says (a tail block's leaves have no ``G`` axis), and every function that
+writes or slices a slot reads them there.
 
 The radix prefix cache (``prefix_cache_bytes``) stores chunk-boundary and
 prompt-end states on the server's device: a full hit splices the stored
@@ -67,54 +70,83 @@ PyTree = Any
 DEFAULT_BLOCK_K = 8
 
 
-_SEQ_LEAVES = ("k", "v")     # the full-attention KV leaves (MLA's are not ported)
+_SEQ_LEAVES = ("k", "v")     # the attention KV leaves (MLA's are not ported)
+
+# Where a cache leaf keeps its slot and sequence axes, by the subtree it is
+# in: per-group leaves are stacked on a leading G axis, tail leaves are not.
+CACHE_AXES = {"groups": (1, 2), "tail": (0, 1)}
 
 
-def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int) -> PyTree:
+def _slot_major(caches: PyTree, *others: PyTree):
+    """Yield ``(leaf name, view, *views of the same leaf in others)`` for
+    every leaf of ``caches``, each view laid out ``[G, slot, seq, ...]``
+    (:data:`CACHE_AXES`: a tail leaf gets a leading axis of 1).  ``others``
+    are walked by ``caches``' keys.  The views share storage with the
+    leaves, so an in-place write through one is a write to the cache."""
+
+    def walk(trees, lead, name):
+        if isinstance(trees[0], dict):
+            for k in trees[0]:
+                yield from walk([t[k] for t in trees], lead, k)
+        else:
+            yield (name, *(t if lead else t.unsqueeze(0) for t in trees))
+
+    for top in caches:
+        yield from walk([caches[top], *(o[top] for o in others)],
+                        CACHE_AXES[top][0] == 1, top)
+
+
+def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int,
+                 max_seq: int | None = None) -> PyTree:
     """Insert a B=1 prefill state into batch slot ``b`` of the server cache.
 
-    A recurrent carry (``h``/``c`` of ``[G, 1, H]`` → row ``b`` of
-    ``[G, B, H]``) and a Mamba-1 state (``h [G, 1, DI, N]``, ``conv
-    [G, 1, k-1, DI]``) have no sequence axis, so admission is a pure
-    batch-row write and never disturbs other slots.  A full-attention KV
-    leaf carries one: a one-shot prefill's ``[G, 1, L, KV, hd]`` goes
-    left-aligned into ``[G, B, S_max, KV, hd]`` (positions ``0 .. L-1`` of
-    row ``b``); a chunked prefill's ``max_seq``-long B=1 cache is a batch
-    row like the others.  A source longer than the destination raises:
+    Every leaf is handled with its slot and sequence axes from
+    :data:`CACHE_AXES` (axes 1 and 2 under ``"groups"``, 0 and 1 under
+    ``"tail"``).  A recurrent carry (``h``/``c``) and a Mamba-1 state
+    (``h``, ``conv``) have no sequence axis, so admission is a pure slot
+    write and never disturbs other slots.  An attention KV leaf carries one:
+    a one-shot prefill's ``L`` positions go left-aligned into the slot's
+    row (positions ``0 .. L-1``); a chunked prefill's B=1 cache, already in
+    the server's layout, is a slot row like the others.  A source longer
+    than the destination wraps only into a sliding-window ring buffer, a
+    destination shorter than ``max_seq``: its last ``W`` positions go to
+    slot ``p mod W``.  Against a full-attention destination it raises:
     wrapping a full cache would overwrite early positions with late ones
-    while the causal mask still exposes every position.  Sliding-window
-    ring buffers, the only caches that may wrap, are not ported yet (gemma3,
-    ROADMAP.md Queue 1 item 8).  The destination tensors are updated in
+    while the causal mask still exposes every position.
+
+    The tail caches are spliced too.  Here the port departs from the
+    reference on purpose: the reference's ``splice_cache`` matches tail
+    leaves, which have no ``G`` axis, with neither of its branches and
+    leaves them untouched, so its server decodes gemma3 from empty tail
+    rings (ROADMAP.md, Queue 3).  The destination tensors are updated in
     place; the returned tree holds the same tensors.
     """
-
-    def one(name, dst, src):
-        if src.ndim >= 3 and dst.ndim == src.ndim and src.shape[2] != dst.shape[2] \
+    for name, dst, src in _slot_major(caches, prefill_caches):
+        if src.dim() >= 3 and dst.dim() == src.dim() and src.shape[2] != dst.shape[2] \
                 and name in _SEQ_LEAVES:
             # sequence-bearing cache: [G, 1, L, ...] -> [G, B, S_dst, ...]
             L, S_dst = src.shape[2], dst.shape[2]
-            if L > S_dst:
+            if L <= S_dst:
+                dst[:, b, :L] = src[:, 0].to(dst.dtype)
+                continue
+            if max_seq is None or S_dst >= max_seq:
                 raise ValueError(
                     f"splice_cache: prompt of length {L} overflows the full-attention "
                     f"cache leaf '{name}' (S_max={S_dst}); admission must reject or "
-                    "truncate it (ring-buffer wrap for sliding windows is not ported: "
-                    "ROADMAP.md Queue 1 item 8)")
-            dst[:, b, :L] = src[:, 0].to(dst.dtype)
-            return dst
-        if src.ndim == dst.ndim and src.shape[1] == 1 and src.shape[2:] == dst.shape[2:]:
+                    "truncate it — only sliding-window ring buffers may wrap")
+            # ring buffer (sliding window): the last W positions, p -> p mod W
+            W = S_dst
+            slots = torch.remainder(torch.arange(L - W, L, device=dst.device), W)
+            dst[:, b, slots] = src[:, 0, L - W:].to(dst.dtype)
+            continue
+        if src.dim() == dst.dim() and src.shape[1] == 1 and src.shape[2:] == dst.shape[2:]:
             dst[:, b] = src[:, 0].to(dst.dtype)
-            return dst
+            continue
         raise NotImplementedError(
             f"splice_cache: source {tuple(src.shape)} → destination "
-            f"{tuple(dst.shape)} of leaf '{name}' is neither a batch-row state "
-            "nor a left-aligned KV prefix")
-
-    def walk(dst, src, name=""):
-        if isinstance(dst, dict):
-            return {key: walk(dst[key], src[key], key) for key in dst}
-        return one(name, dst, src)
-
-    return walk(caches, prefill_caches)
+            f"{tuple(dst.shape)} of leaf '{name}' is neither a slot-row state "
+            "nor a left-aligned or ring-wrapped KV prefix")
+    return caches
 
 
 @dataclasses.dataclass
@@ -407,10 +439,11 @@ class DecodeServer:
         return True
 
     def _slot_leaves(self, floating: bool = False) -> list[torch.Tensor]:
-        """Cache leaves whose axis 1 is the slot axis."""
-        return [leaf for leaf in tree_leaves(self.caches)
-                if leaf.dim() >= 2 and leaf.shape[1] == self.B
-                and (leaf.is_floating_point() or not floating)]
+        """Every cache leaf as a view whose axis 1 is the slot axis
+        (:data:`CACHE_AXES`; a tail leaf gets a leading axis of 1), so the
+        tail's rings are poisoned and scrubbed with the groups' leaves."""
+        return [view for _, view in _slot_major(self.caches)
+                if view.is_floating_point() or not floating]
 
     def _poison_slot(self, b: int, mode: str = "nan") -> None:
         """Write NaN/Inf into slot ``b``'s float cache rows, in place: the
@@ -590,23 +623,26 @@ class DecodeServer:
                   resumable=aligned)
 
     def _slice_prefix(self, caches: PyTree, p: int) -> PyTree:
-        """Full-attention KV leaves trimmed to their first ``p`` positions,
-        so a stored checkpoint costs O(prefix), not O(max_seq); recurrent
-        and Mamba-1 states have no sequence axis and are stored whole."""
+        """Full-attention KV leaves trimmed to their first ``p`` positions
+        along their sequence axis (:data:`CACHE_AXES`), so a stored
+        checkpoint costs O(prefix), not O(max_seq); sliding-window rings
+        shorter than ``max_seq`` and recurrent and Mamba-1 states are
+        stored whole."""
 
-        def walk(tree, name=""):
+        def walk(tree, seq_axis, name):
             if isinstance(tree, dict):
-                return {k: walk(v, k) for k, v in tree.items()}
-            if tree.dim() >= 3 and name in _SEQ_LEAVES and tree.shape[2] == self.S:
-                return tree[:, :, :p]
+                return {k: walk(v, seq_axis, k) for k, v in tree.items()}
+            if name in _SEQ_LEAVES and tree.dim() > seq_axis and tree.shape[seq_axis] == self.S:
+                return tree.narrow(seq_axis, 0, p)
             return tree
 
-        return walk(caches)
+        return {top: walk(sub, CACHE_AXES[top][1], top) for top, sub in caches.items()}
 
     def _inflate_entry(self, entry) -> PyTree:
         """A stored checkpoint re-expanded into a fresh B=1, ``max_seq``
         cache (a copy: the stored tensors are only read)."""
-        return splice_cache(lm.init_cache(self.cfg, 1, self.S, self.device), entry.caches, 0)
+        return splice_cache(lm.init_cache(self.cfg, 1, self.S, self.device), entry.caches, 0,
+                            self.S)
 
     def _admit(self) -> None:
         """Fill free slots from the scheduler.  Admission is a prefix-cache
@@ -633,7 +669,7 @@ class DecodeServer:
                 full = next((e for e in candidates
                              if e.length == plen and e.logits is not None), None)
                 if full is not None:
-                    self.caches = splice_cache(self.caches, full.caches, b)
+                    self.caches = splice_cache(self.caches, full.caches, b, self.S)
                     spec = self._fire("prefix.splice")
                     if spec is not None:
                         # a corrupted checkpoint splice: caught downstream by
@@ -672,7 +708,7 @@ class DecodeServer:
                 logits, pcaches = self._run_prefill(lm.prefill, self._tokens([req.prompt]))
             self._m_prompt_steps.inc(plen)
             self._tick_prompt_steps += plen
-            self.caches = splice_cache(self.caches, pcaches, b)
+            self.caches = splice_cache(self.caches, pcaches, b, self.S)
             if pc is not None:
                 pc.insert(req.prompt, pcaches, logits=logits[0], resumable=False)
             self._start_request(req, b, logits[0].float().cpu().numpy())
@@ -703,7 +739,7 @@ class DecodeServer:
             self._cache_boundary(job)
             if job.pos >= plen:
                 self._jobs.remove(job)
-                self.caches = splice_cache(self.caches, job.caches, job.slot)
+                self.caches = splice_cache(self.caches, job.caches, job.slot, self.S)
                 self.reserved[job.slot] = False
                 self._start_request(job.req, job.slot, job.logits[0].float().cpu().numpy())
             else:

@@ -2,8 +2,10 @@
 ``lstm_seq``, the generated stage kernel (``codegen_stage``), ``tanh_lut``,
 ``ssm_scan``, ``int8_matmul`` and ``flash_attention``; the bit path
 (rtlsim, the golden model, the analyzer, the Verilog emission) on the card
-against the same calls on the CPU, word for word; and the Fig. 10 tuner and
-the chaos suite on the card.
+against the same calls on the CPU, word for word; the Fig. 10 tuner and
+the chaos suite on the card; and gemma3's sliding-window layers, tail and
+ring-buffer splice and internlm2 through ``flash_attention`` and the
+server's drivers.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -1053,3 +1055,167 @@ def test_chaos_suite_passes_on_the_card(cuda, arch):
     assert doc["passed"] and doc["all_classes_hit"] and not failed, failed
     assert check_chaos_doc(doc) == []
     assert counter.launches >= 1
+
+
+# ---------------------------------------------------------------------------
+# gemma3 (sliding-window layers, the unstacked tail, ring-buffer caches) and
+# internlm2 on the card
+# ---------------------------------------------------------------------------
+
+GEMMA_WIDE = dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, vocab=512,
+                  sliding_window=96)
+
+
+def _gemma3(cuda, use_pallas=False, **over):
+    """gemma3 at 14 layers (two 5:1 groups and the 2-layer tail), random
+    weights from a seed on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config("gemma3-27b"), n_layers=14,
+                              use_pallas=use_pallas, **over)
+    return cfg, lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+
+
+def _plain_greedy(cfg, params, prompt, n, max_seq, dev):
+    """The model's greedy loop on the plain path: the prompt as one chunk
+    from a fresh cache, then decode steps (no server, no splice)."""
+    from repro_torch.models import lm
+
+    pcfg = dataclasses.replace(cfg, use_pallas=False)
+    caches = lm.init_cache(pcfg, 1, max_seq, dev)
+    lg, caches = lm.prefill_chunk(params, pcfg, torch.as_tensor([prompt], device=dev), caches, 0)
+    out = [int(lg[0].argmax())]
+    while len(out) < n:
+        lg, caches = lm.decode_step(params, pcfg, torch.as_tensor([[out[-1]]], device=dev),
+                                    caches, len(prompt) + len(out) - 1)
+        out.append(int(lg[0].argmax()))
+    return out
+
+
+@pytest.mark.parametrize("over,S", [({}, 40), (GEMMA_WIDE, 200)], ids=["smoke_w16", "wide_w96"])
+def test_gemma3_use_pallas_prefill_matches_plain_path(cuda, over, S):
+    """14 flash_attention calls a prefill, the 12 local ones windowed; the
+    prompt is longer than the window (several 64-key tiles in the wide case)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm
+
+    cfg, params = _gemma3(cuda, **over)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, S)), device=cuda)
+    lg_p, c_p = lm.prefill(params, cfg, toks)
+    fa = ops.flash_attention
+    fa.calls = fa.window_calls = 0
+    lg_k, c_k = lm.prefill(params, dataclasses.replace(cfg, use_pallas=True), toks)
+    assert (fa.calls, fa.window_calls) == (14, 12)
+    torch.testing.assert_close(lg_k, lg_p, atol=1e-4, rtol=1e-4)
+    for top in ("groups", "tail"):
+        for name, leaves in c_p[top].items():
+            _close(c_k[top][name].values(), leaves.values(), 1e-4)
+
+
+def test_internlm2_use_pallas_prefill_matches_plain_path(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config("internlm2-20b")
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (1, 70)), device=cuda)
+    lg_p, _ = lm.prefill(params, cfg, toks)
+    ops.flash_attention.calls = 0
+    lg_k, _ = lm.prefill(params, dataclasses.replace(cfg, use_pallas=True), toks)
+    assert ops.flash_attention.calls == cfg.n_layers
+    torch.testing.assert_close(lg_k, lg_p, atol=1e-5, rtol=1e-5)
+
+
+def test_ring_splice_on_the_card_equals_the_cpu(cuda):
+    """A one-shot prefill's 37 positions spliced into rings of 16 (groups
+    and tail) and a full-attention leaf of 40: the card's slots equal the
+    CPU's bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.runtime import splice_cache
+
+    cfg = dataclasses.replace(get_smoke_config("gemma3-27b"), n_layers=14)
+    gen = torch.Generator().manual_seed(5)
+    dst = lm.init_cache(cfg, 3, 40, "cpu")
+    src = lm.init_cache(cfg, 1, 37, "cpu")       # every leaf 37 positions long
+    src["groups"] = {n: {k: torch.randn(2, 1, 37, 2, 16, generator=gen) for k in ("k", "v")}
+                     for n in src["groups"]}
+    src["tail"] = {n: {k: torch.randn(1, 37, 2, 16, generator=gen) for k in ("k", "v")}
+                   for n in src["tail"]}
+    for top in dst:
+        for leaves in dst[top].values():
+            for t in leaves.values():
+                t.normal_(generator=gen)
+    on_card = lambda tree: {top: {n: {k: t.to(cuda) for k, t in lv.items()}  # noqa: E731
+                                  for n, lv in sub.items()} for top, sub in tree.items()}
+    want = splice_cache(on_card(dst), on_card(src), 1, 40)    # card
+    got = splice_cache(dst, src, 1, 40)                       # CPU
+    for top in got:
+        for n, leaves in got[top].items():
+            for k, t in leaves.items():
+                assert torch.equal(want[top][n][k].cpu(), t)
+    ring = got["tail"]["t0_attn_local"]["k"]
+    slots = torch.arange(21, 37) % 16
+    assert torch.equal(ring[1, slots], src["tail"]["t0_attn_local"]["k"][0, 21:])
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_gemma3_drivers_give_the_plain_greedy_tokens_on_the_card(cuda, use_pallas):
+    """Prompts either side of W = 16, decode past it, two slots: step(),
+    step_block(), and chunked step() with the prefix cache twice (the second
+    pass all hits) give equal tokens, equal to the plain greedy loop; the
+    kernel runs 14 times a one-shot prefill and never in a chunk."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.runtime import DecodeServer, Request
+
+    cfg, params = _gemma3(cuda, use_pallas=use_pallas)
+    rng = np.random.default_rng(4)
+    traffic = [([int(t) for t in rng.integers(1, cfg.vocab, n)], m)
+               for n, m in ((20, 12), (7, 20), (33, 8), (16, 10), (17, 14))]
+
+    def run(srv, block=False, uid0=0):
+        ops.flash_attention.calls = 0
+        for i, (p, m) in enumerate(traffic):
+            srv.submit(Request(uid=uid0 + i, prompt=p, max_new_tokens=m))
+        done = srv.run_until_drained(persistent=block)
+        return ({r.uid - uid0: list(r.out_tokens) for r in done if r.uid >= uid0},
+                ops.flash_attention.calls)
+
+    mk = lambda **kw: DecodeServer(cfg, params, num_slots=2, max_seq=64, block_k=4,  # noqa: E731
+                                   device=cuda, **kw)
+    step, c_step = run(mk())
+    block, c_block = run(mk(), block=True)
+    srv = mk(prefill_chunk=4, prefix_cache_bytes=64 << 20)
+    chunked, c_chunk = run(srv)
+    again, _ = run(srv, uid0=100)
+    assert srv.stats()["prefix_cache"]["hits"] == len(traffic)
+    assert step == block == chunked == again
+    assert c_step == c_block == (14 * len(traffic) if use_pallas else 0) and c_chunk == 0
+    for i, (p, m) in enumerate(traffic):
+        assert step[i] == _plain_greedy(cfg, params, p, m, 64, cuda), i
+
+
+def test_gemma3_quarantined_slot_is_scrubbed_on_the_card(cuda):
+    """NaN in every cache row of a live slot, tail rings included: the slot
+    is quarantined and scrubbed, and the next request in it (shorter than
+    the window) gives the plain greedy loop's tokens."""
+    from repro_torch.runtime import DecodeServer, Request
+
+    cfg, params = _gemma3(cuda, use_pallas=True)
+    srv = DecodeServer(cfg, params, num_slots=2, max_seq=64, device=cuda)
+    srv.submit(Request(uid=0, prompt=list(range(1, 21)), max_new_tokens=30))
+    srv.submit(Request(uid=1, prompt=list(range(3, 12)), max_new_tokens=30))
+    srv.step()
+    b = [r.uid if r is not None else None for r in srv.slot_req].index(0)
+    srv._poison_slot(b)
+    assert bool(torch.isnan(srv.caches["tail"]["t1_attn_local"]["v"][b]).all())
+    srv.step()
+    assert srv.quarantined[b]
+    prompt = [7, 3, 9, 1, 4, 4]
+    srv.submit(Request(uid=2, prompt=prompt, max_new_tokens=12))
+    done = {r.uid: r for r in srv.run_until_drained()}
+    assert done[0].finish_reason == "error:nonfinite"
+    assert done[2].finish_reason == "max_tokens"
+    assert done[2].out_tokens == _plain_greedy(cfg, params, prompt, 12, 64, cuda)
