@@ -57,8 +57,9 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    kernel cases in fp32 and bf16, S != T, S = T = 1, rows that see no key,
    hd 128 with a 1024 window), and its time at two ``smollm-135m`` layers
    (64 and 256 tokens), one ``phi4-mini-3.8b`` layer, gemma3's local and
-   global layers and one ``internlm2-20b`` layer (2048 tokens each), each
-   held to the fp32 bar, beside the plain
+   global layers, one ``internlm2-20b`` layer and one application of
+   ``zamba2-1.2b``'s shared block (2048 tokens each), each held to the
+   fp32 bar, beside the plain
    version's, ``F.scaled_dot_product_attention``'s, its bound on the
    tensor cores in 3xTF32 and the fp32-FMA bound (``fma_bound_ms``), with
    its q tile, the key shares the host chose and its launches per call
@@ -161,6 +162,28 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    head): a 2048-token prefill against the plain path and a ``step()``
    serve of four prompts (17-2048 tokens), each held to the plain loop.
 
+19. serve zamba2 (after phase 18) — ``zamba2-1.2b`` at its published widths
+   and depth, nothing cut (38 blocks: six groups of five Mamba-2 blocks and
+   one application of the shared transformer block, then two Mamba-2
+   blocks; d_model 2048, 64 SSD heads of 64, N 64; the shared block 32/32
+   heads at hd 64, d_ff 8192 GELU-tanh, LoRA rank 128; vocab 32 000;
+   1 026 412 544 fp32 parameters from a seed, with the LoRA B matrices,
+   ``dt_bias``, ``D`` and the conv biases drawn nonzero), ``use_pallas``:
+   nine requests (prompts of 17, 131, 512, 1024, 1031, 2048 and 4096
+   tokens, two of 1088 sharing a 1024-token prefix; 131 and 1031 run the
+   SSD in chunks of 1), 32 new tokens each, 4 slots, ``max_seq`` 4224,
+   under one-shot ``step()``, ``step_block()`` and chunked ``step()``
+   (chunk 256) with a prefix cache sized to hold every checkpoint, twice
+   (the second pass all full hits): equal tokens across the four runs, the
+   131-, 1031-, 2048-token and one shared-prefix request equal to the plain
+   greedy loop, ``flash_attention`` 6 calls a one-shot prefill and none in
+   a chunk, each distinct length's prefill logits within 1e-5 of max
+   |logit| of the plain path with its ms, transient memory and SSD chunk;
+   adaptive prefill under ``step_block()`` with the cache and chunked
+   prefill under ``AsyncServer``, each with ``step()``'s tokens; ``python
+   -m repro_torch.launch.serve --arch zamba2-1.2b`` as a subprocess; then
+   a device-only profile of ``step()`` on the first four requests.
+
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
 seconds.  The script imports nothing of JAX and nothing of the JAX package.
@@ -255,7 +278,7 @@ GEMMA_LENGTHS = (17, 512, 1023, 1024, 1025, 1537, 2048)
 GEMMA_SHARED = (1024, 64)
 GEMMA_CROSS = (1000, 64)
 GEMMA_NEW = 32
-GEMMA_SLOTS = 4
+SERVE_SLOTS = 4
 GEMMA_MAX_SEQ = 2112
 GEMMA_CHUNK = 256
 GEMMA_PREFIX_BYTES = 12 << 30
@@ -263,6 +286,21 @@ GEMMA_PREFIX_BYTES = 12 << 30
 INTERNLM_LAYERS = 4
 INTERNLM_LENGTHS = (17, 256, 1024, 2048)
 INTERNLM_NEW = 16
+
+# the serve_zamba2 phase: zamba2-1.2b at its published widths and depth,
+# nothing cut.  Prompts either side of the SSD chunk of 128 (131 and 1031
+# are prime, so their one-shot scans run chunks of 1; 512-4096 run chunks
+# of 128), two sharing a 1024-token prefix; the prefix cache's budget is
+# computed from the checkpoints the chunked pass stores
+# (``checkpoint_bytes``); prefill logits held to 1e-5 of max |logit|; the
+# profile's step() run serves the first four prompts
+ZAMBA_LENGTHS = (17, 131, 512, 1024, 1031, 2048, 4096)
+ZAMBA_SHARED = (1024, 64)
+ZAMBA_NEW = 32
+ZAMBA_MAX_SEQ = 4224
+ZAMBA_CHUNK = 256
+ZAMBA_LOGITS_RTOL = 1e-5
+ZAMBA_PROFILED = 4
 
 PHASE_T0 = [time.perf_counter()]
 
@@ -1112,33 +1150,37 @@ def tune_chaos(dev, card: str, T: int = BIT_T) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 18: serve_gemma3 (and one internlm2-20b prefill and serve)
+# phases 18 and 19: serve_gemma3 (and one internlm2-20b prefill and serve),
+# serve_zamba2
 # ---------------------------------------------------------------------------
 
-def gemma3_traffic(vocab: int, lengths=GEMMA_LENGTHS, shared=GEMMA_SHARED,
-                   cross=GEMMA_CROSS, new=GEMMA_NEW, seed: int = 0):
+def long_prompt_traffic(vocab: int, lengths=GEMMA_LENGTHS, shared=GEMMA_SHARED,
+                        cross=GEMMA_CROSS, new=GEMMA_NEW, seed: int = 0):
     """The phase's requests as ``(prompt, max_new_tokens)``: one seeded
-    prompt per length of ``lengths`` (either side of the window), two
-    sharing a ``shared[0]``-token prefix with ``shared[1]``-token suffixes,
-    and one of ``cross[0]`` tokens whose ``cross[1]`` new tokens cross the
-    window's edge on the ring."""
+    prompt per length of ``lengths``, two sharing a ``shared[0]``-token
+    prefix with ``shared[1]``-token suffixes, and (unless ``cross`` is
+    None) one of ``cross[0]`` tokens whose ``cross[1]`` new tokens cross
+    gemma3's window edge on the ring."""
     rng = np.random.default_rng(seed)
     draw = lambda n: [int(t) for t in rng.integers(1, vocab, n)]  # noqa: E731
     out = [(draw(n), new) for n in lengths]
     prefix = draw(shared[0])
     out += [(prefix + draw(shared[1]), new) for _ in range(2)]
-    out.append((draw(cross[0]), cross[1]))
+    if cross is not None:
+        out.append((draw(cross[0]), cross[1]))
     return out
 
 
 def fa_per_prefill(mcfg, n: int, dev) -> tuple[int, int, int]:
     """``flash_attention`` calls, windowed calls and CUDA launches of one
-    one-shot prefill of ``n`` tokens: one call per attention layer, the
-    local layers' with the window, each 1 launch or 2 where the host splits
-    the key axis.  Launches are 0 off the card."""
+    one-shot prefill of ``n`` tokens: one call per attention layer (``attn``,
+    ``attn_local``, ``shared_attn``), the local layers' with the window, each
+    1 launch or 2 where the host splits the key axis.  Launches are 0 off
+    the card."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
-    kinds = list(mcfg.layer_pattern) * mcfg.n_groups + list(mcfg.tail_pattern)
+    kinds = [k for k in list(mcfg.layer_pattern) * mcfg.n_groups + list(mcfg.tail_pattern)
+             if k in ("attn", "attn_local", "shared_attn")]
     windows = [mcfg.sliding_window if k == "attn_local" else 0 for k in kinds]
     launches = 0
     if dev.type == "cuda":
@@ -1169,24 +1211,39 @@ def plain_greedy(mcfg, params, prompt, n: int, max_seq: int, dev) -> list[int]:
     return out
 
 
-def prefill_against_plain(mcfg, params, prompts, dev, card: str) -> tuple[float, int, int, int]:
+def prefill_against_plain(mcfg, params, prompts, dev, card: str,
+                          rtol: float = DENSE_LOGITS_RTOL) -> tuple[float, int, int, int, int]:
     """Each prompt's one-shot prefill logits through the kernel against
-    ``use_pallas=False``, relative to the largest |logit|; the kernel's
-    calls, windowed calls and launches held to ``fa_per_prefill`` per
-    prompt.  Returns the largest gap and the counts."""
+    ``use_pallas=False``, within ``rtol`` of the largest |logit|; the
+    kernel's calls, windowed calls and launches held to ``fa_per_prefill``
+    per prompt; each prefill's ms, the memory the kernel path's prefill
+    allocates above what was allocated before it (``transient_gb``) and,
+    for a Mamba-2 model, the SSD chunk its length runs.  Returns the
+    largest gap, the counts, and the peak allocation since the caller's
+    last reset of the peak (each prefill resets it)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import lm
+    from repro_torch.models.ssm import SSD_CHUNK, ssd_chunk_size
 
-    worst, n_calls, n_win, n_launch = 0.0, 0, 0, 0
+    worst, n_calls, n_win, n_launch, peak = 0.0, 0, 0, 0, 0
     for prompt in prompts:
         toks = torch.as_tensor([prompt], device=dev)
         sync(dev)
+        extra = {}
+        if "mamba2" in mcfg.layer_pattern:
+            extra["ssd_chunk"] = ssd_chunk_size(len(prompt), mcfg.ssm_chunk or SSD_CHUNK)
+        if dev.type == "cuda":
+            peak = max(peak, torch.cuda.max_memory_allocated(dev))
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         fa = fa_ops.flash_attention
         fa.calls = fa.window_calls = fa.launches = 0
         t0 = time.perf_counter()
         lg_k, _ = lm.prefill(params, mcfg, toks)
         sync(dev)
         k_ms = (time.perf_counter() - t0) * 1e3
+        if dev.type == "cuda":
+            extra["transient_gb"] = f"{(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.2f}"
         calls, win, launches = fa.calls, fa.window_calls, fa.launches
         t0 = time.perf_counter()
         lg_p, _ = lm.prefill(params, dataclasses.replace(mcfg, use_pallas=False), toks)
@@ -1200,16 +1257,18 @@ def prefill_against_plain(mcfg, params, prompts, dev, card: str) -> tuple[float,
                 f"{mcfg.name} prefill logits of shape {tuple(lg_k.shape)} or non-finite")
         scale = float(lg_p.abs().max())
         gap = float((lg_k - lg_p).abs().max()) / scale
-        require(gap <= DENSE_LOGITS_RTOL,
+        require(gap <= rtol,
                 f"{mcfg.name} use_pallas prefill logits of {len(prompt)} tokens differ from "
                 f"the plain path by {gap:.3e} of max |logit| {scale:.3e}")
         say("prefill_check", arch=mcfg.name, prompt_len=len(prompt),
             flash_attention_calls=calls, window_calls=win, launches=launches,
-            rel_gap=f"{gap:.3e}", rtol_of_max=DENSE_LOGITS_RTOL, prefill_ms_use_pallas=f"{k_ms:.2f}",
-            prefill_ms_plain=f"{p_ms:.2f}", card=repr(card))
+            rel_gap=f"{gap:.3e}", rtol_of_max=rtol, prefill_ms_use_pallas=f"{k_ms:.2f}",
+            prefill_ms_plain=f"{p_ms:.2f}", **extra, card=repr(card))
         worst = max(worst, gap)
         n_calls, n_win, n_launch = n_calls + calls, n_win + win, n_launch + launches
-    return worst, n_calls, n_win, n_launch
+    if dev.type == "cuda":
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+    return worst, n_calls, n_win, n_launch, peak
 
 
 def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: bool = False,
@@ -1217,14 +1276,16 @@ def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: boo
     """Drive ``DecodeServer`` over ``traffic``; returns the tokens by
     request index, the server, and the ``flash_attention`` calls, windowed
     calls and launches of the run (counts set to 0 just before it, read just
-    after).  A one-shot run must call the kernel as ``fa_per_prefill`` says
-    for every prompt; a chunked run never calls it."""
+    after).  The kernel must run as ``fa_per_prefill`` says for every
+    one-shot prefill the server ran: every prompt of a run without
+    chunking, none of a chunked run, those that adaptive prefill admitted
+    uncontended."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.obs import Observability
     from repro_torch.runtime.server import DecodeServer, Request
 
     if srv is None:
-        srv = DecodeServer(mcfg, params, num_slots=GEMMA_SLOTS, max_seq=kw.pop("max_seq"),
+        srv = DecodeServer(mcfg, params, num_slots=SERVE_SLOTS, max_seq=kw.pop("max_seq"),
                            block_k=BLOCK_K, obs=Observability(trace=True), device=dev, **kw)
     srv.reset_stats()
     srv.obs.tracer.reset()
@@ -1248,12 +1309,18 @@ def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: boo
                 f"{mcfg.name} {label}: request {r.uid} ended {r.finish_reason} after "
                 f"{len(r.out_tokens)} tokens")
         toks[r.uid - uid0] = list(r.out_tokens)
-    chunked = srv.prefill_chunk > 0
-    if chunked:
-        want = (0, 0, 0)
-    else:
-        per = [fa_per_prefill(mcfg, len(p), dev) for p, _ in traffic]
-        want = tuple(sum(x[i] for x in per) for i in range(3))
+    # the one-shot prefills the server ran (its prefill_oneshot spans): every
+    # prompt without chunking, none with it, any of them under adaptive
+    # prefill (an uncontended admission takes the one-shot path)
+    oneshot = sorted(ev["args"]["tokens"] for ev in srv.obs.tracer.events()
+                     if ev.get("name") == "prefill_oneshot")
+    if srv.prefill_chunk == 0:
+        require(oneshot == sorted(len(p) for p, _ in traffic),
+                f"{mcfg.name} {label}: one-shot prefills of {oneshot} tokens")
+    elif not srv.prefill_adaptive:
+        require(not oneshot, f"{mcfg.name} {label}: one-shot prefills of {oneshot} tokens")
+    per = [fa_per_prefill(mcfg, n, dev) for n in oneshot]
+    want = tuple(sum(x[i] for x in per) for i in range(3))
     require(counts == want, f"{mcfg.name} {label}: flash_attention calls, windowed calls, "
             f"launches {counts}, not {want}")
     decode_ms = sum(ev["dur"] for ev in srv.obs.tracer.events()
@@ -1263,6 +1330,7 @@ def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: boo
         decode_tok_s=f"{st['decoded_tokens'] / max(decode_ms / 1e3, 1e-9):.1f}",
         prefill_ms_per_prompt=f"{(wall_ms - decode_ms) / len(done):.2f}",
         decode_syncs=st["decode_syncs"], decoded_tokens=st["decoded_tokens"],
+        syncs_per_token=f"{st['decode_syncs'] / max(st['decoded_tokens'], 1):.4f}",
         prompt_steps=st["prefill"]["prompt_steps_computed"],
         chunks=st["prefill"]["chunks_run"], flash_attention_calls=counts[0],
         window_calls=counts[1], launches=counts[2],
@@ -1272,14 +1340,17 @@ def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: boo
     return toks, srv, counts
 
 
-def serve_gemma3(mcfg, params, dev, card: str, traffic, checked, *, max_seq: int = GEMMA_MAX_SEQ,
-                 chunk: int = GEMMA_CHUNK, prefix_bytes: int = GEMMA_PREFIX_BYTES) -> dict:
-    """gemma3's main path: ``traffic`` under one-shot ``step()``,
-    ``step_block()``, and chunked ``step()`` with the prefix cache, twice
-    (the second pass all full hits); equal tokens across every run, the
-    requests at ``checked`` equal to ``plain_greedy``, and every distinct
-    prompt's prefill logits held against the plain path.  Returns the
-    kernel's counts summed over the runs."""
+def serve_long_prompts(mcfg, params, dev, card: str, traffic, checked, *,
+                       max_seq: int = GEMMA_MAX_SEQ, chunk: int = GEMMA_CHUNK,
+                       prefix_bytes: int = GEMMA_PREFIX_BYTES,
+                       rtol: float = DENSE_LOGITS_RTOL) -> dict:
+    """A long-prompt model's main path (gemma3, zamba2): ``traffic`` under
+    one-shot ``step()``, ``step_block()``, and chunked ``step()`` with the
+    prefix cache, twice (the second pass all full hits); equal tokens
+    across every run, the requests at ``checked`` equal to
+    ``plain_greedy``, and every distinct prompt's prefill logits held
+    against the plain path within ``rtol`` of max |logit|.  Returns the
+    kernel's counts summed over the runs and ``step()``'s tokens."""
     total = np.zeros(3, np.int64)
     runs = {}
     with torch.no_grad():
@@ -1316,15 +1387,17 @@ def serve_gemma3(mcfg, params, dev, card: str, traffic, checked, *, max_seq: int
                     f"{mcfg.name}: the served tokens of the {len(prompt)}-token request differ "
                     f"from the plain greedy loop's:\n{runs['step'][i]}\n{want}")
         distinct = list({len(p): p for p, _ in traffic}.values())
-        gap, calls, win, launches = prefill_against_plain(mcfg, params, distinct, dev, card)
+        gap, calls, win, launches, peak = prefill_against_plain(mcfg, params, distinct, dev,
+                                                                card, rtol=rtol)
         total += (calls, win, launches)
     say("serve_check", arch=mcfg.name, path="use_pallas", identical_tokens=True,
         drivers="step,step_block,chunked,chunked_all_hits",
         plain_greedy_equal=",".join(f"{len(traffic[i][0])}+{traffic[i][1]}" for i in checked),
         prefill_lengths=",".join(str(len(p)) for p in distinct), max_rel_gap=f"{gap:.3e}",
-        rtol_of_max=DENSE_LOGITS_RTOL, flash_attention_calls=int(total[0]),
+        rtol_of_max=rtol, flash_attention_calls=int(total[0]),
         window_calls=int(total[1]), launches=int(total[2]), card=repr(card))
-    return {"calls": int(total[0]), "window_calls": int(total[1]), "launches": int(total[2])}
+    return {"calls": int(total[0]), "window_calls": int(total[1]), "launches": int(total[2]),
+            "tokens": runs["step"], "peak_bytes": peak}
 
 
 def serve_internlm2(mcfg, params, dev, card: str, lengths=INTERNLM_LENGTHS,
@@ -1335,7 +1408,7 @@ def serve_internlm2(mcfg, params, dev, card: str, lengths=INTERNLM_LENGTHS,
     rng = np.random.default_rng(1)
     traffic = [([int(t) for t in rng.integers(1, mcfg.vocab, n)], new) for n in lengths]
     with torch.no_grad():
-        gap, calls, win, launches = prefill_against_plain(mcfg, params, [traffic[-1][0]],
+        gap, calls, win, launches, _ = prefill_against_plain(mcfg, params, [traffic[-1][0]],
                                                           dev, card)
         toks, srv, counts = dense_serve(mcfg, params, traffic, "step", dev, card,
                                          max_seq=max_seq)
@@ -1349,6 +1422,150 @@ def serve_internlm2(mcfg, params, dev, card: str, lengths=INTERNLM_LENGTHS,
         flash_attention_calls=calls + counts[0], launches=launches + counts[2], card=repr(card))
     return {"calls": calls + counts[0], "window_calls": win + counts[1],
             "launches": launches + counts[2]}
+
+
+def perturb_hybrid(params, gen: torch.Generator) -> None:
+    """Draw anew, in place, the leaves that the reference initialises to
+    constants and that would hide half of a hybrid block: every
+    ``shared_attn`` block's LoRA ``qB``/``kB``/``vB`` (zero: LoRA would be
+    the identity), every ``mamba2`` block's ``dt_bias`` (Mamba's Δ
+    initialisation, Δ in [1e-3, 1e-1] through the inverse softplus), ``D``
+    (1 + N(0, 0.25)) and conv biases (N(0, 0.25))."""
+    randn = lambda t: torch.randn(t.shape, generator=gen, device=t.device)  # noqa: E731
+    for top in ("groups", "tail"):
+        for name, blk in params.get(top, {}).items():
+            if name.endswith("_shared_attn"):
+                for leaf in ("qB", "kB", "vB"):
+                    t = blk["lora"][leaf]
+                    t.copy_(randn(t) / math.sqrt(t.shape[-2]))
+            elif name.endswith("_mamba2"):
+                m = blk["mamba"]
+                u = torch.rand(m["dt_bias"].shape, generator=gen, device=m["dt_bias"].device)
+                dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+                m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+                m["D"].copy_(1.0 + 0.5 * randn(m["D"]))
+                for leaf in ("conv_b_x", "conv_b_bc"):
+                    m[leaf].copy_(0.5 * randn(m[leaf]))
+
+
+def checkpoint_bytes(mcfg, traffic, chunk: int) -> int:
+    """What the chunked pass's prefix cache stores at most: for every
+    prompt, a checkpoint at each multiple of ``chunk`` below its length and
+    at its end, each the B=1 cache (states whole, full-attention K/V
+    trimmed to the boundary) and its fp32 logits.  A prefix shared by two
+    prompts is counted for each, so the sum bounds the cache's bytes from
+    above.  Sizes come from ``init_cache`` on the meta device."""
+    from repro_torch.models import lm
+    from repro_torch.runtime.prefix_cache import tree_bytes
+
+    one, two = (tree_bytes(lm.init_cache(mcfg, 1, n, "meta")) for n in (1, 2))
+    per_pos, state = two - one, 2 * one - two
+    total = 0
+    for prompt, _ in traffic:
+        for p in [*range(chunk, len(prompt), chunk), len(prompt)]:
+            total += state + p * per_pos + 4 * mcfg.vocab
+    return total
+
+
+def serve_async(srv, traffic) -> dict:
+    """Every request of ``traffic`` at once through ``AsyncServer`` (its
+    ticks on the front-end's tick thread); the tokens by request index."""
+    from repro_torch.runtime import AsyncServer, Request
+
+    async def drive():
+        front = AsyncServer(srv)
+        try:
+            return await asyncio.gather(*(front.generate(Request(
+                uid=i, prompt=list(p), max_new_tokens=n)) for i, (p, n) in enumerate(traffic)))
+        finally:
+            front.close()
+
+    return {r.uid: list(r.out_tokens) for r in asyncio.run(drive())}
+
+
+def serve_zamba2(mcfg, params, dev, card: str, traffic, checked, *,
+                 max_seq: int = ZAMBA_MAX_SEQ, chunk: int = ZAMBA_CHUNK,
+                 profiled: int = ZAMBA_PROFILED) -> dict:
+    """zamba2's main path: ``serve_long_prompts`` with a prefix cache sized
+    by ``checkpoint_bytes`` and the logits bar ``ZAMBA_LOGITS_RTOL``; then
+    adaptive prefill under ``step_block()`` with the cache, and chunked
+    prefill under ``AsyncServer``, each with ``step()``'s tokens; ``python
+    -m repro_torch.launch.serve --arch zamba2-1.2b`` (its smoke config) as
+    a subprocess; and one ``step()`` serve of the first ``profiled``
+    requests under torch.profiler (the device only): busy ms, idle share
+    over the run's wall and the top five kernels.  Returns the kernel's
+    counts and the phase's peak allocation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import DecodeServer
+
+    budget = checkpoint_bytes(mcfg, traffic, chunk)
+    say("serve_budget", arch=mcfg.name, prefix_cache_bytes=budget,
+        why="every chunk-boundary and prompt-end checkpoint of the cold chunked pass")
+    out = serve_long_prompts(mcfg, params, dev, card, traffic, checked, max_seq=max_seq,
+                             chunk=chunk, prefix_bytes=budget, rtol=ZAMBA_LOGITS_RTOL)
+    with torch.no_grad():
+        toks, srv, _ = dense_serve(mcfg, params, traffic,
+                                   f"step_block+adaptive+prefill_chunk={chunk}+cache", dev,
+                                   card, block=True, max_seq=max_seq, prefill_chunk=chunk,
+                                   prefill_adaptive=True, prefix_cache_bytes=budget)
+        del srv
+        require(toks == out["tokens"],
+                f"{mcfg.name}: adaptive prefill's tokens differ from step()'s")
+        srv = DecodeServer(mcfg, params, num_slots=SERVE_SLOTS, max_seq=max_seq,
+                           block_k=BLOCK_K, prefill_chunk=chunk, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        toks = serve_async(srv, traffic)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        st = srv.stats()
+        del srv
+    require(toks == out["tokens"], f"{mcfg.name}: AsyncServer's tokens differ from step()'s")
+    say("serve", arch=mcfg.name, driver=f"AsyncServer+prefill_chunk={chunk}",
+        requests=len(toks), wall_ms=f"{wall_ms:.1f}", decoded_tokens=st["decoded_tokens"],
+        syncs_per_token=f"{st['decode_syncs'] / max(st['decoded_tokens'], 1):.4f}",
+        identical_tokens=True, card=repr(card))
+    launch = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", mcfg.name,
+         "--prefill-chunk", "16", "--prefill-adaptive", "--prefix-cache", "64",
+         "--persistent", "--device", dev.type],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    lines = (launch.stdout + launch.stderr).splitlines()
+    for ln in lines[-3:]:
+        say("entry_point", command=f"launch.serve --arch {mcfg.name}", line=repr(ln))
+    require(launch.returncode == 0 and any("served 16 requests" in ln for ln in lines),
+            f"python -m repro_torch.launch.serve --arch {mcfg.name} exited {launch.returncode}")
+    sub = traffic[:profiled]
+    act = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
+    with torch.no_grad(), profile(activities=[act]) as prof:
+        sync(dev)
+        t0 = time.perf_counter()
+        toks, srv, _ = dense_serve(mcfg, params, sub, "step(profiled)", dev, card,
+                                   max_seq=max_seq)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del srv
+    require(toks == {i: out["tokens"][i] for i in range(len(sub))},
+            f"{mcfg.name}: the profiled step() run's tokens differ")
+    kind = torch.autograd.DeviceType.CUDA if dev.type == "cuda" else torch.autograd.DeviceType.CPU
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == kind and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    say("profile", arch=mcfg.name, driver="step",
+        prompts=",".join(str(len(p)) for p, _ in sub), wall_ms=f"{wall_ms:.1f}",
+        device_busy_ms=f"{busy_ms:.1f}" if kernels else "not_measured",
+        device_idle_share=f"{1 - busy_ms / wall_ms:.3f}" if kernels else "not_measured",
+        card=repr(card))
+    for e in kernels[:5]:
+        say("profile_top", arch=mcfg.name, kernel=repr(e.key[:70]), calls=e.count,
+            device_ms=f"{e.self_device_time_total / 1e3:.2f}",
+            share=f"{e.self_device_time_total / 1e3 / busy_ms:.3f}")
+    out["peak_bytes"] = max(out["peak_bytes"], torch.cuda.max_memory_allocated(dev)
+                            if dev.type == "cuda" else 0)
+    return {k: out[k] for k in ("calls", "window_calls", "launches", "peak_bytes")}
 
 
 def main() -> int:
@@ -2089,7 +2306,8 @@ def main() -> int:
                     ok=True)
         # times at (a') and (a) one smollm-135m layer of a 64- and a 256-token
         # prompt, (b) one phi4-mini-3.8b layer of 2048 tokens, (c) gemma3's
-        # local-layer shape, (d) its global layer, (e) one internlm2-20b layer
+        # local-layer shape, (d) its global layer, (e) one internlm2-20b layer,
+        # (f) one application of zamba2-1.2b's shared block (MHA, hd 64)
         attn_time = {}
         for name, c in (("a1_smollm_S64", dict(B=1, S=64, T=64, H=9, KV=3, hd=64, window=0)),
                         ("a_smollm_S256", dict(B=1, S=256, T=256, H=9, KV=3, hd=64, window=0)),
@@ -2099,7 +2317,9 @@ def main() -> int:
                         ("d_gemma3_global_S2048",
                          dict(B=1, S=2048, T=2048, H=32, KV=16, hd=128, window=0)),
                         ("e_internlm2_S2048",
-                         dict(B=1, S=2048, T=2048, H=48, KV=8, hd=128, window=0))):
+                         dict(B=1, S=2048, T=2048, H=48, KV=8, hd=128, window=0)),
+                        ("f_zamba2_shared_S2048",
+                         dict(B=1, S=2048, T=2048, H=32, KV=32, hd=64, window=0))):
             q, k, v = attn_inputs(c)
             w = c["window"]
             shape_err = check_close(f"flash_attention {name}",
@@ -2360,19 +2580,19 @@ def main() -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     g_params = lm.param_count(gparams)
-    traffic = gemma3_traffic(gcfg.vocab)
+    traffic = long_prompt_traffic(gcfg.vocab)
     say("serve_setup", arch=gcfg.name, n_layers=gcfg.n_layers, d_model=gcfg.d_model,
         heads=f"{gcfg.n_heads}/{gcfg.n_kv_heads}", head_dim=gcfg.head_dim, d_ff=gcfg.d_ff,
         vocab=gcfg.vocab, window=gcfg.sliding_window, params=g_params,
         param_gb=f"{4 * g_params / 1e9:.2f}", init_s=f"{init_s:.1f}",
         alloc_gb_before_init=f"{base_alloc / 1e9:.2f}",
-        prompt_lens=",".join(f"{len(p)}+{n}" for p, n in traffic), num_slots=GEMMA_SLOTS,
+        prompt_lens=",".join(f"{len(p)}+{n}" for p, n in traffic), num_slots=SERVE_SLOTS,
         max_seq=GEMMA_MAX_SEQ, block_k=BLOCK_K, chunk=GEMMA_CHUNK,
         prefix_cache_gib=GEMMA_PREFIX_BYTES / 2 ** 30)
     checked = [GEMMA_LENGTHS.index(1025), GEMMA_LENGTHS.index(2048), len(traffic) - 1]
-    gemma_fa = serve_gemma3(gcfg, gparams, dev, card, traffic, checked)
-    say("serve_memory", arch=gcfg.name,
-        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
+    gemma_fa = serve_long_prompts(gcfg, gparams, dev, card, traffic, checked)
+    say("serve_memory", arch=gcfg.name, peak_alloc_gb=f"{gemma_fa['peak_bytes'] / 1e9:.2f}",
+        card=repr(card))
     del gparams
     torch.cuda.empty_cache()
     phase_done("serve_gemma3")
@@ -2390,13 +2610,50 @@ def main() -> int:
         heads=f"{icfg.n_heads}/{icfg.n_kv_heads}", head_dim=icfg.head_dim, d_ff=icfg.d_ff,
         vocab=icfg.vocab, params=i_params, param_gb=f"{4 * i_params / 1e9:.2f}",
         prompt_lens=",".join(map(str, INTERNLM_LENGTHS)), max_new_tokens=INTERNLM_NEW,
-        num_slots=GEMMA_SLOTS, max_seq=GEMMA_MAX_SEQ)
+        num_slots=SERVE_SLOTS, max_seq=GEMMA_MAX_SEQ)
     internlm_fa = serve_internlm2(icfg, iparams, dev, card)
     say("serve_memory", arch=icfg.name,
         peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
     del iparams
     torch.cuda.empty_cache()
     phase_done("serve_internlm2")
+
+    # -- 19. serve zamba2-1.2b at its published widths and depth ----------------
+    zcfg = dataclasses.replace(get_config("zamba2-1.2b"), use_pallas=True)
+    require((zcfg.n_layers, zcfg.d_model, zcfg.d_inner, zcfg.n_mamba_heads, zcfg.mamba_headdim,
+             zcfg.ssm_state, zcfg.d_conv, zcfg.n_groups, zcfg.layer_pattern, zcfg.tail_pattern,
+             zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim, zcfg.d_ff, zcfg.mlp_act,
+             zcfg.gated_mlp, zcfg.shared_attn_lora_rank, zcfg.vocab, zcfg.tie_embeddings)
+            == (38, 2048, 4096, 64, 64, 64, 4, 6, ("mamba2",) * 5 + ("shared_attn",),
+                ("mamba2", "mamba2"), 32, 32, 64, 8192, "gelu", True, 128, 32_000, False),
+            f"zamba2-1.2b is not at its published widths and depth: {zcfg}")
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    zgen = torch.Generator(device=dev).manual_seed(0)
+    zparams = lm.init_params(zcfg, zgen)
+    perturb_hybrid(zparams, zgen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    z_params = lm.param_count(zparams)
+    require(z_params == 1_026_412_544, f"zamba2-1.2b has {z_params} parameters")
+    traffic = long_prompt_traffic(zcfg.vocab, lengths=ZAMBA_LENGTHS, shared=ZAMBA_SHARED,
+                                  cross=None, new=ZAMBA_NEW)
+    say("serve_setup", arch=zcfg.name, n_layers=zcfg.n_layers, d_model=zcfg.d_model,
+        d_inner=zcfg.d_inner, mamba_heads=f"{zcfg.n_mamba_heads}x{zcfg.mamba_headdim}",
+        ssm_state=zcfg.ssm_state, shared_heads=f"{zcfg.n_heads}/{zcfg.n_kv_heads}",
+        head_dim=zcfg.head_dim, d_ff=zcfg.d_ff, lora_rank=zcfg.shared_attn_lora_rank,
+        vocab=zcfg.vocab, params=z_params, param_gb=f"{4 * z_params / 1e9:.2f}",
+        init_s=f"{init_s:.1f}", alloc_gb_before_init=f"{base_alloc / 1e9:.2f}",
+        prompt_lens=",".join(f"{len(p)}+{n}" for p, n in traffic), num_slots=SERVE_SLOTS,
+        max_seq=ZAMBA_MAX_SEQ, block_k=BLOCK_K, chunk=ZAMBA_CHUNK)
+    checked = [ZAMBA_LENGTHS.index(n) for n in (131, 1031, 2048)] + [len(traffic) - 1]
+    zamba_fa = serve_zamba2(zcfg, zparams, dev, card, traffic, checked)
+    say("serve_memory", arch=zcfg.name, peak_alloc_gb=f"{zamba_fa['peak_bytes'] / 1e9:.2f}",
+        card=repr(card))
+    del zparams
+    torch.cuda.empty_cache()
+    phase_done("serve_zamba2")
 
     # -- 15d. the entry points as subprocesses on the card ----------------------
     serve_loadgen_entry_points(card)
@@ -2507,15 +2764,17 @@ def main() -> int:
         # smollm-135m's three serve runs (30 per one-shot prefill, 0 for
         # chunks), its loadgen run (30 per miss), phi4-mini-3.8b's prefill
         # (32), gemma3-27b's serve runs and prefills (14 per one-shot prefill,
-        # 12 of them windowed), internlm2-20b's (4) and the chaos suite (30 per
-        # one-shot prefill); times at shape (a)
+        # 12 of them windowed), internlm2-20b's (4), zamba2-1.2b's (6, its
+        # shared block) and the chaos suite (30 per one-shot prefill); times
+        # at shape (a)
         "launches": (f1 + f2 + f3 + lg_smollm_launches + p_launch + gemma_fa["launches"]
-                     + internlm_fa["launches"] + tc["smollm-135m"]),
+                     + internlm_fa["launches"] + zamba_fa["launches"] + tc["smollm-135m"]),
         "calls": (c1 + c2 + c3 + lg_smollm_calls + p_call + gemma_fa["calls"]
-                  + internlm_fa["calls"] + tc["smollm-135m_calls"]),
+                  + internlm_fa["calls"] + zamba_fa["calls"] + tc["smollm-135m_calls"]),
         "window_calls": gemma_fa["window_calls"],
         "launches_by_model": {"gemma3-27b": gemma_fa["launches"],
-                              "internlm2-20b": internlm_fa["launches"]},
+                              "internlm2-20b": internlm_fa["launches"],
+                              "zamba2-1.2b": zamba_fa["launches"]},
         "max_abs_err": attn_err,
         "ms": attn_time["a_smollm_S256"][0],
         "plain_ms": attn_time["a_smollm_S256"][1],

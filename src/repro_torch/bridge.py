@@ -24,9 +24,12 @@ def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     """The reference's ``lm.init_params`` tree (numpy leaves) → port params
     in ``cfg.p_dtype`` on ``device`` (default: the card).  Any ported block
     kind crosses over leaf for leaf (``b0_recurrent``, ``b0_mamba1``,
-    ``b0_attn`` and ``b0_attn_local`` with their ``attn`` and ``mlp``
-    subtrees), and so do the unstacked ``"tail"`` blocks (``t0_attn_local``)
-    of a config with a ``tail_pattern``."""
+    ``b0_mamba2``, ``b0_attn`` and ``b0_attn_local`` with their ``attn``
+    and ``mlp`` subtrees, ``b*_shared_attn`` with its ``lora``), and so do
+    the unstacked ``"tail"`` blocks (``t0_attn_local``, ``t0_mamba2``) of a
+    config with a ``tail_pattern`` and the ``"shared"`` block of a config
+    whose pattern has ``shared_attn``.  The tree must hold exactly the
+    blocks, tail and shared block that ``cfg`` names, or this raises."""
     dev = resolve_device(device)
     want = {f"b{i}_{kind}" for i, kind in enumerate(cfg.layer_pattern)}
     if set(np_tree["groups"]) != want:
@@ -37,6 +40,11 @@ def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     if got_tail != want_tail:
         raise ValueError(f"tail blocks {sorted(got_tail)} do not match "
                          f"{cfg.name}'s tail pattern {sorted(want_tail)}")
+    want_shared = "shared_attn" in cfg.layer_pattern
+    if ("shared" in np_tree) != want_shared:
+        raise ValueError(f"a 'shared' subtree is {'missing' if want_shared else 'given'}: "
+                         f"{cfg.name}'s pattern {cfg.layer_pattern} "
+                         f"{'has' if want_shared else 'has no'} shared_attn block")
     return tree_map(
         lambda a: torch.as_tensor(np.array(a)).to(device=dev, dtype=cfg.p_dtype),
         np_tree)
@@ -74,9 +82,10 @@ def program_from_jax(np_params: PyTree, spec, device=None):
 
 def cache_from_jax(np_tree: PyTree, device=None) -> PyTree:
     """The reference's decode caches (numpy leaves: recurrent ``h``/``c``,
-    Mamba ``h``/``conv``, attention ``k``/``v``, sliding-window rings; the
-    ``"groups"`` subtree and, with a ``tail_pattern``, the unstacked
-    ``"tail"`` one) → port caches of the same layout, fp32."""
+    Mamba-1 ``h``/``conv``, Mamba-2 ``h`` and the nested ``conv: {x, bc}``,
+    attention ``k``/``v``, sliding-window rings; the ``"groups"`` subtree
+    and, with a ``tail_pattern``, the unstacked ``"tail"`` one) → port
+    caches of the same layout, fp32."""
     dev = resolve_device(device)
     return tree_map(
         lambda a: torch.as_tensor(np.array(a)).to(device=dev, dtype=torch.float32),

@@ -1,9 +1,11 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
-The recurrent (``paper-lstm``), Mamba-1 (``falcon-mamba-7b``) and dense
+The recurrent (``paper-lstm``), Mamba-1 (``falcon-mamba-7b``), dense
 transformer (``smollm-135m``, ``phi4-mini-3.8b``, ``gemma3-27b``,
-``internlm2-20b``) configurations are registered in the port so far; the
-other families of the reference's registry come with their blocks.
+``internlm2-20b``) and hybrid (``zamba2-1.2b``) configurations are
+registered in the port so far; the other families of the reference's
+registry (MoE, MLA, cross-attention, the audio encoder) come with their
+blocks.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ _MODULES = {
     "paper-lstm": "paper_lstm",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "smollm-135m": "smollm_135m",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -2,9 +2,9 @@
 
 The same fields and derived properties as the reference's ``ModelConfig``,
 so that one configuration means the same network in both packages.  The
-recurrent, ssm (Mamba-1) and dense families run in the port so far, but
-``layer_pattern``, ``n_groups`` and ``kv_cache_bytes`` agree with the
-reference for every family.  The two dtype properties return
+recurrent, ssm (Mamba-1), dense and hybrid (Mamba-2 with a shared block)
+families run in the port so far, but ``layer_pattern``, ``n_groups`` and
+``kv_cache_bytes`` agree with the reference for every family.  The two dtype properties return
 ``torch.dtype``s.
 """
 

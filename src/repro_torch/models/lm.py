@@ -1,20 +1,24 @@
 """Top-level language model: embed → groups → tail → head; the port's
 counterpart of ``repro/models/lm.py`` for the families ported so far
-(recurrent, ssm and dense, gemma3's ``tail_pattern`` included; no
+(recurrent, ssm, dense with gemma3's ``tail_pattern``, and hybrid; no
 cross-attention ``memory`` argument yet).
 
 The whole network is one state-space system (paper eq. 8): in prefill the
 state is the activations flowing across layer groups; in decode the state
-is the caches (the ``(h, c)`` carries of a recurrent stack, the scan state
-of a Mamba stack, the KV cache of a transformer) and one ``decode_step`` is
-one application of the state-update map f with the new token as input u[k].
+is the caches (the ``(h, c)`` carries of a recurrent stack, the scan states
+of a Mamba stack, the KV cache of a transformer, both in a hybrid) and one
+``decode_step`` is one application of the state-update map f with the new
+token as input u[k].
 
 The parameter layout mirrors the reference's: ``{"embed": {"table"},
-"groups": {"b0_recurrent" | "b0_mamba1" | "b0_attn" | "b0_attn_local":
-...}, "final_norm": {"scale"}}`` (+ ``"tail": {"t0_attn_local": ...}`` with
-a ``tail_pattern``, + ``"head"`` when embeddings are untied), with every
-per-group leaf stacked on a leading ``G`` axis and tail leaves unstacked.
-The reference scans over groups; the port loops over them.
+"groups": {"b0_recurrent" | "b0_mamba1" | "b0_attn" | "b0_attn_local" |
+"b0_mamba2" … "b5_shared_attn": ...}, "final_norm": {"scale"}}`` (+
+``"shared": {"attn", "mlp"}``, the one shared transformer block, when the
+pattern has ``shared_attn``; + ``"tail": {"t0_attn_local" | "t0_mamba2":
+...}`` with a ``tail_pattern``; + ``"head"`` when embeddings are untied),
+with every per-group leaf stacked on a leading ``G`` axis and the shared
+and tail leaves unstacked.  The reference scans over groups; the port
+loops over them.
 """
 
 from __future__ import annotations
@@ -28,7 +32,13 @@ from repro_torch.device import resolve_device
 
 from .config import ModelConfig
 from .layers import dense_init, embed, embedding_params, rmsnorm, rmsnorm_params
-from .transformer import apply_block, group_params, init_cache, tail_params
+from .transformer import (
+    apply_block,
+    group_params,
+    init_cache,
+    shared_block_params,
+    tail_params,
+)
 
 PyTree = Any
 
@@ -64,6 +74,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> PyTre
         tree_map(lambda dst, src: dst[g].copy_(src), stacked, grp)
         del grp
     params["groups"] = stacked
+    shared = shared_block_params(gen, cfg)
+    if shared is not None:
+        params["shared"] = shared
     tail = tail_params(gen, cfg)
     if tail is not None:
         params["tail"] = tail
@@ -83,6 +96,7 @@ def param_count(params: PyTree) -> int:
 
 def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
     pattern = cfg.layer_pattern
+    shared = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_group = []
     for g in range(cfg.n_groups):
@@ -92,7 +106,7 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
         for i, kind in enumerate(pattern):
             name = f"b{i}_{kind}"
             c_in = None if c_grp is None else c_grp.get(name)
-            x, c_out, aux_i = apply_block(p_grp[name], cfg, kind, x,
+            x, c_out, aux_i = apply_block(p_grp[name], shared, cfg, kind, x,
                                           cache=c_in, pos=pos, mode=mode)
             aux = aux + aux_i
             new_caches[name] = c_out
@@ -102,7 +116,7 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
     for i, kind in enumerate(cfg.tail_pattern):
         name = f"t{i}_{kind}"
         c_in = None if tail_in is None else tail_in.get(name)
-        x, c_out, aux_i = apply_block(params["tail"][name], cfg, kind, x,
+        x, c_out, aux_i = apply_block(params["tail"][name], shared, cfg, kind, x,
                                       cache=c_in, pos=pos, mode=mode)
         aux = aux + aux_i
         tail_out[name] = c_out

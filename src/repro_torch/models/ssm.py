@@ -1,21 +1,30 @@
-"""State-space sequence blocks: Mamba-1 (falcon-mamba); the port's counterpart
-of the Mamba-1 half of ``repro/models/ssm.py``.
+"""State-space sequence blocks: Mamba-1 (falcon-mamba) and Mamba-2 / SSD
+(zamba2); the port's counterpart of ``repro/models/ssm.py``.
 
 The network *is* a discrete state-space system ``h[t] = Ā_t h[t-1] + B̄_t
 x_t``, ``y_t = C_t h_t`` (the paper's object of study).  Prefill runs the
-selective scan over the whole prompt and emits the decode state ``{"h":
-[B, DI, N], "conv": [B, k-1, DI]}``; decode is the one-step state update.
+scan over the whole prompt and emits the decode state; decode is the
+one-step state update.
 
-Paths: ``cfg.use_pallas`` runs the scan through ``kernels/ssm_scan`` (the
-hand-written CUDA kernel for CUDA tensors, its plain version on the CPU),
-with the carry ``h0`` as an input, so a resumed (chunked) prefill runs the
-kernel too.  Without it the scan is the plain step loop
+Mamba-1: the state is ``{"h": [B, DI, N], "conv": [B, k-1, DI]}``.
+``cfg.use_pallas`` runs the selective scan through ``kernels/ssm_scan``
+(the hand-written CUDA kernel for CUDA tensors, its plain version on the
+CPU), with the carry ``h0`` as an input, so a resumed (chunked) prefill
+runs the kernel too.  Without it the scan is the plain step loop
 (``kernels/ssm_scan/ref.py``): the reference's chunking of that loop
 (``chunk``, ``cfg.ssm_chunk``) bounds its activation memory under XLA and
 changes no number, so it is not carried over.
 
-Mamba-2 / SSD (zamba2) waits for the hybrid family: the ``mamba2`` block
-kind raises ``NotImplementedError`` naming ROADMAP.md.
+Mamba-2 / SSD: the decay is a scalar per head, so within a chunk of ``c``
+steps the scan is two products (pairwise decay times the ``C·Bᵀ`` Gram
+matrix, then chunk summaries) and only one ``[B, H, P, N]`` carry crosses
+chunk boundaries: the paper's j-step transition with j = c.  The
+reference computes it with ``jnp`` einsums and no Pallas kernel, so the
+port's is plain PyTorch on either device.  The chunk size fixes the
+summation order, so it follows the reference's rule exactly:
+:data:`SSD_CHUNK` (or ``cfg.ssm_chunk``) halved until it divides T.  The
+state is ``{"h": [B, H, P, N], "conv": {"x": [B, k-1, DI], "bc": [B, k-1,
+2N]}}``.
 """
 
 from __future__ import annotations
@@ -29,12 +38,14 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
-from .layers import dense_init
+from .layers import dense_init, rmsnorm, rmsnorm_params
 
 if TYPE_CHECKING:
     from .config import ModelConfig
 
 PyTree = Any
+
+SSD_CHUNK = 128   # the reference's default Mamba-2 chunk (the j of the j-step form)
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +175,198 @@ def mamba1_init_state(cfg: "ModelConfig", batch: int, device) -> PyTree:
     }
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 / SSD (zamba2): scalar-per-head decay -> matrix form
+# ---------------------------------------------------------------------------
+
+def mamba2_params(gen: torch.Generator, cfg: "ModelConfig") -> PyTree:
+    """Random Mamba-2 parameters from ``gen`` (on its device), the
+    reference's shapes and initialisers: split z / x / (B, C) / Δ
+    projections, the causal conv split into its x and (B, C) parts, zero
+    biases, ``D = 1`` and ``A_log = log(linspace(1, 16, H))``."""
+    D, DI, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    H = cfg.n_mamba_heads
+    dev, dt_ = gen.device, cfg.p_dtype
+    zeros = lambda n: torch.zeros((n,), dtype=dt_, device=dev)
+    return {
+        "w_z": dense_init(gen, (D, DI), dt_),
+        "w_x": dense_init(gen, (D, DI), dt_),
+        "w_bc": dense_init(gen, (D, 2 * N), dt_),
+        "w_dt": dense_init(gen, (D, H), dt_),
+        "conv_w_x": (torch.randn((K, DI), generator=gen, device=dev) / np.sqrt(K)).to(dt_),
+        "conv_b_x": zeros(DI),
+        "conv_w_bc": (torch.randn((K, 2 * N), generator=gen, device=dev) / np.sqrt(K)).to(dt_),
+        "conv_b_bc": zeros(2 * N),
+        "dt_bias": zeros(H),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=dev)).to(dt_),
+        "D": torch.ones((H,), dtype=dt_, device=dev),
+        "norm": rmsnorm_params(DI, dt_, dev),
+        "out_proj": dense_init(gen, (DI, D), dt_),
+    }
+
+
+def ssd_chunk_size(T: int, chunk: int = SSD_CHUNK) -> int:
+    """The reference's SSD chunk for T steps: ``chunk`` halved until it
+    divides T (T itself at or below ``chunk``; 1 for a prime T above it)."""
+    c = min(chunk, T)
+    while T % c:
+        c //= 2
+    return c
+
+
+def _prefix_sum(x):
+    """Inclusive prefix sum over the last axis, one fp32 add at a time in
+    order (``torch.cumsum`` accumulates in fp64 on the CPU)."""
+    out = torch.empty_like(x)
+    acc = out[..., 0] = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = out[..., i] = acc + x[..., i]
+    return out
+
+
+def cumsum_blocked(x, base: int = 16):
+    """Inclusive cumulative sum over the last axis in the order in which the
+    reference's ``jnp.cumsum`` adds on the CPU (XLA rewrites the scan into
+    blocks of ``base``): each block of ``base`` summed in sequence, the
+    block totals scanned the same way (recursively), the exclusive total
+    of the earlier blocks added last; the tail padded with zeros.
+
+    The SSD's cumulative log-decay reaches hundreds within a chunk, and its
+    pairwise decays are differences of it, so another summation order moves
+    them by ~1e-5 relative; this one gives the reference's bits."""
+    n = x.shape[-1]
+    if n <= base:
+        return _prefix_sum(x)
+    nb = -(-n // base)
+    xp = F.pad(x, (0, nb * base - n))
+    P = _prefix_sum(xp.reshape(x.shape[:-1] + (nb, base)))
+    inc = cumsum_blocked(P[..., -1], base)
+    E = F.pad(inc[..., :-1], (1, 0))                           # exclusive block totals
+    return (P + E[..., None]).reshape(xp.shape)[..., :n]
+
+
+def _ssd_chunk(x, dt, B, C, A, h0, chunk: int):
+    """SSD chunked scan.  x: [Bsz,T,H,P]; dt: [Bsz,T,H]; B, C: [Bsz,T,N];
+    A: [H]; h0: [Bsz,H,P,N].  Returns (y [Bsz,T,H,P], h_last).
+
+    Per head, state S ∈ R^{P×N}:  S_t = a_t S_{t-1} + Δ_t x_t B_tᵀ,
+    y_t = S_t C_t, with a_t = exp(Δ_t A_h) a scalar per head: within a
+    chunk the work is the pairwise decay ⊙ the (C_t·B_s) Gram matrix, and
+    one carry crosses each chunk boundary.
+    """
+    Bsz, T, H, P = x.shape
+    c = ssd_chunk_size(T, chunk)
+    nc = T // c
+
+    la = dt * A                                                # log decay [Bsz,T,H]
+    res = lambda t: t.reshape((Bsz, nc, c) + t.shape[2:])    
+    x_c, la_c, dt_c, B_c, C_c = res(x), res(la), res(dt), res(B), res(C)
+    xdt = x_c * dt_c[..., None]                                # [B,nc,c,H,P]
+
+    # [B,nc,c,H] within-chunk cumulative log Φ
+    L = cumsum_blocked(la_c.transpose(2, 3)).transpose(2, 3)
+
+    # intra-chunk: decay[t,s] = exp(L_t - L_s) for s <= t.  Masked BEFORE
+    # the exp: the s > t half is >= 0 and overflows to inf.
+    diff = L[:, :, :, None, :] - L[:, :, None, :, :]          # [B,nc,c,c,H]
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    G = torch.exp(torch.where(tri[None, None, :, :, None], diff, -1e30))
+    CB = torch.einsum("bitk,bisk->bits", C_c, B_c)             # [B,nc,c,c]
+    W = G * CB[..., None]                                      # [B,nc,c,c,H]
+    y_intra = torch.einsum("bitsh,bishp->bithp", W, xdt)
+
+    # chunk summaries: S_i = Σ_s exp(L_end - L_s) Δ_s x_s B_sᵀ
+    decay_to_end = torch.exp(L[:, :, -1:, :] - L)              # [B,nc,c,H]
+    S = torch.einsum("bishp,bisk->bihpk", decay_to_end[..., None] * xdt, B_c)
+
+    # inter-chunk serial carry (length nc, the j-step chain); h_in holds the
+    # incoming state of each chunk
+    a_chunk = torch.exp(L[:, :, -1, :])                        # [B,nc,H]
+    h_in = torch.empty_like(S)
+    h = h0
+    for i in range(nc):
+        h_in[:, i] = h
+        h = a_chunk[:, i, :, None, None] * h + S[:, i]
+
+    # inter-chunk contribution: y_t += exp(L_t) · (C_t · h_in)
+    y_inter = torch.einsum("bitk,bihpk->bithp", C_c, h_in) * torch.exp(L)[..., None]
+
+    y = (y_intra + y_inter).reshape(Bsz, T, H, P)
+    return y, h
+
+
+def mamba2_prefill(p, cfg: "ModelConfig", u, h0=None, state: PyTree | None = None):
+    """SSD scan over a prompt.  u: [B,T,D] → ([B,T,D], state).
+
+    ``state`` (the decode-layout ``{"h", "conv": {"x", "bc"}}``) resumes
+    the scan mid-sequence: the h carry and both causal convs' left context
+    continue from where the previous piece stopped (serving's chunked
+    prefill).  The conv tails are the trailing k-1 *pre-conv* projections.
+    """
+    Bsz, T, _ = u.shape
+    DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_mamba_heads, cfg.mamba_headdim
+    tail_x = tail_bc = None
+    if state is not None:
+        h0 = state["h"]
+        tail_x, tail_bc = state["conv"]["x"], state["conv"]["bc"]
+    z = u @ p["w_z"]
+    x_pre = u @ p["w_x"]
+    bc_pre = u @ p["w_bc"]
+    x = F.silu(causal_conv1d(x_pre, p["conv_w_x"], p["conv_b_x"], tail=tail_x))
+    bc = F.silu(causal_conv1d(bc_pre, p["conv_w_bc"], p["conv_b_bc"], tail=tail_bc))
+    B, C = bc[..., :N], bc[..., N:]
+    dt = F.softplus(u @ p["w_dt"] + p["dt_bias"])              # [B,T,H]
+    A = -torch.exp(p["A_log"].float())                         # [H]
+    x_h = x.reshape(Bsz, T, H, P).float()
+    if h0 is None:
+        h0 = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=u.device)
+    y, h_last = _ssd_chunk(x_h, dt.float(), B.float(), C.float(), A, h0,
+                           cfg.ssm_chunk or SSD_CHUNK)
+    y = y + x_h * p["D"][:, None].float()
+    y = y.reshape(Bsz, T, DI).to(u.dtype)
+    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    conv = {"x": _conv_tail(x_pre, tail_x, cfg.d_conv),
+            "bc": _conv_tail(bc_pre, tail_bc, cfg.d_conv)}
+    return y @ p["out_proj"], {"h": h_last, "conv": conv}
+
+
+def mamba2_decode(p, cfg: "ModelConfig", u_t, state: PyTree):
+    """One token.  u_t: [B,1,D]; state = {"h": [B,H,P,N], "conv": {"x":
+    [B,k-1,DI], "bc": [B,k-1,2N]}}."""
+    Bsz = u_t.shape[0]
+    DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_mamba_heads, cfg.mamba_headdim
+    u0 = u_t[:, 0]
+    z = u0 @ p["w_z"]
+    conv_x, x = conv_step(state["conv"]["x"], u0 @ p["w_x"], p["conv_w_x"], p["conv_b_x"])
+    conv_bc, bc = conv_step(state["conv"]["bc"], u0 @ p["w_bc"], p["conv_w_bc"],
+                            p["conv_b_bc"])
+    x = F.silu(x)
+    bc = F.silu(bc)
+    B, C = bc[..., :N].float(), bc[..., N:].float()
+    dt = F.softplus(u0 @ p["w_dt"] + p["dt_bias"]).float()    # [B,H]
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dt * A)                                      # [B,H]
+    x_h = x.reshape(Bsz, H, P).float()
+    dBx = (dt[..., None] * x_h)[..., None] * B[:, None, None, :]   # [B,H,P,N]
+    h = a[..., None, None] * state["h"] + dBx
+    y = torch.einsum("bhpk,bk->bhp", h, C)
+    y = y + x_h * p["D"][:, None]
+    y = y.reshape(Bsz, DI).to(u_t.dtype)
+    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    return (y @ p["out_proj"])[:, None], {"h": h, "conv": {"x": conv_x, "bc": conv_bc}}
+
+
+def mamba2_init_state(cfg: "ModelConfig", batch: int, device) -> PyTree:
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "h": torch.zeros((batch, cfg.n_mamba_heads, cfg.mamba_headdim, cfg.ssm_state), **f32),
+        "conv": {
+            "x": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), **f32),
+            "bc": torch.zeros((batch, cfg.d_conv - 1, 2 * cfg.ssm_state), **f32),
+        },
+    }
+
+
 __all__ = [
     "causal_conv1d",
     "conv_step",
@@ -171,4 +374,10 @@ __all__ = [
     "mamba1_init_state",
     "mamba1_params",
     "mamba1_prefill",
+    "mamba2_decode",
+    "mamba2_init_state",
+    "mamba2_params",
+    "mamba2_prefill",
+    "SSD_CHUNK",
+    "ssd_chunk_size",
 ]

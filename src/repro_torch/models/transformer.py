@@ -1,18 +1,26 @@
 """Block assembly: layer stacks as groups of blocks; the port's counterpart of
 ``repro/models/transformer.py``.
 
-The recurrent, ``mamba1``, ``attn`` (dense transformer: GQA + gated MLP)
-and ``attn_local`` (gemma3's sliding-window attention) block kinds are
-ported so far.  A group is one period of ``ModelConfig.layer_pattern``;
-per-group parameters and decode caches are stacked on a leading ``G`` axis,
-exactly as the reference lays them out for its scan over groups.  Blocks of
-``ModelConfig.tail_pattern`` (gemma3's two trailing local layers) follow
-the groups, each with its own parameters and cache and **no** ``G`` axis.
-Every other block kind (``moe``, ``cross``, ``mamba2``, ``shared_attn``)
-raises.
+The recurrent, ``mamba1``, ``mamba2``, ``attn`` (dense transformer: GQA +
+MLP), ``attn_local`` (gemma3's sliding-window attention) and
+``shared_attn`` (zamba2's shared transformer block) kinds are ported; the
+``moe`` and ``cross`` kinds and MLA attention raise.  A group is one period
+of ``ModelConfig.layer_pattern``; per-group parameters and decode caches
+are stacked on a leading ``G`` axis, exactly as the reference lays them out
+for its scan over groups.  Blocks of ``ModelConfig.tail_pattern`` (gemma3's
+two trailing local layers, zamba2's two trailing Mamba-2 blocks) follow the
+groups, each with its own parameters and cache and **no** ``G`` axis.
+
+Zamba2's shared transformer block is the paper's layer-wise resource
+sharing taken literally: ONE set of attention and MLP weights
+(:func:`shared_block_params`, the model's ``"shared"`` subtree) is applied
+at every ``shared_attn`` position, and each application adds its own LoRA
+deltas on q/k/v and its own norms (the ``shared_attn`` block's
+parameters).  Every block is handed the ``shared`` subtree.
 
 A local layer's decode cache is a ring buffer of ``min(max_seq,
-sliding_window)`` positions: position ``p`` lives at slot ``p mod W``.
+sliding_window)`` positions: position ``p`` lives at slot ``p mod W``.  A
+``shared_attn`` block's is a full-length K/V cache, never a ring.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Any
 
 import torch
 
+from repro_torch._tree import tree_map
 from repro_torch.recurrent import block as rnn_lib
 
 from . import attention as attn_lib
@@ -57,12 +66,31 @@ def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> PyTree:
     if kind == "mamba1":
         return {"ln": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
                 "mamba": ssm_lib.mamba1_params(gen, cfg)}
+    if kind == "mamba2":
+        return {"ln": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+                "mamba": ssm_lib.mamba2_params(gen, cfg)}
+    if kind == "shared_attn":
+        # only the per-application pieces live here; the weights are shared
+        return {
+            "ln_attn": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+            "lora": attn_lib.gqa_params(gen, cfg, lora_rank=cfg.shared_attn_lora_rank)["lora"],
+            "ln_mlp": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+        }
     raise _unported(kind)
 
 
 def group_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     return {f"b{i}_{kind}": _block_params(gen, cfg, kind)
             for i, kind in enumerate(cfg.layer_pattern)}
+
+
+def shared_block_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree | None:
+    """Zamba2's single shared transformer block (attention + MLP); None
+    without a ``shared_attn`` block in the pattern."""
+    if "shared_attn" not in cfg.layer_pattern:
+        return None
+    return {"attn": attn_lib.gqa_params(gen, cfg),
+            "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.p_dtype)}
 
 
 def tail_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree | None:
@@ -79,8 +107,8 @@ def tail_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree | None:
 # ---------------------------------------------------------------------------
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) -> PyTree:
-    if kind == "attn":
-        if cfg.use_mla:
+    if kind in ("attn", "shared_attn"):
+        if cfg.use_mla and kind == "attn":
             raise _unported("attn (MLA)")
         shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
@@ -93,6 +121,8 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) 
         return rnn_lib.recurrent_init_state(cfg, batch, device)
     if kind == "mamba1":
         return ssm_lib.mamba1_init_state(cfg, batch, device)
+    if kind == "mamba2":
+        return ssm_lib.mamba2_init_state(cfg, batch, device)
     raise _unported(kind)
 
 
@@ -101,17 +131,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
     {name: leaves}}`` — the serving state vector (``"tail"`` only with a
     ``tail_pattern``).  A recurrent block's leaves are ``h``/``c``
     ``[G, batch, H]``, a ``mamba1`` block's ``h [G, batch, DI, N]`` and
-    ``conv [G, batch, k-1, DI]``, all in fp32; an ``attn`` block's are the
-    full-length ``k``/``v`` ``[G, batch, max_seq, KV, hd]`` and an
-    ``attn_local`` block's the ring ``[G, batch, min(max_seq, window), KV,
-    hd]``, in the activation dtype.  Tail leaves are the same without the
+    ``conv [G, batch, k-1, DI]``, a ``mamba2`` block's ``h [G, batch, H,
+    P, N]`` and ``conv: {x [G, batch, k-1, DI], bc [G, batch, k-1, 2N]}``,
+    all in fp32; an ``attn`` or ``shared_attn`` block's are the full-length
+    ``k``/``v`` ``[G, batch, max_seq, KV, hd]`` and an ``attn_local``
+    block's the ring ``[G, batch, min(max_seq, window), KV, hd]``, in the
+    activation dtype.  Tail leaves are the same without the
     ``G`` axis: the slot is their axis 0, the sequence their axis 1."""
     G = cfg.n_groups
     groups = {}
     for i, kind in enumerate(cfg.layer_pattern):
         one = _block_cache(cfg, kind, batch, max_seq, device)
-        groups[f"b{i}_{kind}"] = {k: v.expand((G,) + v.shape).clone()
-                                  for k, v in one.items()}
+        groups[f"b{i}_{kind}"] = tree_map(lambda v: v.expand((G,) + v.shape).clone(), one)
     cache = {"groups": groups}
     if cfg.tail_pattern:
         cache["tail"] = {f"t{i}_{kind}": _block_cache(cfg, kind, batch, max_seq, device)
@@ -125,6 +156,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
 
 def apply_block(
     p_blk: PyTree,
+    shared: PyTree | None,
     cfg: ModelConfig,
     kind: str,
     x: torch.Tensor,
@@ -133,7 +165,9 @@ def apply_block(
     pos=None,
     mode: str = "train",
 ):
-    """One block, all modes.  Returns (x, new_cache, aux_loss).
+    """One block, all modes.  Returns (x, new_cache, aux_loss).  ``shared``
+    is the model's ``"shared"`` subtree (None without one), which only a
+    ``shared_attn`` block reads.
 
     mode="chunk" is the resumable prefill step: S ≥ 1 tokens applied against
     an existing cache at offset ``pos`` — the same state-update map as
@@ -166,15 +200,31 @@ def apply_block(
         x = x + a
         h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
         return x + mlp_apply(p_blk["mlp"], h, cfg.mlp_act), cache, aux
-    if kind == "mamba1":
-        # the serving state is the selective scan's {"h", "conv"}
+    if kind == "shared_attn":
+        # the shared weights with this application's LoRA deltas; a chunk
+        # attends over the cache as decode does, only a one-shot prefill
+        # reaches gqa_prefill (and flash_attention under use_pallas)
+        ap = dict(shared["attn"]) | {"lora": p_blk["lora"]}
+        h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
+        if mode in ("decode", "chunk"):
+            a, cache = attn_lib.gqa_decode(ap, cfg, h, cache, pos)
+        else:
+            a, kv = attn_lib.gqa_prefill(ap, cfg, h)
+            cache = {"k": kv[0], "v": kv[1]} if mode == "prefill" else None
+        x = x + a
+        h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
+        return x + mlp_apply(shared["mlp"], h, cfg.mlp_act), cache, aux
+    if kind in ("mamba1", "mamba2"):
+        # the serving state is the scan's {"h", "conv"}
+        prefill_fn = ssm_lib.mamba1_prefill if kind == "mamba1" else ssm_lib.mamba2_prefill
+        decode_fn = ssm_lib.mamba1_decode if kind == "mamba1" else ssm_lib.mamba2_decode
         h = rmsnorm(p_blk["ln"], x, cfg.norm_eps)
         if mode == "chunk":
-            y, cache = ssm_lib.mamba1_prefill(p_blk["mamba"], cfg, h, state=cache)
+            y, cache = prefill_fn(p_blk["mamba"], cfg, h, state=cache)
         elif mode == "decode":
-            y, cache = ssm_lib.mamba1_decode(p_blk["mamba"], cfg, h, cache)
+            y, cache = decode_fn(p_blk["mamba"], cfg, h, cache)
         else:
-            y, st = ssm_lib.mamba1_prefill(p_blk["mamba"], cfg, h)
+            y, st = prefill_fn(p_blk["mamba"], cfg, h)
             cache = st if mode == "prefill" else None
         return x + y, cache, aux
     if kind != "recurrent":
@@ -270,4 +320,4 @@ def _gqa_local_chunk(p, cfg: ModelConfig, x, cache, pos):
     return out.reshape(B, S, -1) @ p["wo"], {"k": ck, "v": cv}
 
 
-__all__ = ["apply_block", "group_params", "init_cache", "tail_params"]
+__all__ = ["apply_block", "group_params", "init_cache", "shared_block_params", "tail_params"]

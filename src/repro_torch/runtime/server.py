@@ -24,8 +24,10 @@ a tick, interleaved with decode ticks; ``prefill_adaptive`` drains whole
 jobs on ticks where no slot is decoding).  Under ``use_pallas`` every
 one-shot prefill runs the model's kernel once per layer (``lstm_seq``,
 ``ssm_scan`` or ``flash_attention``, with gemma3's window on its local
-layers); chunks run ``lstm_seq`` and ``ssm_scan`` too, while attention
-chunks attend over the cache in plain PyTorch, as the reference's do.
+layers and once per application of zamba2's shared block; zamba2's
+Mamba-2 blocks have no kernel); chunks run ``lstm_seq`` and ``ssm_scan``
+too, while attention chunks attend over the cache in plain PyTorch, as the
+reference's do.
 Cache leaves keep their slot and sequence axes where :data:`CACHE_AXES`
 says (a tail block's leaves have no ``G`` axis), and every function that
 writes or slices a slot reads them there.
@@ -102,9 +104,10 @@ def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int,
 
     Every leaf is handled with its slot and sequence axes from
     :data:`CACHE_AXES` (axes 1 and 2 under ``"groups"``, 0 and 1 under
-    ``"tail"``).  A recurrent carry (``h``/``c``) and a Mamba-1 state
-    (``h``, ``conv``) have no sequence axis, so admission is a pure slot
-    write and never disturbs other slots.  An attention KV leaf carries one:
+    ``"tail"``).  A recurrent carry (``h``/``c``) and a Mamba state
+    (Mamba-1's ``h`` and ``conv``, Mamba-2's ``h`` and ``conv.{x, bc}``)
+    have no sequence axis, so admission is a pure slot write and never
+    disturbs other slots.  An attention KV leaf carries one:
     a one-shot prefill's ``L`` positions go left-aligned into the slot's
     row (positions ``0 .. L-1``); a chunked prefill's B=1 cache, already in
     the server's layout, is a slot row like the others.  A source longer
@@ -118,8 +121,9 @@ def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int,
     reference on purpose: the reference's ``splice_cache`` matches tail
     leaves, which have no ``G`` axis, with neither of its branches and
     leaves them untouched, so its server decodes gemma3 from empty tail
-    rings (ROADMAP.md, Queue 3).  The destination tensors are updated in
-    place; the returned tree holds the same tensors.
+    rings and zamba2 from zero tail Mamba-2 states (ROADMAP.md, Queue 3).
+    The destination tensors are updated in place; the returned tree holds
+    the same tensors.
     """
     for name, dst, src in _slot_major(caches, prefill_caches):
         if src.dim() >= 3 and dst.dim() == src.dim() and src.shape[2] != dst.shape[2] \
@@ -626,8 +630,8 @@ class DecodeServer:
         """Full-attention KV leaves trimmed to their first ``p`` positions
         along their sequence axis (:data:`CACHE_AXES`), so a stored
         checkpoint costs O(prefix), not O(max_seq); sliding-window rings
-        shorter than ``max_seq`` and recurrent and Mamba-1 states are
-        stored whole."""
+        shorter than ``max_seq``, recurrent carries and Mamba-1 and Mamba-2
+        states (``h``, ``conv``) are stored whole."""
 
         def walk(tree, seq_axis, name):
             if isinstance(tree, dict):

@@ -3,9 +3,11 @@
 ``ssm_scan``, ``int8_matmul`` and ``flash_attention``; the bit path
 (rtlsim, the golden model, the analyzer, the Verilog emission) on the card
 against the same calls on the CPU, word for word; the Fig. 10 tuner and
-the chaos suite on the card; and gemma3's sliding-window layers, tail and
+the chaos suite on the card; gemma3's sliding-window layers, tail and
 ring-buffer splice and internlm2 through ``flash_attention`` and the
-server's drivers.
+server's drivers; and zamba2's Mamba-2 / SSD blocks (plain PyTorch on the
+card, held against the CPU) and its shared block through
+``flash_attention`` and the server.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -1219,3 +1221,131 @@ def test_gemma3_quarantined_slot_is_scrubbed_on_the_card(cuda):
     assert done[0].finish_reason == "error:nonfinite"
     assert done[2].finish_reason == "max_tokens"
     assert done[2].out_tokens == _plain_greedy(cfg, params, prompt, 12, 64, cuda)
+
+
+# ---------------------------------------------------------------------------
+# zamba2 (Mamba-2 / SSD blocks, the shared block with per-application LoRA)
+# on the card
+# ---------------------------------------------------------------------------
+
+ZAMBA_MID = dict(d_model=512, ssm_state=64, mamba_headdim=64, n_heads=8, n_kv_heads=8,
+                 head_dim=64, d_ff=1024, shared_attn_lora_rank=32)
+
+
+def _zamba2(dev, use_pallas=False, **over):
+    """zamba2 smoke (2 groups of mamba2, mamba2, shared_attn + a 2-block
+    tail), random weights from a seed on ``dev``, with the leaves the
+    reference initialises to constants drawn anew, nonzero (LoRA B, Mamba's
+    Δ initialisation for ``dt_bias``, ``D``, the conv biases), as
+    ``chip_smoke.perturb_hybrid`` draws them."""
+    import math
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), use_pallas=use_pallas, **over)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+    randn = lambda t: torch.randn(t.shape, generator=gen, device=t.device)  # noqa: E731
+    for top in ("groups", "tail"):
+        for name, blk in params[top].items():
+            if name.endswith("_shared_attn"):
+                for leaf in ("qB", "kB", "vB"):
+                    t = blk["lora"][leaf]
+                    t.copy_(randn(t) / math.sqrt(t.shape[-2]))
+            else:
+                m = blk["mamba"]
+                u = torch.rand(m["dt_bias"].shape, generator=gen, device=dev)
+                dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+                m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+                m["D"].copy_(1.0 + 0.5 * randn(m["D"]))
+                for leaf in ("conv_b_x", "conv_b_bc"):
+                    m[leaf].copy_(0.5 * randn(m[leaf]))
+    return cfg, params
+
+
+@pytest.mark.parametrize("pieces", [(131,), (256,), (100, 60), (160, 96), (512,)])
+def test_mamba2_prefill_and_decode_on_the_card_match_the_cpu(cuda, pieces):
+    """A mid-width Mamba-2 block (d_model 512, 16 heads of 64, N 64): the
+    SSD scan in one piece (131: chunks of 1; 256 and 512: chunks of 128) or
+    resumed through ``state=`` (a piece of 160 runs five chunks of 32), then
+    8 decode steps, on the card against the same calls on the CPU (1e-4:
+    the projections are summed in another order, and an ulp of Δ moves the
+    chunked scan by ~2e-5 at these widths)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.models import ssm
+
+    cfg, params = _zamba2("cpu", **ZAMBA_MID)
+    p_cpu = tree_map(lambda t: t[0], params["groups"]["b0_mamba2"]["mamba"])
+    p_card = tree_map(lambda t: t.to(cuda), p_cpu)
+    r = np.random.default_rng(sum(pieces))
+    u = torch.as_tensor(r.normal(size=(2, sum(pieces), cfg.d_model)), dtype=torch.float32)
+    ud = torch.as_tensor(r.normal(size=(2, 8, cfg.d_model)), dtype=torch.float32)
+    st_c = st_g = None
+    s = 0
+    for n in pieces:
+        y_c, st_c = ssm.mamba2_prefill(p_cpu, cfg, u[:, s:s + n], state=st_c)
+        y_g, st_g = ssm.mamba2_prefill(p_card, cfg, u[:, s:s + n].to(cuda), state=st_g)
+        _close([y_g.cpu()], [y_c], 1e-4)
+        s += n
+    for t in range(8):
+        y_c, st_c = ssm.mamba2_decode(p_cpu, cfg, ud[:, t:t + 1], st_c)
+        y_g, st_g = ssm.mamba2_decode(p_card, cfg, ud[:, t:t + 1].to(cuda), st_g)
+        _close([y_g.cpu()], [y_c], 1e-4)
+    _close([st_g["h"].cpu(), st_g["conv"]["x"].cpu(), st_g["conv"]["bc"].cpu()],
+           [st_c["h"], st_c["conv"]["x"], st_c["conv"]["bc"]], 1e-4)
+
+
+@pytest.mark.parametrize("over,S", [({}, 131), (ZAMBA_MID, 300)], ids=["smoke", "mid"])
+def test_zamba2_use_pallas_prefill_matches_plain_path(cuda, over, S):
+    """One flash_attention call per shared-block application (2 a prefill),
+    the rest of the stack identical on both paths."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm
+
+    cfg, params = _zamba2(cuda, **over)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (2, S)), device=cuda)
+    lg_p, c_p = lm.prefill(params, cfg, toks)
+    ops.flash_attention.calls = 0
+    lg_k, c_k = lm.prefill(params, dataclasses.replace(cfg, use_pallas=True), toks)
+    assert ops.flash_attention.calls == 2
+    torch.testing.assert_close(lg_k, lg_p, atol=1e-4, rtol=1e-4)
+    k_p = c_p["groups"]["b2_shared_attn"]["k"]
+    _close([c_k["groups"]["b2_shared_attn"]["k"]], [k_p], 1e-4)
+    _close([c_k["tail"]["t1_mamba2"]["h"]], [c_p["tail"]["t1_mamba2"]["h"]], 1e-4)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_zamba2_two_slot_serve_gives_the_plain_greedy_tokens_on_the_card(cuda, use_pallas):
+    """Prompts of 7-160 tokens on two slots: step(), step_block(), and
+    chunked step() with the prefix cache twice (the second pass all hits)
+    give equal tokens, equal to the plain greedy loop; the kernel runs twice
+    a one-shot prefill and never in a chunk."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.runtime import DecodeServer, Request
+
+    cfg, params = _zamba2(cuda, use_pallas=use_pallas)
+    rng = np.random.default_rng(6)
+    traffic = [([int(t) for t in rng.integers(1, cfg.vocab, n)], m)
+               for n, m in ((20, 12), (7, 10), (131, 6), (160, 5))]
+
+    def run(srv, block=False, uid0=0):
+        ops.flash_attention.calls = 0
+        for i, (p, m) in enumerate(traffic):
+            srv.submit(Request(uid=uid0 + i, prompt=p, max_new_tokens=m))
+        done = srv.run_until_drained(persistent=block)
+        return ({r.uid - uid0: list(r.out_tokens) for r in done if r.uid >= uid0},
+                ops.flash_attention.calls)
+
+    mk = lambda **kw: DecodeServer(cfg, params, num_slots=2, max_seq=192, block_k=4,  # noqa: E731
+                                   device=cuda, **kw)
+    step, c_step = run(mk())
+    block, c_block = run(mk(), block=True)
+    srv = mk(prefill_chunk=16, prefix_cache_bytes=64 << 20)
+    chunked, c_chunk = run(srv)
+    again, _ = run(srv, uid0=100)
+    assert srv.stats()["prefix_cache"]["hits"] == len(traffic)
+    assert step == block == chunked == again
+    assert c_step == c_block == (2 * len(traffic) if use_pallas else 0) and c_chunk == 0
+    for i, (p, m) in enumerate(traffic):
+        assert step[i] == _plain_greedy(cfg, params, p, m, 192, cuda), i

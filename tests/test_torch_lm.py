@@ -55,7 +55,7 @@ def test_config_matches_reference_for_every_family():
             assert cfg.rnn_hidden_actual == jcfg.rnn_hidden_actual
             assert cfg.act_dtype == getattr(torch, jcfg.dtype)
     assert ARCH_IDS == ("falcon-mamba-7b", "gemma3-27b", "internlm2-20b", "paper-lstm",
-                        "phi4-mini-3.8b", "smollm-135m")
+                        "phi4-mini-3.8b", "smollm-135m", "zamba2-1.2b")
     assert set(ARCH_IDS) <= set(jax_configs.ARCH_IDS)
     for arch in ARCH_IDS:
         assert get_config(arch) == ModelConfig(**dataclasses.asdict(
@@ -138,10 +138,9 @@ def test_cache_layout_and_bridge(bridged):
 
 
 def test_unported_families_raise():
-    """MoE, MLA (deepseek), hybrid (zamba2) and cross-attention
-    (llama-vision) blocks are not ported yet."""
-    for arch in ("olmoe-1b-7b", "deepseek-v2-lite-16b", "zamba2-1.2b",
-                 "llama-3.2-vision-90b"):
+    """MoE, MLA (deepseek) and cross-attention (llama-vision) blocks are
+    not ported yet."""
+    for arch in ("olmoe-1b-7b", "deepseek-v2-lite-16b", "llama-3.2-vision-90b"):
         cfg = ModelConfig(**dataclasses.asdict(jax_configs.get_smoke_config(arch)))
         with pytest.raises(NotImplementedError, match="not ported"):
             lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

@@ -29,8 +29,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import transition as tr  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
-from repro_torch.models import lm, ssm  # noqa: E402
-from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 KERNEL_TOL = dict(atol=2e-4, rtol=1e-3)
@@ -250,12 +249,6 @@ def test_mamba1_decode_matches_reference(block):
     init_j = jax_ssm.mamba1_init_state(jcfg, 3)
     assert {k: (tuple(v.shape), v.dtype) for k, v in init.items()} == \
         {k: (tuple(v.shape), torch.float32) for k, v in init_j.items()}
-
-
-def test_mamba2_family_raises_naming_the_roadmap():
-    cfg = ModelConfig(**dataclasses.asdict(jax_configs.get_smoke_config("zamba2-1.2b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
 # ---------------------------------------------------------------------------
