@@ -43,8 +43,8 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    the eager backend (int8 against its plain version), beside the spread of
    two plain evaluations (the eager backend on the host's CPU against
    itself on the card);
-8. profile — the ``use_pallas`` ``step()`` run once more under
-   ``torch.profiler``;
+8. profile — the ``use_pallas`` ``step()`` run once more, on the first four
+   requests, under ``torch.profiler``;
 9. ``ssm_scan`` against its plain version (a falcon-mamba prefill's shapes,
    ragged D with prime T, T = 1, bf16 inputs, a nonzero carry), a scan
    resumed at step 100 bit-identical to the one-shot scan, and its time at
@@ -57,9 +57,9 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    kernel cases in fp32 and bf16, S != T, S = T = 1, rows that see no key,
    hd 128 with a 1024 window), and its time at two ``smollm-135m`` layers
    (64 and 256 tokens), one ``phi4-mini-3.8b`` layer, gemma3's local and
-   global layers, one ``internlm2-20b`` layer and one application of
-   ``zamba2-1.2b``'s shared block (2048 tokens each), each held to the
-   fp32 bar, beside the plain
+   global layers, one ``internlm2-20b`` layer, one application of
+   ``zamba2-1.2b``'s shared block and one ``olmoe-1b-7b`` layer (2048
+   tokens each), each held to the fp32 bar, beside the plain
    version's, ``F.scaled_dot_product_attention``'s, its bound on the
    tensor cores in 3xTF32 and the fp32-FMA bound (``fma_bound_ms``), with
    its q tile, the key shares the host chose and its launches per call
@@ -69,16 +69,16 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    parameters from a seed) with ``use_pallas=True`` through ``DecodeServer``
    under ``step()``, ``step_block()`` and chunked prefill: identical tokens,
    ``ssm_scan`` launched once per layer of every prefill call, prefill
-   logits held against the plain path; then its ``step()`` run under
-   ``torch.profiler``;
+   logits held against the plain path; then its ``step()`` run on the first
+   four requests under ``torch.profiler``;
 13. serve smollm — full-width ``smollm-135m`` (30 layers, 135 M fp32
    parameters from a seed) with ``use_pallas=True`` under the same three
    drivers: identical tokens, ``flash_attention`` called once per layer
    of every one-shot prefill and never by a chunk (chunks attend over the
    cache in plain PyTorch), with one CUDA launch a call or two where the
    prompt's length splits the key axis, a 256-token prefill's logits held
-   against the plain path; then its ``step()`` run under
-   ``torch.profiler``;
+   against the plain path; then its ``step()`` run on the first four
+   requests under ``torch.profiler``;
 14. prefill phi4 — full-width ``phi4-mini-3.8b`` (32 layers, 3.8 B fp32
    parameters, after falcon-mamba's tree is freed): one 256-token prefill
    through the kernel (32 calls, 64 launches: 96 blocks of 64 queries
@@ -184,6 +184,39 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    -m repro_torch.launch.serve --arch zamba2-1.2b`` as a subprocess; then
    a device-only profile of ``step()`` on the first four requests.
 
+20. serve MoE (after phase 19) — ``olmoe-1b-7b`` uncut (16 layers of MHA
+   16/16 at hd 128 with qk-norm and 64 experts of 1024, top-8; 6.92 B fp32
+   parameters from a seed) and ``deepseek-v2-lite-16b`` uncut (27 layers
+   of MLA, r 512 + dr 64, and 2 shared + 64 routed experts of 1408, top-6;
+   16.21 B), ``use_pallas``, 32 new tokens a request, 4 slots, ``max_seq``
+   2112: prompts of 17, 131, 512, 1024, 2048 (and on olmoe 2050, whose
+   MoE groups are 2 tokens: the reference's group rule's cliff) tokens and
+   two of 1088 sharing a 1024-token prefix, under one-shot ``step()`` and
+   ``step_block()`` (equal tokens), chunked ``step()`` (chunk 256) without
+   the prefix cache and twice with one sized by ``checkpoint_bytes``
+   (equal tokens across the three, the second pass all full hits; their
+   agreement with the one-shot tokens is printed: chunk-local groups drop
+   other tokens); the 2048-token and one shared-prefix request against the
+   plain greedy loop; every distinct length's prefill against the plain
+   path with the routing decisions of both recorded: the flips counted,
+   the logits within 1e-5 of max |logit| where none differ, else every
+   flip of the first flipping layer a near-tie (margin below 1e-6);
+   ``flash_attention`` 16 calls a one-shot olmoe prefill and none on
+   deepseek (MLA has no kernel); ``launch.serve --arch olmoe-1b-7b`` as a
+   subprocess.  Then olmoe's weights in int8 (``quantize_lm_params`` on the
+   card, three leaves bit-identical to the host CPU's, the router fp32):
+   the fp32 tree freed, the dequantized model's 2048-token logits against
+   fp32 with its own routing and with the fp32 routing pinned (SNR and
+   greedy agreement printed beside the reference's bars, 20 dB and 0.8,
+   which the reference's quantization misses on this model), its prefill
+   through the kernel against the plain path, and the traffic under
+   ``step()`` and ``step_block()`` with equal tokens; the bars are held on
+   ``smollm-135m`` at full width quantized on the card (a dense model,
+   where the reference's own test holds them).  Then deepseek: one MLA layer's absorbed decode against the
+   naive prefill at full width (1e-5 of max |out|) and the same drivers
+   and checks as olmoe.  Each run's seconds, the peak allocation and the
+   card are printed.
+
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
 seconds.  The script imports nothing of JAX and nothing of the JAX package.
@@ -192,6 +225,7 @@ seconds.  The script imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -238,6 +272,7 @@ ATTN_BF16_TOL = 2e-2
 # |logit|: 30-32 layers compound the kernel's rounding with the stack's
 DENSE_LOGITS_RTOL = 1e-3
 N_REQUESTS = 16
+PROFILED = 4        # the profiled step() runs serve the first four requests
 MAX_NEW = 32
 NUM_SLOTS = 8
 MAX_SEQ = 512
@@ -301,6 +336,21 @@ ZAMBA_MAX_SEQ = 4224
 ZAMBA_CHUNK = 256
 ZAMBA_LOGITS_RTOL = 1e-5
 ZAMBA_PROFILED = 4
+# phase 20: olmoe-1b-7b and deepseek-v2-lite-16b uncut.  2050 tokens is the
+# group cliff's shortest cheap case: 2050 = 2 · 1025, so the reference's
+# rule (halve 2048 until it divides) runs 1025 groups of 2 with C = top_k,
+# 25.6x the expert rows of 2048 (2049 would run groups of 1: 51x, ~40 GB of
+# transient).  2048 is deepseek's longest prompt (64.8 GB of weights).
+OLMOE_LENGTHS = (17, 131, 512, 1024, 2048, 2050)
+DEEPSEEK_LENGTHS = (17, 131, 512, 1024, 2048)
+MOE_SHARED = (1024, 64)
+MOE_NEW = 32
+MOE_MAX_SEQ = 2112
+MOE_CHUNK = 256
+MOE_LOGITS_RTOL = 1e-5
+ROUTE_MARGIN = 1e-6     # a routing flip between two paths is a near-tie below this
+QUANT_SNR_DB = 20.0     # the reference's bars (tests/test_quantized_serving.py)
+QUANT_AGREE = 0.8
 
 PHASE_T0 = [time.perf_counter()]
 
@@ -1174,13 +1224,15 @@ def long_prompt_traffic(vocab: int, lengths=GEMMA_LENGTHS, shared=GEMMA_SHARED,
 def fa_per_prefill(mcfg, n: int, dev) -> tuple[int, int, int]:
     """``flash_attention`` calls, windowed calls and CUDA launches of one
     one-shot prefill of ``n`` tokens: one call per attention layer (``attn``,
-    ``attn_local``, ``shared_attn``), the local layers' with the window, each
+    ``attn_local``, ``shared_attn``, and ``moe`` without MLA: MLA has no
+    kernel), the local layers' with the window, each
     1 launch or 2 where the host splits the key axis.  Launches are 0 off
     the card."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
+    attn_kinds = ("attn", "attn_local", "shared_attn") + (() if mcfg.use_mla else ("moe",))
     kinds = [k for k in list(mcfg.layer_pattern) * mcfg.n_groups + list(mcfg.tail_pattern)
-             if k in ("attn", "attn_local", "shared_attn")]
+             if k in attn_kinds]
     windows = [mcfg.sliding_window if k == "attn_local" else 0 for k in kinds]
     launches = 0
     if dev.type == "cuda":
@@ -1483,6 +1535,24 @@ def serve_async(srv, traffic) -> dict:
     return {r.uid: list(r.out_tokens) for r in asyncio.run(drive())}
 
 
+def launch_serve(arch: str, dev) -> None:
+    """``python -m repro_torch.launch.serve --arch <arch>`` (its smoke
+    config: 16 requests, chunked adaptive prefill with a prefix cache,
+    device-side decode blocks) as a subprocess on ``dev``; it must exit 0
+    and report 16 requests served."""
+    launch = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--prefill-chunk", "16", "--prefill-adaptive", "--prefix-cache", "64",
+         "--persistent", "--device", dev.type],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    lines = (launch.stdout + launch.stderr).splitlines()
+    for ln in lines[-3:]:
+        say("entry_point", command=f"launch.serve --arch {arch}", line=repr(ln))
+    require(launch.returncode == 0 and any("served 16 requests" in ln for ln in lines),
+            f"python -m repro_torch.launch.serve --arch {arch} exited {launch.returncode}")
+
+
 def serve_zamba2(mcfg, params, dev, card: str, traffic, checked, *,
                  max_seq: int = ZAMBA_MAX_SEQ, chunk: int = ZAMBA_CHUNK,
                  profiled: int = ZAMBA_PROFILED) -> dict:
@@ -1526,17 +1596,7 @@ def serve_zamba2(mcfg, params, dev, card: str, traffic, checked, *,
         requests=len(toks), wall_ms=f"{wall_ms:.1f}", decoded_tokens=st["decoded_tokens"],
         syncs_per_token=f"{st['decode_syncs'] / max(st['decoded_tokens'], 1):.4f}",
         identical_tokens=True, card=repr(card))
-    launch = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", mcfg.name,
-         "--prefill-chunk", "16", "--prefill-adaptive", "--prefix-cache", "64",
-         "--persistent", "--device", dev.type],
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT, capture_output=True,
-        text=True, timeout=300)
-    lines = (launch.stdout + launch.stderr).splitlines()
-    for ln in lines[-3:]:
-        say("entry_point", command=f"launch.serve --arch {mcfg.name}", line=repr(ln))
-    require(launch.returncode == 0 and any("served 16 requests" in ln for ln in lines),
-            f"python -m repro_torch.launch.serve --arch {mcfg.name} exited {launch.returncode}")
+    launch_serve(mcfg.name, dev)
     sub = traffic[:profiled]
     act = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
     with torch.no_grad(), profile(activities=[act]) as prof:
@@ -1566,6 +1626,499 @@ def serve_zamba2(mcfg, params, dev, card: str, traffic, checked, *,
     out["peak_bytes"] = max(out["peak_bytes"], torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else 0)
     return {k: out[k] for k in ("calls", "window_calls", "launches", "peak_bytes")}
+
+
+@contextlib.contextmanager
+def pinned_routes(ids: list):
+    """While open, the k-th ``moe.route`` call returns the expert ids
+    ``ids[k]`` (another run's decisions, in depth order), with weights from
+    this run's own router probabilities at those ids, renormalised: the
+    output then moves continuously with the weights, with no top-k switch.
+    ``moe_apply`` looks ``route`` up on its module at every call."""
+    from repro_torch.models import moe
+
+    orig, it = moe.route, iter(ids)
+
+    def pinned(p, cfg, x):
+        e = next(it).reshape(x.shape[:-1] + (cfg.top_k,))
+        w = torch.softmax(x.float() @ p["router"], dim=-1).gather(-1, e)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return e, w.to(x.dtype), torch.zeros((), device=x.device)
+
+    moe.route = pinned
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+@contextlib.contextmanager
+def record_routes():
+    """While open, every MoE block's ``moe_apply`` first calls
+    ``moe.route`` on its input (the block's normed input) and appends
+    ``(top-k ids [T, k], top-(k+1) probabilities [T, k+1])`` to the yielded
+    list, in depth order; the block's output is ``moe_apply``'s own.  The
+    transformer looks ``moe_apply`` up on its module at every call, so the
+    spy is installed there and ``moe_apply``'s signature is untouched."""
+    from repro_torch.models import moe
+
+    log: list = []
+    orig = moe.moe_apply
+
+    def spy(p, cfg, x, group_size=moe.DEFAULT_GROUP_SIZE):
+        xf = x.reshape(-1, x.shape[-1])
+        ids, _, _ = moe.route(p, cfg, xf)
+        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        log.append((ids, torch.topk(probs, cfg.top_k + 1, dim=-1).values))
+        return orig(p, cfg, x, group_size)
+
+    moe.moe_apply = spy
+    try:
+        yield log
+    finally:
+        moe.moe_apply = orig
+
+
+def route_flips(log_a, log_b) -> dict:
+    """Two runs' routing decisions compared layer by layer: the number of
+    (token, layer, choice) decisions that differ and, at the first layer
+    with any, each differing token's first differing choice j and its
+    margin ``p_j - p_(j+1)`` in run a's probabilities (the gap between the
+    two experts that swapped; for j = k-1 the k-th minus the (k+1)-th).
+    Later layers read a residual stream that the first flip has already
+    moved by O(1e-2), so their flips are counted, not held."""
+    require(len(log_a) == len(log_b), f"route logs of {len(log_a)} and {len(log_b)} blocks")
+    n, first = 0, None
+    for layer, ((ea, pa), (eb, _)) in enumerate(zip(log_a, log_b)):
+        diff = ea != eb
+        n += int(diff.sum())
+        if first is None and bool(diff.any()):
+            toks = diff.any(-1).nonzero()[:, 0]
+            j = diff[toks].int().argmax(-1)[:, None]
+            margins = (pa[toks].gather(1, j) - pa[toks].gather(1, j + 1))[:, 0]
+            first = {"layer": layer, "token": int(toks[0]), "choice": int(j[0]),
+                     "tokens": int(toks.numel()), "margin": float(margins[0]),
+                     "max_margin": float(margins.max())}
+    return {"flips": n, "first": first}
+
+
+def moe_prefill_against_plain(mcfg, params, prompts, dev, card: str,
+                              rtol: float = MOE_LOGITS_RTOL) -> dict:
+    """Each prompt's one-shot prefill through the kernel path against
+    ``use_pallas=False``, both under ``record_routes``: the routing
+    decisions that differ between the two, then the logits within ``rtol``
+    of max |logit| where none differ, or, where some do, every flip of the
+    first flipping layer a near-tie (margin below ``ROUTE_MARGIN``); the
+    kernel's calls and launches held to ``fa_per_prefill``; each
+    prefill's ms (the route spy's router GEMM included) and transient
+    memory.  Returns the largest gap held, the flips, the kernel's counts
+    and the peak allocation."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import lm, moe
+
+    out = {"gap": 0.0, "flips": 0, "calls": 0, "launches": 0, "peak": 0}
+    pcfg = dataclasses.replace(mcfg, use_pallas=False)
+    for prompt in prompts:
+        toks = torch.as_tensor([prompt], device=dev)
+        sync(dev)
+        extra = {}
+        if dev.type == "cuda":
+            out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated(dev))
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        fa = fa_ops.flash_attention
+        fa.calls = fa.window_calls = fa.launches = 0
+        with torch.no_grad(), record_routes() as log_k:
+            t0 = time.perf_counter()
+            lg_k, _ = lm.prefill(params, mcfg, toks)
+            sync(dev)
+            k_ms = (time.perf_counter() - t0) * 1e3
+        if dev.type == "cuda":
+            extra["transient_gb"] = f"{(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.2f}"
+        calls, win, launches = fa.calls, fa.window_calls, fa.launches
+        with torch.no_grad(), record_routes() as log_p:
+            t0 = time.perf_counter()
+            lg_p, _ = lm.prefill(params, pcfg, toks)
+            sync(dev)
+            p_ms = (time.perf_counter() - t0) * 1e3
+        want = fa_per_prefill(mcfg, len(prompt), dev)
+        require((calls, win, launches) == want,
+                f"{mcfg.name} prefill of {len(prompt)} tokens: flash_attention calls, "
+                f"windowed calls, launches {(calls, win, launches)}, not {want}")
+        require(lg_k.shape == (1, mcfg.vocab) and bool(torch.isfinite(lg_k).all()),
+                f"{mcfg.name} prefill logits of shape {tuple(lg_k.shape)} or non-finite")
+        fl = route_flips(log_k, log_p)
+        scale = float(lg_p.abs().max())
+        gap = float((lg_k - lg_p).abs().max()) / scale
+        if fl["flips"] == 0:
+            require(gap <= rtol, f"{mcfg.name} use_pallas prefill logits of {len(prompt)} "
+                    f"tokens differ from the plain path by {gap:.3e} of max |logit| {scale:.3e}"
+                    " with equal routing")
+            out["gap"] = max(out["gap"], gap)
+        else:
+            first = fl["first"]
+            require(first["max_margin"] < ROUTE_MARGIN,
+                    f"{mcfg.name} prefill of {len(prompt)} tokens: the kernel and plain paths "
+                    f"route differently at layer {first['layer']} with a margin of "
+                    f"{first['max_margin']:.3e}, not a near-tie (< {ROUTE_MARGIN})")
+            extra |= {f"first_flip_{k}": v for k, v in first.items()}
+        say("prefill_check", arch=mcfg.name, prompt_len=len(prompt),
+            moe_group=moe.group_size_of(len(prompt), mcfg.moe_group_size or 2048),
+            flash_attention_calls=calls, launches=launches, route_flips=fl["flips"],
+            rel_gap=f"{gap:.3e}", rtol_of_max=rtol if fl["flips"] == 0 else "not_held:flip",
+            prefill_ms_use_pallas=f"{k_ms:.2f}", prefill_ms_plain=f"{p_ms:.2f}", **extra,
+            card=repr(card))
+        out["flips"] += fl["flips"]
+        out["calls"] += calls
+        out["launches"] += launches
+        del lg_k, lg_p, log_k, log_p
+    if dev.type == "cuda":
+        out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def greedy_under_route_rule(mcfg, params, prompt, served, n: int, max_seq: int, dev) -> str:
+    """The served tokens against ``plain_greedy``: equal, or, where they part,
+    explained by a routing near-tie between the served one-shot prefill and
+    the plain loop's prefill (``route_flips``' first flipping layer all
+    below ``ROUTE_MARGIN``); anything else fails."""
+    from repro_torch.models import lm
+
+    want = plain_greedy(mcfg, params, prompt, n, max_seq, dev)
+    if served == want:
+        return "equal"
+    toks = torch.as_tensor([prompt], device=dev)
+    pcfg = dataclasses.replace(mcfg, use_pallas=False)
+    with torch.no_grad(), record_routes() as log_a:
+        lm.prefill(params, mcfg, toks)
+    with torch.no_grad(), record_routes() as log_b:
+        lm.prefill_chunk(params, pcfg, toks, lm.init_cache(pcfg, 1, max_seq, dev), 0)
+    first = route_flips(log_a, log_b)["first"] or {"layer": None, "max_margin": math.inf}
+    require(first["max_margin"] < ROUTE_MARGIN,
+            f"{mcfg.name}: the served tokens of the {len(prompt)}-token request differ from the "
+            f"plain greedy loop's without a routing near-tie ({first}):\n{served}\n{want}")
+    return f"near_tie(layer={first['layer']},margin={first['max_margin']:.2e})"
+
+
+def serve_moe(mcfg, params, dev, card: str, traffic, checked, *,
+              max_seq: int = MOE_MAX_SEQ, chunk: int = MOE_CHUNK) -> dict:
+    """An MoE model's main path: ``traffic`` under one-shot ``step()`` and
+    ``step_block()`` (equal tokens), chunked ``step()`` without the prefix
+    cache and twice with one sized by ``checkpoint_bytes`` (equal tokens
+    across the three, the second pass all full hits), the chunked tokens'
+    agreement with the one-shot ones printed (chunk-local groups drop other
+    tokens, so it is not held), the requests at ``checked`` under
+    ``greedy_under_route_rule``, and every distinct prompt's prefill
+    through ``moe_prefill_against_plain``.  Returns the kernel's counts
+    over the runs, ``step()``'s tokens, the flips and the peak allocation."""
+    budget = checkpoint_bytes(mcfg, traffic, chunk)
+    say("serve_budget", arch=mcfg.name, prefix_cache_bytes=budget,
+        why="every chunk-boundary and prompt-end checkpoint of the cold chunked pass")
+    total = np.zeros(3, np.int64)
+    runs = {}
+    with torch.no_grad():
+        for label, block in (("step", False), ("step_block", True)):
+            runs[label], srv, counts = dense_serve(mcfg, params, traffic, label, dev, card,
+                                                    block=block, max_seq=max_seq)
+            total += counts
+            del srv
+        require(runs["step_block"] == runs["step"],
+                f"{mcfg.name}: step_block's tokens differ from step()'s")
+        label = f"step+prefill_chunk={chunk}"
+        runs["chunked"], srv, counts = dense_serve(mcfg, params, traffic, label, dev, card,
+                                                    max_seq=max_seq, prefill_chunk=chunk)
+        total += counts
+        del srv
+        runs["chunked_cache"], srv, counts = dense_serve(
+            mcfg, params, traffic, label + "+cache", dev, card, max_seq=max_seq,
+            prefill_chunk=chunk, prefix_cache_bytes=budget)
+        total += counts
+        first = srv.stats()["prefix_cache"]
+        require(first["partial_hits"] >= 1 and first["evictions"] == 0,
+                f"{mcfg.name}: the cold chunked pass found {first['partial_hits']} partial hits "
+                f"(the shared prefix) and evicted {first['evictions']} checkpoints")
+        runs["chunked_again"], srv, counts = dense_serve(
+            mcfg, params, traffic, label + "+cache (second pass)", dev, card, srv=srv, uid0=1000)
+        total += counts
+        st = srv.stats()
+        require(st["prefix_cache"]["hits"] == len(traffic)
+                and st["prefill"]["prompt_steps_computed"] == 0,
+                f"{mcfg.name}: the second pass hit {st['prefix_cache']['hits']} of "
+                f"{len(traffic)} prompts and ran {st['prefill']['prompt_steps_computed']} "
+                "prompt steps")
+        del srv
+        for label in ("chunked_cache", "chunked_again"):
+            require(runs[label] == runs["chunked"],
+                    f"{mcfg.name}: {label} tokens differ from the uncached chunked run's")
+        same = sum(runs["chunked"][i] == runs["step"][i] for i in runs["step"])
+        tok_eq = sum(a == b for i in runs["step"] for a, b in zip(runs["chunked"][i],
+                                                                   runs["step"][i]))
+        say("chunked_vs_one_shot", arch=mcfg.name, requests_equal=f"{same}/{len(traffic)}",
+            tokens_equal=f"{tok_eq}/{sum(n for _, n in traffic)}",
+            why="chunk-local MoE groups drop other tokens than one-shot groups; not held")
+        greedy = [greedy_under_route_rule(mcfg, params, traffic[i][0], runs["step"][i],
+                                          traffic[i][1], max_seq, dev) for i in checked]
+        distinct = list({len(p): p for p, _ in traffic}.values())
+        pre = moe_prefill_against_plain(mcfg, params, distinct, dev, card)
+        total += (pre["calls"], 0, pre["launches"])
+    say("serve_check", arch=mcfg.name, path="use_pallas", identical_tokens="step=step_block",
+        chunked_runs_identical=True,
+        plain_greedy=",".join(f"{len(traffic[i][0])}+{traffic[i][1]}:{g}"
+                              for i, g in zip(checked, greedy)),
+        prefill_lengths=",".join(str(len(p)) for p in distinct), route_flips=pre["flips"],
+        max_rel_gap=f"{pre['gap']:.3e}", rtol_of_max=MOE_LOGITS_RTOL,
+        flash_attention_calls=int(total[0]), launches=int(total[2]), card=repr(card))
+    return {"calls": int(total[0]), "window_calls": int(total[1]), "launches": int(total[2]),
+            "tokens": runs["step"], "flips": pre["flips"], "peak_bytes": pre["peak"]}
+
+
+def quantize_olmoe(mcfg, params, dev, card: str, prompt) -> tuple:
+    """Weight-only int8 on the card: the fp32 logits of ``prompt`` (every
+    position) and its routing decisions, ``quantize_lm_params`` with its
+    stats, and the codes and scales of an expert ``w_in``, ``attn/wq``
+    (group 0 of each) and ``embed`` bit-identical to the same leaves
+    quantized on the host's CPU; the router stays fp32.  Returns (quantized
+    tree, fp32 logits, fp32 route log)."""
+    from repro_torch.core.quantization import quantize_int8
+    from repro_torch.models import lm
+    from repro_torch.runtime.quantized import quantize_lm_params
+
+    with torch.no_grad(), record_routes() as routes:
+        lf, _ = lm.forward(params, mcfg, torch.as_tensor([prompt], device=dev))
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        qp, stats = quantize_lm_params(params)
+        sync(dev)
+    q_s = time.perf_counter() - t0
+    say("quantize", arch=mcfg.name, seconds=f"{q_s:.2f}", **stats, card=repr(card))
+    blk, qblk = params["groups"]["b0_moe"], qp["groups"]["b0_moe"]
+    for name, w, q in (("groups/b0_moe/moe/w_in[0]", blk["moe"]["w_in"][0], qblk["moe"]["w_in"]),
+                       ("groups/b0_moe/attn/wq[0]", blk["attn"]["wq"][0], qblk["attn"]["wq"]),
+                       ("embed/table", params["embed"]["table"], qp["embed"]["table"])):
+        codes, scale = quantize_int8(w.cpu(), axis=-2)
+        got_codes, got_scale = q["__int8__"], q["scale"]
+        if name.endswith("[0]"):
+            got_codes, got_scale = got_codes[0], got_scale[0]
+        same = torch.equal(got_codes.cpu(), codes) and torch.equal(got_scale.cpu(), scale)
+        require(same, f"int8 codes or scales of {name} on the card differ from the CPU's")
+        say("quantize_vs_cpu", leaf=name, shape="x".join(map(str, w.shape)), bit_identical=True)
+    router = qblk["moe"]["router"]
+    require(isinstance(router, torch.Tensor) and router.dtype == torch.float32,
+            f"{mcfg.name}: the router was quantized or cast")
+    return qp, lf, routes
+
+
+def int8_logits_quality(lf, lq) -> tuple[float, float]:
+    """The reference's quantized-serving metrics over every position:
+    the mean per-vocabulary-column SNR of ``lq`` against ``lf`` in dB
+    (``output_snr_db``, the paper's Fig. 11 metric) and the share of
+    positions whose argmax agrees."""
+    from repro_torch.core.quantization import output_snr_db
+
+    a, b = lf[0].double().cpu().numpy(), lq[0].double().cpu().numpy()
+    return float(np.mean(output_snr_db(a, b))), float(np.mean(a.argmax(-1) == b.argmax(-1)))
+
+
+def serve_dequantized(mcfg, qp, lf, routes, prompt, dev, card: str, traffic,
+                      fp32_tokens) -> dict:
+    """Dequantize the int8 tree; print the logits of ``prompt`` against its
+    fp32 logits ``lf`` (SNR and greedy agreement, the reference's metrics)
+    with the int8 model's own routing, whose decisions against the fp32
+    ``routes`` are counted by layer, and with the routing pinned to
+    ``routes`` (``pinned_routes``); hold the dequantized model's prefill
+    through the kernel against the plain path (``moe_prefill_against_plain``)
+    and ``traffic`` under ``step()`` and ``step_block()`` with equal tokens
+    (their agreement with the fp32 model's printed).  The reference's bars
+    (SNR above ``QUANT_SNR_DB``, agreement above ``QUANT_AGREE``) are printed
+    beside the numbers but not held here: at olmoe's full width the
+    reference's own quantization reroutes most tokens (PERF.md §6).
+    Returns the kernel's counts."""
+    from repro_torch.models import lm
+    from repro_torch.runtime.quantized import dequantize_lm_params
+
+    dq = dequantize_lm_params(qp)
+    toks = torch.as_tensor([prompt], device=dev)
+    with torch.no_grad(), record_routes() as free_routes:
+        lq, _ = lm.forward(dq, mcfg, toks)
+    with torch.no_grad(), pinned_routes([e for e, _ in routes]):
+        lp, _ = lm.forward(dq, mcfg, toks)
+    by_layer = [int((ea != eb).any(-1).sum()) for (ea, _), (eb, _) in zip(routes, free_routes)]
+    sets = [int((ea.sort(-1).values != eb.sort(-1).values).any(-1).sum())
+            for (ea, _), (eb, _) in zip(routes, free_routes)]
+    free, pinned = int8_logits_quality(lf, lq), int8_logits_quality(lf, lp)
+    del lq, lp
+    say("quantized_logits", arch=mcfg.name, prompt_len=len(prompt),
+        snr_db_free=f"{free[0]:.2f}", greedy_agreement_free=f"{free[1]:.4f}",
+        snr_db_pinned=f"{pinned[0]:.2f}", greedy_agreement_pinned=f"{pinned[1]:.4f}",
+        reference_bars=f"snr>{QUANT_SNR_DB},agree>{QUANT_AGREE} (printed, not held)",
+        tokens_rerouted_by_layer=",".join(map(str, by_layer)),
+        tokens_with_another_expert_set_by_layer=",".join(map(str, sets)), card=repr(card))
+    pre = moe_prefill_against_plain(mcfg, dq, [prompt], dev, card)
+    total = np.array([pre["calls"], 0, pre["launches"]], np.int64)
+    runs = {}
+    with torch.no_grad():
+        for label, block in (("int8 step", False), ("int8 step_block", True)):
+            runs[label], srv, counts = dense_serve(mcfg, dq, traffic, label, dev, card,
+                                                    block=block, max_seq=MOE_MAX_SEQ)
+            total += counts
+            del srv
+    require(runs["int8 step"] == runs["int8 step_block"],
+            f"{mcfg.name} int8: step_block's tokens differ from step()'s")
+    same = sum(runs["int8 step"][i] == fp32_tokens[i] for i in fp32_tokens)
+    say("serve_check", arch=mcfg.name, path="int8 weights (dequantized)",
+        identical_tokens="step=step_block", requests_equal_to_fp32=f"{same}/{len(traffic)}",
+        prefill_route_flips=pre["flips"], flash_attention_calls=int(total[0]),
+        launches=int(total[2]), card=repr(card))
+    return {"calls": int(total[0]), "launches": int(total[2])}
+
+
+def quantize_dense_check(mcfg, dev, card: str, n: int = 256) -> tuple[float, float]:
+    """A dense model at full width (no router): its weights quantized on the
+    card, the logits of an ``n``-token prompt against fp32 under the
+    reference's metrics.  Returns (SNR dB, greedy agreement)."""
+    from repro_torch.models import lm
+    from repro_torch.runtime.quantized import dequantize_lm_params, quantize_lm_params
+
+    params = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(1, mcfg.vocab, (1, n)), device=dev)
+    with torch.no_grad():
+        lf, _ = lm.forward(params, mcfg, toks)
+        qp, stats = quantize_lm_params(params)
+        del params
+        lq, _ = lm.forward(dequantize_lm_params(qp), mcfg, toks)
+    snr, agree = int8_logits_quality(lf, lq)
+    say("quantized_logits", arch=mcfg.name, prompt_len=n, snr_db=f"{snr:.2f}",
+        greedy_agreement=f"{agree:.4f}", weights_quantized=stats["weights_quantized"],
+        compression=f"{stats['compression']:.3f}",
+        reference_bars=f"snr>{QUANT_SNR_DB},agree>{QUANT_AGREE}", card=repr(card))
+    return snr, agree
+
+
+def mla_check(mcfg, params, dev, card: str, S: int = 64) -> float:
+    """One MLA layer (group 0's) at full width: the absorbed decode, token by
+    token and as one S-token chunk, against the naive prefill, within 1e-5
+    of max |out| (the reference's
+    ``test_mla_absorbed_decode_equals_naive_prefill`` on the card)."""
+    from repro_torch.models import attention
+
+    p = {k: v[0] for k, v in params["groups"]["b0_moe"]["attn"].items()
+         if isinstance(v, torch.Tensor)}
+    p["kv_norm"] = {"scale": params["groups"]["b0_moe"]["attn"]["kv_norm"]["scale"][0]}
+    x = torch.randn((1, S, mcfg.d_model), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    with torch.no_grad():
+        naive, _ = attention.mla_prefill(p, mcfg, x)
+        empty = {"c_kv": torch.zeros((1, S, mcfg.kv_lora_rank), device=dev),
+                 "k_rope": torch.zeros((1, S, mcfg.qk_rope_head_dim), device=dev)}
+        cache, outs = empty, []
+        for t in range(S):
+            o, cache = attention.mla_decode(p, mcfg, x[:, t:t + 1], cache, t)
+            outs.append(o)
+        chunk, _ = attention.mla_decode(p, mcfg, x, empty, 0)
+    scale = float(naive.abs().max())
+    gaps = [float((torch.cat(outs, 1) - naive).abs().max()) / scale,
+            float((chunk - naive).abs().max()) / scale]
+    require(max(gaps) <= 1e-5, f"{mcfg.name} MLA absorbed decode vs naive prefill: {gaps}")
+    say("mla_check", arch=mcfg.name, tokens=S, r=mcfg.kv_lora_rank, dr=mcfg.qk_rope_head_dim,
+        rel_gap_token_by_token=f"{gaps[0]:.3e}", rel_gap_chunk=f"{gaps[1]:.3e}",
+        rtol_of_max=1e-5, card=repr(card))
+    return max(gaps)
+
+
+def serve_moe_phase(dev, card: str) -> dict:
+    """Phase 20: olmoe-1b-7b uncut through ``serve_moe`` and the launcher,
+    then its int8 weights (``quantize_olmoe``, the fp32 tree freed,
+    ``serve_dequantized``) and smollm-135m's (``quantize_dense_check``, held
+    to the reference's bars), then deepseek-v2-lite-16b uncut
+    (``mla_check``, ``serve_moe``).  Returns the ``flash_attention`` calls
+    and launches by run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    ocfg = dataclasses.replace(get_config("olmoe-1b-7b"), use_pallas=True)
+    require((ocfg.n_layers, ocfg.d_model, ocfg.n_heads, ocfg.n_kv_heads, ocfg.head_dim,
+             ocfg.qk_norm, ocfg.n_experts, ocfg.top_k, ocfg.n_shared_experts, ocfg.d_ff_expert,
+             ocfg.capacity_factor, ocfg.vocab, ocfg.tie_embeddings, ocfg.layer_pattern)
+            == (16, 2048, 16, 16, 128, True, 64, 8, 0, 1024, 1.25, 50_304, False, ("moe",)),
+            f"olmoe-1b-7b is not at its published widths and depth: {ocfg}")
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    oparams = lm.init_params(ocfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    o_params = lm.param_count(oparams)
+    require(o_params == 6_919_100_416, f"olmoe-1b-7b has {o_params} parameters")
+    traffic = long_prompt_traffic(ocfg.vocab, lengths=OLMOE_LENGTHS, shared=MOE_SHARED,
+                                  cross=None, new=MOE_NEW)
+    say("serve_setup", arch=ocfg.name, n_layers=ocfg.n_layers, d_model=ocfg.d_model,
+        heads=f"{ocfg.n_heads}/{ocfg.n_kv_heads}", head_dim=ocfg.head_dim,
+        experts=f"{ocfg.n_experts}x{ocfg.d_ff_expert} top{ocfg.top_k}", vocab=ocfg.vocab,
+        params=o_params, param_gb=f"{4 * o_params / 1e9:.2f}", init_s=f"{init_s:.1f}",
+        alloc_gb_before_init=f"{base_alloc / 1e9:.2f}",
+        prompt_lens=",".join(f"{len(p)}+{n}" for p, n in traffic), num_slots=SERVE_SLOTS,
+        max_seq=MOE_MAX_SEQ, block_k=BLOCK_K, chunk=MOE_CHUNK)
+    long_prompt = traffic[OLMOE_LENGTHS.index(2048)][0]
+    olmoe_fa = serve_moe(ocfg, oparams, dev, card, traffic,
+                         [OLMOE_LENGTHS.index(2048), len(traffic) - 1])
+    launch_serve(ocfg.name, dev)
+    say("serve_memory", arch=ocfg.name, peak_alloc_gb=f"{olmoe_fa['peak_bytes'] / 1e9:.2f}",
+        card=repr(card))
+    phase_done("serve_olmoe")
+    qp, lf, routes = quantize_olmoe(ocfg, oparams, dev, card, long_prompt)
+    del oparams
+    torch.cuda.empty_cache()
+    olmoe_q = serve_dequantized(ocfg, qp, lf, routes, long_prompt, dev, card, traffic,
+                                olmoe_fa["tokens"])
+    del qp, lf, routes
+    torch.cuda.empty_cache()
+    say("serve_memory", arch=f"{ocfg.name} int8",
+        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
+    # the reference's bars where its own test holds them: a dense model
+    # (no router), here at full width
+    scfg = dataclasses.replace(get_config("smollm-135m"), use_pallas=True)
+    snr, agree = quantize_dense_check(scfg, dev, card)
+    require(snr > QUANT_SNR_DB and agree > QUANT_AGREE,
+            f"{scfg.name} int8 at full width: logits SNR {snr:.2f} dB, greedy agreement "
+            f"{agree:.4f} (bars {QUANT_SNR_DB}, {QUANT_AGREE})")
+    torch.cuda.empty_cache()
+    phase_done("serve_olmoe_int8")
+
+    dcfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), use_pallas=True)
+    require((dcfg.n_layers, dcfg.d_model, dcfg.n_heads, dcfg.use_mla, dcfg.kv_lora_rank,
+             dcfg.qk_nope_head_dim, dcfg.qk_rope_head_dim, dcfg.v_head_dim, dcfg.n_experts,
+             dcfg.top_k, dcfg.n_shared_experts, dcfg.d_ff_expert, dcfg.vocab, dcfg.layer_pattern)
+            == (27, 2048, 16, True, 512, 128, 64, 128, 64, 6, 2, 1408, 102_400, ("moe",)),
+            f"deepseek-v2-lite-16b is not at its published widths and depth: {dcfg}")
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dparams = lm.init_params(dcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d_params = lm.param_count(dparams)
+    require(d_params == 16_210_324_992, f"deepseek-v2-lite-16b has {d_params} parameters")
+    traffic = long_prompt_traffic(dcfg.vocab, lengths=DEEPSEEK_LENGTHS, shared=MOE_SHARED,
+                                  cross=None, new=MOE_NEW)
+    say("serve_setup", arch=dcfg.name, n_layers=dcfg.n_layers, d_model=dcfg.d_model,
+        heads=dcfg.n_heads, mla=f"r{dcfg.kv_lora_rank}+dr{dcfg.qk_rope_head_dim}",
+        experts=f"{dcfg.n_shared_experts}+{dcfg.n_experts}x{dcfg.d_ff_expert} top{dcfg.top_k}",
+        vocab=dcfg.vocab, params=d_params, param_gb=f"{4 * d_params / 1e9:.2f}",
+        init_s=f"{init_s:.1f}", alloc_gb_before_init=f"{base_alloc / 1e9:.2f}",
+        prompt_lens=",".join(f"{len(p)}+{n}" for p, n in traffic), num_slots=SERVE_SLOTS,
+        max_seq=MOE_MAX_SEQ, block_k=BLOCK_K, chunk=MOE_CHUNK)
+    mla_check(dcfg, dparams, dev, card)
+    deepseek_fa = serve_moe(dcfg, dparams, dev, card, traffic,
+                            [DEEPSEEK_LENGTHS.index(2048), len(traffic) - 1])
+    require(deepseek_fa["calls"] == deepseek_fa["launches"] == 0,
+            f"deepseek-v2-lite-16b (MLA) called flash_attention {deepseek_fa['calls']} times")
+    say("serve_memory", arch=dcfg.name, peak_alloc_gb=f"{deepseek_fa['peak_bytes'] / 1e9:.2f}",
+        card=repr(card))
+    del dparams
+    torch.cuda.empty_cache()
+    phase_done("serve_deepseek")
+    return {"olmoe": olmoe_fa, "olmoe_int8": olmoe_q, "deepseek": deepseek_fa}
 
 
 def main() -> int:
@@ -1726,18 +2279,19 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lengths]
 
     def serve(mcfg, params, label: str, block: bool, counter, chunks_launch: bool = True,
-              launches_per_prefill=None, **kw):
-        """Drive ``DecodeServer`` over the 16 requests; ``counter`` is the
+              launches_per_prefill=None, n: int = N_REQUESTS, **kw):
+        """Drive ``DecodeServer`` over the first ``n`` of the 16 requests;
+        ``counter`` is the
         wrapper whose launches this run must show exactly once per layer of
         every prefill call (of every one-shot prefill only, and none in a
         chunked run, when ``chunks_launch`` is False).  A wrapper that also
-        counts ``calls`` makes ``launches_per_prefill(n)`` CUDA launches a
-        layer for a one-shot prefill of n tokens, and its calls are held to
+        counts ``calls`` makes ``launches_per_prefill(m)`` CUDA launches a
+        layer for a one-shot prefill of m tokens, and its calls are held to
         the rule above."""
         obs = Observability(trace=True)
         srv = DecodeServer(mcfg, params, num_slots=NUM_SLOTS, max_seq=MAX_SEQ,
                            block_k=BLOCK_K, obs=obs, **kw)
-        for i, p in enumerate(prompts):
+        for i, p in enumerate(prompts[:n]):
             srv.submit(Request(uid=i, prompt=p, max_new_tokens=MAX_NEW))
         torch.cuda.synchronize()
         counter.launches = 0
@@ -1752,21 +2306,21 @@ def main() -> int:
         decode_ms = sum(ev["dur"] for ev in obs.tracer.events()
                         if ev.get("name") in ("decode_step", "decode_block")) / 1e3
         st = srv.stats()
-        require(len(done) == N_REQUESTS,
-                f"{mcfg.name} {label}: {len(done)} of {N_REQUESTS} requests retired")
+        require(len(done) == n, f"{mcfg.name} {label}: {len(done)} of {n} requests retired")
         for r in done:
             require(r.finish_reason == "max_tokens" and len(r.out_tokens) == MAX_NEW,
                     f"{mcfg.name} {label}: request {r.uid} ended {r.finish_reason} "
                     f"after {len(r.out_tokens)} tokens")
-        n_prefills = (sum(math.ceil(n / kw["prefill_chunk"]) for n in lengths)
-                      if kw.get("prefill_chunk") else N_REQUESTS)
+        n_prefills = (sum(math.ceil(m / kw["prefill_chunk"]) for m in lengths[:n])
+                      if kw.get("prefill_chunk") else n)
         want = mcfg.n_layers * n_prefills if chunks_launch or not kw.get("prefill_chunk") else 0
         require(calls == want,
                 f"{mcfg.name} {label}: {calls} kernel calls for {n_prefills} prefill "
                 f"calls of {mcfg.n_layers} layers")
         if launches_per_prefill is not None:
             want_launches = (0 if kw.get("prefill_chunk") else
-                             mcfg.n_layers * sum(launches_per_prefill(int(n)) for n in lengths))
+                             mcfg.n_layers * sum(launches_per_prefill(int(m))
+                                                 for m in lengths[:n]))
             require(launches == want_launches,
                     f"{mcfg.name} {label}: {launches} CUDA launches, not {want_launches}")
         # a persistent kernel (lstm_seq, codegen_stage) waits for its barrier
@@ -1778,7 +2332,7 @@ def main() -> int:
                 f"calls, not {want_syncs}")
         say("serve", arch=mcfg.name, driver=label, requests=len(done), wall_ms=f"{wall_ms:.1f}",
             decode_tok_s=f"{st['decoded_tokens'] / (decode_ms / 1e3):.1f}",
-            prefill_ms_per_prompt=f"{(wall_ms - decode_ms) / N_REQUESTS:.2f}",
+            prefill_ms_per_prompt=f"{(wall_ms - decode_ms) / n:.2f}",
             decode_syncs=st["decode_syncs"], decoded_tokens=st["decoded_tokens"],
             syncs_per_token=f"{st['syncs_per_token']:.4f}", kernel_syncs=kernel_syncs,
             kernel_calls=calls, kernel_launches=launches, prefill_calls=n_prefills,
@@ -2122,14 +2676,17 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     def profiled_step_run(mcfg, mparams, counter, want_tokens, **serve_kw):
-        """The ``step()`` serve run once more under torch.profiler: device
-        busy time and idle share over the run's wall, and the top kernels.
-        Only the device is traced: the host's operator events are not read,
-        and sorting them took most of the phase on a full-width model."""
+        """The ``step()`` serve run once more, on the first ``PROFILED``
+        requests, under torch.profiler: device busy time and idle share over
+        the run's wall, and the top kernels.  Only the device is traced: the
+        host's operator events are not read, and sorting them took most of
+        the phase on a full-width model; the profiler's processing grows
+        with the run, so a short run keeps the phase short."""
         with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
             tok_prof, _, prof_wall_ms = serve(mcfg, mparams, "step(profiled)", False,
-                                              counter, **serve_kw)
-        require(tok_prof == want_tokens, f"{mcfg.name}: the profiled step() run's tokens differ")
+                                              counter, n=PROFILED, **serve_kw)
+        require(tok_prof == {u: want_tokens[u] for u in range(PROFILED)},
+                f"{mcfg.name}: the profiled step() run's tokens differ")
         kernels = sorted((e for e in prof.key_averages()
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and e.self_device_time_total > 0),
@@ -2307,7 +2864,8 @@ def main() -> int:
         # times at (a') and (a) one smollm-135m layer of a 64- and a 256-token
         # prompt, (b) one phi4-mini-3.8b layer of 2048 tokens, (c) gemma3's
         # local-layer shape, (d) its global layer, (e) one internlm2-20b layer,
-        # (f) one application of zamba2-1.2b's shared block (MHA, hd 64)
+        # (f) one application of zamba2-1.2b's shared block (MHA, hd 64),
+        # (g) one olmoe-1b-7b layer (MHA 16/16, hd 128, after qk-norm)
         attn_time = {}
         for name, c in (("a1_smollm_S64", dict(B=1, S=64, T=64, H=9, KV=3, hd=64, window=0)),
                         ("a_smollm_S256", dict(B=1, S=256, T=256, H=9, KV=3, hd=64, window=0)),
@@ -2319,7 +2877,9 @@ def main() -> int:
                         ("e_internlm2_S2048",
                          dict(B=1, S=2048, T=2048, H=48, KV=8, hd=128, window=0)),
                         ("f_zamba2_shared_S2048",
-                         dict(B=1, S=2048, T=2048, H=32, KV=32, hd=64, window=0))):
+                         dict(B=1, S=2048, T=2048, H=32, KV=32, hd=64, window=0)),
+                        ("g_olmoe_S2048",
+                         dict(B=1, S=2048, T=2048, H=16, KV=16, hd=128, window=0))):
             q, k, v = attn_inputs(c)
             w = c["window"]
             shape_err = check_close(f"flash_attention {name}",
@@ -2655,6 +3215,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("serve_zamba2")
 
+    # -- 20. serve olmoe-1b-7b (fp32, then int8 weights) and deepseek-v2-lite-16b
+    # at their published widths and depth -----------------------------------------
+    moe_fa = serve_moe_phase(dev, card)
+
     # -- 15d. the entry points as subprocesses on the card ----------------------
     serve_loadgen_entry_points(card)
     phase_done("serve_loadgen_entry_points")
@@ -2765,16 +3329,23 @@ def main() -> int:
         # chunks), its loadgen run (30 per miss), phi4-mini-3.8b's prefill
         # (32), gemma3-27b's serve runs and prefills (14 per one-shot prefill,
         # 12 of them windowed), internlm2-20b's (4), zamba2-1.2b's (6, its
-        # shared block) and the chaos suite (30 per one-shot prefill); times
-        # at shape (a)
+        # shared block), olmoe-1b-7b's in fp32 and int8 (16; none from
+        # deepseek's MLA) and the chaos suite (30 per one-shot prefill);
+        # times at shape (a)
         "launches": (f1 + f2 + f3 + lg_smollm_launches + p_launch + gemma_fa["launches"]
-                     + internlm_fa["launches"] + zamba_fa["launches"] + tc["smollm-135m"]),
+                     + internlm_fa["launches"] + zamba_fa["launches"]
+                     + moe_fa["olmoe"]["launches"] + moe_fa["olmoe_int8"]["launches"]
+                     + tc["smollm-135m"]),
         "calls": (c1 + c2 + c3 + lg_smollm_calls + p_call + gemma_fa["calls"]
-                  + internlm_fa["calls"] + zamba_fa["calls"] + tc["smollm-135m_calls"]),
+                  + internlm_fa["calls"] + zamba_fa["calls"] + moe_fa["olmoe"]["calls"]
+                  + moe_fa["olmoe_int8"]["calls"] + tc["smollm-135m_calls"]),
         "window_calls": gemma_fa["window_calls"],
         "launches_by_model": {"gemma3-27b": gemma_fa["launches"],
                               "internlm2-20b": internlm_fa["launches"],
-                              "zamba2-1.2b": zamba_fa["launches"]},
+                              "zamba2-1.2b": zamba_fa["launches"],
+                              "olmoe-1b-7b": (moe_fa["olmoe"]["launches"]
+                                              + moe_fa["olmoe_int8"]["launches"]),
+                              "deepseek-v2-lite-16b": moe_fa["deepseek"]["launches"]},
         "max_abs_err": attn_err,
         "ms": attn_time["a_smollm_S256"][0],
         "plain_ms": attn_time["a_smollm_S256"][1],

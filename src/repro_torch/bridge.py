@@ -25,11 +25,16 @@ def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     in ``cfg.p_dtype`` on ``device`` (default: the card).  Any ported block
     kind crosses over leaf for leaf (``b0_recurrent``, ``b0_mamba1``,
     ``b0_mamba2``, ``b0_attn`` and ``b0_attn_local`` with their ``attn``
-    and ``mlp`` subtrees, ``b*_shared_attn`` with its ``lora``), and so do
-    the unstacked ``"tail"`` blocks (``t0_attn_local``, ``t0_mamba2``) of a
-    config with a ``tail_pattern`` and the ``"shared"`` block of a config
-    whose pattern has ``shared_attn``.  The tree must hold exactly the
-    blocks, tail and shared block that ``cfg`` names, or this raises."""
+    and ``mlp`` subtrees, ``b*_shared_attn`` with its ``lora``, ``b0_moe``
+    with its ``attn`` and its ``moe`` subtree: ``router``, ``w_in``,
+    ``w_gate``, ``w_out`` and the ``shared`` experts' MLP; MLA's ``wq``,
+    ``w_dkv``, ``w_krope``, ``w_uk``, ``w_uv``, ``wo`` and ``kv_norm`` under
+    ``attn``), and so do the unstacked ``"tail"`` blocks (``t0_attn_local``,
+    ``t0_mamba2``) of a config with a ``tail_pattern`` and the ``"shared"``
+    block of a config whose pattern has ``shared_attn``.  A ``router``
+    stays fp32 whatever ``cfg.p_dtype`` is, as the reference keeps it.
+    The tree must hold exactly the blocks, tail and shared block that
+    ``cfg`` names, or this raises."""
     dev = resolve_device(device)
     want = {f"b{i}_{kind}" for i, kind in enumerate(cfg.layer_pattern)}
     if set(np_tree["groups"]) != want:
@@ -45,9 +50,13 @@ def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
         raise ValueError(f"a 'shared' subtree is {'missing' if want_shared else 'given'}: "
                          f"{cfg.name}'s pattern {cfg.layer_pattern} "
                          f"{'has' if want_shared else 'has no'} shared_attn block")
-    return tree_map(
-        lambda a: torch.as_tensor(np.array(a)).to(device=dev, dtype=cfg.p_dtype),
-        np_tree)
+    def cross(tree, name):
+        if isinstance(tree, dict):
+            return {k: cross(v, k) for k, v in tree.items()}
+        dt = torch.float32 if name == "router" else cfg.p_dtype
+        return torch.as_tensor(np.array(tree)).to(device=dev, dtype=dt)
+
+    return cross(np_tree, "")
 
 
 def program_from_jax(np_params: PyTree, spec, device=None):
@@ -83,7 +92,7 @@ def program_from_jax(np_params: PyTree, spec, device=None):
 def cache_from_jax(np_tree: PyTree, device=None) -> PyTree:
     """The reference's decode caches (numpy leaves: recurrent ``h``/``c``,
     Mamba-1 ``h``/``conv``, Mamba-2 ``h`` and the nested ``conv: {x, bc}``,
-    attention ``k``/``v``, sliding-window rings; the ``"groups"`` subtree
+    attention ``k``/``v``, MLA ``c_kv``/``k_rope``, sliding-window rings; the ``"groups"`` subtree
     and, with a ``tail_pattern``, the unstacked ``"tail"`` one) → port
     caches of the same layout, fp32."""
     dev = resolve_device(device)

@@ -2,10 +2,10 @@
 
 The recurrent (``paper-lstm``), Mamba-1 (``falcon-mamba-7b``), dense
 transformer (``smollm-135m``, ``phi4-mini-3.8b``, ``gemma3-27b``,
-``internlm2-20b``) and hybrid (``zamba2-1.2b``) configurations are
-registered in the port so far; the other families of the reference's
-registry (MoE, MLA, cross-attention, the audio encoder) come with their
-blocks.
+``internlm2-20b``), hybrid (``zamba2-1.2b``) and MoE (``olmoe-1b-7b``;
+``deepseek-v2-lite-16b`` with MLA) configurations are registered in the
+port so far; the other families of the reference's registry
+(cross-attention, the audio encoder) come with their blocks.
 """
 
 from __future__ import annotations
@@ -15,9 +15,11 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "gemma3-27b": "gemma3_27b",
     "internlm2-20b": "internlm2_20b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "paper-lstm": "paper_lstm",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "smollm-135m": "smollm_135m",

@@ -12,8 +12,10 @@ two roles:
    round-to-step beyond, which is exact until the quantization step drops
    below double-precision ULP — consistent with the paper's observation that
    64-bit fixed point "approaches double-precision accuracy").
-2. **Deployment** — per-channel symmetric int8 quantization lives in
-   ``repro_torch.kernels.int8_matmul.ops.quantize_per_channel``.
+2. **Deployment** — per-channel symmetric int8 quantization
+   (:func:`quantize_int8`, in torch: the one rounding rule that the
+   quantized serving path, ``runtime/quantized.py``, and the int8 kernel's
+   ``quantize_per_channel`` share).
 
 Plus the state-space bonus the paper highlights: *analytic* propagation of
 quantization noise through a linear system via the transition matrices,
@@ -26,8 +28,9 @@ import dataclasses
 from typing import Literal
 
 import numpy as np
+import torch
 
-# NOTE: this module is deliberately NumPy (float64/int64) — it is the
+# NOTE: the analysis part of this module is deliberately NumPy (float64/int64) — it is the
 # *reference analysis* stage of the workflow, run offline like the paper's
 # MATLAB step, and bit-exact with the reference's copy.
 
@@ -215,3 +218,29 @@ def linear_noise_gain(A_seq: np.ndarray, C: np.ndarray) -> float:
         gain += float(np.sum((np.asarray(C, np.float64) @ phi) ** 2))
         phi = phi @ np.asarray(A_seq[k], np.float64)
     return gain
+
+
+# ---------------------------------------------------------------------------
+# Deployment path: per-channel symmetric int8 (torch)
+# ---------------------------------------------------------------------------
+
+def quantize_int8(x: torch.Tensor, axis: int | None = -1):
+    """Symmetric per-channel int8 quantization: ``(q int8, scale fp32)``
+    with ``x ≈ q * scale``; ``axis`` is reduced (kept as size 1 in
+    ``scale``), or all of ``x`` with ``axis=None``.  Scale
+    ``max(amax, 1e-8) / 127`` in fp32, codes rounded half to even
+    (``torch.round``, as ``jnp.round``) and clipped to ±127: bit-exact with
+    the reference's ``quantize_int8`` on every device."""
+    x = x.to(torch.float32)
+    amax = x.abs().amax() if axis is None else x.abs().amax(dim=axis, keepdim=True)
+    amax = torch.clamp(amax, min=1e-8)
+    # a true division on every device: PyTorch divides a CUDA tensor by a
+    # Python scalar as a product with its reciprocal, which can miss the
+    # quotient by one ulp and move codes
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantization import quantize_int8
+
 from . import kernel as _k
 from .ref import int8_matmul_ref, quantize_matmul_ref
 
@@ -43,16 +45,9 @@ def quantize_per_channel(w: torch.Tensor, axis: int = -2):
     size 1, so ``w_q * scale ≈ w`` broadcasts.  Scale
     ``max(|w|, 1e-8) / 127`` in fp32; codes rounded half to even
     (``torch.round``, as ``jnp.round``) and clipped to ±127 — bit-exact with
-    the reference.
+    the reference (:func:`repro_torch.core.quantization.quantize_int8`).
     """
-    w = w.to(torch.float32)
-    amax = torch.clamp(w.abs().amax(dim=axis, keepdim=True), min=1e-8)
-    # a true division on every device: PyTorch divides a CUDA tensor by a
-    # Python scalar as a product with its reciprocal, which can miss the
-    # quotient by one ulp and move codes
-    s = amax / torch.full_like(amax, 127.0)
-    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
-    return q, s
+    return quantize_int8(w, axis)
 
 
 def quantize_rows(a: torch.Tensor):

@@ -1,17 +1,18 @@
-"""Grouped-query attention: the port's counterpart of the GQA half of
-``repro/models/attention.py``.
+"""Attention: grouped-query attention and MLA (DeepSeek); the port's
+counterpart of ``repro/models/attention.py``.
 
 Every variant offers a *prefill* path (full sequence) and a *decode* path
 (S ≥ 1 query tokens against a cache): the serving state-space view, in
 which the KV cache is the **state vector**, decode is the state update f and
-the logits head is the output map g.
+the logits head is the output map g (MLA's state is its low-rank latent).
 
 Plain PyTorch by default; ``cfg.use_pallas`` routes the one-shot prefill's
 attention core to ``kernels/flash_attention`` (the hand-written CUDA kernel
 for CUDA tensors, its plain version on the CPU).  Decode and chunked prefill
 attend over the cache in plain PyTorch, as the reference computes them
-outside any Pallas kernel.  MLA (DeepSeek) and cross-attention
-(llama-vision) are not ported: their entry points raise
+outside any Pallas kernel.  MLA has no kernel in either package: its naive
+prefill and absorbed decode are plain einsums.  Cross-attention
+(llama-vision) is not ported: its entry points raise
 ``NotImplementedError`` naming ROADMAP.md.
 """
 
@@ -64,16 +65,20 @@ def gqa_params(gen: torch.Generator, cfg: ModelConfig, lora_rank: int = 0) -> Py
     return p
 
 
-def mla_params(gen, cfg):  # noqa: ARG001 — the reference's signature
-    raise _unported("MLA attention (deepseek-v2-lite-16b)", 10)
-
-
-def mla_prefill(p, cfg, x, positions=None):  # noqa: ARG001 — the reference's signature
-    raise _unported("MLA attention (deepseek-v2-lite-16b)", 10)
-
-
-def mla_decode(p, cfg, x, cache, pos):  # noqa: ARG001 — the reference's signature
-    raise _unported("MLA attention (deepseek-v2-lite-16b)", 10)
+def mla_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
+    D, H = cfg.d_model, cfg.n_heads
+    r = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = cfg.p_dtype
+    return {
+        "wq": dense_init(gen, (D, H * (dn + dr)), dt),
+        "w_dkv": dense_init(gen, (D, r), dt),        # down: shared latent
+        "w_krope": dense_init(gen, (D, dr), dt),     # shared rope key
+        "w_uk": dense_init(gen, (r, H * dn), dt),    # up: per-head keys
+        "w_uv": dense_init(gen, (r, H * dv), dt),    # up: per-head values
+        "wo": dense_init(gen, (H * dv, D), dt),
+        "kv_norm": rmsnorm_params(r, dt, gen.device),
+    }
 
 
 def cross_attn_params(gen, cfg):  # noqa: ARG001 — the reference's signature
@@ -191,6 +196,89 @@ def gqa_decode(p, cfg: ModelConfig, x, cache: PyTree, pos, *, window: int = 0):
         mask = mask & (kpos > (qpos - window)[:, None, :, None])
     out = _sdpa(q, ck, cv, mask, cfg.attn_logit_softcap)
     return out.reshape(B, S, -1) @ p["wo"], {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed-latent cache; naive prefill + absorbed decode
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, cfg: ModelConfig, x, positions):
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_prefill(p, cfg: ModelConfig, x, positions=None):
+    """Naive (expanded) prefill: the latent is up-projected to per-head K/V.
+    Returns (out, (c_kv [B,S,r], k_rope [B,S,dr])) for cache seeding.  The
+    score scale is ``(dn + dr) ** -0.5``; ``cfg.head_dim`` is not read."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+
+    c_kv = rmsnorm(p["kv_norm"], x @ p["w_dkv"], cfg.norm_eps)              # [B,S,r]
+    k_rope = apply_rope((x @ p["w_krope"]).reshape(B, S, 1, dr), positions, cfg.rope_theta)
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, dn)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, H, dv)
+
+    scale = (dn + dr) ** -0.5
+    s_nope = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+    s_rope = torch.einsum("bshd,bthd->bhst", q_rope.float(),
+                          k_rope.expand(B, S, 1, dr).float())
+    scores = (s_nope + s_rope) * scale
+    mask = causal_mask(S, S, device=x.device)[:, 0]          # [1,S,T] -> broadcast over H
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float()).to(x.dtype)
+    return out.reshape(B, S, -1) @ p["wo"], (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache: PyTree, pos):
+    """Absorbed decode (the MLA serving trick): attend in the latent space,
+    for S ≥ 1 query tokens from ``pos`` (S > 1 is a chunked-prefill step).
+
+    cache = {"c_kv": [B, S_max, r], "k_rope": [B, S_max, dr]}: r + dr
+    floats per token per layer instead of 2·H·hd, the low-rank *state*.
+    W_UK is absorbed into the query, W_UV into the output:
+        score = (q_nope Wuk_h) · c_kv + q_rope · k_rope
+        out_h = (probs · c_kv) Wuv_h
+    The new latents are scattered into a copy of the cache, which is
+    returned; the caller's cache is not written.
+    """
+    B, S, _ = x.shape
+    dev = x.device
+    H = cfg.n_heads
+    dn, dr, dv, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    posv = _posv(pos, B, dev)
+    qpos = posv[:, None] + torch.arange(S, device=dev)[None, :]          # [B, S] absolute
+    q_nope, q_rope = _mla_q(p, cfg, x, qpos)
+
+    c_new = rmsnorm(p["kv_norm"], x @ p["w_dkv"], cfg.norm_eps)
+    kr_new = apply_rope((x @ p["w_krope"]).reshape(B, S, 1, dr), qpos, cfg.rope_theta)[:, :, 0]
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
+    c_kv = cache["c_kv"].index_put((bidx, qpos), c_new.to(cache["c_kv"].dtype))
+    k_rope = cache["k_rope"].index_put((bidx, qpos), kr_new.to(cache["k_rope"].dtype))
+
+    w_uk = p["w_uk"].reshape(r, H, dn)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk.float())
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat, c_kv.float())
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
+    scores = (s_lat + s_rope) * ((dn + dr) ** -0.5)
+    T = c_kv.shape[1]
+    mask = torch.arange(T, device=dev)[None, None, None, :] <= qpos[:, None, :, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", probs, c_kv.float())
+    w_uv = p["w_uv"].reshape(r, H, dv)
+    out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv.float()).to(x.dtype)
+    return out.reshape(B, S, -1) @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}
 
 
 __all__ = [

@@ -1,0 +1,134 @@
+"""Mixture-of-Experts FFN (deepseek-v2-lite, olmoe); the port's counterpart
+of ``repro/models/moe.py``.
+
+GShard-style capacity dispatch in the reference's one-hot formulation:
+tokens are split into groups of ``group_size`` (halved until it divides the
+token count); within a group every token picks its top-k experts, claims a
+capacity slot in the order of a running count over the flattened (token,
+choice) sequence, and choices beyond the capacity C are dropped.  Two
+one-hot tensors ``[G, g, E, C]`` dispatch the tokens to the experts' slots
+and combine the experts' outputs, each by an einsum.
+
+The one-hot form is kept on purpose: which tokens drop, and that a
+non-finite token spreads to every token of its group (0 · NaN in the
+dispatch einsum), are the reference's behaviour, and the port's server is
+held to the reference's tokens.  The expert einsums are batched GEMMs that
+the reference computes outside any Pallas kernel, so they are plain
+PyTorch here.
+
+The router state (expert assignments) is part of the layer's
+*combinational logic* in the paper's language; no sequential state is
+carried, so MoE layers drop into the layer stack unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Any, TYPE_CHECKING
+
+import torch
+import torch.nn.functional as F
+
+from .layers import dense_init, mlp_apply, mlp_params
+
+if TYPE_CHECKING:
+    from .config import ModelConfig
+
+PyTree = Any
+
+DEFAULT_GROUP_SIZE = 2048
+
+
+def moe_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
+    """``router [D, E]`` (always fp32), ``w_in``/``w_gate [E, D, F]``,
+    ``w_out [E, F, D]`` and, with shared experts, ``shared``: the gated MLP
+    of width ``n_shared_experts · F``.  The reference scales the expert
+    tensors by their leading (expert) axis, and so does the port."""
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    dt = cfg.p_dtype
+    p = {
+        "router": dense_init(gen, (D, E), torch.float32),
+        "w_in": dense_init(gen, (E, D, Fe), dt),
+        "w_gate": dense_init(gen, (E, D, Fe), dt),
+        "w_out": dense_init(gen, (E, Fe, D), dt),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_params(gen, D, cfg.n_shared_experts * Fe, True, dt)
+    return p
+
+
+def _capacity(group_size: int, cfg: ModelConfig) -> int:
+    cap = int(group_size * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(cap, cfg.top_k)
+
+
+def group_size_of(tokens: int, group_size: int = DEFAULT_GROUP_SIZE) -> int:
+    """The reference's group rule: ``min(group_size, tokens)``, halved until
+    it divides ``tokens`` (an odd count above ``group_size`` runs groups of
+    one token)."""
+    g = min(group_size, tokens)
+    while tokens % g:
+        g //= 2
+    return g
+
+
+def route(p, cfg: ModelConfig, x: torch.Tensor):
+    """x: [..., D] → (top-k expert ids, normalised weights in x's dtype,
+    Switch aux loss).  The ids are in descending order of probability, as
+    ``jax.lax.top_k`` gives them: the slot order depends on it."""
+    logits = x.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, cfg.top_k, dim=-1)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    # Switch-style load-balance loss: E · Σ_e fraction_e · mean_prob_e
+    E = cfg.n_experts
+    lead = tuple(range(top_e.dim() - 1))
+    f = F.one_hot(top_e, E).float().sum(dim=-2).mean(dim=lead) / cfg.top_k
+    pbar = probs.mean(dim=lead)
+    aux = E * torch.sum(f * pbar)
+    return top_e, top_w.to(x.dtype), aux
+
+
+def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE):
+    """x: [B, S, D] → (y, aux_loss).  Capacity-based top-k dispatch."""
+    B, S, D = x.shape
+    T = B * S
+    g = group_size_of(T, group_size)
+    G = T // g
+    xt = x.reshape(G, g, D)
+
+    top_e, top_w, aux = route(p, cfg, xt)        # [G,g,k] ids / weights
+    E, k = cfg.n_experts, cfg.top_k
+    C = _capacity(g, cfg)
+
+    # Slot assignment: position of each (token, choice) within its expert's
+    # queue, a running count over the flattened (token-major) choice order;
+    # choices at slot C or beyond are dropped.
+    e_onehot = F.one_hot(top_e, E)                                 # [G,g,k,E] int64
+    flat = e_onehot.reshape(G, g * k, E)
+    pos = torch.cumsum(flat, dim=1) - flat                         # slots before me
+    slot = (pos * flat).sum(-1).reshape(G, g, k)                   # [G,g,k]
+    keep = slot < C
+
+    # dispatch/combine tensors [G, g, E, C]: a dropped choice goes to the
+    # extra class C, whose column is cut off (the reference's one_hot of an
+    # out-of-range index is a zero row)
+    slot_oh = F.one_hot(torch.where(keep, slot, C), C + 1)[..., :C].to(x.dtype)
+    e_oh = e_onehot.to(x.dtype)
+    dispatch = torch.einsum("Gtke,Gtkc->Gtec", e_oh, slot_oh)
+    combine = torch.einsum("Gtke,Gtkc->Gtec", e_oh * top_w[..., None], slot_oh)
+
+    xe = torch.einsum("Gtec,Gtd->Gecd", dispatch, xt)              # [G,E,C,D]
+    h = torch.einsum("Gecd,edf->Gecf", xe, p["w_in"])
+    hg = torch.einsum("Gecd,edf->Gecf", xe, p["w_gate"])
+    h = F.silu(hg) * h
+    ye = torch.einsum("Gecf,efd->Gecd", h, p["w_out"])             # [G,E,C,D]
+    y = torch.einsum("Gtec,Gecd->Gtd", combine, ye)
+
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p["shared"], xt, act=cfg.mlp_act)
+
+    return y.reshape(B, S, D), aux
+
+
+__all__ = ["DEFAULT_GROUP_SIZE", "group_size_of", "moe_apply", "moe_params", "route"]

@@ -2,9 +2,10 @@
 ``repro/models/transformer.py``.
 
 The recurrent, ``mamba1``, ``mamba2``, ``attn`` (dense transformer: GQA +
-MLP), ``attn_local`` (gemma3's sliding-window attention) and
-``shared_attn`` (zamba2's shared transformer block) kinds are ported; the
-``moe`` and ``cross`` kinds and MLA attention raise.  A group is one period
+MLP), ``attn_local`` (gemma3's sliding-window attention), ``shared_attn``
+(zamba2's shared transformer block) and ``moe`` (attention + the MoE FFN of
+olmoe and deepseek) kinds are ported, with GQA or MLA attention
+(``cfg.use_mla``); the ``cross`` kind raises.  A group is one period
 of ``ModelConfig.layer_pattern``; per-group parameters and decode caches
 are stacked on a leading ``G`` axis, exactly as the reference lays them out
 for its scan over groups.  Blocks of ``ModelConfig.tail_pattern`` (gemma3's
@@ -20,7 +21,9 @@ parameters).  Every block is handed the ``shared`` subtree.
 
 A local layer's decode cache is a ring buffer of ``min(max_seq,
 sliding_window)`` positions: position ``p`` lives at slot ``p mod W``.  A
-``shared_attn`` block's is a full-length K/V cache, never a ring.
+``shared_attn`` block's is a full-length K/V cache, never a ring.  Under
+MLA an ``attn`` or ``moe`` block caches the latent ``c_kv [B, S, r]`` and
+the shared rope key ``k_rope [B, S, dr]`` instead of K/V.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from repro_torch._tree import tree_map
 from repro_torch.recurrent import block as rnn_lib
 
 from . import attention as attn_lib
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
 from .layers import apply_rope, mlp_apply, mlp_params, rmsnorm, rmsnorm_params
@@ -44,7 +48,8 @@ PyTree = Any
 def _unported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind '{kind}' is not ported to repro_torch yet (ROADMAP.md "
-        "Queue 1); only 'recurrent', 'mamba1', 'attn' and 'attn_local' run")
+        "Queue 1, item 13); 'recurrent', 'mamba1', 'mamba2', 'attn', 'attn_local', "
+        "'shared_attn' and 'moe' run")
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +64,14 @@ def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> PyTree:
             "attn": ap,
             "ln_mlp": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
             "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.p_dtype),
+        }
+    if kind == "moe":
+        ap = attn_lib.mla_params(gen, cfg) if cfg.use_mla else attn_lib.gqa_params(gen, cfg)
+        return {
+            "ln_attn": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+            "attn": ap,
+            "ln_mlp": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+            "moe": moe_lib.moe_params(gen, cfg),
         }
     if kind == "recurrent":
         return {"ln": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
@@ -107,9 +120,12 @@ def tail_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree | None:
 # ---------------------------------------------------------------------------
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) -> PyTree:
-    if kind in ("attn", "shared_attn"):
-        if cfg.use_mla and kind == "attn":
-            raise _unported("attn (MLA)")
+    if kind in ("attn", "moe", "shared_attn"):
+        if cfg.use_mla and kind != "shared_attn":
+            return {"c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                                        dtype=cfg.act_dtype, device=device),
+                    "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim),
+                                          dtype=cfg.act_dtype, device=device)}
         shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
@@ -133,10 +149,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
     ``[G, batch, H]``, a ``mamba1`` block's ``h [G, batch, DI, N]`` and
     ``conv [G, batch, k-1, DI]``, a ``mamba2`` block's ``h [G, batch, H,
     P, N]`` and ``conv: {x [G, batch, k-1, DI], bc [G, batch, k-1, 2N]}``,
-    all in fp32; an ``attn`` or ``shared_attn`` block's are the full-length
-    ``k``/``v`` ``[G, batch, max_seq, KV, hd]`` and an ``attn_local``
-    block's the ring ``[G, batch, min(max_seq, window), KV, hd]``, in the
-    activation dtype.  Tail leaves are the same without the
+    all in fp32; an ``attn``, ``moe`` or ``shared_attn`` block's are the full-length
+    ``k``/``v`` ``[G, batch, max_seq, KV, hd]`` (under MLA an ``attn`` or
+    ``moe`` block's are the latent ``c_kv [G, batch, max_seq, r]`` and
+    ``k_rope [G, batch, max_seq, dr]``) and an ``attn_local`` block's the
+    ring ``[G, batch, min(max_seq, window), KV, hd]``, in the activation
+    dtype.  Tail leaves are the same without the
     ``G`` axis: the slot is their axis 0, the sequence their axis 1."""
     G = cfg.n_groups
     groups = {}
@@ -177,16 +195,18 @@ def apply_block(
     prefill trajectory.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind in ("attn", "attn_local"):
+    if kind in ("attn", "attn_local", "moe"):
         window = cfg.sliding_window if kind == "attn_local" else 0
         acfg = cfg
         if kind == "attn" and cfg.global_every and cfg.rope_theta_global:
             acfg = dataclasses.replace(cfg, rope_theta=cfg.rope_theta_global)
         h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
         decode = mode in ("decode", "chunk")
-        if cfg.use_mla:
-            a, cache = (attn_lib.mla_decode(p_blk["attn"], acfg, h, cache, pos) if decode
-                        else attn_lib.mla_prefill(p_blk["attn"], acfg, h))
+        if cfg.use_mla and decode:
+            a, cache = attn_lib.mla_decode(p_blk["attn"], acfg, h, cache, pos)
+        elif cfg.use_mla:
+            a, kv = attn_lib.mla_prefill(p_blk["attn"], acfg, h)
+            cache = {"c_kv": kv[0], "k_rope": kv[1]} if mode == "prefill" else None
         elif decode and kind == "attn_local":
             local = _gqa_local_chunk if mode == "chunk" else _gqa_decode_local
             a, cache = local(p_blk["attn"], acfg, h, cache, pos)
@@ -199,7 +219,12 @@ def apply_block(
             cache = {"k": kv[0], "v": kv[1]} if mode == "prefill" else None
         x = x + a
         h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
-        return x + mlp_apply(p_blk["mlp"], h, cfg.mlp_act), cache, aux
+        if kind == "moe":
+            y, aux = moe_lib.moe_apply(p_blk["moe"], cfg, h,
+                                       group_size=cfg.moe_group_size or moe_lib.DEFAULT_GROUP_SIZE)
+        else:
+            y = mlp_apply(p_blk["mlp"], h, cfg.mlp_act)
+        return x + y, cache, aux
     if kind == "shared_attn":
         # the shared weights with this application's LoRA deltas; a chunk
         # attends over the cache as decode does, only a one-shot prefill

@@ -1,6 +1,7 @@
 """Serving runtime: the continuous-batching ``server.DecodeServer``, its
 ``scheduler`` and asyncio front-end, the radix ``prefix_cache``, the seeded
-``loadgen`` and the ``faults`` layer.  Training (``Trainer``) and mesh
+``loadgen``, the ``faults`` layer and weight-only int8 serving
+(``quantized``, imported by name).  Training (``Trainer``) and mesh
 placement (``ShardPlan``) are not ported yet."""
 
 from .faults import FAULT_POINTS, FaultError, FaultPlan, FaultSpec, TransientFault, Watchdog

@@ -5,7 +5,8 @@ An iterative state-space form is resumable at any step boundary, so two
 requests with a common token prefix traverse the same state trajectory and
 the state at a shared boundary is reusable verbatim.  This module stores
 those boundary states (the decode-layout cache tree of one B=1 prefill job:
-KV rows, Mamba ``h``/``conv``, recurrent ``(h, c)``) in a radix tree keyed
+KV rows, MLA ``c_kv``/``k_rope`` rows, Mamba ``h``/``conv``, recurrent
+``(h, c)``) in a radix tree keyed
 on token prefixes.  A recurrent state cannot be sliced out of a longer
 trajectory after the fact, so entries are inserted at chunk boundaries and
 at prompt ends:

@@ -72,7 +72,7 @@ PyTree = Any
 DEFAULT_BLOCK_K = 8
 
 
-_SEQ_LEAVES = ("k", "v")     # the attention KV leaves (MLA's are not ported)
+_SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")   # attention K/V and MLA's latent leaves
 
 # Where a cache leaf keeps its slot and sequence axes, by the subtree it is
 # in: per-group leaves are stacked on a leading G axis, tail leaves are not.
@@ -107,7 +107,8 @@ def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int,
     ``"tail"``).  A recurrent carry (``h``/``c``) and a Mamba state
     (Mamba-1's ``h`` and ``conv``, Mamba-2's ``h`` and ``conv.{x, bc}``)
     have no sequence axis, so admission is a pure slot write and never
-    disturbs other slots.  An attention KV leaf carries one:
+    disturbs other slots.  An attention KV leaf (and MLA's ``c_kv`` and
+    ``k_rope``) carries one:
     a one-shot prefill's ``L`` positions go left-aligned into the slot's
     row (positions ``0 .. L-1``); a chunked prefill's B=1 cache, already in
     the server's layout, is a slot row like the others.  A source longer
@@ -627,9 +628,9 @@ class DecodeServer:
                   resumable=aligned)
 
     def _slice_prefix(self, caches: PyTree, p: int) -> PyTree:
-        """Full-attention KV leaves trimmed to their first ``p`` positions
-        along their sequence axis (:data:`CACHE_AXES`), so a stored
-        checkpoint costs O(prefix), not O(max_seq); sliding-window rings
+        """Full-attention KV leaves (and MLA's latents) trimmed to their
+        first ``p`` positions along their sequence axis (:data:`CACHE_AXES`),
+        so a stored checkpoint costs O(prefix), not O(max_seq); sliding-window rings
         shorter than ``max_seq``, recurrent carries and Mamba-1 and Mamba-2
         states (``h``, ``conv``) are stored whole."""
 

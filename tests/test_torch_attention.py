@@ -310,11 +310,15 @@ def test_causal_mask_matches_reference():
 def test_unported_attention_variants_raise():
     cfg = get_smoke_config("smollm-135m")
     gen = torch.Generator().manual_seed(0)
-    for call, item in ((lambda: attention.mla_params(gen, cfg), "item 10"),
-                       (lambda: attention.mla_decode({}, cfg, None, {}, 0), "item 10"),
-                       (lambda: attention.cross_attn({}, cfg, None, None), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
+    for call in (lambda: attention.cross_attn_params(gen, cfg),
+                 lambda: attention.cross_attn({}, cfg, None, None)):
+        with pytest.raises(NotImplementedError, match="item 13"):
             call()
+    # MLA is ported (item 10): its parameters have the reference's shapes
+    dcfg = get_smoke_config("deepseek-v2-lite-16b")
+    want = jax.tree.map(lambda a: tuple(a.shape), jax_attn.mla_params(
+        jax.random.PRNGKey(0), jax_configs.get_smoke_config("deepseek-v2-lite-16b")))
+    assert tree_map(lambda t: tuple(t.shape), attention.mla_params(gen, dcfg)) == want
     # the LoRA and qk-norm branches draw the reference's shapes
     jcfg = dataclasses.replace(jax_configs.get_smoke_config("smollm-135m"), qk_norm=True)
     want = jax.tree.map(lambda a: tuple(a.shape),

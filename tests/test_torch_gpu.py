@@ -7,7 +7,9 @@ the chaos suite on the card; gemma3's sliding-window layers, tail and
 ring-buffer splice and internlm2 through ``flash_attention`` and the
 server's drivers; and zamba2's Mamba-2 / SSD blocks (plain PyTorch on the
 card, held against the CPU) and its shared block through
-``flash_attention`` and the server.
+``flash_attention`` and the server; the MoE FFN at olmoe's width, MLA's
+absorbed decode at deepseek's and int8 quantization on the card against
+the CPU, and olmoe's attention (shape g) through ``flash_attention``.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -1349,3 +1351,121 @@ def test_zamba2_two_slot_serve_gives_the_plain_greedy_tokens_on_the_card(cuda, u
     assert c_step == c_block == (2 * len(traffic) if use_pallas else 0) and c_chunk == 0
     for i, (p, m) in enumerate(traffic):
         assert step[i] == _plain_greedy(cfg, params, p, m, 192, cuda), i
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (olmoe, deepseek with MLA) and weight-only int8 serving
+# ---------------------------------------------------------------------------
+
+def test_moe_apply_on_the_card_matches_the_cpu_at_olmoe_width(cuda):
+    """olmoe's MoE FFN at its published widths (D 2048, 64 experts of 1024,
+    top-8) on 256 tokens: the routing ids equal, then y within 1e-5 of
+    max |y| and the aux loss.  The bar is relative to the largest output:
+    with the reference's initialisation (expert weights scaled by the
+    expert count, not the fan-in) y reaches ~200, and fp32 sums over the
+    2048- and 1024-long contractions in cuBLAS's order leave ~2e-4 absolute
+    on elements near zero after cancellation."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("olmoe-1b-7b")
+    p = moe.moe_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    x = torch.randn((1, 256, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    e, _, _ = moe.route(p, cfg, x)
+    e_cpu, _, _ = moe.route(p_cpu, cfg, x.cpu())
+    assert torch.equal(e.cpu(), e_cpu)
+    y, aux = moe.moe_apply(p, cfg, x)
+    y_cpu, aux_cpu = moe.moe_apply(p_cpu, cfg, x.cpu())
+    assert float((y.cpu() - y_cpu).abs().max()) <= 1e-5 * float(y_cpu.abs().max())
+    torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-6, rtol=1e-6)
+
+
+def test_quantize_int8_codes_on_the_card_equal_the_cpu(cuda):
+    """Codes and scales bit-equal on the card and the CPU (a true division
+    by 127 on both: the card's division by a Python scalar would be a
+    product with its reciprocal), per channel and whole-tensor."""
+    from repro_torch.core.quantization import quantize_int8
+
+    x = torch.randn((64, 2048, 96), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    for axis in (-2, -1, None):
+        q, s = quantize_int8(x, axis)
+        q_cpu, s_cpu = quantize_int8(x.cpu(), axis)
+        assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu), axis
+
+
+def test_mla_absorbed_decode_equals_naive_prefill_at_deepseek_width(cuda):
+    """One deepseek-v2-lite MLA layer at its published widths (r 512, dr 64,
+    16 heads of 128 + 64): the absorbed decode, token by token and as one
+    chunk, gives the naive prefill's outputs within 1e-5 of max |out|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = attention.mla_params(gen, cfg)
+    S = 48
+    x = torch.randn((1, S, cfg.d_model), generator=gen, device=cuda)
+    with torch.no_grad():
+        naive, _ = attention.mla_prefill(p, cfg, x)
+        cache = {"c_kv": torch.zeros((1, S, cfg.kv_lora_rank), device=cuda),
+                 "k_rope": torch.zeros((1, S, cfg.qk_rope_head_dim), device=cuda)}
+        outs = []
+        c = cache
+        for t in range(S):
+            o, c = attention.mla_decode(p, cfg, x[:, t:t + 1], c, t)
+            outs.append(o)
+        chunk, _ = attention.mla_decode(p, cfg, x, cache, 0)
+    scale = float(naive.abs().max())
+    assert float((torch.cat(outs, 1) - naive).abs().max()) <= 1e-5 * scale
+    assert float((chunk - naive).abs().max()) <= 1e-5 * scale
+
+
+def test_flash_attention_at_olmoe_prefill_shape(cuda):
+    """Shape (g): one olmoe-1b-7b layer of a 2048-token prefill (B 1, MHA
+    16/16 at hd 128, causal), held to the fp32 bar against the plain
+    version."""
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((1, 2048, 16, 128), generator=gen, device=cuda) for _ in range(3))
+    torch.testing.assert_close(ops.flash_attention(q, k, v), ops.flash_attention_ref(q, k, v),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
+def test_moe_smoke_use_pallas_prefill_matches_plain_path(cuda, arch):
+    """The smoke configs on the card: the one-shot prefill under
+    ``use_pallas`` (olmoe's attention through ``flash_attention``;
+    deepseek's MLA has no kernel) against the plain path, routing ids
+    first, then the logits within 1e-5 of max |logit|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm, moe
+
+    cfg = dataclasses.replace(get_smoke_config(arch), use_pallas=True)
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    rng = np.random.default_rng(7)
+    orig = moe.moe_apply
+    for n in (20, 7, 33, 64):
+        toks = torch.as_tensor([[int(t) for t in rng.integers(1, cfg.vocab, n)]], device=cuda)
+        ids = {}
+        for pallas in (True, False):
+            log = ids[pallas] = []
+
+            def spy(p, c, x, group_size=moe.DEFAULT_GROUP_SIZE, log=log):
+                log.append(moe.route(p, c, x)[0])
+                return orig(p, c, x, group_size)
+
+            moe.moe_apply = spy
+            try:
+                with torch.no_grad():
+                    lg, _ = lm.prefill(params, dataclasses.replace(cfg, use_pallas=pallas), toks)
+            finally:
+                moe.moe_apply = orig
+            ids[pallas].append(lg)
+        *e_k, lk = ids[True]
+        *e_p, lp = ids[False]
+        assert all(torch.equal(a, b) for a, b in zip(e_k, e_p)), n
+        assert float((lk - lp).abs().max()) <= 1e-5 * float(lp.abs().max()), n
