@@ -94,9 +94,10 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    digests, full and partial hits, fewer prompt steps, each server's
    ``kernel_syncs`` its own ``lstm_seq`` calls); ``decode.nan_logits``,
    ``decode.dispatch`` and ``tick.slow`` injected at full width;
-   ``falcon-mamba-7b`` (in phase 12, on its loaded weights) chunked without
-   and with a 1 GiB cache that evicts (``ssm_scan`` launched once a layer
-   of every chunk run); ``smollm-135m`` (in phase 13) unchunked with a 256 MB
+   ``falcon-mamba-7b`` at its widths cut to 16 of its 64 layers (in phase
+   12, on the first 16 of its loaded groups) chunked without and with a
+   256 MiB cache (1 GiB × 16/64) that evicts (``ssm_scan`` launched once a
+   layer of every chunk run); ``smollm-135m`` (in phase 13) unchunked with a 256 MB
    cache (``flash_attention`` 30 calls a miss, none in the all-hit second
    pass); then ``python -m repro_torch.launch.serve`` and ``python -m
    repro_torch.obs.report`` as subprocesses on the card, and ``python -m
@@ -217,6 +218,26 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    and checks as olmoe.  Each run's seconds, the peak allocation and the
    card are printed.
 
+21. train (after phase 17) — ``smollm-135m`` at its published widths and
+   depth (134 515 008 fp32 parameters from a seed, ``remat``) through
+   ``Trainer`` on ``DataConfig(vocab=49152, seq_len=4096, global_batch=8)``
+   (train_4k's sequence length, two microbatches of 4), 4 steps: each
+   step's loss, ms, tokens/s, ``grad_norm`` and learning rate, and the
+   phase's peak allocation beside the prediction; the restart drill at
+   ``seq_len`` 1024 (an uninterrupted 6-step run with async checkpoints
+   every 2 steps against a run failing at step 3 and a new ``Trainer``
+   resuming to step 6: the final parameters and optimizer state within
+   1e-6, bit-identity printed, and if not, the gradient leaves whose
+   backward is not deterministic); one ``train_loss`` and its gradients on
+   the card against the host's CPU on the trained parameters at B = 1, S =
+   256 (loss within 1e-5, each gradient leaf within 1e-4 of its max |g|);
+   ``paper-lstm`` at full width (108 307 456 parameters): 2 steps at T =
+   256, B = 8, and the same check at B = 1, T = 64; ``train_loss`` with
+   ``use_pallas=True`` on the card refused by ``flash_attention``'s and
+   ``lstm_seq``'s wrappers before a backward is reached; ``python -m
+   repro_torch.launch.train --arch smollm-135m --steps 2 --seq 256 --batch
+   4`` as a subprocess; and no kernel launched during the phase.
+
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
 seconds.  The script imports nothing of JAX and nothing of the JAX package.
@@ -231,6 +252,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -288,6 +310,7 @@ LOADGEN_TRACE = dict(num_requests=32, mean_interarrival_ticks=0.25, short_len=(8
                      long_len=(128, 257), long_frac=0.25, fleet_frac=0.4, num_fleets=2,
                      fleet_prefix_len=128, fleet_suffix_len=(1, 33), max_new_tokens=32, seed=0)
 LOADGEN_UID_OFFSET = 1000        # the second pass's uids
+LOADGEN_MAMBA_LAYERS = 16        # falcon-mamba-7b's replay: 64 layers cut to 16
 
 # the bit_path phase: sequence steps and batch of its full-width cells, the
 # float legs' bar (ref and kernel against eager, relative to the largest |y|
@@ -351,6 +374,23 @@ MOE_LOGITS_RTOL = 1e-5
 ROUTE_MARGIN = 1e-6     # a routing flip between two paths is a near-tie below this
 QUANT_SNR_DB = 20.0     # the reference's bars (tests/test_quantized_serving.py)
 QUANT_AGREE = 0.8
+# phase 21 (train): smollm-135m at train_4k's sequence length, two
+# microbatches of 4; the restart drill at 1024; the card against the CPU at
+# B = 1, S = 256 (paper-lstm: T = 64), at the full-width bars of the kernels (1e-4)
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 8
+TRAIN_MICRO = 2
+TRAIN_STEPS = 4
+DRILL_SEQ = 1024
+DRILL_STEPS = 6
+DRILL_FAIL = 3
+DRILL_ATOL = 1e-6       # tests/test_trainer_server.py's restart bar
+CHECK_SEQ = 256
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+LSTM_TRAIN_SEQ = 256
+LSTM_TRAIN_STEPS = 2
+LSTM_CHECK_SEQ = 64
 
 PHASE_T0 = [time.perf_counter()]
 
@@ -744,10 +784,10 @@ def serve_loadgen_lstm(cfg, params, prompts, dev, card: str,
 
 def serve_loadgen_mamba(mcfg, mparams, dev, card: str, cache_bytes: int = 1 << 30) -> int:
     """falcon-mamba-7b: the trace chunked, without and with a cache whose
-    budget forces evictions: a checkpoint at full width is 64 layers ×
-    (8192·16 + 3·8192) fp32, about 38 MiB, so 1 GiB holds about 26 and the
-    trace's ~90 chunk boundaries and prompt ends evict.  Returns the
-    ``ssm_scan`` launches."""
+    budget forces evictions: a checkpoint at full width is a layer's
+    (8192·16 + 3·8192) fp32, about 0.6 MiB, per layer (38 MiB at 64 layers),
+    so 1 GiB × layers / 64 holds about 26 and the trace's ~90 chunk
+    boundaries and prompt ends evict.  Returns the ``ssm_scan`` launches."""
     from repro_torch.kernels.ssm_scan import ops as scan_ops
 
     kw = dict(dev=dev, card=card, prefill_chunk=CHUNK)
@@ -2121,6 +2161,245 @@ def serve_moe_phase(dev, card: str) -> dict:
     return {"olmoe": olmoe_fa, "olmoe_int8": olmoe_q, "deepseek": deepseek_fa}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training on the card
+# ---------------------------------------------------------------------------
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch counter (and ``flash_attention``'s calls)."""
+    from repro_torch.codegen import kernel_backend
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.int8_matmul import ops as i8_ops
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.tanh_lut import ops as lut_ops
+
+    return {"lstm_seq": lstm_ops.lstm_seq.launches, "ssm_scan": scan_ops.ssm_scan.launches,
+            "flash_attention": fa_ops.flash_attention.launches,
+            "flash_attention.calls": fa_ops.flash_attention.calls,
+            "tanh_lut": lut_ops.tanh_lut.launches, "int8_matmul": i8_ops.int8_matmul.launches,
+            "codegen_stage": kernel_backend.codegen_stage.launches}
+
+
+def train_batch(vocab: int, B: int, S: int, dev, seed: int = 0) -> dict:
+    """A ``TokenPipeline`` batch (the trainer's data) as tensors on ``dev``."""
+    from repro_torch.data import DataConfig, TokenPipeline
+
+    b = TokenPipeline(DataConfig(vocab=vocab, seq_len=S, global_batch=B, seed=seed)).batch_at(0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def grads_on(mcfg, params, batch):
+    from repro_torch.optim.adamw import value_and_grad
+    from repro_torch.models import lm
+
+    return value_and_grad(lambda p, b: lm.train_loss(p, mcfg, b), params, batch)
+
+
+def card_against_cpu(mcfg, params, dev, card: str, B: int, S: int) -> tuple[float, float]:
+    """One ``train_loss`` and its gradients on the card and on the host's CPU
+    (the same parameters and batch): the loss gap relative to the loss and
+    the worst per-leaf gradient gap as a share of that leaf's max |g|."""
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint.checkpoint import flatten_with_names
+
+    batch = train_batch(mcfg.vocab, B, S, dev, seed=1)
+    t0 = time.perf_counter()
+    (l_g, _), g_g = grads_on(mcfg, params, batch)
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    host = torch.device("cpu")
+    t0 = time.perf_counter()
+    (l_c, _), g_c = grads_on(mcfg, tree_map(lambda t: t.to(host), params),
+                             tree_map(lambda t: t.to(host), batch))
+    cpu_s = time.perf_counter() - t0
+    loss_gap = abs(float(l_g) - float(l_c)) / abs(float(l_c))
+    got, want = flatten_with_names(g_g), flatten_with_names(g_c)
+    gaps = {k: float(np.abs(got[k] - w).max()) / max(float(np.abs(w).max()), 1e-30)
+            for k, w in want.items()}
+    worst = max(gaps, key=gaps.get)
+    say("train_vs_cpu", arch=mcfg.name, B=B, S=S, loss_card=float(l_g), loss_cpu=float(l_c),
+        loss_rel_gap=f"{loss_gap:.3e}", worst_grad_leaf=worst,
+        worst_grad_gap_of_max=f"{gaps[worst]:.3e}", leaves=len(gaps),
+        card_s=f"{card_s:.2f}", cpu_s=f"{cpu_s:.2f}", card=card)
+    require(loss_gap <= TRAIN_LOSS_RTOL,
+            f"{mcfg.name} train_loss on the card {float(l_g)} against the CPU's {float(l_c)}")
+    require(gaps[worst] <= TRAIN_GRAD_TOL,
+            f"{mcfg.name} gradient leaf {worst}: the card and the CPU differ by "
+            f"{gaps[worst]:.3e} of its max |g|")
+    return loss_gap, gaps[worst]
+
+
+def make_trainer(mcfg, dcfg, ckpt_dir: Path, dev, *, steps: int, micro: int,
+                 fresh: bool = True, **tkw):
+    """A ``Trainer`` on ``dev`` for ``steps`` steps, every step logged, its
+    checkpoints under ``ckpt_dir`` (emptied first when ``fresh``)."""
+    from repro_torch import optim
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    if fresh:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tcfg = TrainerConfig(total_steps=steps, ckpt_dir=str(ckpt_dir), log_every=1,
+                         microbatches=micro, **tkw)
+    ocfg = optim.AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=max(steps, 3))
+    return Trainer(mcfg, tcfg, ocfg, dcfg, device=dev)
+
+
+def train_run(mcfg, dcfg, ckpt_dir: Path, dev, card: str, *, label: str, **kw):
+    """``make_trainer(...).run()``, each step printed."""
+    trainer = make_trainer(mcfg, dcfg, ckpt_dir, dev, **kw)
+    t0 = time.perf_counter()
+    res = trainer.run()
+    sync(dev)
+    tokens = dcfg.global_batch * dcfg.seq_len
+    for m in res["metrics"]:
+        say("train_step", arch=mcfg.name, run=label, step=m["step"], loss=f"{m['loss']:.4f}",
+            ms=f"{1e3 * m['sec']:.1f}", tokens_per_s=f"{tokens / m['sec']:.0f}",
+            grad_norm=f"{m['grad_norm']:.4f}", lr=f"{m['lr']:.3e}", card=card)
+    say("train_run", arch=mcfg.name, run=label, steps=len(res["losses"]), tokens_per_step=tokens,
+        microbatches=trainer.tcfg.microbatches, wall_s=f"{time.perf_counter() - t0:.2f}",
+        entropy_floor=f"{res['entropy_floor']:.4f}")
+    require(all(math.isfinite(x) for x in res["losses"]),
+            f"{mcfg.name} {label}: non-finite losses {res['losses']}")
+    return trainer, res
+
+
+def nondeterministic_leaves(mcfg, params, dcfg, dev) -> list[str]:
+    """The gradient leaves that differ between two backward passes on the
+    same inputs: each names the op whose backward is not deterministic."""
+    from repro_torch.checkpoint.checkpoint import flatten_with_names
+
+    batch = train_batch(mcfg.vocab, dcfg.global_batch // 2, dcfg.seq_len, dev)
+    a = flatten_with_names(grads_on(mcfg, params, batch)[1])
+    b = flatten_with_names(grads_on(mcfg, params, batch)[1])
+    return sorted(k for k in a if not np.array_equal(a[k], b[k]))
+
+
+def refuses_under_grad(mcfg, params, dev, kernel: str) -> None:
+    """``train_loss`` with ``use_pallas=True`` on the card: ``kernel``'s
+    wrapper must raise in the forward pass, before a backward is reached
+    (the kernels have no backward pass)."""
+    refused = None
+    try:
+        grads_on(dataclasses.replace(mcfg, use_pallas=True), params,
+                 train_batch(mcfg.vocab, 1, 64, dev))
+    except NotImplementedError as e:
+        refused = str(e)
+    say("train_use_pallas", arch=mcfg.name, refused=refused is not None,
+        message=repr((refused or "")[:100]))
+    require(refused is not None and kernel in refused,
+            f"{mcfg.name}: train_loss with use_pallas=True did not refuse in {kernel} "
+            f"({refused})")
+
+
+def restart_drill(mcfg, dev, card: str, root: Path) -> float:
+    """Uninterrupted ``DRILL_STEPS`` steps (async checkpoints every 2)
+    against a run that fails at ``DRILL_FAIL`` and a new ``Trainer`` that
+    resumes from the newest checkpoint: the final parameters and optimizer
+    state within ``DRILL_ATOL``; whether they are bit-identical is printed
+    (and, if not, the gradient leaves whose backward is not)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime import SimulatedFailure
+
+    dcfg = DataConfig(vocab=mcfg.vocab, seq_len=DRILL_SEQ, global_batch=TRAIN_BATCH)
+    kw = dict(steps=DRILL_STEPS, micro=TRAIN_MICRO, ckpt_every=2, ckpt_async=True)
+    ref, _ = train_run(mcfg, dcfg, root / "drill_ref", dev, card, label="uninterrupted", **kw)
+    failing = make_trainer(mcfg, dcfg, root / "drill", dev, fail_at_step=DRILL_FAIL, **kw)
+    failed = False
+    try:
+        failing.run()
+    except SimulatedFailure:
+        failed = True
+    failing.ckpt.wait()      # the async write the failure left in flight
+    require(failed, f"{mcfg.name}: fail_at_step={DRILL_FAIL} raised no SimulatedFailure")
+    resumed = make_trainer(mcfg, dcfg, root / "drill", dev, fresh=False, **kw)
+    res = resumed.run()
+    want = tree_leaves((ref.params, ref.opt_state))
+    got = tree_leaves((resumed.params, resumed.opt_state))
+    gap = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want, strict=True))
+    identical = all(torch.equal(a, b) for a, b in zip(got, want))
+    culprits = [] if identical else nondeterministic_leaves(mcfg, ref.params, dcfg, dev)
+    say("train_drill", arch=mcfg.name, seq_len=DRILL_SEQ, steps=DRILL_STEPS,
+        failed_at=DRILL_FAIL, resumed_from=DRILL_STEPS - len(res["losses"]),
+        max_abs_diff=f"{gap:.3e}", atol=DRILL_ATOL, bit_identical=identical,
+        nondeterministic_grad_leaves=culprits, card=card)
+    require(len(res["losses"]) == DRILL_STEPS - 2,
+            f"{mcfg.name}: the resumed run took {len(res['losses'])} steps, not from step 2")
+    require(gap <= DRILL_ATOL, f"{mcfg.name}: the resumed run's state differs from the "
+            f"uninterrupted run's by {gap:.3e}")
+    return gap
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 21: smollm-135m at its published widths and depth through
+    ``Trainer`` on train_4k-length steps, the restart drill, the card against
+    the host's CPU, paper-lstm at full width, the ``use_pallas`` refusal and
+    ``launch.train``; no kernel launched on the training path."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models import lm
+
+    root = ROOT / "build" / "train"
+    before = kernel_counts()
+    scfg = get_config("smollm-135m")
+    require((scfg.n_layers, scfg.d_model, scfg.n_heads, scfg.n_kv_heads, scfg.d_ff, scfg.vocab,
+             scfg.remat, scfg.use_pallas) == (30, 576, 9, 3, 1536, 49_152, True, False),
+            f"smollm-135m is not at its published widths and depth: {scfg}")
+    torch.cuda.reset_peak_memory_stats()
+    dcfg = DataConfig(vocab=scfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    trainer, res = train_run(scfg, dcfg, root / "smollm", dev, card, steps=TRAIN_STEPS,
+                             micro=TRAIN_MICRO, label="train_4k", ckpt_every=TRAIN_STEPS)
+    n_params = lm.param_count(trainer.params)
+    steady = sorted(m["sec"] for m in res["metrics"][1:])
+    step_s = statistics.median(steady)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say("train_smollm", params=n_params, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        microbatches=TRAIN_MICRO, first_step_ms=f"{1e3 * res['metrics'][0]['sec']:.1f}",
+        steady_step_ms=f"{1e3 * step_s:.1f}",
+        tokens_per_s=f"{TRAIN_SEQ * TRAIN_BATCH / step_s:.0f}",
+        peak_alloc_gb=f"{peak_gb:.2f}", predicted_step_s="1.5-4", predicted_peak_gb="15-30",
+        loss_first=f"{res['losses'][0]:.4f}", loss_last=f"{res['losses'][-1]:.4f}", card=card)
+    require(n_params == 134_515_008, f"smollm-135m has {n_params} parameters")
+
+    restart_drill(scfg, dev, card, root)
+    card_against_cpu(scfg, trainer.params, dev, card, 1, CHECK_SEQ)
+
+    refuses_under_grad(scfg, trainer.params, dev, "flash_attention")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # paper-lstm at full width: the recurrent plain path in train mode
+    lcfg = get_config("paper-lstm")
+    ltr, _ = train_run(lcfg, DataConfig(vocab=lcfg.vocab, seq_len=LSTM_TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH),
+                       root / "paper_lstm", dev, card, steps=LSTM_TRAIN_STEPS, micro=1,
+                       label=f"T{LSTM_TRAIN_SEQ}", ckpt_every=LSTM_TRAIN_STEPS)
+    require(lm.param_count(ltr.params) == 108_307_456,
+            f"paper-lstm has {lm.param_count(ltr.params)} parameters")
+    card_against_cpu(lcfg, ltr.params, dev, card, 1, LSTM_CHECK_SEQ)
+    refuses_under_grad(lcfg, ltr.params, dev, "lstm_seq")
+    del ltr
+    torch.cuda.empty_cache()
+
+    # the launcher at the published widths, as a subprocess on the card
+    cmd = ["--arch", "smollm-135m", "--steps", "2", "--seq", "256", "--batch", "4",
+           "--ckpt-dir", str(root / "launch"), "--device", dev.type]
+    launch = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *cmd],
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+                            capture_output=True, text=True, timeout=600)
+    lines = (launch.stdout + launch.stderr).splitlines()
+    for ln in lines[-2:]:
+        say("entry_point", command="launch.train " + " ".join(cmd[:8]), line=repr(ln))
+    require(launch.returncode == 0 and any("final_loss=" in ln for ln in lines),
+            f"python -m repro_torch.launch.train exited {launch.returncode}")
+
+    after = kernel_counts()
+    say("train_kernels", launches_during_phase={k: after[k] - before[k] for k in after})
+    require(after == before, f"a kernel launched on the training path: {before} -> {after}")
+    return {"peak_gb": peak_gb, "step_s": step_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2148,6 +2427,7 @@ def main() -> int:
     from repro_torch.kernels.tanh_lut import kernel as lut_kernel
     from repro_torch.kernels.tanh_lut import ops as lut_ops
     from repro_torch.kernels.tanh_lut.ref import make_lut, tanh_lut_ref
+    from repro_torch._tree import tree_map
     from repro_torch.models import lm
     from repro_torch.obs import Observability
     from repro_torch.runtime.server import DecodeServer, Request
@@ -3000,9 +3280,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("profile_mamba")
 
-    # -- 15b. serve_loadgen: full-width falcon-mamba-7b, on phase 12's weights --
-    lg_mamba_launches = serve_loadgen_mamba(mcfg, mparams, dev, card)
-    del mparams
+    # -- 15b. serve_loadgen: falcon-mamba-7b at its widths cut to 16 layers, on
+    # the first 16 of phase 12's loaded groups (no new weights drawn) ------------
+    lg_cfg = dataclasses.replace(mcfg, n_layers=LOADGEN_MAMBA_LAYERS)
+    lg_params = {**mparams, "groups": tree_map(lambda t: t[:LOADGEN_MAMBA_LAYERS],
+                                               mparams["groups"])}
+    lg_mamba_launches = serve_loadgen_mamba(
+        lg_cfg, lg_params, dev, card,
+        cache_bytes=(1 << 30) * LOADGEN_MAMBA_LAYERS // mcfg.n_layers)
+    del mparams, lg_params
     torch.cuda.empty_cache()
     phase_done("serve_loadgen_falcon_mamba")
 
@@ -3227,6 +3513,10 @@ def main() -> int:
     tc = tune_chaos(dev, card)
     codegen_launches["lstm"] += sum(n for label, n in tc["tune"].items() if "lstm" in label)
     phase_done("tune_chaos")
+
+    # -- 21. training: smollm-135m at train_4k length, paper-lstm, launch.train --
+    train_phase(dev, card)
+    phase_done("train")
 
     summary = {"kernels": [{
         "name": "lstm_seq",

@@ -16,8 +16,9 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        mapped = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        # a NamedTuple (the optimizer state) takes its fields positionally
+        return type(tree)(*mapped) if hasattr(tree, "_fields") else type(tree)(mapped)
     return fn(tree, *rest)
 
 
@@ -31,9 +32,22 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_leaves_sorted(tree: Any) -> list:
+    """Leaves in the order ``jax.tree.leaves`` gives the same tree: dict keys
+    sorted, sequences (tuples, lists, NamedTuples) in order.  A sum over
+    leaves in this order rounds as the reference's does."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves_sorted(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves_sorted(v)]
+    return [tree]
+
+
 def tree_stack(trees: Sequence[Any], dim: int = 0) -> Any:
     """Stack same-structured trees leafwise along a new axis ``dim``."""
     return tree_map(lambda *leaves: torch.stack(leaves, dim=dim), *trees)
 
 
-__all__ = ["tree_leaves", "tree_map", "tree_stack"]
+__all__ = ["tree_leaves", "tree_leaves_sorted", "tree_map", "tree_stack"]

@@ -35,6 +35,12 @@ def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     stays fp32 whatever ``cfg.p_dtype`` is, as the reference keeps it.
     The tree must hold exactly the blocks, tail and shared block that
     ``cfg`` names, or this raises."""
+    return _cross_params(np_tree, cfg, device, None)
+
+
+def _cross_params(np_tree: PyTree, cfg: ModelConfig, device, dtype) -> PyTree:
+    """``params_from_jax``'s checks and mapping; every leaf in ``dtype``, or
+    (None) in ``cfg.p_dtype`` with a ``router`` in fp32."""
     dev = resolve_device(device)
     want = {f"b{i}_{kind}" for i, kind in enumerate(cfg.layer_pattern)}
     if set(np_tree["groups"]) != want:
@@ -53,10 +59,32 @@ def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     def cross(tree, name):
         if isinstance(tree, dict):
             return {k: cross(v, k) for k, v in tree.items()}
-        dt = torch.float32 if name == "router" else cfg.p_dtype
-        return torch.as_tensor(np.array(tree)).to(device=dev, dtype=dt)
+        dt = dtype or (torch.float32 if name == "router" else cfg.p_dtype)
+        arr = np.array(tree)
+        if arr.dtype.name == "bfloat16":    # ml_dtypes' type: torch cannot read it
+            arr = arr.astype(np.float32)    # exact; cast back below
+        return torch.as_tensor(arr).to(device=dev, dtype=dt)
 
     return cross(np_tree, "")
+
+
+def adamw_state_from_jax(np_state, cfg: ModelConfig, device=None):
+    """The reference's ``optim.AdamWState`` (numpy leaves: an int32 ``step``
+    and the fp32 moment trees ``m`` and ``v``, laid out like the params) →
+    the port's :class:`~repro_torch.optim.AdamWState` on ``device``
+    (default: the card), the moments through ``params_from_jax``'s checks
+    and mapping, kept in fp32 whatever ``cfg.p_dtype`` is.  A reference
+    gradient tree crosses over as ``params_from_jax(grads, cfg, device)``
+    (the gradients of bf16 params are bf16)."""
+    from repro_torch.optim import AdamWState
+
+    dev = resolve_device(device)
+    step, m, v = np_state
+    return AdamWState(
+        step=torch.as_tensor(np.array(step, dtype=np.int32)).to(dev),
+        m=_cross_params(m, cfg, dev, torch.float32),
+        v=_cross_params(v, cfg, dev, torch.float32),
+    )
 
 
 def program_from_jax(np_params: PyTree, spec, device=None):
@@ -101,4 +129,5 @@ def cache_from_jax(np_tree: PyTree, device=None) -> PyTree:
         np_tree)
 
 
-__all__ = ["cache_from_jax", "params_from_jax", "program_from_jax"]
+__all__ = ["adamw_state_from_jax", "cache_from_jax", "params_from_jax",
+           "program_from_jax"]

@@ -106,11 +106,13 @@ def codegen_stage(plan: lower.Plan, source: str, consts: dict, x0: dict,
     current stream: CUDA tensors in, ``(finals, ys)`` out.  ``consts`` hold
     fp32 ROMs, and int8 codes plus fp32 ``.scale`` companions for
     ``plan.int8``.  Raises on a tensor that is not on the card, a wrong dtype
-    or shape, a failed build or a failed launch."""
+    or shape, an input that autograd tracks, a failed build or a failed
+    launch."""
     first = x0[plan.states[0][0]]
     dev = first.device
     if dev.type != "cuda":
         raise RuntimeError(f"codegen_stage kernel needs CUDA tensors, got {dev}")
+    _build.refuse_grad("codegen_stage", us, *x0.values(), *consts.values(), lut)
     B = first.shape[0]
     if B < 1 or T < 1:
         raise ValueError(f"codegen_stage kernel: empty batch or sequence (B={B}, T={T})")

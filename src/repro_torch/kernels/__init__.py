@@ -15,5 +15,8 @@ kernels of ``repro_torch.codegen``); ``_build.py`` builds every CUDA source.
 
 A wrapper (``ops.py``) launches the kernel for a CUDA tensor and takes the
 plain version (``ref.py``) for a CPU tensor; it never falls back from one to
-the other.
+the other.  No kernel has a backward pass (nor has the reference's): a
+launch under autograd, with grad enabled and an input that requires grad,
+raises ``NotImplementedError`` (``_build.refuse_grad``) instead of returning
+a result whose gradients would stop at the kernel.
 """

@@ -23,6 +23,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +49,20 @@ def count_host_sync() -> None:
 def host_syncs() -> int:
     """Host round-trips counted on the calling thread so far."""
     return getattr(_syncs, "n", 0)
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise before a launch whose result autograd would have to
+    differentiate: a kernel returns tensors with no ``grad_fn``, so training
+    through it would silently stop the gradients there.  The reference has
+    no backward kernel either (``jax.grad`` cannot pass a ``pallas_call``)
+    and trains on its plain path."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernel has no backward pass, and neither has the "
+            f"reference's TPU kernel; train with use_pallas=False, or call it under "
+            f"torch.no_grad() (ROADMAP.md, Queue 1 item 11: Training and I/O)")
 
 
 _loaded: dict[Path, ctypes.CDLL] = {}

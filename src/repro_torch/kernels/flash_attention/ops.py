@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
 from . import kernel as _k
 from .ref import flash_attention_ref
 
@@ -31,6 +33,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    _build.refuse_grad("flash_attention", q, k, v)
     q32, k32, v32 = (t.to(torch.float32).contiguous() for t in (q, k, v))
     out = _k.flash_attention(q32, k32, v32, causal=causal, window=window, softcap=softcap)
     flash_attention.calls += 1

@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.core.quantization import quantize_int8
 
+from repro_torch.kernels import _build
+
 from . import kernel as _k
 from .ref import int8_matmul_ref, quantize_matmul_ref
 
@@ -26,6 +28,7 @@ def int8_matmul(a_q, b_q, a_scale, b_scale):
     ``int8_matmul_ref``."""
     if a_q.device.type == "cpu":
         return int8_matmul_ref(a_q, b_q, a_scale, b_scale)
+    _build.refuse_grad("int8_matmul", a_q, b_q, a_scale, b_scale)
     out = _k.int8_matmul(a_q.contiguous(), b_q.contiguous(),
                          a_scale.to(torch.float32).contiguous(),
                          b_scale.to(torch.float32).contiguous())

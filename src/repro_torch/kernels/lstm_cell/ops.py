@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
 from . import kernel as _k
 from .ref import lstm_seq_lut_ref, lstm_seq_ref
 
@@ -37,6 +39,7 @@ def lstm_seq(x, w_x, w_h, b, h0=None, c0=None, lut=None):
         else:
             y, h, c = lstm_seq_lut_ref(x, w_x, w_h, b, h0, c0, lut)
         return y.to(x.dtype), h, c
+    _build.refuse_grad("lstm_seq", x, w_x, w_h, b, h0, c0, lut)
     y, h, c = _k.lstm_seq(
         x.float().contiguous(), w_x.float().contiguous(), w_h.float().contiguous(),
         b.float().contiguous(), h0.contiguous(), c0.contiguous(),

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
 from . import kernel as _k
 from .ref import ssm_scan_ref
 
@@ -29,6 +31,7 @@ def ssm_scan(x, delta, A, B, C, h0=None):
     if x.device.type == "cpu":
         y, h = ssm_scan_ref(x, delta, A, B, C, h0)
         return y.to(x.dtype), h
+    _build.refuse_grad("ssm_scan", x, delta, A, B, C, h0)
     f32 = lambda t: t.to(torch.float32).contiguous()
     y, h = _k.ssm_scan(f32(x), f32(delta), f32(A), f32(B), f32(C),
                        None if h0 is None else f32(h0))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
 from . import kernel as _k
 from .ref import make_lut, tanh_lut_ref
 
@@ -20,6 +22,7 @@ def tanh_lut(x: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     table from :func:`make_lut`."""
     if x.device.type == "cpu":
         return tanh_lut_ref(x, lut)
+    _build.refuse_grad("tanh_lut", x, lut)
     y = _k.tanh_lut(x.to(torch.float32), lut.to(torch.float32))
     tanh_lut.launches += 1
     return y.to(x.dtype)

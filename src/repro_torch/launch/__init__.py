@@ -1,1 +1,2 @@
-"""Launchers of the port: ``python -m repro_torch.launch.serve``."""
+"""Launchers of the port: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``; ``steps`` holds the step functions."""

@@ -18,7 +18,9 @@ pattern has ``shared_attn``; + ``"tail": {"t0_attn_local" | "t0_mamba2":
 ...}`` with a ``tail_pattern``; + ``"head"`` when embeddings are untied),
 with every per-group leaf stacked on a leading ``G`` axis and the shared
 and tail leaves unstacked.  The reference scans over groups; the port
-loops over them.
+loops over them.  ``train_loss`` is the training objective; under
+``cfg.remat`` each group is recomputed in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
@@ -50,6 +53,7 @@ __all__ = [
     "decode_step",
     "init_cache",
     "param_count",
+    "train_loss",
 ]
 
 
@@ -99,9 +103,9 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
     shared = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_group = []
-    for g in range(cfg.n_groups):
+
+    def group_body(g, x, aux, c_grp):
         p_grp = tree_map(lambda t: t[g], params["groups"])
-        c_grp = None if caches is None else tree_map(lambda t: t[g], caches["groups"])
         new_caches = {}
         for i, kind in enumerate(pattern):
             name = f"b{i}_{kind}"
@@ -110,6 +114,18 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
                                           cache=c_in, pos=pos, mode=mode)
             aux = aux + aux_i
             new_caches[name] = c_out
+        return x, aux, new_caches
+
+    # the reference's jax.checkpoint of the group body: a group keeps only
+    # its input for backward and recomputes its activations there
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    for g in range(cfg.n_groups):
+        c_grp = None if caches is None else tree_map(lambda t: t[g], caches["groups"])
+        if remat:
+            x, aux, new_caches = checkpoint(group_body, g, x, aux, c_grp,
+                                            use_reentrant=False)
+        else:
+            x, aux, new_caches = group_body(g, x, aux, c_grp)
         per_group.append(new_caches)
     tail_in = None if caches is None else caches.get("tail")
     tail_out = {}
@@ -151,6 +167,24 @@ def forward(params, cfg: ModelConfig, tokens, *, mode="train"):
     if mode == "prefill":
         return logits, out_caches, aux
     return logits, aux
+
+
+def train_loss(params, cfg: ModelConfig, batch, z_loss_coef: float = 1e-4):
+    """batch: {"tokens": [B,S], "labels": [B,S]} → (loss, metrics).  Labels
+    below 0 are masked out; the loss is the masked mean cross-entropy plus
+    ``z_loss_coef`` times the mean squared log-partition plus
+    ``cfg.router_aux_coef`` times the MoE blocks' load-balancing loss."""
+    logits, aux = forward(params, cfg, batch["tokens"], mode="train")
+    labels = batch["labels"].long()
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = ((lse - gold) * mask).sum() / denom
+    zl = (torch.square(lse) * mask).sum() / denom
+    loss = ce + z_loss_coef * zl + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "z_loss": zl, "router_aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens):

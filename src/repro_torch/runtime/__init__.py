@@ -1,16 +1,22 @@
-"""Serving runtime: the continuous-batching ``server.DecodeServer``, its
-``scheduler`` and asyncio front-end, the radix ``prefix_cache``, the seeded
-``loadgen``, the ``faults`` layer and weight-only int8 serving
-(``quantized``, imported by name).  Training (``Trainer``) and mesh
-placement (``ShardPlan``) are not ported yet."""
+"""Runtime: the single-device ``trainer.Trainer`` (checkpoint/restart,
+failure injection, the straggler monitor) and the serving stack: the
+continuous-batching ``server.DecodeServer``, its ``scheduler`` and asyncio
+front-end, the radix ``prefix_cache``, the seeded ``loadgen``, the
+``faults`` layer and weight-only int8 serving (``quantized``, imported by
+name).  Mesh placement (``ShardPlan``) is not ported yet."""
 
 from .faults import FAULT_POINTS, FaultError, FaultPlan, FaultSpec, TransientFault, Watchdog
 from .loadgen import Trace, TraceItem, TraceSpec, make_trace, replay
 from .prefix_cache import PrefixCache
 from .scheduler import AsyncServer, Scheduler, SchedulerConfig
 from .server import DecodeServer, Request, splice_cache
+from .trainer import SimulatedFailure, StragglerMonitor, Trainer, TrainerConfig
 
 __all__ = [
+    "SimulatedFailure",
+    "StragglerMonitor",
+    "Trainer",
+    "TrainerConfig",
     "DecodeServer",
     "Request",
     "splice_cache",

@@ -9,7 +9,10 @@ server's drivers; and zamba2's Mamba-2 / SSD blocks (plain PyTorch on the
 card, held against the CPU) and its shared block through
 ``flash_attention`` and the server; the MoE FFN at olmoe's width, MLA's
 absorbed decode at deepseek's and int8 quantization on the card against
-the CPU, and olmoe's attention (shape g) through ``flash_attention``.
+the CPU, and olmoe's attention (shape g) through ``flash_attention``; and
+training: ``train_loss`` gradients on the card against the CPU, every
+kernel wrapper refusing autograd (and launching without it), and a
+``Trainer`` whose checkpoint restores onto the card.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -1469,3 +1472,129 @@ def test_moe_smoke_use_pallas_prefill_matches_plain_path(cuda, arch):
         *e_p, lp = ids[False]
         assert all(torch.equal(a, b) for a, b in zip(e_k, e_p)), n
         assert float((lk - lp).abs().max()) <= 1e-5 * float(lp.abs().max()), n
+
+
+# ---------------------------------------------------------------------------
+# training on the card: plain PyTorch end to end, no kernel under autograd
+# ---------------------------------------------------------------------------
+
+def _train_batch(vocab, B=2, S=32, seed=0):
+    r = np.random.default_rng(seed)
+    labels = r.integers(0, vocab, (B, S))
+    labels[0, :3] = -1
+    return {"tokens": torch.as_tensor(r.integers(0, vocab, (B, S)), dtype=torch.int32),
+            "labels": torch.as_tensor(labels, dtype=torch.int32)}
+
+
+@pytest.mark.parametrize("arch,tol", [("smollm-135m", 1e-5), ("paper-lstm", 1e-5),
+                                      ("falcon-mamba-7b", 1e-5), ("zamba2-1.2b", 1e-4)])
+def test_train_loss_grads_on_the_card_match_the_cpu(cuda, arch, tol):
+    """The same smoke parameters and batch on the card and on the host's CPU:
+    the loss and each gradient leaf within ``tol`` of that leaf's max |g|."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import value_and_grad
+
+    cfg = get_smoke_config(arch)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = _train_batch(cfg.vocab)
+    loss_fn = lambda p, b: lm.train_loss(p, cfg, b)
+    (l_c, m_c), g_c = value_and_grad(loss_fn, params, batch)
+    (l_g, m_g), g_g = value_and_grad(loss_fn, tree_map(lambda t: t.to(cuda), params),
+                                     tree_map(lambda t: t.to(cuda), batch))
+    assert l_g.device.type == "cuda"
+    torch.testing.assert_close(l_g.cpu(), l_c, atol=0, rtol=tol)
+    for k in m_c:
+        torch.testing.assert_close(m_g[k].cpu(), m_c[k], atol=1e-7, rtol=tol)
+    for a, b in zip(tree_leaves(g_g), tree_leaves(g_c), strict=True):
+        assert a.device.type == "cuda"
+        scale = float(b.abs().max().clamp(min=1e-30))
+        assert float((a.cpu() - b).abs().max()) <= tol * scale
+
+
+def test_kernel_wrappers_refuse_autograd_and_launch_without_it(cuda):
+    """Under grad, with an input that requires grad, every wrapper raises
+    before it launches (no launch counted); under ``torch.no_grad()`` the
+    same call launches once, as before."""
+    from repro_torch.codegen import kernel_backend
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.lstm_cell import ops as lstm
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.kernels.tanh_lut import ops as lut_ops
+    from repro_torch.kernels.tanh_lut.ref import make_lut
+
+    x, w_x, w_h, b, h0, c0 = _case(cuda, 2, 8, 16, 16)
+    sx, sdl, sA, sB, sC, _ = _scan_case(cuda, 1, 16, 8, 4)
+    r = np.random.default_rng(3)
+    q, k, v = (torch.as_tensor(r.normal(size=(1, 32, 2, 16)), dtype=torch.float32, device=cuda)
+               for _ in range(3))
+    a8 = torch.ones((4, 8), dtype=torch.int8, device=cuda)
+    b8 = torch.ones((8, 4), dtype=torch.int8, device=cuda)
+    a_s, b_s = torch.full((4, 1), 0.5, device=cuda), torch.full((1, 4), 0.25, device=cuda)
+    stage, consts, x0, us = _stage_case(cuda, "lstm", 8, 8, 1, 4)
+    run = kernel_backend.compile_stage(stage)
+    lut = make_lut(8, device=cuda)
+    calls = [
+        (lstm.lstm_seq, lambda t: lstm.lstm_seq(x, t, w_h, b, h0, c0), w_x),
+        (scan.ssm_scan, lambda t: scan.ssm_scan(sx, t, sA, sB, sC), sdl),
+        (fa.flash_attention, lambda t: fa.flash_attention(t, k, v), q),
+        (lut_ops.tanh_lut, lambda t: lut_ops.tanh_lut(t, lut), x),
+        (i8.int8_matmul, lambda t: i8.int8_matmul(a8, b8, t, b_s), a_s),
+        (kernel_backend.codegen_stage,
+         lambda t: run(consts, {**x0, "h": t}, us), x0["h"]),
+    ]
+    for counter, call, arg in calls:
+        before = counter.launches
+        with pytest.raises(NotImplementedError, match="no backward pass.*item 11"):
+            call(arg.detach().clone().requires_grad_(True))
+        assert counter.launches == before
+        with torch.no_grad():
+            call(arg.detach().clone().requires_grad_(True))
+        call(arg)                       # no input requires grad: launches as before
+        assert counter.launches == before + 2
+    torch.cuda.synchronize()
+
+
+def test_use_pallas_train_loss_raises_on_the_card(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import value_and_grad
+
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"), use_pallas=True)
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    batch = {k: t.to(cuda) for k, t in _train_batch(cfg.vocab).items()}
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        value_and_grad(lambda p, b: lm.train_loss(p, cfg, b), params, batch)
+
+
+def test_trainer_on_the_card_checkpoints_and_restores_onto_the_card(cuda, tmp_path):
+    """Three steps of the smoke config on the card, no kernel launched; the
+    checkpoint restores onto the card, equal to the trained state."""
+    from repro_torch import optim
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"), vocab=64)
+    launches = fa.flash_attention.launches
+    tr = Trainer(cfg, TrainerConfig(total_steps=3, ckpt_every=2, ckpt_dir=str(tmp_path),
+                                    log_every=1),
+                 optim.AdamWConfig(lr_peak=3e-3, warmup_steps=1, total_steps=3),
+                 DataConfig(vocab=64, seq_len=32, global_batch=8, branching=3))
+    res = tr.run()
+    assert fa.flash_attention.launches == launches
+    assert len(res["losses"]) == 3 and np.isfinite(res["losses"]).all()
+    assert all(t.device.type == "cuda" for t in tree_leaves((tr.params, tr.opt_state)))
+    template = {"params": tree_map(torch.zeros_like, tr.params),
+                "opt": optim.init(tr.params)}
+    restored, meta = CheckpointManager(str(tmp_path)).restore(template)
+    assert meta["step"] == 3
+    for got, want in zip(tree_leaves(restored), tree_leaves({"params": tr.params,
+                                                             "opt": tr.opt_state}), strict=True):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got, want)

@@ -51,7 +51,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                    "verify/chaos.py", "tune/__init__.py", "tune/__main__.py",
                    "tune/space.py", "tune/pareto.py", "tune/search.py", "tune/report.py",
                    "models/moe.py", "runtime/quantized.py", "configs/olmoe_1b_7b.py",
-                   "configs/deepseek_v2_lite_16b.py"):
+                   "configs/deepseek_v2_lite_16b.py", "data/pipeline.py", "optim/adamw.py",
+                   "checkpoint/checkpoint.py", "runtime/trainer.py", "launch/steps.py",
+                   "launch/train.py"):
         assert module in names, module
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -156,3 +158,15 @@ def test_entry_points_default_to_the_card():
                  lambda: difftest.main(["--seeds", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+    # the training slice: the trainer and its launcher default to the card
+    from repro_torch import optim
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, TrainerConfig(), optim.AdamWConfig(),
+                DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_launcher.main(["--smoke", "--arch", "paper-lstm", "--steps", "1"])
