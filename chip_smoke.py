@@ -236,7 +236,25 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    ``use_pallas=True`` on the card refused by ``flash_attention``'s and
    ``lstm_seq``'s wrappers before a backward is reached; ``python -m
    repro_torch.launch.train --arch smollm-135m --steps 2 --seq 256 --batch
-   4`` as a subprocess; and no kernel launched during the phase.
+   4`` as a subprocess; and no kernel launched during the phase;
+22. mesh — phase 3's full-width ``paper-lstm`` traffic (``use_pallas``)
+   under ``ShardPlan(fold_data=True)`` at dp = 8 in this process, under
+   both drivers, with phase 3's tokens, every decode call's logits bit for
+   bit those of a ``plan=None`` run, and ``lstm_seq`` launched once a layer
+   a prefill; then sharded over two ranks spawned on this card (gloo): the
+   same tokens, each rank's logits against the ``plan=None`` rows (bit for
+   bit, or, where the card's GEMM gives other bits at half the rows, the
+   gap printed and held at ``MESH_DP_GAP`` of max |logit|), the same host
+   state on both ranks, each rank launching ``lstm_seq`` for its own
+   shard's prefills only, decode tok/s beside the ``plan=None`` run;
+   ``synthesize(mesh=)``'s eager backend at tp = 2 on a 2 × 1024 lstm at
+   T = 256 within 1e-4 of one device (one all-reduce a contraction a step,
+   the ``|mesh1x2`` ledger key) and the kernel backend at dp = 2 with
+   C-slow streams against its unsharded launch (the same rule, read on
+   its readout GEMM, with ``MESH_KERNEL_DP_GAP``); then one rank under NCCL (NCCL
+   refuses two ranks on one card): the sharded server at dp = 1, logits
+   bit for bit, and ``ep_moe_apply`` at olmoe's widths (64 experts, top-8)
+   against ``moe_apply(group_size=T_local)``, two all-to-alls a call.
 
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
@@ -391,6 +409,27 @@ TRAIN_GRAD_TOL = 1e-4
 LSTM_TRAIN_SEQ = 256
 LSTM_TRAIN_STEPS = 2
 LSTM_CHECK_SEQ = 64
+# phase 22 (mesh): the folded layout's shards, the ranks that share the card
+# over gloo, the TP width, and the EP tokens a rank at olmoe's widths
+MESH_FOLDED_DP = 8
+MESH_RANKS = 2
+MESH_TP_TOL = 1e-4      # TP sums the gate contraction in another order (the full-width bar)
+MESH_TP_LAYERS = 2
+MESH_TP_BATCH = 2
+MESH_DP_SPEC = dict(num_hidden_layers=2, seq_len=256, c_slow=4)
+MESH_DP_BATCH = 2
+# DP's bar is bit identity: a sharded rank's logits are the unsharded run's
+# rows.  Only where the card's GEMM itself gives other bits at 1/dp of the
+# rows (read in the phase) is a gap allowed, and then at most this much of
+# max |logit|: a few ulps a GEMM, carried through 8 layers and 32 decode
+# steps (measured 3.636e-06 at a max |logit| of 3.617, PR 24's review run)
+MESH_DP_GAP = 5e-6
+# the same for the kernel backend's DP against its unsharded launch, of
+# max |y|, where its readout GEMM (finals @ C.T) changes bits at 1/dp of the
+# rows (measured 1.788e-07 at a max |y| of 0.6973)
+MESH_KERNEL_DP_GAP = 1e-6
+MESH_EP_TOKENS = 512
+MESH_EP_TOL = 2e-4      # run_ep_moe.py's bar
 
 PHASE_T0 = [time.perf_counter()]
 
@@ -2400,6 +2439,379 @@ def train_phase(dev, card: str) -> dict:
     return {"peak_gb": peak_gb, "step_s": step_s}
 
 
+
+# ---------------------------------------------------------------------------
+# 22. mesh: ShardPlan serving in both layouts, synthesize(mesh=), EP MoE
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def decode_logits_by_token(srv, rows):
+    """``{(uid, position): logits}`` of every ``lm.decode_step`` call of
+    ``srv`` for the requests in this process's slot ``rows``: a request's
+    logits at each position, wherever the plan placed it (the first call at
+    a position; a slot that retires inside a decode block idles there).
+    The device tensors are kept and read after the run, so it is not
+    synced."""
+    from repro_torch.models import lm
+
+    calls, inner = [], lm.decode_step
+
+    def recorded(params, cfg, tokens, caches, pos):
+        out = inner(params, cfg, tokens, caches, pos)
+        calls.append(([None if srv.slot_req[b] is None else srv.slot_req[b].uid for b in rows],
+                      pos.clone(), out[0]))
+        return out
+
+    got: dict = {}
+    lm.decode_step = recorded
+    try:
+        yield got
+    finally:
+        lm.decode_step = inner
+    for uids, pos, logits in calls:
+        pos = pos.reshape(-1).cpu().numpy()
+        logits = logits.float().reshape(len(uids), -1).cpu().numpy()
+        for j, uid in enumerate(uids):
+            if uid is not None:
+                got.setdefault((uid, int(pos[j])), logits[j])
+
+
+def gemm_bits_depend_on_rows(w: torch.Tensor, rows: int, part: int) -> bool:
+    """Whether the card's GEMM gives the first ``part`` rows of a
+    ``rows``-row product ``x @ w`` other bits than the ``part``-row
+    product: a DP rank runs ``part`` of the unsharded ``rows``."""
+    x = torch.randn(rows, w.shape[0], generator=torch.Generator(device=w.device).manual_seed(0),
+                    device=w.device)
+    return not torch.equal((x @ w)[:part], x[:part] @ w)
+
+
+def logit_gap(got: dict, want: dict) -> tuple[float, float, bool]:
+    """Over the (request, position) keys of ``got``, all of them in
+    ``want``: max |got - want|, max |want|, and whether they are equal bit
+    for bit."""
+    missing = set(got) - set(want)
+    require(got and not missing, f"logits of {len(missing)} of {len(got)} (request, position) "
+                                 "keys missing from the plan=None run")
+    g = np.stack([got[k] for k in sorted(got)])
+    w = np.stack([want[k] for k in sorted(got)])
+    return (float(np.abs(g - w).max()), float(np.abs(w).max()),
+            bool(np.array_equal(g.view(np.int32), w.view(np.int32))))
+
+
+def mesh_serve(cfg, params, prompts, dev, plan=None, block: bool = False) -> dict:
+    """The 16 requests of phase 3 through ``DecodeServer(plan=)``: greedy
+    tokens, the decode logits of the requests on this process's slots (by
+    request and position), this process's ``lstm_seq`` launches, the
+    requests placed on its shard, and decode tok/s from the decode spans
+    (as ``serve``)."""
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.obs import Observability
+    from repro_torch.runtime.server import DecodeServer, Request
+
+    obs = Observability(trace=True)
+    srv = DecodeServer(cfg, params, num_slots=NUM_SLOTS, max_seq=MAX_SEQ, block_k=BLOCK_K,
+                       obs=obs, plan=plan, device=dev)
+    for i, p in enumerate(prompts):
+        srv.submit(Request(uid=i, prompt=p, max_new_tokens=MAX_NEW))
+    sync(dev)
+    launches = lstm_ops.lstm_seq.launches
+    mine = None if plan is None or plan.fold_data else plan.local_shard
+    rows = range(NUM_SLOTS) if mine is None else plan.slots_of_shard(mine, NUM_SLOTS)
+    t0 = time.perf_counter()
+    with decode_logits_by_token(srv, rows) as logits:
+        done = srv.run_until_drained(persistent=block)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    decode_s = sum(ev["dur"] for ev in obs.tracer.events()
+                   if ev.get("name") in ("decode_step", "decode_block")) / 1e6
+    st = srv.stats()
+    return {"tokens": {r.uid: list(r.out_tokens) for r in done},
+            "launches": lstm_ops.lstm_seq.launches - launches,
+            "own_prefills": sum(1 for r in done if mine is None or r.shard == mine),
+            "decode_tok_s": st["decoded_tokens"] / max(decode_s, 1e-9), "wall_s": wall,
+            "by_shard": st.get("mesh", {}).get("decoded_tokens_by_shard"),
+            "decoded": st["decoded_tokens"], "host_state": repr(srv.host_state()),
+            "logits": logits}
+
+
+def _rank_device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def mesh_ranks_gloo(rank: int, world: int, dev_name: str, cfg, prompts, spec, tp_u,
+                    spec_c, dp_u) -> dict:
+    """One of ``world`` ranks sharing the card over gloo: sharded serving of
+    phase 3's traffic under both drivers, the eager TP forward of ``spec``
+    and ``synthesize(mesh=)`` on it, and the kernel backend's DP forward of
+    ``spec_c``."""
+    from repro_torch import codegen, obs
+    from repro_torch.codegen import eager_backend, kernel_backend
+    from repro_torch.core import synthesis
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import comm
+    from repro_torch.runtime import ShardPlan
+
+    dev = _rank_device(dev_name)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    dp_mesh = make_local_mesh(dp=world, tp=1)
+    out = {}
+    with torch.no_grad():
+        for block in (False, True):
+            out["block" if block else "step"] = mesh_serve(cfg, params, prompts, dev,
+                                                           ShardPlan(dp_mesh), block)
+        del params
+        tp_mesh = make_local_mesh(dp=1, tp=world)
+        prog = codegen.build_program(spec, dev)
+        fwd = eager_backend.compile_program(prog, mesh=tp_mesh, device=dev)
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        out["tp_y"] = fwd(prog.params, torch.as_tensor(tp_u, device=dev)).cpu().numpy()
+        out["tp_s"] = time.perf_counter() - t0
+        out["tp_counts"] = dict(comm.COUNTS)
+        del prog, fwd
+        batch = tp_u.shape[0]
+        # the forward was timed above: the report and the ledger key only
+        report = synthesis.synthesize(spec, batch=batch, backend="eager", mesh=tp_mesh,
+                                      fallback=False, measure=False, device=dev)
+        key = synthesis._ledger_key(spec, batch, "eager", mesh=tp_mesh)
+        [row] = obs.OBS.ledger.report(match=key)
+        out["synth"] = (report.backend, report.output_shape, key, row["program"])
+        prog_c = codegen.build_program(spec_c, dev)
+        kfwd = kernel_backend.compile_program(prog_c, mesh=dp_mesh, device=dev)
+        launches = kernel_backend.codegen_stage.launches
+        comm.reset_counts()
+        out["dp_y"] = kfwd(prog_c.params, torch.as_tensor(dp_u, device=dev)).cpu().numpy()
+        out["dp_counts"] = dict(comm.COUNTS)
+        out["dp_launches"] = kernel_backend.codegen_stage.launches - launches
+    out["jax"] = "jax" in sys.modules
+    return out
+
+
+def mesh_ranks_nccl(rank: int, world: int, dev_name: str, cfg, prompts, mcfg) -> dict:
+    """World size 1 under NCCL (NCCL refuses two ranks on one card): the
+    sharded server (its control plane on a gloo group of its own) and
+    ``ep_moe_apply`` at ``mcfg``'s expert widths, its two all-to-alls on
+    NCCL."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm, moe
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.ep_moe import ep_moe_apply
+    from repro_torch.runtime import ShardPlan
+
+    dev = _rank_device(dev_name)
+    out = {"backend": torch.distributed.get_backend()}
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    with torch.no_grad():
+        out["step"] = mesh_serve(cfg, params, prompts, dev,
+                                 ShardPlan(make_local_mesh(dp=world, tp=1)), False)
+        del params
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = moe.moe_params(gen, mcfg)
+        x = torch.randn(MESH_EP_TOKENS, mcfg.d_model, generator=gen, device=dev) * 0.5
+        mesh = make_local_mesh()                       # (1, 1, world): EP over "model"
+        ep_moe_apply(p, mcfg, x, mesh)                 # warm-up: the process's first einsums
+        comm.reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        y = ep_moe_apply(p, mcfg, x, mesh)
+        sync(dev)
+        out["ep_s"] = time.perf_counter() - t0
+        out["ep_counts"] = dict(comm.COUNTS)
+        y_ref, _ = moe.moe_apply(p, mcfg, x[None], group_size=MESH_EP_TOKENS)
+        out["ep_err"] = float((y - y_ref[0]).abs().max())
+        out["ep_max_y"] = float(y_ref.abs().max())
+        out["ep_shape"] = (mcfg.n_experts, mcfg.top_k, mcfg.d_model, mcfg.d_ff_expert)
+    return out
+
+
+def mesh_phase(dev, card: str, cfg, prompts, want_step, want_block, *, mcfg=None,
+               width: int = WIDTH, rank_backend: str = "nccl") -> dict:
+    """Phase 22: phase 3's full-width paper-lstm traffic under
+    ``ShardPlan(fold_data=True)`` at dp = 8 in this process and sharded over
+    two ranks on the card (gloo) and one under ``rank_backend`` (NCCL);
+    ``synthesize(mesh=)`` with the eager backend's TP on a full-width lstm
+    and the kernel backend's DP; EP MoE at ``mcfg``'s widths (olmoe's).
+    Returns the kernel launches it made, by wrapper."""
+    from repro_torch import codegen
+    from repro_torch.codegen import eager_backend, kernel_backend
+    from repro_torch.configs import get_config
+    from repro_torch.core.synthesis import NetworkSpec
+    from repro_torch.launch.mesh import AXES, AbstractMesh
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.models import lm
+    from repro_torch.runtime import ShardPlan
+
+    mcfg = mcfg or get_config("olmoe-1b-7b")
+    dev_name = "cuda:0" if dev.type == "cuda" else "cpu"
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launches = {"lstm_seq": 0, "codegen_stage": 0}
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_req = len(prompts)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        base = mesh_serve(cfg, params, prompts, dev)
+        base_block = mesh_serve(cfg, params, prompts, dev, block=True)
+        require(base["tokens"] == want_step and base_block["tokens"] == want_block,
+                "mesh: the plan=None reruns differ from phase 3")
+        want_logits = {"step": base.pop("logits"), "block": base_block.pop("logits")}
+        # a sharded rank decodes B/dp of the B rows: does the card's GEMM (the
+        # head's) give those rows other bits at B/dp rows?
+        head = params["embed"]["table"].T if cfg.tie_embeddings else params["head"]["w"]
+        row_dep = gemm_bits_depend_on_rows(head, NUM_SLOTS, NUM_SLOTS // MESH_RANKS)
+        folded_plan = ShardPlan(AbstractMesh((1, MESH_FOLDED_DP, 1), AXES), fold_data=True)
+        for block, want in ((False, want_step), (True, want_block)):
+            r = mesh_serve(cfg, params, prompts, dev, folded_plan, block)
+            driver = "step_block" if block else "step"
+            require(r["tokens"] == want, f"mesh folded dp={MESH_FOLDED_DP} {driver}: tokens differ")
+            want_l = want_logits["block" if block else "step"]
+            gap, _, bit = logit_gap(r["logits"], want_l)
+            require(bit and len(r["logits"]) == len(want_l),
+                    f"mesh folded {driver}: logits of {len(r['logits'])} (request, position) "
+                    f"keys, {gap:.3e} from plan=None's {len(want_l)}")
+            require(r["launches"] == cfg.n_layers * n_req,
+                    f"mesh folded {driver}: {r['launches']} lstm_seq launches, not "
+                    f"{cfg.n_layers} x {n_req}")
+            require(sum(r["by_shard"]) == r["decoded"] and sum(t > 0 for t in r["by_shard"]) > 1,
+                    f"mesh folded {driver}: per-shard tokens {r['by_shard']} vs {r['decoded']}")
+            launches["lstm_seq"] += r["launches"]
+            say("mesh", case=f"folded_dp{MESH_FOLDED_DP}", driver=driver, identical_tokens=True,
+                logits_bit_identical=True, lstm_seq_launches=r["launches"], decoded_by_shard=r["by_shard"],
+                decode_tok_s=f"{r['decode_tok_s']:.1f}",
+                plan_none_decode_tok_s=f"{base['decode_tok_s']:.1f}",
+                seconds=f"{r['wall_s']:.2f}", card=repr(card))
+        launches["lstm_seq"] += base["launches"] + base_block["launches"]
+        del params
+
+        # the unsharded references of the rank runs, built here first so that
+        # the ranks load the generated library instead of racing to build it
+        gen = np.random.default_rng(22)
+        tp_u = gen.normal(size=(MESH_TP_BATCH, BIT_T, width)).astype(np.float32)
+        spec = NetworkSpec(width, MESH_TP_LAYERS, width, width, cell="lstm", seq_len=BIT_T)
+        prog = codegen.build_program(spec, dev)
+        t1 = time.perf_counter()
+        tp_want = eager_backend.compile_program(prog, device=dev)(
+            prog.params, torch.as_tensor(tp_u, device=dev)).cpu().numpy()
+        eager_s = time.perf_counter() - t1
+        del prog
+        dp_u = gen.normal(size=(MESH_DP_SPEC["c_slow"], MESH_DP_BATCH, MESH_DP_SPEC["seq_len"],
+                                width)).astype(np.float32)
+        spec_c = NetworkSpec(width, MESH_DP_SPEC["num_hidden_layers"], width, width,
+                             cell="lstm", seq_len=MESH_DP_SPEC["seq_len"],
+                             c_slow=MESH_DP_SPEC["c_slow"])
+        prog_c = codegen.build_program(spec_c, dev)
+        k0 = kernel_backend.codegen_stage.launches
+        dp_want = kernel_backend.compile_program(prog_c, device=dev)(
+            prog_c.params, torch.as_tensor(dp_u, device=dev)).cpu().numpy()
+        launches["codegen_stage"] += kernel_backend.codegen_stage.launches - k0
+        # the forward's readout (finals @ C.T over the C·B folded rows) on the
+        # card's GEMM: a DP rank runs 1/dp of those rows
+        dp_rows = MESH_DP_SPEC["c_slow"] * MESH_DP_BATCH
+        dp_row_dep = gemm_bits_depend_on_rows(prog_c.params["C"].T.to(torch.float32), dp_rows,
+                                              dp_rows // MESH_RANKS)
+        del prog_c
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        say("mesh", case="unsharded_references", seconds=f"{time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_ranks_gloo, MESH_RANKS,
+                      (dev_name, cfg, prompts, spec, tp_u, spec_c, dp_u), backend="gloo",
+                      timeout_s=400)
+    gloo_s = time.perf_counter() - t0
+    for driver in ("step", "block"):
+        keys = [k for out in ranks for k in out[driver]["logits"]]
+        require(sorted(keys) == sorted(want_logits[driver]),
+                f"mesh sharded {driver}: the ranks' (request, position) logits are not "
+                "plan=None's, each once")
+    for rank, out in enumerate(ranks):
+        require(not out["jax"], f"mesh rank {rank} imported jax")
+        for driver, want in (("step", want_step), ("block", want_block)):
+            r = out[driver]
+            require(r["tokens"] == want, f"mesh sharded rank {rank} {driver}: tokens differ")
+            gap, top, bit = logit_gap(r.pop("logits"), want_logits[driver])
+            require(bit or (row_dep and gap <= MESH_DP_GAP * top),
+                    f"mesh sharded rank {rank} {driver}: logits {gap:.3e} from plan=None's "
+                    f"(max |logit| {top:.3e}, GEMM bits depend on rows: {row_dep})")
+            require(r["launches"] == cfg.n_layers * r["own_prefills"] and r["own_prefills"] > 0,
+                    f"mesh sharded rank {rank} {driver}: {r['launches']} lstm_seq launches "
+                    f"for {r['own_prefills']} prefills of its shard")
+            require(r["host_state"] == ranks[0][driver]["host_state"],
+                    f"mesh sharded rank {rank} {driver}: host state differs from rank 0's")
+            launches["lstm_seq"] += r["launches"]
+            say("mesh", case=f"sharded_dp{MESH_RANKS}_gloo", rank=rank, driver=driver,
+                identical_tokens=True, logits_gap=f"{gap:.3e}", logits_bit_identical=bit,
+                max_abs_logit=f"{top:.3e}", gemm_rows_change_bits=row_dep,
+                own_prefills=r["own_prefills"],
+                lstm_seq_launches=r["launches"], decoded_by_shard=r["by_shard"],
+                decode_tok_s=f"{r['decode_tok_s']:.1f}",
+                plan_none_decode_tok_s=f"{base['decode_tok_s']:.1f}",
+                seconds=f"{r['wall_s']:.2f}", card=repr(card))
+        tp_err = float(np.abs(out["tp_y"] - tp_want).max())
+        require(tp_err <= MESH_TP_TOL + MESH_TP_TOL * float(np.abs(tp_want).max()),
+                f"mesh eager tp={MESH_RANKS} rank {rank}: {tp_err:.3e} from the unsharded run")
+        n_reduce = MESH_TP_LAYERS * BIT_T
+        require(out["tp_counts"] == {"all_reduce": n_reduce},
+                f"mesh eager tp: collectives {out['tp_counts']}, not {n_reduce} all_reduce")
+        backend, shape, key, row = out["synth"]
+        require(backend == "eager" and key == row and key.endswith(f"|mesh1x{MESH_RANKS}"),
+                f"mesh synthesize: backend {backend}, ledger key {key}")
+        say("mesh", case=f"synth_eager_tp{MESH_RANKS}", rank=rank,
+            spec=f"lstm_{MESH_TP_LAYERS}x{width}_T{BIT_T}", max_abs_err=f"{tp_err:.3e}",
+            tol=MESH_TP_TOL,
+            all_reduces=out["tp_counts"]["all_reduce"], tp_forward_s=f"{out['tp_s']:.2f}",
+            unsharded_forward_s=f"{eager_s:.2f}", ledger_key=key, output_shape=shape,
+            card=repr(card))
+        dp_err = float(np.abs(out["dp_y"] - dp_want).max())
+        dp_top = float(np.abs(dp_want).max())
+        require(dp_err == 0.0 or (dp_row_dep and dp_err <= MESH_KERNEL_DP_GAP * dp_top),
+                f"mesh kernel dp={MESH_RANKS} rank {rank}: {dp_err:.3e} from the unsharded "
+                f"kernel (max |y| {dp_top:.3e}, readout GEMM bits depend on rows: {dp_row_dep})")
+        require(out["dp_counts"] == {"gather_rows": 1} and out["dp_launches"] > 0,
+                f"mesh kernel dp: collectives {out['dp_counts']}, launches {out['dp_launches']}")
+        launches["codegen_stage"] += out["dp_launches"]
+        say("mesh", case=f"synth_kernel_dp{MESH_RANKS}", rank=rank,
+            spec=f"lstm_{MESH_DP_SPEC['num_hidden_layers']}x{width}_T{MESH_DP_SPEC['seq_len']}"
+                 f"_c{MESH_DP_SPEC['c_slow']}",
+            gap_to_unsharded_kernel=f"{dp_err:.3e}", bit_identical=dp_err == 0.0,
+            max_abs_y=f"{dp_top:.3e}", readout_gemm_rows_change_bits=dp_row_dep,
+            codegen_launches=out["dp_launches"], card=repr(card))
+    say("mesh", case=f"gloo_ranks_{MESH_RANKS}", seconds=f"{gloo_s:.2f}")
+
+    t0 = time.perf_counter()
+    [out] = run_ranks(mesh_ranks_nccl, 1, (dev_name, cfg, prompts, mcfg), backend=rank_backend,
+                      timeout_s=300)
+    r = out["step"]
+    require(out["backend"] == rank_backend, f"mesh: world-1 run on {out['backend']}")
+    require(r["tokens"] == want_step, "mesh sharded dp=1 under NCCL: tokens differ")
+    got = r.pop("logits")
+    gap, _, bit = logit_gap(got, want_logits["step"])
+    require(bit and len(got) == len(want_logits["step"]),
+            f"mesh sharded dp=1 under NCCL: logits {gap:.3e} from plan=None's")
+    require(r["launches"] == cfg.n_layers * n_req,
+            f"mesh sharded dp=1 under NCCL: {r['launches']} lstm_seq launches")
+    launches["lstm_seq"] += r["launches"]
+    say("mesh", case=f"sharded_dp1_{rank_backend}", identical_tokens=True,
+        logits_bit_identical=True, lstm_seq_launches=r["launches"],
+        decode_tok_s=f"{r['decode_tok_s']:.1f}", seconds=f"{r['wall_s']:.2f}", card=repr(card))
+    require(out["ep_counts"] == {"all_to_all_single": 2},
+            f"mesh EP: collectives {out['ep_counts']}, not 2 all_to_all_single")
+    require(out["ep_err"] < MESH_EP_TOL,
+            f"mesh EP: {out['ep_err']:.3e} from moe_apply(group_size={MESH_EP_TOKENS})")
+    E, k, D, F = out["ep_shape"]
+    say("mesh", case=f"ep_moe_{rank_backend}", world=1, experts=E, top_k=k, d_model=D, d_ff_expert=F,
+        tokens=MESH_EP_TOKENS, max_abs_err=f"{out['ep_err']:.3e}", tol=MESH_EP_TOL,
+        max_abs_y=f"{out['ep_max_y']:.3e}", all_to_alls=2, ep_s=f"{out['ep_s']:.3f}",
+        note="one card: NCCL allows one rank, so EP runs at world size 1",
+        seconds=f"{time.perf_counter() - t0:.2f}", card=repr(card))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3518,12 +3930,18 @@ def main() -> int:
     train_phase(dev, card)
     phase_done("train")
 
+    # -- 22. the mesh: ShardPlan serving, synthesize(mesh=), EP MoE --------------
+    mesh_launches = mesh_phase(dev, card, cfg, prompts, tok_step, tok_block)
+    codegen_launches["lstm"] += mesh_launches["codegen_stage"]
+    phase_done("mesh")
+
     summary = {"kernels": [{
         "name": "lstm_seq",
         "route": "cuda",
         "source": "src/repro_torch/kernels/lstm_cell/csrc/lstm_seq.cu",
         "replaces": "src/repro/kernels/lstm_cell/kernel.py:87",
-        "launches": n1 + n2 + n3 + lg_lstm_launches + tc["paper-lstm"],
+        "launches": (n1 + n2 + n3 + lg_lstm_launches + tc["paper-lstm"]
+                     + mesh_launches["lstm_seq"]),
         "max_abs_err": lstm_err,
         "ms": lstm_ms,
         "plain_ms": lstm_plain_ms,

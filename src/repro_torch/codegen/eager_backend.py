@@ -9,8 +9,24 @@ the core: ``unroll`` is carried (and changes nothing in eager execution),
 
 This executor is the port's oracle for the generated CUDA stage kernel: it
 evaluates the graph with ``ir.eval_graph`` on whole tensors and shares no
-code with ``codegen.lower``.  The reference's mesh constraints
-(``_mesh_constraints``) are not ported: ``mesh=`` raises.
+code with ``codegen.lower``.
+
+``mesh=`` (a ``DeviceMesh``, every rank of it calling the forward) is the
+counterpart of the reference's GSPMD constraints (``_mesh_constraints``),
+written out as SPMD code:
+
+* every MACC weight ROM is row-parallel over ``"model"``: model rank ``r``
+  holds rows ``r·R/tp ..`` of a 2-D ``[D+H, 4H]`` weight, or of dim 1 of a
+  stacked per-step ``[N, M, M]`` one, computes the partial pre-activation
+  from its slice of the input, and one ``all_reduce`` over the model group
+  completes it before the bias and the nonlinearity;
+* the leading (batch or C-slow stream) axis splits over the data ranks,
+  and the output's row blocks are joined on every rank, bit for bit.
+
+Each is divisibility-guarded as the reference's pins are: a weight whose
+rows ``tp`` does not divide, or a leading axis that ``dp`` does not divide,
+is computed whole on every rank.  TP changes the fp32 summation order of
+the contraction, so its results agree with one device's to rounding.
 """
 
 from __future__ import annotations
@@ -22,19 +38,21 @@ import torch
 from repro_torch.core.cslow import cslow_vectorized
 from repro_torch.core.state_space import StateSpaceModel, resolve_activation, run_scan
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_tp, model_group, model_index, require_group
+from repro_torch.parallel import comm
+from repro_torch.parallel.data_parallel import data_parallel
 
 from .ir import DatapathGraph, Program, Stage, eval_graph
 
 PyTree = Any
 
-MESH_NOT_PORTED = ("mesh= is not ported yet: the sharded program comes with "
-                   "torch.distributed (ROADMAP.md, Queue 1: Multi-device and launchers)")
 
-
-def graph_model(graph: DatapathGraph, shared: dict[str, torch.Tensor]) -> StateSpaceModel:
+def graph_model(graph: DatapathGraph, shared: dict[str, torch.Tensor],
+                mm: Callable | None = None) -> StateSpaceModel:
     """Wrap a datapath graph as a ``StateSpaceModel``: the state dict is the
     carry, per-step consts arrive as ``params_k``.  Moore when the graph has
-    no input (MLP readout happens after the last step)."""
+    no input (MLP readout happens after the last step).  ``mm`` overrides
+    the MACC contraction (``ir.eval_graph``'s hook)."""
 
     def consts_of(params_k):
         def get(name):
@@ -43,29 +61,32 @@ def graph_model(graph: DatapathGraph, shared: dict[str, torch.Tensor]) -> StateS
             return shared[name]
         return get
 
-    def f(params_k, x, u, k):
-        del k
-        new_states, _ = eval_graph(graph, consts=consts_of(params_k), states=x,
-                                   u=u, act=resolve_activation)
-        return new_states
-
-    def g(params_k, x, u, k):
+    def fg(params_k, x, u, k):
+        # one evaluation a step (one MACC, and under TP one all-reduce, per
+        # contraction), as the reference's compiled scan body is
         del k
         new_states, out = eval_graph(graph, consts=consts_of(params_k), states=x,
-                                     u=u, act=resolve_activation)
-        return out if graph.output is not None else new_states
+                                     u=u, act=resolve_activation, mm=mm)
+        return new_states, (out if graph.output is not None else new_states)
+
+    def f(params_k, x, u, k):
+        return fg(params_k, x, u, k)[0]
+
+    def g(params_k, x, u, k):
+        return fg(params_k, x, u, k)[1]
 
     mode = "mealy" if graph.input_node() is not None else "moore"
-    return StateSpaceModel(f=f, g=g, output_mode=mode)
+    return StateSpaceModel(f=f, g=g, output_mode=mode, fg=fg)
 
 
-def compile_stage(stage: Stage) -> Callable:
+def compile_stage(stage: Stage, mm: Callable | None = None) -> Callable:
     """Returns ``run(consts, x0, us) -> (final_states, ys)``.
 
     ``x0`` leaves are ``[lead..., width]``, ``us`` is ``[lead..., T, D]`` (or
     None for autonomous graphs).  With ``c_slow = C > 1`` the first leading
     axis is the C interleaved streams, executed through
-    :func:`cslow_vectorized` (one datapath, C state registers).
+    :func:`cslow_vectorized` (one datapath, C state registers).  ``mm`` is
+    the MACC hook (the TP contraction under a mesh).
     """
     graph, sched = stage.graph, stage.schedule
     per_step = [n.name for n in graph.consts(per_step=True)]
@@ -74,7 +95,7 @@ def compile_stage(stage: Stage) -> Callable:
     def run(consts: dict, x0: dict, us):
         shared = {k: consts[k].to(torch.float32) for k in shared_names}
         stacked = {k: consts[k] for k in per_step} or None
-        model = graph_model(graph, shared)
+        model = graph_model(graph, shared, mm)
         if sched.c_slow > 1:
             # [C, lead..., T, D] -> per-stream time-major [C, T, lead..., D]
             us_streams = None if us is None else us.movedim(-2, 1)
@@ -93,6 +114,30 @@ def compile_stage(stage: Stage) -> Callable:
     return run
 
 
+def _tp_mm(mesh) -> tuple[Callable, Callable]:
+    """``(shard_w, mm)`` for row-parallel MACCs over the mesh's model axis:
+    ``shard_w`` keeps this model rank's rows of a weight ROM (dim 0 of a
+    2-D one, dim 1 of a stacked per-step one) where ``tp`` divides them;
+    ``mm`` contracts a row shard with its slice of the input and
+    all-reduces the partial over the model group."""
+    tp, r, group = mesh_tp(mesh), model_index(mesh), model_group(mesh)
+
+    def shard_w(w: torch.Tensor) -> torch.Tensor:
+        rows = w.dim() - 2                  # the contraction dim
+        if w.dim() not in (2, 3) or w.shape[rows] % tp:
+            return w
+        n = w.shape[rows] // tp
+        return w.narrow(rows, r * n, n)
+
+    def mm(x: torch.Tensor, _name: str, w: torch.Tensor) -> torch.Tensor:
+        if w.shape[0] == x.shape[-1]:       # not split: a whole contraction
+            return x @ w
+        n = w.shape[0]
+        return comm.all_reduce(x[..., r * n:(r + 1) * n] @ w, group)
+
+    return shard_w, mm
+
+
 def compile_program(program: Program, mesh=None, device=None) -> Callable:
     """IR → batched forward: ``forward(params, u) -> y``.
 
@@ -101,13 +146,20 @@ def compile_program(program: Program, mesh=None, device=None) -> Callable:
       recurrent  u [B, T, D]  -> y [B, P]   (readout of the final carry)
 
     ``device`` (default: the card) is where the forward is meant to run;
-    it computes on the device of the tensors it is given.
+    it computes on the device of the tensors it is given.  With ``mesh``
+    (a ``DeviceMesh``) the forward is SPMD over the mesh's ranks: MACCs
+    row-parallel over ``"model"``, the leading axis over the data ranks
+    (module docstring); every rank returns the whole output.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     resolve_device(device)
     program.validate()
-    runners = [compile_stage(st) for st in program.stages]
+    shard_w = mm = None
+    if mesh is not None:
+        require_group(mesh)
+        if mesh_tp(mesh) > 1:
+            shard_w, mm = _tp_mm(mesh)
+    runners = [compile_stage(st, mm) for st in program.stages]
+    w_names = [{n.inputs[1] for n in st.graph.macc_nodes()} for st in program.stages]
     is_mlp = program.beta is not None
     readout = program.readout_state
 
@@ -115,6 +167,9 @@ def compile_program(program: Program, mesh=None, device=None) -> Callable:
         C = params["C"].to(torch.float32)
         sp = params["stages"]
         u = u.to(torch.float32)
+        if shard_w is not None:
+            sp = [{k: (shard_w(v) if k in names else v) for k, v in p.items()}
+                  for p, names in zip(sp, w_names)]
         if is_mlp:
             x0 = {"x": u @ params["beta"].to(torch.float32).T}
             finals, _ = runners[0](sp[0], x0, None)
@@ -128,7 +183,7 @@ def compile_program(program: Program, mesh=None, device=None) -> Callable:
             finals, ys = run(p, x0, ys)
         return finals[readout] @ C.T
 
-    return forward
+    return forward if mesh is None else data_parallel(forward, mesh)
 
 
-__all__ = ["MESH_NOT_PORTED", "compile_program", "compile_stage", "graph_model"]
+__all__ = ["compile_program", "compile_stage", "graph_model"]

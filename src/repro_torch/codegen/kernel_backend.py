@@ -35,7 +35,16 @@ Semantics kept from the TPU kernel:
 ``chunk``, ``block_b`` and ``double_buffer`` are the TPU kernel's tiling and
 ROM-prefetch knobs.  They are accepted, so that ``synthesize``'s memo and
 ledger keys match the reference's, and on the card they change nothing: the
-kernel's tiling is fixed by the emitter.  ``mesh=`` raises.
+kernel's tiling is fixed by the emitter.
+
+``mesh=`` (a ``DeviceMesh``) splits the leading (C-slow stream or batch)
+axis over the mesh's data ranks: each rank folds its local streams into its
+own generated-kernel launch, and the output's blocks are joined on every
+rank (``parallel.data_parallel``).  Parameters are whole on every rank,
+as the reference's ``shard_map`` replicates them.  A leading axis that the
+data axis does not divide runs whole on every rank: that is the reference's
+rule for a ragged axis (``pallas_backend.compile_program``), not a fallback
+from the kernel, which runs in both cases.
 """
 
 from __future__ import annotations
@@ -50,9 +59,10 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels._lut import shifted_table
 from repro_torch.kernels.int8_matmul.ops import quantize_per_channel
+from repro_torch.launch.mesh import require_group
+from repro_torch.parallel.data_parallel import data_parallel
 
 from . import cuda_emit, lower
-from .eager_backend import MESH_NOT_PORTED
 from .ir import DatapathGraph, Program, Stage
 
 PyTree = Any
@@ -274,10 +284,11 @@ def compile_program(program: Program, *, lut=None,
     dimension IS the C-slow interleave, one launch per stage for all C·B
     streams.  ``quant_bits <= 8`` runs every gate contraction on the
     weight-only int8 ROM path.  ``forward.sources`` lists the emitted CUDA
-    C++ of each stage.
+    C++ of each stage.  ``mesh`` splits the leading axis over the data
+    ranks (module docstring).
     """
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        require_group(mesh)
     resolve_device(device)
     program.validate()
     runners = [compile_stage(st, lut=lut, chunk=chunk, block_b=block_b,
@@ -311,7 +322,10 @@ def compile_program(program: Program, *, lut=None,
             y = unfold_streams(y, C_streams)
         return y
 
-    forward.sources = [r.source for r in runners]
+    sources = [r.source for r in runners]
+    if mesh is not None:
+        forward = data_parallel(forward, mesh)
+    forward.sources = sources
     return forward
 
 

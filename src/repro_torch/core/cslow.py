@@ -22,7 +22,7 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map, tree_stack
 
-from .state_space import StateSpaceModel, run_scan
+from .state_space import StateSpaceModel, _step, run_scan
 
 PyTree = Any
 
@@ -60,8 +60,8 @@ def cslow_scan(
         params_k = tree_map(lambda p: p[k], stacked_params)
         u_c = tree_map(lambda u: u[c][k], inputs_streams)
         x_c = states[c]
-        states[c] = model.f(params_k, x_c, u_c, k)
-        ys[c].append(model.output(params_k, x_c, u_c, k))
+        states[c], y = _step(model, params_k, x_c, u_c, k)
+        ys[c].append(y)
     return tree_stack(states), tree_stack([tree_stack(y) for y in ys])
 
 

@@ -60,12 +60,15 @@ class StateSpaceModel:
     ``f`` and ``g`` receive ``(params_k, x, u, k)``; any of ``u``/``k`` may be
     ignored by the callee.  ``params_k`` is the per-step parameter tree (e.g.
     one layer's weights); for scan execution the caller supplies parameters
-    stacked along a leading "time" axis.
+    stacked along a leading "time" axis.  ``fg``, where given, computes
+    ``(f, output)`` of one step in a single evaluation, and the executors
+    call it instead of ``f`` and ``g``.
     """
 
     f: StateFn
     g: OutputFn
     output_mode: Literal["mealy", "moore"] = "mealy"
+    fg: Callable | None = None
 
     def output(self, params_k, x, u, k):
         if self.output_mode == "moore":
@@ -74,6 +77,8 @@ class StateSpaceModel:
 
 
 def _step(model: StateSpaceModel, params_k, x, u, k):
+    if model.fg is not None:
+        return model.fg(params_k, x, u, k)
     x_next = model.f(params_k, x, u, k)
     y = model.output(params_k, x, u, k)
     return x_next, y

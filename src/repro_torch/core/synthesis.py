@@ -26,8 +26,10 @@ report, on four backends, each the counterpart of one of the reference's:
 
 ``analyze=True`` gates any backend on the static analyzer
 (:mod:`repro_torch.analyze`), and ``optimize=`` runs the Fig. 10 auto-tuner
-(:mod:`repro_torch.tune`).  ``mesh=`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.  Weights are
+(:mod:`repro_torch.tune`).  ``mesh=`` (a ``DeviceMesh``; every rank calls
+``synthesize``) splits the gate contractions over the model axis on the
+eager backend and the C-slow streams over the data axis on both IR
+backends.  Weights are
 drawn from ``torch.Generator().manual_seed(spec.seed)``, so a spec gives the
 same network on every backend of the port (not the reference's numbers).
 """
@@ -43,7 +45,6 @@ import numpy as np
 import torch
 
 from repro_torch import obs as obs_lib
-from repro_torch.codegen.eager_backend import MESH_NOT_PORTED
 from repro_torch.device import resolve_device
 
 from .state_space import mlp_forward, resolve_activation
@@ -276,18 +277,30 @@ def _faults_mod():
     return sys.modules.get("repro_torch.runtime.faults")
 
 
+def _mesh_plan(mesh, backend: str):
+    """The ShardPlan of ``mesh`` on the backends that consume it (eager and
+    kernel); None elsewhere, where the mesh changes nothing, as the
+    reference normalises it away for everything but xla and pallas."""
+    if mesh is None or backend not in ("eager", "kernel"):
+        return None
+    from repro_torch.runtime.shard_plan import ShardPlan
+
+    return ShardPlan(mesh)
+
+
 def _cache_key(spec: NetworkSpec, batch: int | None, backend: str,
-               device: torch.device | None = None) -> tuple:
+               device: torch.device | None = None, mesh=None) -> tuple:
     """EVERY knob that changes the built artifact must appear here.
 
     ``spec`` is frozen, so its hash covers the shape knobs AND
     ``quant_bits`` (which derives the kernel's lut/int8-MACC modes).  The
     reference's TPU tiling knobs (``double_buffer`` / ``chunk`` /
     ``block_b``) build the same kernel on the card, so they are not part of
-    the key.  The device the artifact ran on is the last element (the
-    reference keys its mesh there)."""
+    the key.  The device the artifact ran on closes it, followed by the
+    mesh's ``ShardPlan.key()`` on the backends that consume a mesh."""
     dev = None if device is None else str(device)
-    return (spec, batch, backend, dev)
+    plan = _mesh_plan(mesh, backend)
+    return (spec, batch, backend, dev) + (() if plan is None else (plan.key(),))
 
 
 def synthesize_cache_clear() -> None:
@@ -341,10 +354,11 @@ def _quant_analysis(spec: NetworkSpec, backend: str, prog) -> dict | None:
 
 def _ledger_key(spec: NetworkSpec, batch: int | None, backend: str,
                 double_buffer: bool = True, chunk: int | None = None,
-                block_b: int | None = None) -> str:
+                block_b: int | None = None, mesh=None) -> str:
     """Program id in the predicted-vs-measured ledger, in the reference's
     format with the port's backend names.  The tiling knobs are named as the
-    reference names them, although on the card they build the same kernel."""
+    reference names them, although on the card they build the same kernel;
+    a mesh on the eager and kernel backends adds ``|mesh{dp}x{tp}``."""
     key = f"{spec.name}|{backend}|u{spec.unroll}|c{spec.c_slow}"
     if spec.quant_bits is not None:
         key += f"|q{spec.quant_bits}"
@@ -357,14 +371,18 @@ def _ledger_key(spec: NetworkSpec, batch: int | None, backend: str,
             key += f"|ch{chunk}"
         if block_b is not None:
             key += f"|bb{block_b}"
+    plan = _mesh_plan(mesh, backend)
+    if plan is not None:
+        key += f"|mesh{plan.dp}x{plan.tp}"
     return key
 
 
 def _build_fwd(program, spec: NetworkSpec, backend: str, quant: dict | None,
                double_buffer: bool, chunk: int | None, block_b: int | None,
-               device: torch.device):
+               device: torch.device, mesh=None):
     """One backend's ``(fwd, params, sources)``; the ``synth.compile``
-    fault point fires here."""
+    fault point fires here.  ``mesh`` reaches the eager and kernel
+    backends; "ref" and "verilog" ignore it."""
     from repro_torch import codegen
 
     m = _faults_mod()
@@ -389,7 +407,7 @@ def _build_fwd(program, spec: NetworkSpec, backend: str, quant: dict | None,
             double_buffer=double_buffer,
             chunk=chunk if chunk is not None else kb.DEFAULT_CHUNK,
             block_b=block_b if block_b is not None else kb.DEFAULT_BLOCK_B,
-            device=device)
+            mesh=mesh, device=device)
         if int8_bits is not None:
             # pack the int8 weight ROMs ONCE, here at synthesis time
             params = dict(params)
@@ -398,7 +416,8 @@ def _build_fwd(program, spec: NetworkSpec, backend: str, quant: dict | None,
                 for st, sp in zip(program.stages, params["stages"])]
         return fwd, params, fwd.sources
     # "eager", and the program that "verilog" builds and runs beside its RTL
-    return codegen.eager_backend.compile_program(program, device=device), params, []
+    emesh = mesh if backend == "eager" else None
+    return codegen.eager_backend.compile_program(program, mesh=emesh, device=device), params, []
 
 
 def _sync(device: torch.device) -> None:
@@ -407,7 +426,7 @@ def _sync(device: torch.device) -> None:
 
 
 def _build_and_run(program, spec, backend, quant, double_buffer, chunk, block_b,
-                   u_shape, device):
+                   u_shape, device, mesh=None):
     """build → first run: (timings, source bytes, peak bytes, fwd, params).
     The first run on the card includes ``nvcc`` when the library is not
     built yet, and the first launch."""
@@ -415,7 +434,7 @@ def _build_and_run(program, spec, backend, quant, double_buffer, chunk, block_b,
     t0 = time.perf_counter()
     with tr.span("synth.lower", cat="synth"):
         fwd, params, sources = _build_fwd(program, spec, backend, quant,
-                                          double_buffer, chunk, block_b, device)
+                                          double_buffer, chunk, block_b, device, mesh)
     t1 = time.perf_counter()
     peak = None
     with tr.span("synth.compile", cat="synth"):
@@ -552,7 +571,16 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
     ``.report`` is the winning configuration's SynthesisReport.
     ``budget`` without ``optimize`` is ignored, as in the reference.
 
-    Not ported yet, and raising ``NotImplementedError``: ``mesh``.
+    ``mesh`` (a ``DeviceMesh`` over an initialised process group, from
+    :func:`repro_torch.launch.mesh.make_local_mesh`) makes the build SPMD:
+    every rank of the mesh calls ``synthesize`` with the same arguments.
+    The eager backend row-parallels every MACC ROM over ``"model"`` (one
+    all-reduce a contraction) and both IR backends split the leading
+    stream/batch axis over the data ranks; every rank returns the same
+    report.  The memo key holds the mesh's ``ShardPlan.key()`` and the
+    ledger key ends in ``|mesh{dp}x{tp}``; on "ref" and "verilog" the mesh
+    changes nothing and is normalised away.  An ``AbstractMesh`` has no
+    ranks to run on and raises.
     """
     from repro_torch import codegen
 
@@ -561,15 +589,13 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
 
         return tune(spec, optimize=optimize, budget=budget, batch=batch,
                     device=device)
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend '{backend}'; available: {BACKENDS}")
     dev = resolve_device(device)
 
     O = obs_lib.OBS
-    key = _cache_key(spec, batch, backend, dev)
-    lkey = _ledger_key(spec, batch, backend, double_buffer, chunk, block_b)
+    key = _cache_key(spec, batch, backend, dev, mesh)
+    lkey = _ledger_key(spec, batch, backend, double_buffer, chunk, block_b, mesh)
     # a memo hit writes no ledger row: a build that was never timed under
     # this ledger key (``measure=False``, a tiling alias, a reset ledger) is
     # built and timed again when a measurement is asked for
@@ -612,7 +638,7 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
         for attempt in range(max(0, retries) + 1):
             try:
                 built = _build_and_run(program, spec, bk, quant, double_buffer, chunk,
-                                       block_b, u_shape, dev)
+                                       block_b, u_shape, dev, mesh)
                 break
             except injected as e:   # only an injected fault retries or hops
                 last_err = e
@@ -633,7 +659,7 @@ def synthesize(spec: NetworkSpec, batch: int | None = None,
 
     # predicted-vs-measured ledger: the Fig. 10 loop's instrumentation
     if used != backend:
-        lkey = _ledger_key(spec, batch, used, double_buffer, chunk, block_b)
+        lkey = _ledger_key(spec, batch, used, double_buffer, chunk, block_b, mesh)
     O.ledger.predict(
         lkey,
         fsm_cycles=codegen.rtlsim.fsm_cycle_estimate(program),

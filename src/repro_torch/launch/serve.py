@@ -14,16 +14,61 @@ Chrome-trace-event JSON loadable in Perfetto; ``--metrics-out`` writes the
 metrics-registry snapshot and the predicted-vs-measured ledger;
 ``--loadgen`` replays the seeded trace of ``repro_torch.runtime.loadgen``
 and ``--loadgen-out`` writes its ``repro.loadgen/v1`` report.  All three
-documents pass ``python -m repro_torch.obs.check``.  ``--mesh`` and
-``--mesh-layout`` (sharded serving) are not ported yet.
+documents pass ``python -m repro_torch.obs.check``.
+
+``--mesh DPxTP`` serves under a ``ShardPlan`` (slots over the data axis):
+
+    # folded: the dp shards are logical, one process, one device
+    python -m repro_torch.launch.serve --arch paper-lstm --mesh 8x1 --mesh-layout folded
+    # sharded: one rank per shard, started by torchrun
+    torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch paper-lstm --mesh 2x1
+
+A sharded run reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), runs its serving control
+plane over gloo, puts each rank on card ``LOCAL_RANK`` modulo the cards
+there are, and leaves the log and the documents to rank 0.  Without
+torchrun's environment it raises and prints the command line to use.
+``tp > 1`` serving is not ported yet (ROADMAP.md, Queue 1 item 12b).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 
-MESH_NOT_PORTED = ("--mesh/--mesh-layout: sharded serving is not ported to repro_torch yet "
-                   "(ROADMAP.md, Queue 1: Multi-device and launchers)")
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _mesh_plan(mesh: str, dp: int, tp: int, layout: str, argv: list[str], device):
+    """The ShardPlan of ``--mesh`` (``dp``x``tp``); the sharded layout joins
+    torchrun's process group first and returns the rank's device with the
+    plan."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import AXES, AbstractMesh, make_local_mesh
+    from repro_torch.runtime import ShardPlan
+
+    if layout == "folded":
+        return ShardPlan(AbstractMesh((1, dp, tp), AXES), fold_data=True), device
+    missing = [k for k in TORCHRUN_ENV if k not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"--mesh {mesh} --mesh-layout sharded needs {dp * tp} ranks started by "
+            f"torchrun (missing {', '.join(missing)}); run\n  torchrun "
+            f"--nproc-per-node={dp * tp} -m repro_torch.launch.serve {' '.join(argv)}")
+    if int(os.environ["WORLD_SIZE"]) != dp * tp:
+        raise RuntimeError(f"--mesh {mesh} needs {dp * tp} ranks, torchrun started "
+                           f"{os.environ['WORLD_SIZE']}")
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=600))
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return ShardPlan(make_local_mesh(dp=dp, tp=tp)), device
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -60,9 +105,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write metrics snapshot + ledger JSON")
     ap.add_argument("--mesh", default=None, metavar="DPxTP",
-                    help="not ported yet: raises NotImplementedError")
-    ap.add_argument("--mesh-layout", choices=["sharded", "folded"], default=None,
-                    help="not ported yet: raises NotImplementedError")
+                    help="shard the server over a mesh, e.g. 8x1 (slots over the "
+                         "data axis); tp > 1 is not ported yet")
+    ap.add_argument("--mesh-layout", choices=["sharded", "folded"], default="sharded",
+                    help="'sharded': one torchrun rank per data shard; 'folded': "
+                         "the shards are logical and decode through one datapath "
+                         "in one process")
     ap.add_argument("--loadgen", action="store_true",
                     help="replay a seeded load-generator trace (Poisson "
                          "arrivals, mixed prompt lengths, shared-prefix "
@@ -73,8 +121,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="where the server runs (default: the card)")
     args = ap.parse_args(argv)
-    if args.mesh or args.mesh_layout:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    if args.mesh:
+        try:
+            dp, tp = (int(x) for x in args.mesh.lower().split("x"))
+        except ValueError:
+            ap.error(f"--mesh must look like 8x1, got {args.mesh!r}")
 
     import json
     import time
@@ -87,9 +138,18 @@ def main(argv: list[str] | None = None) -> None:
     from repro_torch.device import resolve_device
     from repro_torch.models import lm
     from repro_torch.obs import log
-    from repro_torch.runtime import DecodeServer, Request, SchedulerConfig, loadgen
+    from repro_torch.runtime import DecodeServer, Request, loadgen
+    from repro_torch.runtime.server import scheduler_config
 
     dev = resolve_device(args.device)
+    plan = None
+    if args.mesh:
+        plan, dev = _mesh_plan(args.mesh, dp, tp, args.mesh_layout,
+                               sys.argv[1:] if argv is None else list(argv), dev)
+    # a sharded server's ranks serve alike; rank 0 logs and writes
+    lead = plan is None or plan.fold_data or plan.local_shard == 0
+    if plan is not None and lead:
+        log.info(f"mesh: {plan.describe()}")
     obs = obs_lib.Observability(trace=bool(args.trace_out))
     cfg = get_smoke_config(args.arch)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -98,8 +158,9 @@ def main(argv: list[str] | None = None) -> None:
                           prefill_chunk=args.prefill_chunk,
                           prefill_adaptive=args.prefill_adaptive,
                           prefix_cache_bytes=args.prefix_cache << 20,
-                          scheduler=SchedulerConfig(policy=args.scheduler, shed=args.shed),
-                          obs=obs, watchdog_s=args.watchdog_s, device=dev)
+                          scheduler=scheduler_config(plan, policy=args.scheduler,
+                                                     shed=args.shed),
+                          obs=obs, watchdog_s=args.watchdog_s, plan=plan, device=dev)
     t0 = time.perf_counter()
     report = None
     if args.loadgen:
@@ -121,6 +182,8 @@ def main(argv: list[str] | None = None) -> None:
         toks = sum(len(r.out_tokens) for r in done)
     stats = server.stats()
     health = stats["health"]
+    if not lead:
+        return
     log.info(f"served {len(done)} requests, {toks} tokens, {wall:.2f}s "
              f"({toks / wall:.1f} tok/s, "
              f"{stats['syncs_per_token']:.3f} syncs/token)")

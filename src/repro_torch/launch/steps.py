@@ -8,8 +8,9 @@
 
 The reference's ``input_specs``, ``param_structs``, ``plan_shardings`` and
 ``lower_cell`` (shape structs, sharding plans and lowering of one
-arch × shape × mesh cell) are dry-run and sharding machinery and are not
-ported yet (ROADMAP.md, Queue 1 item 12: Multi-device and launchers).
+arch × shape × mesh cell) are the dry run's half and are not ported yet
+(ROADMAP.md, Queue 1 item 12b); the sharding rules they read are
+(:mod:`repro_torch.parallel.sharding`).
 """
 
 from __future__ import annotations

@@ -1,0 +1,256 @@
+"""Sharding rules: DP/FSDP/TP/EP plans for every architecture; the port's
+counterpart of ``repro/parallel/sharding.py``.
+
+Parameters are plain nested dicts; rules map parameter *paths* to specs over
+the mesh
+
+    single pod : ("data", "model")            = (16, 16)
+    multi pod  : ("pod", "data", "model")     = (2, 16, 16)
+
+A spec is a tuple with one entry per tensor dim, as a ``PartitionSpec``
+reads: an axis name, a tuple of axis names, or ``None`` (replicated along
+that dim).  :func:`placements` turns one into DTensor ``Shard(d)`` /
+``Replicate()`` placements, one per mesh dim.
+
+Conventions (the reference's):
+
+* batch/DP: activations shard batch over ``("pod", "data")``.
+* FSDP/ZeRO: parameters and AdamW moments shard one non-TP dim over
+  ``"data"``; gradients reduce over ``"pod"``.
+* TP: attention head dims / FFN hidden dims shard over ``"model"``; MoE
+  experts shard over ``"model"`` (EP); Mamba inner channels over ``"model"``.
+* Every rule passes through a **divisibility guard**: an axis that does not
+  divide the dimension is dropped.
+
+The rules read only axis names and sizes, so they run on an
+:class:`~repro_torch.launch.mesh.AbstractMesh` and on leaves that carry only
+a ``.shape`` (fake or meta tensors, shape structs).  The activation pins
+(``activation_constraints``, ``constrain_activation``, ``activation_spec``)
+are not ported yet (ROADMAP.md, Queue 1 item 12b).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import TYPE_CHECKING, Any, Callable
+
+from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes
+
+if TYPE_CHECKING:
+    from repro_torch.models.config import ModelConfig
+
+PyTree = Any
+Spec = tuple
+
+
+def fsdp_axis(mesh) -> str | None:
+    return "data" if "data" in axis_names(mesh) else None
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: PyTree, prefix: str = "") -> PyTree:
+    """Apply ``fn(path, leaf)`` over a nested dict/list/tuple; the path is
+    the reference's ``_path_str``: keys and indices joined by ``/``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+    return fn(prefix, tree)
+
+
+# ---------------------------------------------------------------------------
+# divisibility guard
+# ---------------------------------------------------------------------------
+
+def _guard(spec: Spec, shape: tuple[int, ...], mesh) -> Spec:
+    """Drop axes that don't divide their dim, exceed rank, or repeat."""
+    sizes = axis_sizes(mesh)
+    out = []
+    used: set[str] = set()
+    for i, entry in enumerate(spec):
+        if i >= len(shape) or entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if any(a in used for a in axes):
+            out.append(None)
+            continue
+        total = math.prod(sizes[a] for a in axes)
+        if shape[i] % total == 0:
+            out.append(entry)
+            used.update(axes)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# parameter rules
+# ---------------------------------------------------------------------------
+
+def _param_rules(cfg: ModelConfig, mesh, *, fsdp: bool = True) -> list[tuple[str, Spec]]:
+    """Ordered (regex, spec) rules, the reference's in its order.  'G' in
+    comments = stacked group axis.
+
+    ``fsdp=False`` drops the "data" factor from every rule (parameters
+    replicate over DP, TP factors stay): the *serving* layout, where the
+    data axis carries decode slots.
+    """
+    f = fsdp_axis(mesh) if fsdp else None
+    tp = None if cfg.pure_dp else "model"
+    atp = tp if cfg.attn_tp else None
+    return [
+        # --- embeddings / head ---
+        (r"embed/table$",            (tp, f)),            # [V, D]
+        (r"embed/proj$",             (None, f)),          # [F_in, D] (encoder stub)
+        (r"head/w$",                 (f, tp)),            # [D, V]
+        # --- attention (stacked [G, ...] unless shared) ---
+        (r"shared/attn/w[qkv]$",     (f, atp)),
+        (r"shared/attn/wo$",         (atp, f)),
+        (r".*(attn|cross)/w[qkv]$",  (None, f, atp)),     # [G, D, H*hd]
+        (r".*(attn|cross)/wo$",      (None, atp, f)),     # [G, H*hd, D]
+        (r".*lora/[qkv]A$",          (None, f, None)),
+        (r".*lora/[qkv]B$",          (None, None, atp)),
+        # --- MLA ---
+        (r".*attn/w_dkv$",           (None, f, None)),    # [G, D, r]
+        (r".*attn/w_krope$",         (None, f, None)),
+        (r".*attn/w_uk$",            (None, None, atp)),  # [G, r, H*dn]
+        (r".*attn/w_uv$",            (None, None, atp)),
+        # --- dense MLP ---
+        (r"shared/mlp/w_(in|gate)$", (f, tp)),
+        (r"shared/mlp/w_out$",       (tp, f)),
+        (r".*mlp/w_(in|gate)$",      (None, f, tp)),      # [G, D, F]
+        (r".*mlp/w_out$",            (None, tp, f)),      # [G, F, D]
+        # --- MoE (EP over experts) ---
+        (r".*moe/router$",           (None, f, None)),    # [G, D, E]
+        (r".*moe/w_(in|gate)$",      (None, tp, f, None)),  # [G, E, D, F]
+        (r".*moe/w_out$",            (None, tp, None, f)),  # [G, E, F, D]
+        (r".*moe/shared/w_(in|gate)$", (None, f, tp)),
+        (r".*moe/shared/w_out$",     (None, tp, f)),
+        # --- Mamba (split-aligned projections) ---
+        (r".*mamba/w_[xz]$",         (None, f, tp)),      # [G, D, DI]
+        (r".*mamba/w_bc$",           (None, f, None)),    # [G, D, 2N] (tiny)
+        (r".*mamba/w_dt$",           (None, f, None)),    # [G, D, H]
+        (r".*mamba/conv_w(_x)?$",    (None, None, tp)),   # [G, k, DI]
+        (r".*mamba/conv_b(_x)?$",    (None, tp)),         # [G, DI]
+        (r".*mamba/conv_[wb]_bc$",   ()),                 # replicated (tiny)
+        (r".*mamba/x_proj$",         (None, tp, None)),   # [G, DI, R+2N]
+        (r".*mamba/dt_proj$",        (None, None, tp)),   # [G, R, DI]
+        (r".*mamba/dt_bias$",        (None, tp)),
+        (r".*mamba/A_log$",          (None, tp, None)),   # [G, DI, N]
+        (r".*mamba/D$",              (None, tp)),
+        (r".*mamba/out_proj$",       (None, tp, f)),      # [G, DI, D]
+        (r".*mamba/norm/scale$",     (None, tp)),
+        # --- recurrent cells (LSTM/GRU): fused 4H/3H gate dim over TP ---
+        (r".*rnn/cell/w_[xh]$",      (None, f, tp)),      # [G, D|H, 4H/3H]
+        (r".*rnn/cell/b(h_n)?$",     (None, tp)),         # [G, 4H/3H]
+        (r".*rnn/w_out$",            (None, tp, f)),      # [G, H, D]
+        # --- norms & leftovers: replicated ---
+        (r".*",                      ()),
+    ]
+
+
+def _spec_for_path(path: str, shape, rules, mesh) -> Spec:
+    for pat, spec in rules:
+        if re.search(pat, path):
+            # pad spec to rank
+            entries = list(spec) + [None] * (len(shape) - len(spec))
+            return _guard(tuple(entries[: len(shape)]), shape, mesh)
+    return ()
+
+
+def param_specs(cfg: ModelConfig, params_tree: PyTree, mesh, *, fsdp: bool = True) -> PyTree:
+    """Spec tree matching ``params_tree`` (any leaves with a ``.shape``)."""
+    rules = _param_rules(cfg, mesh, fsdp=fsdp)
+    return map_with_path(
+        lambda path, leaf: _spec_for_path(path, tuple(leaf.shape), rules, mesh),
+        params_tree)
+
+
+def opt_state_specs(cfg: ModelConfig, params_tree: PyTree, mesh) -> PyTree:
+    """AdamW moments shard exactly like their parameters (ZeRO)."""
+    return param_specs(cfg, params_tree, mesh)
+
+
+# ---------------------------------------------------------------------------
+# batch / cache specs
+# ---------------------------------------------------------------------------
+
+def batch_specs(cfg: ModelConfig, shape, mesh, batch_shapes: PyTree) -> PyTree:  # noqa: ARG001
+    """Input specs for a shape cell: batch over all DP axes when divisible;
+    ``pure_dp`` plans also spread the batch over "model"."""
+    dp = dp_axes(mesh)
+    if cfg.pure_dp and "model" in axis_names(mesh):
+        dp = dp + ("model",)
+
+    def one(_path, leaf):
+        spec = [None] * len(leaf.shape)
+        if len(leaf.shape) >= 1:
+            spec[0] = dp
+        return _guard(tuple(spec), tuple(leaf.shape), mesh)
+
+    return map_with_path(one, batch_shapes)
+
+
+def cache_specs(cfg: ModelConfig, cache_tree: PyTree, mesh, *, shard_seq: bool) -> PyTree:
+    """Decode-cache specs.  Leaves are [G, B, S, heads, hd] (KV), [G, B, S, r]
+    (MLA latent) or [G, B, ...] (SSM and recurrent states); tail leaves have
+    no G axis.  The batch dim shards over DP when divisible; with
+    ``shard_seq`` the sequence dim of attention caches shards over ``data``
+    instead (flash-decode partitioning); SSM states shard their channel dims
+    over ``model``."""
+    dp = dp_axes(mesh)
+    tp = "model"
+
+    def one(p, leaf):
+        shp = tuple(leaf.shape)
+        spec = [None] * len(shp)
+        # leaves under "groups/" are stacked [G, B, ...]; "tail/" are [B, ...]
+        off = 1 if p.startswith("groups") else 0
+
+        def put(i, axis):
+            if 0 <= off + i < len(spec):
+                spec[off + i] = axis
+
+        if "conv" in p:                     # [B, k-1, C]
+            put(0, dp)
+            put(2, tp)
+        elif re.search(r"/[hc]$", p):       # mamba [B,DI,N] / rnn carry [B,H]
+            put(0, dp)
+            put(1, tp)
+        elif re.search(r"(c_kv|k_rope)$", p):  # MLA latent [B,S,r]
+            put(0, dp)
+            if shard_seq:
+                put(1, "data")
+        elif re.search(r"/[kv]$", p):       # KV [B,S,KV,hd]
+            put(0, dp)
+            if shard_seq:
+                put(1, "data")
+            else:
+                put(2, tp if cfg.attn_tp else None)
+        return _guard(tuple(spec), shp, mesh)
+
+    return map_with_path(one, cache_tree)
+
+
+def placements(spec: Spec, mesh) -> list:
+    """DTensor placements of a spec, one per mesh dim: ``Shard(d)`` on every
+    mesh axis that tensor dim ``d``'s entry names, ``Replicate()`` on the
+    others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for name in axis_names(mesh):
+        dim = next((d for d, entry in enumerate(spec) if entry is not None
+                    and name in (entry if isinstance(entry, tuple) else (entry,))), None)
+        out.append(Replicate() if dim is None else Shard(dim))
+    return out
+
+
+__all__ = ["batch_specs", "cache_specs", "dp_axes", "fsdp_axis", "map_with_path",
+           "opt_state_specs", "param_specs", "placements"]

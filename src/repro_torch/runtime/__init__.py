@@ -2,14 +2,16 @@
 failure injection, the straggler monitor) and the serving stack: the
 continuous-batching ``server.DecodeServer``, its ``scheduler`` and asyncio
 front-end, the radix ``prefix_cache``, the seeded ``loadgen``, the
-``faults`` layer and weight-only int8 serving (``quantized``, imported by
-name).  Mesh placement (``ShardPlan``) is not ported yet."""
+``faults`` layer, weight-only int8 serving (``quantized``, imported by
+name) and mesh placement (``ShardPlan``, in both layouts).  ``Trainer(mesh=)``
+is not ported yet (ROADMAP.md, Queue 1 item 12b)."""
 
 from .faults import FAULT_POINTS, FaultError, FaultPlan, FaultSpec, TransientFault, Watchdog
 from .loadgen import Trace, TraceItem, TraceSpec, make_trace, replay
 from .prefix_cache import PrefixCache
 from .scheduler import AsyncServer, Scheduler, SchedulerConfig
 from .server import DecodeServer, Request, splice_cache
+from .shard_plan import ShardPlan, make_shard_plan
 from .trainer import SimulatedFailure, StragglerMonitor, Trainer, TrainerConfig
 
 __all__ = [
@@ -20,6 +22,8 @@ __all__ = [
     "DecodeServer",
     "Request",
     "splice_cache",
+    "ShardPlan",
+    "make_shard_plan",
     "AsyncServer",
     "Scheduler",
     "SchedulerConfig",

@@ -17,13 +17,17 @@ The replay report (``schema: repro.loadgen/v1``, checked by
      "by_reason": {"max_tokens": ...}, "ticks": T, "wall_s": s,
      "decoded_tokens": n, "throughput_tok_s": n/s,
      "tokens_digest": "…",            # stable hash over (uid, tokens)
-     "mesh": None,                    # single-device server
-     "per_shard": [{"shard": 0, "decoded_tokens": …, "dispatched": …,
-                    "quarantined": …}]}
+     "mesh": {...} | None,            # ShardPlan.describe() under a plan
+     "per_shard": [{"shard": s, "decoded_tokens": …, "dispatched": …,
+                    "quarantined": …}, ...]}
 
 ``tokens_digest`` makes greedy parity a one-string comparison: across
 ``step()`` and ``step_block()``, prefill paths, the prefix cache on or off,
-and the reference server on the same weights.  ``replay(..., uid_offset=...)`` re-submits the same
+the reference server on the same weights, and serving topologies (a dp=8
+replay, folded or sharded, digests as the dp=1 replay does).  Under a plan
+the replay also writes one shard-tagged ledger row a shard,
+``serve|loadgen|dp{dp}|s{s}``.  A sharded server replays on every rank, and
+every rank's report is the same but for ``wall_s``.  ``replay(..., uid_offset=...)`` re-submits the same
 prompts under fresh uids: the warm and timed two-pass pattern.
 """
 
@@ -156,8 +160,24 @@ def replay(server: DecodeServer, trace: Trace, *, uid_offset: int = 0,
         reason = r.finish_reason or "ok"
         by_reason[reason] = by_reason.get(reason, 0) + 1
     decoded = int(stats["decoded_tokens"])
-    per_shard = [{"shard": 0, "decoded_tokens": decoded, "dispatched": len(done),
-                  "quarantined": int(server.obs.metrics.value("slots_quarantined"))}]
+    mesh = stats.get("mesh")
+    m = server.obs.metrics
+    if mesh is not None:
+        per_shard = [
+            {"shard": s,
+             "decoded_tokens": int(mesh["decoded_tokens_by_shard"][s]),
+             "dispatched": int(m.value("sched_dispatched_shard", shard=s)),
+             "quarantined": int(m.value("slots_quarantined_shard", shard=s))}
+            for s in range(server.dp)]
+        # one shard-tagged ledger row per data shard: the replay's wall
+        # against that shard's token output
+        for row in per_shard:
+            server.obs.ledger.measure(
+                f"serve|loadgen|dp{server.dp}|s{row['shard']}", wall,
+                shard=row["shard"], decoded_tokens=row["decoded_tokens"])
+    else:
+        per_shard = [{"shard": 0, "decoded_tokens": decoded, "dispatched": len(done),
+                      "quarantined": int(m.value("slots_quarantined"))}]
     return {"schema": SCHEMA,
             "spec": asdict(trace.spec),
             "requests": len(items),
@@ -168,7 +188,7 @@ def replay(server: DecodeServer, trace: Trace, *, uid_offset: int = 0,
             "decoded_tokens": decoded,
             "throughput_tok_s": decoded / max(wall, 1e-9),
             "tokens_digest": tokens_digest(outs),
-            "mesh": None,
+            "mesh": mesh,
             "per_shard": per_shard}
 
 

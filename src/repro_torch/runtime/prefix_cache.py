@@ -23,6 +23,13 @@ server runs on.  Torch tensors are mutable where JAX arrays are not, and the
 server writes cache trees in place (``splice_cache``; a KV slice is a view),
 so :meth:`PrefixCache.insert` stores clones that no later in-place write can
 reach.
+
+Under a ``ShardPlan`` the server keeps one cache per data shard
+(``shard=N`` labels every counter).  In the sharded layout every rank keeps
+every shard's tree, and so makes the same lookups, LRU choices and
+evictions, but holds the payloads of its own shard only: another shard's
+entry is a :data:`REMOTE` placeholder whose byte count the owning rank
+computed from its tensors' shapes (``insert(..., nbytes=)``).
 """
 
 from __future__ import annotations
@@ -44,6 +51,22 @@ def tree_bytes(tree: PyTree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def entry_bytes(caches: PyTree, logits: Any = None) -> int:
+    """The bytes a checkpoint of ``caches`` and ``logits`` costs, from the
+    tensors' shapes: what :class:`CacheEntry` charges against the budget."""
+    return tree_bytes(caches) + (0 if logits is None else tree_bytes(logits))
+
+
+class _Remote:
+    """The payload of an entry whose tensors live on another rank."""
+
+    def __repr__(self) -> str:
+        return "REMOTE"
+
+
+REMOTE = _Remote()
+
+
 def _detach_copy(tree: PyTree) -> PyTree:
     return tree_map(lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t, tree)
 
@@ -56,14 +79,12 @@ class CacheEntry:
     caches: PyTree                   # B=1 decode-layout state tree
     logits: Any                      # last-token logits [V] (on the device)
     resumable: bool                  # safe restart point for chunked prefill
-    nbytes: int = 0
+    nbytes: int | None = None        # None: counted from the tensors
     last_used: int = 0
 
     def __post_init__(self):
-        if not self.nbytes:
-            self.nbytes = tree_bytes(self.caches)
-            if self.logits is not None:
-                self.nbytes += int(self.logits.numel()) * self.logits.element_size()
+        if self.nbytes is None:
+            self.nbytes = entry_bytes(self.caches, self.logits)
 
 
 class _Node:
@@ -89,8 +110,10 @@ class PrefixCache:
     """Radix tree of prompt prefixes with LRU byte-budget eviction."""
 
     def __init__(self, budget_bytes: int = 256 << 20,
-                 metrics: MetricsRegistry | None = None):
+                 metrics: MetricsRegistry | None = None,
+                 shard: int | None = None):
         self.budget_bytes = int(budget_bytes)
+        self.shard = shard
         self.root = _Node()
         self.bytes_in_use = 0
         self._clock = 0
@@ -100,19 +123,20 @@ class PrefixCache:
         # owning server's to share a scope); telemetry() is a view over it.
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         m = self.metrics
+        lbl = {} if shard is None else {"shard": shard}
         self._c_hits = m.counter(
-            "prefix_hits", "full-prompt hits (0 prompt steps recomputed)")
+            "prefix_hits", "full-prompt hits (0 prompt steps recomputed)", **lbl)
         self._c_partial = m.counter("prefix_partial_hits",
-                                    "resumed mid-prompt")
-        self._c_misses = m.counter("prefix_misses", "no usable checkpoint")
+                                    "resumed mid-prompt", **lbl)
+        self._c_misses = m.counter("prefix_misses", "no usable checkpoint", **lbl)
         self._c_insertions = m.counter("prefix_insertions",
-                                       "checkpoints stored")
+                                       "checkpoints stored", **lbl)
         self._c_evictions = m.counter("prefix_evictions",
-                                      "checkpoints dropped (LRU budget)")
+                                      "checkpoints dropped (LRU budget)", **lbl)
         self._c_saved = m.counter("prefix_prompt_steps_saved",
-                                  "prompt steps served from checkpoints")
-        self._g_bytes = m.gauge("prefix_bytes_in_use", "stored state bytes")
-        self._g_entries = m.gauge("prefix_entries", "stored checkpoints")
+                                  "prompt steps served from checkpoints", **lbl)
+        self._g_bytes = m.gauge("prefix_bytes_in_use", "stored state bytes", **lbl)
+        self._g_entries = m.gauge("prefix_entries", "stored checkpoints", **lbl)
 
     # -- internal ----------------------------------------------------------
 
@@ -153,11 +177,13 @@ class PrefixCache:
     # -- public ------------------------------------------------------------
 
     def insert(self, tokens: Sequence[int], caches: PyTree,
-               logits: Any = None, *, resumable: bool = True) -> None:
+               logits: Any = None, *, resumable: bool = True,
+               nbytes: int | None = None) -> None:
         """Store a copy of the state checkpoint for prefix ``tokens``
         (replaces any existing entry for the same prefix).  ``caches`` and
         ``logits`` are cloned: the caller may go on writing its tensors in
-        place."""
+        place.  ``nbytes`` charges a :data:`REMOTE` placeholder what the
+        owning rank's tensors cost."""
         tokens = list(int(t) for t in tokens)
         if not tokens:
             return
@@ -182,8 +208,8 @@ class PrefixCache:
             node, i = child, i + m
         self._clock += 1
         entry = CacheEntry(length=len(tokens), caches=_detach_copy(caches),
-                           logits=None if logits is None else logits.detach().clone(),
-                           resumable=resumable, last_used=self._clock)
+                           logits=_detach_copy(logits),
+                           resumable=resumable, nbytes=nbytes, last_used=self._clock)
         if node.entry is not None:
             self.bytes_in_use -= node.entry.nbytes
         node.entry = entry
@@ -275,4 +301,4 @@ class PrefixCache:
         self._track()
 
 
-__all__ = ["CacheEntry", "PrefixCache", "tree_bytes"]
+__all__ = ["REMOTE", "CacheEntry", "PrefixCache", "entry_bytes", "tree_bytes"]

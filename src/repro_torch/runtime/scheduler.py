@@ -14,7 +14,8 @@ The scheduler is synchronous and tick-driven: the server asks for the next
 admissible request whenever a slot frees up.  :class:`AsyncServer` wraps a
 ``DecodeServer`` into an asyncio front-end whose ticks run on a background
 thread of its own: ``await generate(req)`` resolves when the request retires.
-Mesh placement (``record_placement``) is not ported yet.
+Under a ``ShardPlan`` the server stamps each dispatched request with its
+data shard (``record_placement``).
 """
 
 from __future__ import annotations
@@ -220,6 +221,16 @@ class Scheduler:
         req.dispatched_at = now
         return req
 
+    def record_placement(self, req: "Request", shard: int) -> None:
+        """Stamp the data shard a popped request was placed on (shard-affine
+        admission under a :class:`~repro_torch.runtime.shard_plan.ShardPlan`)
+        and count it in ``sched_dispatched_shard{shard=N}``.  Placement is
+        decided after the pop (affinity needs the prompt against every
+        shard's prefix cache), so this is its own call."""
+        req.shard = int(shard)
+        self.metrics.counter("sched_dispatched_shard",
+                             "dispatches by data shard", shard=shard).inc()
+
     def __len__(self) -> int:
         return self._size
 
@@ -237,8 +248,14 @@ class Scheduler:
         }
 
     def telemetry(self) -> dict:
-        return dict(self.stats, pending=self._size,
-                    policy=self.cfg.policy, aging_rate=self.cfg.aging_rate)
+        out = dict(self.stats, pending=self._size,
+                   policy=self.cfg.policy, aging_rate=self.cfg.aging_rate)
+        by_shard = {c.labels["shard"]: c.value
+                    for c in self.metrics.children("sched_dispatched_shard")
+                    if c.value}
+        if by_shard:
+            out["dispatched_by_shard"] = by_shard
+        return out
 
     def reset_stats(self) -> None:
         """Zero the counters (queue contents are untouched)."""

@@ -42,8 +42,37 @@ transient dispatch fault retries the tick, a stall aborts in-flight work
 with ``error:stalled``.  A real failure of a kernel is never caught.
 
 Counters, spans, ``stats()`` and ``health()`` keys keep the reference's
-names.  Not ported yet, and refused by the constructor: mesh placement
-(``plan``).
+names.
+
+Mesh placement (``plan=``, a :class:`~repro_torch.runtime.shard_plan.ShardPlan`)
+spreads the slot pool over the plan's data axis in contiguous per-shard
+blocks, with one prefix cache a shard (1/dp of the byte budget each) and
+shard-affine admission: the shard whose cache holds the deepest checkpoint
+of the prompt, then the least loaded one, then the lowest id.  Two layouts:
+
+* **folded** (``fold_data=True``): the shards are logical; one process
+  decodes all of them through one datapath, exactly as ``plan=None`` does.
+* **sharded**: the server is SPMD.  Every rank of the plan's process group
+  runs this host logic on the same stream of ``submit`` calls and holds and
+  computes only its own shard's slots: a prefill runs on the rank that owns
+  its slot, a decode tick on each rank's slot rows.  What the host logic
+  needs from another rank's tensors crosses a gloo group as host integers:
+  one ``all_gather`` a decode tick (each slot's token and finite flag, or
+  the packed block of ``step_block()``) and one ``broadcast`` from the
+  owner a prefill call (the first token and the checkpoint's byte count).
+  So the scheduler, the slot map, the prefix-cache trees and the counters
+  are the same on every rank (:meth:`DecodeServer.host_state`), and rank 0's
+  ``stats()``, ``health()`` and ``completed`` are the server's answer.
+  Greedy decoding gives the unsharded server's tokens where a model's
+  rows are independent (recurrent, SSM, attention); an MoE decode tick
+  groups each rank's slots alone, so capacity drops can differ.  Sampled
+  decoding draws each slot's token on its owner with that rank's
+  generator, so the draws differ from the unsharded server's.  Decisions read from each
+  rank's own clock would split the ranks, so this layout refuses the
+  watchdog, load shedding, request deadlines and explicit priority aging,
+  and its default scheduler does not age (ROADMAP.md, Queue 1 item 12b).
+  Tensor parallelism inside the served models (``tp > 1``) is not ported
+  yet either (item 12b) and raises.
 """
 
 from __future__ import annotations
@@ -54,6 +83,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs as obs_lib
 from repro_torch._tree import tree_leaves
@@ -62,10 +92,13 @@ from repro_torch.kernels import _build
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
+from repro_torch.parallel import comm
+
 from . import faults as faults_lib
 from .faults import Watchdog
-from .prefix_cache import PrefixCache
+from .prefix_cache import REMOTE, PrefixCache, entry_bytes
 from .scheduler import REJECT_DUPLICATE_UID, Scheduler, SchedulerConfig
+from .shard_plan import ShardPlan
 
 PyTree = Any
 
@@ -154,6 +187,15 @@ def splice_cache(caches: PyTree, prefill_caches: PyTree, b: int,
     return caches
 
 
+def scheduler_config(plan: ShardPlan | None = None, **kw) -> SchedulerConfig:
+    """A ``SchedulerConfig`` with the server's defaults under ``plan``: the
+    sharded layout does not age priorities (aging reads each rank's own
+    clock, which would split the ranks)."""
+    if plan is not None and not plan.fold_data:
+        kw.setdefault("aging_rate", 0.0)
+    return SchedulerConfig(**kw)
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -174,6 +216,7 @@ class Request:
     finish_reason: str | None = None
     truncated: bool = False     # prompt cut to the admission limit
     prefix_hit_tokens: int = 0  # prompt steps served from the prefix cache
+    shard: int | None = None    # data shard placed on (None = unsharded)
 
 
 @dataclasses.dataclass
@@ -182,7 +225,8 @@ class _PrefillJob:
 
     req: Request
     slot: int
-    caches: PyTree            # B=1 decode-layout state
+    caches: PyTree            # B=1 decode-layout state (None on a rank that
+    #                           does not own the slot)
     pos: int = 0              # prompt tokens consumed so far
     logits: Any = None        # last-token logits of the latest chunk (device)
 
@@ -199,12 +243,25 @@ class DecodeServer:
                  obs: obs_lib.Observability | None = None,
                  faults: faults_lib.FaultPlan | None = None,
                  watchdog_s: float | None = None,
-                 plan: Any = None,
+                 plan: ShardPlan | None = None,
                  device: str | torch.device | None = None):
-        if plan is not None:
-            raise NotImplementedError(
-                "DecodeServer(plan): mesh placement is not ported to repro_torch yet "
-                "(ROADMAP.md, Queue 1: Multi-device and launchers)")
+        # Mesh placement: the slot pool in contiguous per-shard blocks over
+        # the plan's data axis; plan=None is the single-device server.
+        self.plan = plan
+        self.dp = plan.dp if plan is not None else 1
+        self._slots_per_shard = (plan.validate_slots(num_slots)
+                                 if plan is not None else num_slots)
+        self._rows = None           # this rank's slots (the sharded layout)
+        if plan is not None and not plan.fold_data:
+            self._check_sharded(plan, scheduler, watchdog_s)
+            self._rows = plan.slots_of_shard(plan.local_shard, num_slots)
+            self._group = plan.control_group()
+            world = self._group if self._group is not None else dist.group.WORLD
+            # the shards' owners, in shard order: global ranks and group ranks
+            self._owner = [plan.shard_rank(s) for s in range(plan.dp)]
+            self._order = [dist.get_group_rank(world, r) for r in self._owner]
+            if scheduler is None:
+                scheduler = scheduler_config(plan)
         self.device = resolve_device(device)
         leaf = tree_leaves(params)[0]
         if leaf.device.type != self.device.type:
@@ -230,8 +287,17 @@ class DecodeServer:
         self.obs = obs if obs is not None else obs_lib.Observability()
         self._tr = self.obs.tracer
         self._tr.thread_name(0, "server")
-        self.prefix_cache = (PrefixCache(prefix_cache_bytes, metrics=self.obs.metrics)
-                             if prefix_cache_bytes else None)
+        # one PrefixCache per data shard (1/dp of the budget each, counters
+        # labelled shard=N): a hit is a hit only on the shard whose slots
+        # hold the checkpointed rows
+        if not prefix_cache_bytes:
+            self.prefix_caches = None
+        elif plan is None:
+            self.prefix_caches = [PrefixCache(prefix_cache_bytes, metrics=self.obs.metrics)]
+        else:
+            per_shard = max(1, int(prefix_cache_bytes) // self.dp)
+            self.prefix_caches = [PrefixCache(per_shard, metrics=self.obs.metrics, shard=s)
+                                  for s in range(self.dp)]
         if isinstance(scheduler, Scheduler):
             self.scheduler = scheduler
             self.scheduler.prompt_limit = self.scheduler.prompt_limit or (max_seq - 1)
@@ -244,7 +310,9 @@ class DecodeServer:
         self.faults = faults
         self._watch = Watchdog(watchdog_s) if watchdog_s else None
         self._last_work = 0                 # progress marker for the watchdog
-        self.caches = lm.init_cache(cfg, num_slots, max_seq, self.device)
+        # the sharded layout allocates this rank's slot rows only
+        self.caches = lm.init_cache(cfg, num_slots if self._rows is None else len(self._rows),
+                                    max_seq, self.device)
         self.pos = np.zeros(num_slots, np.int32)        # next write position
         self.live = np.zeros(num_slots, bool)
         self.reserved = np.zeros(num_slots, bool)       # prefill job in flight
@@ -290,6 +358,15 @@ class DecodeServer:
             "decode ticks aborted on a transient dispatch error")
         self._m_stalled = m.counter(
             "server_stalled", "watchdog firings (no progress in bound)")
+        # per-shard telemetry: token counters labelled shard=N, and one trace
+        # track per data shard (tid = 10_000 + s) for live-slot counters
+        self._m_tokens_shard = (
+            [m.counter("decoded_tokens_shard", "tokens generated by data shard", shard=s)
+             for s in range(self.dp)]
+            if plan is not None else None)
+        if plan is not None and self._tr.enabled:
+            for s in range(self.dp):
+                self._tr.thread_name(10_000 + s, f"shard {s}")
         self._tick_prompt_steps = 0
         self._tick_uncontended = True       # no slot is live before tick 0
 
@@ -337,6 +414,11 @@ class DecodeServer:
         ones with ``'expired:queue'``."""
         now = time.perf_counter()
         req.submitted_at = now
+        if req.deadline_s is not None and self._rows is not None:
+            raise NotImplementedError(
+                "DecodeServer(plan): request deadlines read each rank's own clock, "
+                "which would split the ranks of a sharded server; not ported yet "
+                "(ROADMAP.md, Queue 1 item 12b)")
         if req.deadline_s is not None:
             req.deadline_at = now + req.deadline_s
             if req.deadline_s <= 0:   # dead on arrival: expire before admit
@@ -357,11 +439,97 @@ class DecodeServer:
             self._inflight[req.uid] = req
         return admitted
 
-    def _free_slot(self) -> int | None:
-        for b in range(self.B):
+    def _free_slot(self, shard: int | None = None) -> int | None:
+        """First free slot: in ``shard``'s block when given, anywhere
+        otherwise."""
+        slots = range(self.B) if shard is None else self.plan.slots_of_shard(shard, self.B)
+        for b in slots:
             if not self.live[b] and not self.reserved[b] and not self.quarantined[b]:
                 return b
         return None
+
+    @property
+    def prefix_cache(self) -> PrefixCache | None:
+        """The unsharded server's single prefix cache (None under a plan)."""
+        return self.prefix_caches[0] if self.prefix_caches and self.plan is None else None
+
+    # -- mesh placement (all trivial when plan is None) -----------------------
+
+    @staticmethod
+    def _check_sharded(plan: ShardPlan, scheduler, watchdog_s) -> None:
+        """The sharded layout's refusals: what it cannot run says so, and
+        nothing falls back to one device."""
+        if plan.tp > 1:
+            raise NotImplementedError(
+                f"DecodeServer(plan): tensor parallelism inside the served models "
+                f"(tp={plan.tp}) is not ported yet (ROADMAP.md, Queue 1 item 12b); "
+                "serve with tp=1")
+        plan.require_group()
+        cfg = scheduler.cfg if isinstance(scheduler, Scheduler) else scheduler
+        why = ("watchdog_s" if watchdog_s else
+               "load shedding (SchedulerConfig.shed)" if cfg is not None and cfg.shed else
+               "priority aging (SchedulerConfig.aging_rate > 0)"
+               if cfg is not None and cfg.policy == "priority" and cfg.aging_rate > 0 else None)
+        if why:
+            raise NotImplementedError(
+                f"DecodeServer(plan): {why} reads each rank's own clock, which would "
+                "split the ranks of a sharded server; not ported yet (ROADMAP.md, "
+                "Queue 1 item 12b)")
+
+    def _shard_of(self, b: int) -> int:
+        return 0 if self.plan is None else b // self._slots_per_shard
+
+    def _owns(self, b: int) -> bool:
+        """Whether this process holds slot ``b``'s state (every slot except
+        in the sharded layout)."""
+        return self._rows is None or b in self._rows
+
+    def _lb(self, b: int) -> int:
+        """Slot ``b``'s row in this process's cache tensors."""
+        return b if self._rows is None else b - self._rows.start
+
+    def _pc(self, shard: int) -> PrefixCache | None:
+        """The prefix cache of ``shard``'s slots (the single cache when
+        unsharded)."""
+        if self.prefix_caches is None:
+            return None
+        return self.prefix_caches[shard if self.plan is not None else 0]
+
+    def _shard_load(self, shard: int) -> int:
+        return sum(1 for b in self.plan.slots_of_shard(shard, self.B)
+                   if self.live[b] or self.reserved[b])
+
+    def _place(self, req: Request) -> int:
+        """Shard-affine placement: among shards with a free slot, the one
+        whose prefix cache holds the deepest checkpoint of the prompt (ties:
+        least loaded, then lowest id); least loaded without prefix caches."""
+        free = [s for s in range(self.dp) if self._free_slot(shard=s) is not None]
+        if self.prefix_caches is not None:
+            return min(free, key=lambda s: (-self.prefix_caches[s].peek_depth(req.prompt),
+                                            self._shard_load(s), s))
+        return min(free, key=lambda s: (self._shard_load(s), s))
+
+    def _from_owner(self, b: int, *vals: int) -> list[int]:
+        """Integers only slot ``b``'s owner can compute (a first token, a
+        checkpoint's byte count), on every rank: one broadcast from the
+        owner over the control group in the sharded layout.  Other ranks
+        pass placeholders."""
+        if self._rows is None:
+            return [int(v) for v in vals]
+        t = torch.tensor([int(v) if self._owns(b) else 0 for v in vals], dtype=torch.int64)
+        comm.broadcast(t, self._owner[self._shard_of(b)], self._group)
+        return t.tolist()
+
+    def _gather_slots(self, local: np.ndarray) -> np.ndarray:
+        """Each rank's ``[R, len(rows)]`` host integers → ``[R, B]`` in slot
+        order on every rank: the one all_gather of a sharded decode tick."""
+        t = torch.as_tensor(np.ascontiguousarray(local, np.int64))[None]
+        parts = comm.all_gather(t, self._group)             # [dp, R, k] by group rank
+        return parts[self._order].permute(1, 0, 2).reshape(local.shape[0], self.B).numpy()
+
+    def _splice(self, src: PyTree, b: int) -> None:
+        if self._owns(b):
+            self.caches = splice_cache(self.caches, src, self._lb(b), self.S)
 
     def _retire(self, req: Request, now: float, reason: str) -> None:
         req.done_at = req.retired_at = now
@@ -394,10 +562,12 @@ class DecodeServer:
         tr.thread_name(tid, f"req {req.uid}")
         t_sub = tr.to_us(req.submitted_at)
         t_done = max(tr.to_us(now), t_sub)
-        tr.complete("request", t_sub, t_done - t_sub, cat="request", tid=tid,
-                    args={"uid": req.uid, "prompt_tokens": len(req.prompt),
-                          "out_tokens": n_out, "finish_reason": req.finish_reason,
-                          "prefix_hit_tokens": req.prefix_hit_tokens})
+        args = {"uid": req.uid, "prompt_tokens": len(req.prompt),
+                "out_tokens": n_out, "finish_reason": req.finish_reason,
+                "prefix_hit_tokens": req.prefix_hit_tokens}
+        if req.shard is not None:
+            args["shard"] = req.shard
+        tr.complete("request", t_sub, t_done - t_sub, cat="request", tid=tid, args=args)
         t_disp = min(tr.to_us(req.dispatched_at), t_done) \
             if req.dispatched_at is not None else t_done
         tr.complete("queue_wait", t_sub, t_disp - t_sub, cat="request", tid=tid)
@@ -453,16 +623,22 @@ class DecodeServer:
     def _poison_slot(self, b: int, mode: str = "nan") -> None:
         """Write NaN/Inf into slot ``b``'s float cache rows, in place: the
         injected effect of the carry and splice fault points.  Other slots'
-        rows are untouched, so survivors stay bit-identical."""
+        rows are untouched, so survivors stay bit-identical.  In the sharded
+        layout only the owner holds the rows; the quarantine reaches every
+        rank through the gathered finite flags."""
+        if not self._owns(b):
+            return
         bad = float("nan") if mode == "nan" else float("inf")
         for leaf in self._slot_leaves(floating=True):
-            leaf[:, b] = bad
+            leaf[:, self._lb(b)] = bad
 
     def _scrub_slot(self, b: int) -> None:
         """Zero slot ``b``'s cache rows: quarantined state never leaks into
         the next request admitted to the slot."""
+        if not self._owns(b):
+            return
         for leaf in self._slot_leaves():
-            leaf[:, b] = 0
+            leaf[:, self._lb(b)] = 0
 
     def _quarantine(self, b: int, now: float) -> None:
         """Retire slot ``b``'s request with ``error:nonfinite`` and pull the
@@ -474,6 +650,9 @@ class DecodeServer:
         self.live[b] = False
         self.quarantined[b] = True
         self._m_quar.inc()
+        if self.plan is not None:
+            self.obs.metrics.counter("slots_quarantined_shard", "quarantines by data shard",
+                                     shard=self._shard_of(b)).inc()
 
     def _scrub_quarantined(self) -> None:
         for b in range(self.B):
@@ -578,6 +757,11 @@ class DecodeServer:
             "watchdog_s": self._watch.bound_s if self._watch else None,
             "last_progress_idle_s": self._watch.idle_s() if self._watch else None,
         }
+        if self.plan is not None:
+            out["mesh"] = self.plan.describe()
+            out["quarantined_by_shard"] = [
+                sum(int(self.quarantined[b]) for b in self.plan.slots_of_shard(s, self.B))
+                for s in range(self.dp)]
         plan = self.faults if self.faults is not None else faults_lib.get_plan()
         if plan is not None:
             out["faults"] = plan.report()
@@ -590,10 +774,14 @@ class DecodeServer:
     def _tokens(self, toks) -> torch.Tensor:
         return torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
 
-    def _start_request(self, req: Request, b: int, first_logits: np.ndarray) -> None:
+    @staticmethod
+    def _argmax(logits: torch.Tensor) -> int:
+        """The greedy first token of a prefill's last-token logits."""
+        return int(np.argmax(logits.float().cpu().numpy()))
+
+    def _start_request(self, req: Request, b: int, first: int) -> None:
         """Go live after the prompt state is in slot ``b`` — or retire at
         admission when the prefill-sampled first token meets the budget."""
-        first = int(np.argmax(first_logits))
         now = time.perf_counter()
         req.out_tokens.append(first)
         req.first_token_at = now
@@ -614,18 +802,23 @@ class DecodeServer:
         self._m_kernel_syncs.inc(_build.host_syncs() - syncs)
         return out
 
-    def _cache_boundary(self, job: _PrefillJob) -> None:
-        """Checkpoint the job's current state into the prefix cache.  Only
-        chunk-grid-aligned boundaries are resumable (a resumed scan then runs
-        the same chunk shapes as a cold run); every boundary carries its
-        last-token logits, which serve a full hit at the prompt's end."""
-        pc = self.prefix_cache
+    def _cache_boundary(self, job: _PrefillJob, nbytes: int) -> None:
+        """Checkpoint the job's current state into its shard's prefix cache.
+        Only chunk-grid-aligned boundaries are resumable (a resumed scan then
+        runs the same chunk shapes as a cold run); every boundary carries
+        its last-token logits, which serve a full hit at the prompt's end.
+        A rank that does not own the slot stores a placeholder of
+        ``nbytes``."""
+        pc = self._pc(self._shard_of(job.slot))
         if pc is None or job.pos == 0:
             return
         aligned = self.prefill_chunk > 0 and job.pos % self.prefill_chunk == 0
-        pc.insert(job.req.prompt[: job.pos], self._slice_prefix(job.caches, job.pos),
-                  logits=job.logits[0] if job.logits is not None else None,
-                  resumable=aligned)
+        if self._owns(job.slot):
+            pc.insert(job.req.prompt[: job.pos], self._slice_prefix(job.caches, job.pos),
+                      logits=job.logits[0], resumable=aligned)
+        else:
+            pc.insert(job.req.prompt[: job.pos], None, logits=REMOTE, resumable=aligned,
+                      nbytes=nbytes)
 
     def _slice_prefix(self, caches: PyTree, p: int) -> PyTree:
         """Full-attention KV leaves (and MLA's latents) trimmed to their
@@ -654,10 +847,12 @@ class DecodeServer:
         lookup first: a full hit splices the stored state (0 recomputed
         prompt steps); a partial hit resumes chunked prefill mid-prompt; a
         miss starts a prefill job (chunked) or runs the one-shot B=1 prefill
-        and SPLICES its state into the slot (other slots are untouched)."""
+        and SPLICES its state into the slot (other slots are untouched).
+        Under a plan the request is placed on a shard first (:meth:`_place`)
+        and uses that shard's prefix cache; in the sharded layout the
+        prefill runs on the slot's owner only."""
         while True:
-            b = self._free_slot()
-            if b is None:
+            if self._free_slot() is None:
                 return
             req = self.scheduler.next_request()
             if req is None:
@@ -666,15 +861,22 @@ class DecodeServer:
                 # budget already met: retire before spending any device work
                 self._retire(req, time.perf_counter(), "max_tokens")
                 continue
+            if self.plan is None:
+                shard, b = 0, self._free_slot()
+            else:
+                shard = self._place(req)
+                b = self._free_slot(shard=shard)
+                self.scheduler.record_placement(req, shard)
+            owner = self._owns(b)
             plen = len(req.prompt)
-            pc = self.prefix_cache
+            pc = self._pc(shard)
             entry = None
             if pc is not None:
                 candidates = pc.lookup(req.prompt)
                 full = next((e for e in candidates
                              if e.length == plen and e.logits is not None), None)
                 if full is not None:
-                    self.caches = splice_cache(self.caches, full.caches, b, self.S)
+                    self._splice(full.caches, b)
                     spec = self._fire("prefix.splice")
                     if spec is not None:
                         # a corrupted checkpoint splice: caught downstream by
@@ -682,7 +884,8 @@ class DecodeServer:
                         self._poison_slot(b, spec.mode)
                     req.prefix_hit_tokens = plen
                     pc.record_hit(plen, full=True)
-                    self._start_request(req, b, full.logits.float().cpu().numpy())
+                    first, = self._from_owner(b, self._argmax(full.logits) if owner else 0)
+                    self._start_request(req, b, first)
                     continue
                 if self.prefill_chunk > 0:
                     entry = next((e for e in candidates if e.resumable), None)
@@ -693,8 +896,10 @@ class DecodeServer:
                 adaptive_oneshot = (self.prefill_adaptive and entry is None
                                     and self._tick_uncontended and not self._jobs)
                 if not adaptive_oneshot:
-                    caches = (self._inflate_entry(entry) if entry is not None
-                              else lm.init_cache(self.cfg, 1, self.S, self.device))
+                    caches = None
+                    if owner:
+                        caches = (self._inflate_entry(entry) if entry is not None
+                                  else lm.init_cache(self.cfg, 1, self.S, self.device))
                     start = entry.length if entry is not None else 0
                     if pc is not None:
                         if entry is not None:
@@ -708,21 +913,32 @@ class DecodeServer:
             # one-shot prefill
             if pc is not None:
                 pc.record_miss()
-            with self._tr.span("prefill_oneshot", cat="prefill",
-                               args={"uid": req.uid, "tokens": plen}):
-                logits, pcaches = self._run_prefill(lm.prefill, self._tokens([req.prompt]))
+            first = nbytes = 0
+            if owner:
+                with self._tr.span("prefill_oneshot", cat="prefill",
+                                   args={"uid": req.uid, "tokens": plen}):
+                    logits, pcaches = self._run_prefill(lm.prefill, self._tokens([req.prompt]))
+                first = self._argmax(logits[0])
+                if pc is not None and self._rows is not None:
+                    nbytes = entry_bytes(pcaches, logits[0])
+            first, nbytes = self._from_owner(b, first, nbytes)
             self._m_prompt_steps.inc(plen)
             self._tick_prompt_steps += plen
-            self.caches = splice_cache(self.caches, pcaches, b, self.S)
-            if pc is not None:
-                pc.insert(req.prompt, pcaches, logits=logits[0], resumable=False)
-            self._start_request(req, b, logits[0].float().cpu().numpy())
+            if owner:
+                self._splice(pcaches, b)
+                if pc is not None:
+                    pc.insert(req.prompt, pcaches, logits=logits[0], resumable=False)
+            elif pc is not None:
+                pc.insert(req.prompt, None, logits=REMOTE, resumable=False, nbytes=nbytes)
+            self._start_request(req, b, first)
 
     def _advance_prefill(self) -> None:
         """Advance at most ``prefill_chunks_per_tick`` chunks, round-robin
         over in-flight jobs: per-tick prompt work stays bounded by the chunk
         size regardless of prompt length.  With ``prefill_adaptive`` a tick
-        with no live slot drains every pending job whole instead."""
+        with no live slot drains every pending job whole instead.  In the
+        sharded layout a chunk runs on its slot's owner, and every rank
+        advances the job's position."""
         drain = bool(self.prefill_adaptive and self._jobs and self._tick_uncontended)
         budget = len(self._jobs) if drain else self.prefill_chunks_per_tick
         for _ in range(budget):
@@ -730,23 +946,36 @@ class DecodeServer:
                 return
             self._job_rr %= len(self._jobs)
             job = self._jobs[self._job_rr]
+            owner = self._owns(job.slot)
             plen = len(job.req.prompt)
             c = plen - job.pos if drain else min(self.prefill_chunk, plen - job.pos)
-            with self._tr.span("prefill_chunk", cat="prefill",
-                               args={"uid": job.req.uid, "pos": job.pos, "chunk": c}):
-                job.logits, job.caches = self._run_prefill(
-                    lm.prefill_chunk, self._tokens([job.req.prompt[job.pos:job.pos + c]]),
-                    job.caches, job.pos)
+            if owner:
+                with self._tr.span("prefill_chunk", cat="prefill",
+                                   args={"uid": job.req.uid, "pos": job.pos, "chunk": c}):
+                    job.logits, job.caches = self._run_prefill(
+                        lm.prefill_chunk,
+                        self._tokens([job.req.prompt[job.pos:job.pos + c]]),
+                        job.caches, job.pos)
             job.pos += c
             self._m_prompt_steps.inc(c)
             self._tick_prompt_steps += c
             self._m_chunks.inc()
-            self._cache_boundary(job)
-            if job.pos >= plen:
+            done = job.pos >= plen
+            pc = self._pc(self._shard_of(job.slot))
+            first = nbytes = 0
+            if owner:
+                first = self._argmax(job.logits[0]) if done else 0
+                if pc is not None and self._rows is not None:
+                    nbytes = entry_bytes(self._slice_prefix(job.caches, job.pos),
+                                         job.logits[0])
+            if done or pc is not None:
+                first, nbytes = self._from_owner(job.slot, first, nbytes)
+            self._cache_boundary(job, nbytes)
+            if done:
                 self._jobs.remove(job)
-                self.caches = splice_cache(self.caches, job.caches, job.slot, self.S)
+                self._splice(job.caches, job.slot)
                 self.reserved[job.slot] = False
-                self._start_request(job.req, job.slot, job.logits[0].float().cpu().numpy())
+                self._start_request(job.req, job.slot, first)
             else:
                 self._job_rr += 1
 
@@ -768,6 +997,12 @@ class DecodeServer:
         if not self._tick_uncontended:
             self._m_tick_contended.set_max(self._tick_prompt_steps)
         self._m_live.set(int(self.live.sum()))
+        if self.plan is not None and self._tr.enabled:
+            for s in range(self.dp):
+                self._tr.counter(
+                    "live_slots",
+                    {"live": sum(int(self.live[b]) for b in self.plan.slots_of_shard(s, self.B))},
+                    tid=10_000 + s)
 
     # ------------------------------------------------------------------
     # decode drivers
@@ -784,13 +1019,14 @@ class DecodeServer:
             b = self._fault_slot(spec)
             if b is not None:
                 self._poison_slot(b, spec.mode)
+        rows = slice(None) if self._rows is None else slice(self._rows.start, self._rows.stop)
         with self._tr.span("decode_step", cat="decode",
                            args={"live": int(self.live.sum())}):
             if self._dispatch_fault():
                 return int(self.live.sum())
             logits, self.caches = lm.decode_step(
-                self.params, self.cfg, self._tokens(self.cur_tokens[:, None]),
-                self.caches, self._tokens(self.pos))
+                self.params, self.cfg, self._tokens(self.cur_tokens[rows, None]),
+                self.caches, self._tokens(self.pos[rows]))
             with self._tr.span("device_sync", cat="sync"):
                 logits = logits.float().cpu().numpy()
         self._m_syncs.inc()
@@ -799,11 +1035,22 @@ class DecodeServer:
         spec = self._fire("decode.nan_logits")
         if spec is not None:
             b = self._fault_slot(spec)
-            if b is not None:
-                logits[b] = np.nan if spec.mode == "nan" else np.inf
+            if b is not None and self._owns(b):
+                logits[self._lb(b)] = np.nan if spec.mode == "nan" else np.inf
         # per-slot non-finite detection (an injected poison or a real one)
         # quarantines ONLY the affected slot
         finite = np.isfinite(logits).all(axis=-1)
+        toks = None
+        if self._rows is not None:
+            # each rank picks its own slots' tokens; one all_gather gives
+            # every rank every slot's token and finite flag
+            mine = np.zeros((2, len(self._rows)), np.int64)
+            for j, b in enumerate(self._rows):
+                if self.live[b] and finite[j]:
+                    mine[0, j] = self._next_token(b, logits[j])
+            mine[1] = finite
+            toks, finite = self._gather_slots(mine)
+            finite = finite.astype(bool)
         for b in range(self.B):
             if not self.live[b]:
                 continue
@@ -811,16 +1058,16 @@ class DecodeServer:
                 self._quarantine(b, now)
                 continue
             req = self.slot_req[b]
+            nxt = self._next_token(b, logits[b]) if toks is None else int(toks[b])
             if req.temperature > 0:
-                probs = torch.softmax(
-                    torch.as_tensor(logits[b], device=self.device) / req.temperature, -1)
-                nxt = int(torch.multinomial(probs, 1, generator=self._gen))
-                # the int() is its own host↔device round-trip — count it
+                # the sampled id's int() is its own host↔device round-trip —
+                # count it (in the sharded layout on every rank: the counters
+                # are host state)
                 self._m_syncs.inc()
-            else:
-                nxt = int(np.argmax(logits[b]))
             req.out_tokens.append(nxt)
             self._m_tokens.inc()
+            if self._m_tokens_shard is not None:
+                self._m_tokens_shard[self._shard_of(b)].inc()
             if req.first_token_at is None:
                 req.first_token_at = now
             self.cur_tokens[b] = nxt
@@ -835,18 +1082,28 @@ class DecodeServer:
                 self.slot_req[b] = None
         return int(self.live.sum())
 
-    def _decode_block(self, k: int, temps: np.ndarray, remaining: np.ndarray):
-        """K decode steps with sampling and retirement decided on the device.
-        The carry is the server's device state (caches, cur, pos, live,
-        remaining); returns the caches and ONE host array holding the
-        [K, 4, B] block (token, emitted, done, finite) followed by the final
-        cur/pos/live rows."""
+    def _next_token(self, b: int, logits_b: np.ndarray) -> int:
+        """Slot ``b``'s next token from its host logits: greedy argmax, or
+        a draw from the server's generator at the request's temperature."""
+        req = self.slot_req[b]
+        if req.temperature > 0:
+            probs = torch.softmax(
+                torch.as_tensor(logits_b, device=self.device) / req.temperature, -1)
+            return int(torch.multinomial(probs, 1, generator=self._gen))
+        return int(np.argmax(logits_b))
+
+    def _decode_block(self, k: int, temps: np.ndarray, remaining: np.ndarray, rows: slice):
+        """K decode steps with sampling and retirement decided on the device,
+        for the slots ``rows`` that this process holds.  The carry is the
+        server's device state (caches, cur, pos, live, remaining); returns
+        the caches and ONE host array holding the [K, 4, B] block (token,
+        emitted, done, finite) followed by the final cur/pos/live rows."""
         dev, S = self.device, self.S
         eos = -1 if self.eos_id is None else self.eos_id
         caches = self.caches
-        cur = self._tokens(self.cur_tokens)
-        pos = self._tokens(self.pos)
-        live = torch.as_tensor(self.live, device=dev)
+        cur = self._tokens(self.cur_tokens[rows])
+        pos = self._tokens(self.pos[rows])
+        live = torch.as_tensor(self.live[rows], device=dev)
         left = self._tokens(remaining)
         temps_t = torch.as_tensor(temps, device=dev)
         sampling = bool((temps > 0).any())
@@ -897,14 +1154,18 @@ class DecodeServer:
                           for r in self.slot_req], np.float32)
         remaining = np.array([r.max_new_tokens - len(r.out_tokens) if r is not None else 0
                               for r in self.slot_req], np.int64)
+        rows = slice(None) if self._rows is None else slice(self._rows.start, self._rows.stop)
         with self._tr.span("decode_block", cat="decode",
                            args={"live": int(self.live.sum()), "k": k}):
             if self._dispatch_fault():
                 return int(self.live.sum())
-            self.caches, packed = self._decode_block(k, temps, remaining)
+            self.caches, packed = self._decode_block(k, temps[rows], remaining[rows], rows)
             # ONE sync: the K×B block plus the carry vectors to the host
             with self._tr.span("device_sync", cat="sync"):
                 host = packed.cpu().numpy()
+        if self._rows is not None:
+            # the sharded layout's one exchange: every rank's block rows
+            host = self._gather_slots(host)
         self._m_syncs.inc()
         blk = host[: 4 * k].reshape(k, 4, self.B)
         toks = blk[:, 0]
@@ -931,6 +1192,8 @@ class DecodeServer:
                 nxt = int(toks[t, b])
                 req.out_tokens.append(nxt)
                 self._m_tokens.inc()
+                if self._m_tokens_shard is not None:
+                    self._m_tokens_shard[self._shard_of(b)].inc()
                 if req.first_token_at is None:
                     req.first_token_at = now
                 if done_now[t, b]:
@@ -980,8 +1243,25 @@ class DecodeServer:
             "scheduler": self.scheduler.telemetry(),
             "health": self.health(),
         }
-        if self.prefix_cache is not None:
-            out["prefix_cache"] = self.prefix_cache.telemetry()
+        if self.plan is not None:
+            out["mesh"] = dict(
+                self.plan.describe(),
+                slots_per_shard=self._slots_per_shard,
+                live_by_shard=[sum(int(self.live[b]) for b in self.plan.slots_of_shard(s, self.B))
+                               for s in range(self.dp)],
+                decoded_tokens_by_shard=[int(c.value) for c in self._m_tokens_shard],
+            )
+        if self.prefix_caches:
+            if self.plan is None:
+                out["prefix_cache"] = self.prefix_cache.telemetry()
+            else:
+                per = [c.telemetry() for c in self.prefix_caches]
+                agg = {k: sum(p[k] for p in per)
+                       for k in ("hits", "partial_hits", "misses", "insertions", "evictions",
+                                 "prompt_steps_saved", "bytes_in_use", "budget_bytes",
+                                 "entries")}
+                agg["per_shard"] = per
+                out["prefix_cache"] = agg
         if reset:
             self.reset_stats()
         return out
@@ -991,8 +1271,48 @@ class DecodeServer:
         checkpoints and queued requests are untouched."""
         self.obs.metrics.reset()
         self.scheduler.reset_stats()
-        if self.prefix_cache is not None:
-            self.prefix_cache.reset_stats()
+        for pc in self.prefix_caches or ():
+            pc.reset_stats()
+
+    def host_state(self) -> dict:
+        """The host-side state that every rank of a sharded server holds
+        alike: the slot map, positions, live/reserved/quarantine flags and
+        current tokens, the queue, the prefill jobs, the retired requests,
+        every shard's prefix-cache tree (prefixes, flags, byte counts, LRU
+        clocks) and the counters.  Wall-clock readings (latencies, waits)
+        and the kernels' own host syncs, which differ by rank, are left
+        out."""
+
+        def tree(pc):
+            out = []
+
+            def walk(node, prefix):
+                if node.entry is not None:
+                    e = node.entry
+                    out.append((prefix, e.length, e.resumable, e.nbytes, e.last_used))
+                for first in sorted(node.children):
+                    child = node.children[first]
+                    walk(child, prefix + child.edge)
+
+            walk(pc.root, ())
+            return out, pc.bytes_in_use, pc._clock
+
+        snap = self.obs.metrics.snapshot()
+        return {
+            "slots": [None if r is None else r.uid for r in self.slot_req],
+            "pos": self.pos.tolist(), "live": self.live.tolist(),
+            "reserved": self.reserved.tolist(), "quarantined": self.quarantined.tolist(),
+            "cur_tokens": self.cur_tokens.tolist(),
+            "queued": sorted(r.uid for q in self.scheduler._queues.values() for r in q),
+            "jobs": [(j.req.uid, j.slot, j.pos) for j in self._jobs],
+            "completed": [(r.uid, list(r.out_tokens), r.finish_reason, r.shard,
+                           r.prefix_hit_tokens) for r in self.completed],
+            "prefix_caches": [tree(pc) for pc in self.prefix_caches or ()],
+            "counters": {k: v for k, v in snap["counters"].items()
+                         if not k.startswith("prefill_kernel_syncs")},
+            "gauges": {k: v for k, v in snap["gauges"].items()
+                       if not k.startswith("sched_max_wait_s")},
+        }
 
     def run_until_drained(self, max_ticks: int = 10_000,
                           persistent: bool | None = None) -> list[Request]:
@@ -1006,4 +1326,5 @@ class DecodeServer:
         return self.completed
 
 
-__all__ = ["DEFAULT_BLOCK_K", "DecodeServer", "Request", "splice_cache"]
+__all__ = ["DEFAULT_BLOCK_K", "DecodeServer", "Request", "ShardPlan", "scheduler_config",
+           "splice_cache"]

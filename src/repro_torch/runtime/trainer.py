@@ -14,7 +14,7 @@ Responsibilities:
     data pipeline (simulated-host model) and are logged.
 
 Meshes (the reference's sharded train step and elastic re-sharding) are not
-ported yet (ROADMAP.md, Queue 1 item 12: Multi-device and launchers).
+ported yet (ROADMAP.md, Queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -108,8 +108,9 @@ class Trainer:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "Trainer(mesh): sharded training is not ported to repro_torch yet "
-                "(ROADMAP.md, Queue 1 item 12: Multi-device and launchers)")
+                "Trainer(mesh): sharded training (FSDP/ZeRO specs, elastic "
+                "re-sharding on restore) is not ported to repro_torch yet (ROADMAP.md, "
+                "Queue 1 item 12b: Multi-device training and the dry run)")
         self.device = resolve_device(device)
         self.cfg, self.tcfg, self.ocfg = cfg, tcfg, ocfg
         self.data = TokenPipeline(dcfg)

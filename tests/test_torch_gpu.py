@@ -1598,3 +1598,156 @@ def test_trainer_on_the_card_checkpoints_and_restores_onto_the_card(cuda, tmp_pa
                                                              "opt": tr.opt_state}), strict=True):
         assert got.device.type == "cuda" and got.dtype == want.dtype
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the mesh slice: ShardPlan serving in both layouts, synthesize's TP and DP,
+# expert-parallel MoE.  One card: several ranks share cuda:0 over gloo (the
+# serving control plane and the TP all-reduce take CUDA tensors there), and
+# NCCL runs at world size 1 (it refuses two ranks on one card).
+# ---------------------------------------------------------------------------
+
+def _mesh_traffic(vocab):
+    rng = np.random.default_rng(0)
+    return [([int(t) for t in rng.integers(1, vocab, size=int(rng.integers(2, 9)))], 6)
+            for _ in range(8)]
+
+
+def _mesh_serve(cfg, params, dev, plan=None, block=False, **kw):
+    from repro_torch.runtime import DecodeServer, Request
+
+    srv = DecodeServer(cfg, params, num_slots=8, max_seq=48, block_k=4, plan=plan,
+                       device=dev, **kw)
+    for i, (p, m) in enumerate(_mesh_traffic(cfg.vocab)):
+        srv.submit(Request(uid=i, prompt=p, max_new_tokens=m))
+    return {r.uid: list(r.out_tokens) for r in srv.run_until_drained(persistent=block)}, srv
+
+
+def _lstm_pallas(dev):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config("paper-lstm"), use_pallas=True)
+    return cfg, lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
+@pytest.mark.parametrize("block", [False, True], ids=["step", "step_block"])
+def test_folded_dp8_use_pallas_serving_gives_the_unsharded_tokens(cuda, block):
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.launch.mesh import AXES, AbstractMesh
+    from repro_torch.runtime import ShardPlan
+
+    cfg, params = _lstm_pallas(cuda)
+    base, _ = _mesh_serve(cfg, params, cuda, block=block)
+    launches = ops.lstm_seq.launches
+    folded, srv = _mesh_serve(cfg, params, cuda, ShardPlan(AbstractMesh((1, 8, 1), AXES),
+                                                           fold_data=True), block=block)
+    assert folded == base
+    assert ops.lstm_seq.launches - launches == cfg.n_layers * 8     # one prefill a request
+    by_shard = srv.stats()["mesh"]["decoded_tokens_by_shard"]
+    assert sum(by_shard) == srv.decoded_tokens and sum(t > 0 for t in by_shard) > 1
+
+
+def _ranks_card_serving(rank, world, block):
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import ShardPlan
+
+    dev = torch.device("cuda", 0)
+    cfg, params = _lstm_pallas(dev)
+    plan = ShardPlan(make_local_mesh(dp=world, tp=1))
+    launches = ops.lstm_seq.launches
+    toks, srv = _mesh_serve(cfg, params, dev, plan, block=block)
+    mine = sum(1 for r in srv.completed if r.shard == plan.local_shard)
+    return toks, ops.lstm_seq.launches - launches, mine * cfg.n_layers
+
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_sharded_use_pallas_serving_on_the_card(cuda, backend, world):
+    """Each rank launches lstm_seq for its own shard's prefills only, and
+    the tokens are the unsharded server's."""
+    from repro_torch.launch.spawn import run_ranks
+
+    cfg, params = _lstm_pallas(cuda)
+    base, _ = _mesh_serve(cfg, params, cuda)
+    for block in (False, True):
+        results = run_ranks(_ranks_card_serving, world, (block,), backend=backend,
+                            timeout_s=300)
+        for toks, launched, own in results:
+            assert toks == base
+            assert launched == own > 0
+
+
+def _ranks_card_synthesis(rank, world, backend):
+    from repro_torch.codegen import build_program, eager_backend, kernel_backend
+    from repro_torch.core.synthesis import NetworkSpec, synthesize
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import comm
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    with torch.no_grad():
+        spec = NetworkSpec(8, 2, 64, 4, cell="lstm", seq_len=16)
+        prog = build_program(spec, dev)
+        u = torch.as_tensor(np.random.default_rng(1).normal(size=(8, 16, 8)),
+                            dtype=torch.float32, device=dev)
+        one = eager_backend.compile_program(prog, device=dev)(prog.params, u)
+        mesh = make_local_mesh(dp=1, tp=world)
+        comm.reset_counts()
+        tp = eager_backend.compile_program(prog, mesh=mesh, device=dev)(prog.params, u)
+        out["tp_err"] = float((tp - one).abs().max())
+        out["tp_reduces"] = comm.COUNTS["all_reduce"]
+        spec_c = NetworkSpec(8, 1, 64, 4, cell="lstm", seq_len=16, c_slow=2 * world)
+        prog_c = build_program(spec_c, dev)
+        uc = torch.as_tensor(np.random.default_rng(2).normal(size=(2 * world, 4, 16, 8)),
+                             dtype=torch.float32, device=dev)
+        k_one = kernel_backend.compile_program(prog_c, device=dev)(prog_c.params, uc)
+        k_dp = kernel_backend.compile_program(prog_c, mesh=make_local_mesh(dp=world, tp=1),
+                                              device=dev)(prog_c.params, uc)
+        out["dp_err"] = float((k_dp - k_one).abs().max())
+        r = synthesize(spec, batch=8, backend="eager", mesh=mesh, measure=False, device=dev)
+        out["backend"] = r.backend
+    return out
+
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_mesh_synthesis_on_the_card(cuda, backend, world):
+    """Eager TP across the ranks within 1e-4 of one device (another
+    summation order); the kernel backend's DP within 1e-4 of its unsharded
+    launch (the kernel's grid takes another batch)."""
+    from repro_torch.launch.spawn import run_ranks
+
+    for out in run_ranks(_ranks_card_synthesis, world, (backend,), backend=backend,
+                         timeout_s=300):
+        assert out["tp_err"] < 1e-4 and out["dp_err"] < 1e-4, out
+        assert out["tp_reduces"] == (2 * 16 if world > 1 else 0), out
+        assert out["backend"] == "eager"
+
+
+def _ranks_card_ep(rank, world):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.ep_moe import ep_moe_apply
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("olmoe-1b-7b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        p = moe.moe_params(g, cfg)
+    x = torch.randn(256, cfg.d_model, generator=g, device=dev) * 0.5
+    comm.reset_counts()
+    with torch.no_grad():
+        y = ep_moe_apply(p, cfg, x, make_local_mesh())
+        y_ref, _ = moe.moe_apply(p, cfg, x[None], group_size=256)
+    return float((y - y_ref[0]).abs().max()), comm.COUNTS["all_to_all_single"]
+
+
+def test_ep_moe_at_olmoe_widths_on_the_card_under_nccl(cuda):
+    """NCCL's all_to_all at world size 1 (the largest world one card
+    allows), 64 experts top-8 at d_model 2048."""
+    from repro_torch.launch.spawn import run_ranks
+
+    [(err, a2a)] = run_ranks(_ranks_card_ep, 1, backend="nccl", timeout_s=300)
+    assert a2a == 2 and err < 2e-4, (err, a2a)

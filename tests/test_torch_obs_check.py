@@ -197,16 +197,26 @@ def test_launcher_writes_documents_both_checkers_accept(tmp_path):
     assert {"prefill_chunk", "decode_step", "request"} <= names
 
 
-def test_launcher_synthetic_stream_and_unported_mesh(tmp_path, capsys):
+def test_launcher_synthetic_stream_and_unported_mesh(tmp_path, capsys, monkeypatch):
     from repro_torch.launch import serve
 
     serve.main(["--arch", "smollm-135m", "--requests", "3", "--max-new", "3",
                 "--persistent", "--watchdog-s", "30", "--device", "cpu"])
     err = capsys.readouterr()
     assert "served 3 requests" in err.out + err.err
-    for flag in (["--mesh", "2x1"], ["--mesh-layout", "folded"]):
-        with pytest.raises(NotImplementedError, match="Multi-device and launchers"):
-            serve.main(["--arch", "paper-lstm", "--device", "cpu"] + flag)
+    # --mesh is ported: the folded layout serves in this process; the
+    # sharded one needs torchrun's ranks and says how to start them
+    serve.main(["--arch", "paper-lstm", "--requests", "4", "--max-new", "3", "--device", "cpu",
+                "--mesh", "2x1", "--mesh-layout", "folded"])
+    err = capsys.readouterr()
+    assert "'layout': 'folded'" in err.out + err.err and "served 4 requests" in err.out + err.err
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node=2 -m repro_torch.launch.serve"):
+        serve.main(["--arch", "paper-lstm", "--device", "cpu", "--mesh", "2x1"])
+    with pytest.raises(ValueError, match="tensor parallelism needs the physical layout"):
+        serve.main(["--arch", "paper-lstm", "--device", "cpu", "--mesh", "1x2",
+                    "--mesh-layout", "folded"])
 
 
 def test_report_writes_a_ledger_both_checkers_accept(tmp_path):

@@ -27,6 +27,8 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.runtime import scheduler as pt_sched  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.runtime.server import DecodeServer, Request, splice_cache  # noqa: E402
+from repro_torch.launch.mesh import AXES, AbstractMesh  # noqa: E402
+from repro_torch.runtime.shard_plan import ShardPlan  # noqa: E402
 
 PROMPTS = [[5, 17, 3], [9, 9, 200, 41], [7, 1, 2, 3, 4], [250, 6, 6], [11, 12, 13, 14]]
 MAX_NEW = [6, 3, 5, 7, 4]
@@ -239,9 +241,12 @@ def test_stats_keys_match_reference(weights):
     assert set(st["scheduler"]) == set(ref["scheduler"])
 
 
-@pytest.mark.parametrize("kw", [dict(plan=object())])
+# mesh placement is ported (tests/test_torch_sharded_serving.py); tensor
+# parallelism inside the served models is not, and a sharded plan with tp > 1
+# raises before it looks for a process group
+@pytest.mark.parametrize("kw", [dict(plan=ShardPlan(AbstractMesh((1, 1, 2), AXES)))])
 def test_unported_server_features_raise(weights, kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported.*item 12b"):
         _server(weights, **kw)
 
 

@@ -163,7 +163,9 @@ def test_create_top_module_matches_reference_on_bridged_weights():
 
 def test_unported_options_raise_and_name_the_roadmap(monkeypatch):
     spec = paper_mlp.CASE_STUDY
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= is ported (tests/test_torch_sharded_synthesis.py): what is not a
+    # mesh is refused by name
+    with pytest.raises(TypeError, match="AbstractMesh or a DeviceMesh"):
         synthesis.synthesize(spec, device="cpu", mesh=object())
     # optimize= is ported: it hands the spec to the tuner, on the device asked
     # for (tests/test_torch_tune.py runs the loop itself); budget without

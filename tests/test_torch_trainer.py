@@ -131,7 +131,7 @@ def test_five_steps_match_the_reference_trainer(tmp_path):
 
 def test_mesh_is_not_ported(tmp_path):
     cfg, tcfg, ocfg, dcfg = _setup(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12: Multi-device and launchers"):
+    with pytest.raises(NotImplementedError, match="item 12b: Multi-device training"):
         Trainer(cfg, tcfg, ocfg, dcfg, mesh=object(), device="cpu")
 
 
