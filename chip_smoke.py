@@ -65,8 +65,8 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    its q tile, the key shares the host chose and its launches per call
    (which must be 1, or 2 where the key axis is split, as the wrapper
    counts them); then the fp32 bar at 512 to 8192 keys (hd 128);
-12. serve mamba — full-width ``falcon-mamba-7b`` (64 layers, 7.3 B fp32
-   parameters from a seed) with ``use_pallas=True`` through ``DecodeServer``
+12. serve mamba — ``falcon-mamba-7b`` at its published widths, its 64
+   layers cut to 16 (2.2 B fp32 parameters from a seed) with ``use_pallas=True`` through ``DecodeServer``
    under ``step()``, ``step_block()`` and chunked prefill: identical tokens,
    ``ssm_scan`` launched once per layer of every prefill call, prefill
    logits held against the plain path; then its ``step()`` run on the first
@@ -95,13 +95,16 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    ``kernel_syncs`` its own ``lstm_seq`` calls); ``decode.nan_logits``,
    ``decode.dispatch`` and ``tick.slow`` injected at full width;
    ``falcon-mamba-7b`` at its widths cut to 16 of its 64 layers (in phase
-   12, on the first 16 of its loaded groups) chunked without and with a
+   12, on its loaded weights) chunked without and with a
    256 MiB cache (1 GiB × 16/64) that evicts (``ssm_scan`` launched once a
    layer of every chunk run); ``smollm-135m`` (in phase 13) unchunked with a 256 MB
    cache (``flash_attention`` 30 calls a miss, none in the all-hit second
-   pass); then ``python -m repro_torch.launch.serve`` and ``python -m
-   repro_torch.obs.report`` as subprocesses on the card, and ``python -m
-   repro_torch.obs.check`` on the four documents they write.  Each model's
+   pass); then (after phase 20) every entry point the smoke runs as a
+   subprocess, all started together: ``python -m
+   repro_torch.launch.serve`` and ``python -m repro_torch.obs.report`` on
+   the card, and ``python -m repro_torch.obs.check`` on the four documents
+   they write; the launchers and CLIs of phases 16, 17, 19, 20 and 21,
+   each checked as there.  Each model's
    prefill logits are held against ``use_pallas=False`` at every distinct
    prompt length of the trace, one-shot and/or chunked as its servers
    prefill.
@@ -109,7 +112,7 @@ Phases, one line per case (any failure exits non-zero and prints no result):
 16. bit_path (run after phase 7) — the paper's fixed-point path at the
    published widths of the synthesis cells, ``NetworkSpec(1024, 8, 1024,
    1024, seq_len=256)``: ``rtlsim.simulate`` against
-   ``golden.fixed_forward`` word for word (lstm at 18, 24 and 32 bits; gru,
+   ``golden.fixed_forward`` word for word (lstm at 18 and 32 bits; gru,
    ssm and mlp at 18), with their seconds, FSM cycles and largest |code|;
    the ``ref``, ``eager`` and ``kernel`` float legs on the same cells
    (kernel and ref against eager within 1e-4 of max(1, max|y|), the
@@ -120,9 +123,10 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    bytes, the resource report); the static gate
    (``synthesize(backend="kernel", analyze=True)``) on the paper's specs and
    the 8 × 1024 lstm, refused until their error findings are waived, with
-   the analysis seconds; then ``python -m repro_torch.verify.difftest``
-   (also ``--regen-goldens`` into ``build/bit_path/``) and ``python -m
-   repro_torch.analyze`` as subprocesses, each exiting 0.
+   the analysis seconds; ``python -m repro_torch.verify.difftest`` (also
+   ``--regen-goldens`` into ``build/bit_path/``) and ``python -m
+   repro_torch.analyze`` run as subprocesses with phase 15's entry
+   points, each exiting 0.
 
 17. tune_chaos (run last) — ``synthesize(spec, optimize="latency", budget=6,
    batch=2)`` (the Fig. 10 auto-tuner: the default grid over unroll, C-slow,
@@ -141,55 +145,58 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    prompts) on the kernel path against ``use_pallas=False``, then the suite
    (nine scenarios, every fault class) at full width on ``smollm-135m``
    (``flash_attention``) and ``paper-lstm`` (``lstm_seq``) with
-   ``use_pallas``; ``python -m repro_torch.verify.chaos`` and ``python -m
-   repro_torch.analyze --lint-src`` as subprocesses, each exiting 0, and
+   ``use_pallas``; ``python -m repro_torch.verify.chaos`` as a subprocess
+   exiting 0 (``python -m repro_torch.analyze --lint-src`` runs with phase
+   15's entry points), and
    ``python -m repro_torch.obs.check`` on every document.
 
 18. serve gemma3 (after phase 14) — ``gemma3-27b`` at its published widths
    (d_model 5376, 32/16 heads at hd 128, d_ff 21 504, vocab 262 144, window
-   1024, RoPE 10k/1M, qk-norm, GELU-tanh, tied) cut to 14 layers (two 5:1
-   groups and the 2-layer local tail: 7.19 B fp32 parameters), random
+   1024, RoPE 10k/1M, qk-norm, GELU-tanh, tied) cut to 8 layers (one 5:1
+   group and the 2-layer local tail), random
    weights from a seed, ``use_pallas``: ten requests (prompts of 17, 512,
    1023, 1024, 1025, 1537 and 2048 tokens, two sharing a 1024-token prefix,
    one of 1000 tokens whose 64 new tokens cross position 1024 on the ring;
-   32 new tokens otherwise), 4 slots, ``max_seq`` 2112, under one-shot
+   16 new tokens otherwise), 4 slots, ``max_seq`` 2112, under one-shot
    ``step()``, ``step_block()`` and chunked ``step()`` (chunk 256) with a
    12 GiB prefix cache, twice (the second pass all full hits): equal tokens
    across the four runs, the 1025-, 2048- and 1000+64-token requests equal
-   to the plain greedy loop on the card, ``flash_attention`` 14 calls a
-   one-shot prefill (12 windowed) with its launches, none in a chunk, and
+   to the plain greedy loop on the card, ``flash_attention`` 8 calls a
+   one-shot prefill (7 windowed) with its launches, none in a chunk, and
    each distinct prompt's prefill logits held against the plain path; then
    ``internlm2-20b`` at its published widths cut to 4 layers (2.70 B, untied
    head): a 2048-token prefill against the plain path and a ``step()``
    serve of four prompts (17-2048 tokens), each held to the plain loop.
 
-19. serve zamba2 (after phase 18) — ``zamba2-1.2b`` at its published widths
-   and depth, nothing cut (38 blocks: six groups of five Mamba-2 blocks and
-   one application of the shared transformer block, then two Mamba-2
+19. serve zamba2 (after phase 18) — ``zamba2-1.2b`` at its published widths,
+   its 38 blocks cut to 14 (two groups of five Mamba-2 blocks and one
+   application of the shared transformer block, then two Mamba-2
    blocks; d_model 2048, 64 SSD heads of 64, N 64; the shared block 32/32
    heads at hd 64, d_ff 8192 GELU-tanh, LoRA rank 128; vocab 32 000;
-   1 026 412 544 fp32 parameters from a seed, with the LoRA B matrices,
+   508 374 784 fp32 parameters from a seed, with the LoRA B matrices,
    ``dt_bias``, ``D`` and the conv biases drawn nonzero), ``use_pallas``:
    nine requests (prompts of 17, 131, 512, 1024, 1031, 2048 and 4096
    tokens, two of 1088 sharing a 1024-token prefix; 131 and 1031 run the
-   SSD in chunks of 1), 32 new tokens each, 4 slots, ``max_seq`` 4224,
+   SSD in chunks of 1), 16 new tokens each, 4 slots, ``max_seq`` 4224,
    under one-shot ``step()``, ``step_block()`` and chunked ``step()``
    (chunk 256) with a prefix cache sized to hold every checkpoint, twice
    (the second pass all full hits): equal tokens across the four runs, the
    131-, 1031-, 2048-token and one shared-prefix request equal to the plain
-   greedy loop, ``flash_attention`` 6 calls a one-shot prefill and none in
+   greedy loop, ``flash_attention`` 2 calls a one-shot prefill and none in
    a chunk, each distinct length's prefill logits within 1e-5 of max
    |logit| of the plain path with its ms, transient memory and SSD chunk;
    adaptive prefill under ``step_block()`` with the cache and chunked
-   prefill under ``AsyncServer``, each with ``step()``'s tokens; ``python
-   -m repro_torch.launch.serve --arch zamba2-1.2b`` as a subprocess; then
-   a device-only profile of ``step()`` on the first four requests.
+   prefill under ``AsyncServer``, each with ``step()``'s tokens; then
+   a device-only profile of ``step()`` on the first four requests
+   (``python -m repro_torch.launch.serve --arch zamba2-1.2b`` runs with
+   phase 15's entry points).
 
 20. serve MoE (after phase 19) — ``olmoe-1b-7b`` uncut (16 layers of MHA
    16/16 at hd 128 with qk-norm and 64 experts of 1024, top-8; 6.92 B fp32
-   parameters from a seed) and ``deepseek-v2-lite-16b`` uncut (27 layers
-   of MLA, r 512 + dr 64, and 2 shared + 64 routed experts of 1408, top-6;
-   16.21 B), ``use_pallas``, 32 new tokens a request, 4 slots, ``max_seq``
+   parameters from a seed) and
+   ``deepseek-v2-lite-16b`` at its published widths, 27 layers cut to 9
+   (MLA, r 512 + dr 64, and 2 shared + 64 routed experts of 1408, top-6;
+   5.68 B), ``use_pallas``, 16 new tokens a request, 4 slots, ``max_seq``
    2112: prompts of 17, 131, 512, 1024, 2048 (and on olmoe 2050, whose
    MoE groups are 2 tokens: the reference's group rule's cliff) tokens and
    two of 1088 sharing a 1024-token prefix, under one-shot ``step()`` and
@@ -203,8 +210,8 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    the logits within 1e-5 of max |logit| where none differ, else every
    flip of the first flipping layer a near-tie (margin below 1e-6);
    ``flash_attention`` 16 calls a one-shot olmoe prefill and none on
-   deepseek (MLA has no kernel); ``launch.serve --arch olmoe-1b-7b`` as a
-   subprocess.  Then olmoe's weights in int8 (``quantize_lm_params`` on the
+   deepseek (MLA has no kernel) (``launch.serve --arch olmoe-1b-7b`` runs
+   with phase 15's entry points).  Then olmoe's weights in int8 (``quantize_lm_params`` on the
    card, three leaves bit-identical to the host CPU's, the router fp32):
    the fp32 tree freed, the dequantized model's 2048-token logits against
    fp32 with its own routing and with the fp32 routing pinned (SNR and
@@ -221,12 +228,12 @@ Phases, one line per case (any failure exits non-zero and prints no result):
 21. train (after phase 17) — ``smollm-135m`` at its published widths and
    depth (134 515 008 fp32 parameters from a seed, ``remat``) through
    ``Trainer`` on ``DataConfig(vocab=49152, seq_len=4096, global_batch=8)``
-   (train_4k's sequence length, two microbatches of 4), 4 steps: each
+   (train_4k's sequence length, two microbatches of 4), 3 steps: each
    step's loss, ms, tokens/s, ``grad_norm`` and learning rate, and the
    phase's peak allocation beside the prediction; the restart drill at
-   ``seq_len`` 1024 (an uninterrupted 6-step run with async checkpoints
+   ``seq_len`` 1024 (an uninterrupted 4-step run with async checkpoints
    every 2 steps against a run failing at step 3 and a new ``Trainer``
-   resuming to step 6: the final parameters and optimizer state within
+   resuming to step 4: the final parameters and optimizer state within
    1e-6, bit-identity printed, and if not, the gradient leaves whose
    backward is not deterministic); one ``train_loss`` and its gradients on
    the card against the host's CPU on the trained parameters at B = 1, S =
@@ -234,9 +241,10 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    ``paper-lstm`` at full width (108 307 456 parameters): 2 steps at T =
    256, B = 8, and the same check at B = 1, T = 64; ``train_loss`` with
    ``use_pallas=True`` on the card refused by ``flash_attention``'s and
-   ``lstm_seq``'s wrappers before a backward is reached; ``python -m
+   ``lstm_seq``'s wrappers before a backward is reached (``python -m
    repro_torch.launch.train --arch smollm-135m --steps 2 --seq 256 --batch
-   4`` as a subprocess; and no kernel launched during the phase;
+   4`` runs with phase 15's entry points); and no kernel launched during
+   the phase;
 22. mesh — phase 3's full-width ``paper-lstm`` traffic (``use_pallas``)
    under ``ShardPlan(fold_data=True)`` at dp = 8 in this process, under
    both drivers, with phase 3's tokens, every decode call's logits bit for
@@ -254,11 +262,29 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    its readout GEMM, with ``MESH_KERNEL_DP_GAP``); then one rank under NCCL (NCCL
    refuses two ranks on one card): the sharded server at dp = 1, logits
    bit for bit, and ``ep_moe_apply`` at olmoe's widths (64 experts, top-8)
-   against ``moe_apply(group_size=T_local)``, two all-to-alls a call.
+   against ``moe_apply(group_size=T_local)``, two all-to-alls a call;
+23. mesh_train — ``smollm-135m`` at its published widths and depth through
+   ``Trainer`` on the same initial weights three ways: ``mesh=None`` in
+   this process, ``mesh=make_local_mesh(2, 1)`` over two gloo ranks sharing
+   the card (parameters and AdamW moments stored as each rank's ZeRO/FSDP
+   shards) and ``make_local_mesh(1, 1)`` under NCCL at world size 1 (this
+   process joins a group of its own); 3 steps of 8 ×
+   1024 tokens (train_4k's sequence cut to 1024) in two microbatches: each
+   step's ms, tokens/s and peak GB per rank, its loss and grad-norm gaps to
+   ``mesh=None`` (held within 1e-5 relative), the largest parameter gap
+   after the last step, NCCL dp = 1 bit-identical to ``mesh=None``; the
+   dp = 2 checkpoint restored under dp = 1 and under (1, 1, 2), bit for
+   bit; the int8 error-feedback all-reduce on the two ranks' full gradient
+   trees (every leaf within one int8 step of the exact mean, 30 steps on
+   the 49 152 × 576 embedding averaging within 0.2 of it, an int32
+   payload); ``pipeline_apply`` over the two ranks at D = 2048, C = 8
+   microbatches of 256 rows, within 1e-5 of ``sequential_reference`` with
+   C + P − 1 ring transfers; and no kernel launched during the phase.
 
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
-seconds.  The script imports nothing of JAX and nothing of the JAX package.
+seconds, and on standard error its name and the seconds since the start
+(so a run that is stopped shows how far it got).  The script imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -300,7 +326,7 @@ LUT_TOL = 1e-6      # tanh_lut vs plain: the same fp32 arithmetic (up to FMA con
 LOGITS_ATOL = 1e-3  # fast-path prefill logits vs the plain path
 SYNTH_TOL = 1e-3    # synthesize()'s forward vs eager (atol = rtol; 8 layers x 256 steps)
 # falcon-mamba use_pallas prefill logits vs the plain path, relative to the
-# largest |logit|: 64 layers compound the kernel's rounding (FMA contraction,
+# largest |logit|: its layers compound the kernel's rounding (FMA contraction,
 # the order of the sum over N) with the rest of the stack's
 MAMBA_LOGITS_RTOL = 1e-3
 # flash_attention vs plain on the card: fp32 at the reference kernel's own
@@ -329,15 +355,23 @@ LOADGEN_TRACE = dict(num_requests=32, mean_interarrival_ticks=0.25, short_len=(8
                      fleet_prefix_len=128, fleet_suffix_len=(1, 33), max_new_tokens=32, seed=0)
 LOADGEN_UID_OFFSET = 1000        # the second pass's uids
 LOADGEN_MAMBA_LAYERS = 16        # falcon-mamba-7b's replay: 64 layers cut to 16
+# falcon-mamba-7b in phase 12 as in its replay: 64 layers cut to 16 (each
+# layer repeats the same block; phase 9 times ssm_scan at its shapes), and
+# the replay's prefix budget 1 GiB x 16/64 of the published depth, so it
+# still evicts
+MAMBA_LAYERS = 16
+MAMBA_PUBLISHED_LAYERS = 64
 
 # the bit_path phase: sequence steps and batch of its full-width cells, the
 # float legs' bar (ref and kernel against eager, relative to the largest |y|
 # where that exceeds 1: the 8-layer ssm's linear state reaches ~1e6), and
-# the seeds its difftest subprocess runs (each builds its own stage kernels)
+# the seeds its difftest subprocess runs (each builds its own stage kernels;
+# two show the CLI runs on the card, the CPU tests hold 20 against the
+# reference, and more repeat the same check on other small random specs)
 BIT_T = 256
 BIT_BATCH = 2
 BIT_FLOAT_TOL = 1e-4
-BIT_DIFFTEST_SEEDS = 6
+BIT_DIFFTEST_SEEDS = 2
 
 # the tune_chaos phase: the measure budget and batch of each tune run (the
 # reference's tune suite: budget 6, batch 2)
@@ -345,15 +379,16 @@ TUNE_BUDGET = 6
 TUNE_BATCH = 2
 
 # the serve_gemma3 phase: gemma3-27b at its published widths, depth cut to
-# two 5:1 groups and the 2-layer local tail; prompts either side of the
-# 1024 window, two sharing a 1024-token prefix, one whose decode crosses
-# position 1024 on the ring; a prefix cache that keeps every checkpoint
-# (one past the window holds 12 whole rings, ~201 MB)
-GEMMA_LAYERS = 14
+# one 5:1 group and the 2-layer local tail (every layer kind; 14 layers
+# before PR 25); prompts either side of the 1024 window, two sharing a
+# 1024-token prefix, one whose decode crosses position 1024 on the ring; a
+# prefix cache that keeps every checkpoint (one past the window holds a
+# whole ring for each local layer)
+GEMMA_LAYERS = 8       # one 5:1 group and the 2-layer local tail
 GEMMA_LENGTHS = (17, 512, 1023, 1024, 1025, 1537, 2048)
 GEMMA_SHARED = (1024, 64)
 GEMMA_CROSS = (1000, 64)
-GEMMA_NEW = 32
+GEMMA_NEW = 16          # decode tokens past 16 repeat the step (the crossing request keeps 64)
 SERVE_SLOTS = 4
 GEMMA_MAX_SEQ = 2112
 GEMMA_CHUNK = 256
@@ -363,29 +398,39 @@ INTERNLM_LAYERS = 4
 INTERNLM_LENGTHS = (17, 256, 1024, 2048)
 INTERNLM_NEW = 16
 
-# the serve_zamba2 phase: zamba2-1.2b at its published widths and depth,
-# nothing cut.  Prompts either side of the SSD chunk of 128 (131 and 1031
+# the serve_zamba2 phase: zamba2-1.2b at its published widths, depth cut
+# from six groups of five Mamba-2 blocks and the shared block (and the
+# 2-block tail) to two groups and the tail: 14 blocks, 508 374 784
+# parameters (the shared block applied twice, each with its own LoRA).  Prompts either side of the SSD chunk of 128 (131 and 1031
 # are prime, so their one-shot scans run chunks of 1; 512-4096 run chunks
 # of 128), two sharing a 1024-token prefix; the prefix cache's budget is
 # computed from the checkpoints the chunked pass stores
 # (``checkpoint_bytes``); prefill logits held to 1e-5 of max |logit|; the
 # profile's step() run serves the first four prompts
 ZAMBA_LENGTHS = (17, 131, 512, 1024, 1031, 2048, 4096)
+ZAMBA_LAYERS = 14
+ZAMBA_PARAMS = 508_374_784
 ZAMBA_SHARED = (1024, 64)
-ZAMBA_NEW = 32
+ZAMBA_NEW = 16          # decode tokens past 16 repeat the step at the next position
 ZAMBA_MAX_SEQ = 4224
 ZAMBA_CHUNK = 256
 ZAMBA_LOGITS_RTOL = 1e-5
 ZAMBA_PROFILED = 4
-# phase 20: olmoe-1b-7b and deepseek-v2-lite-16b uncut.  2050 tokens is the
+# phase 20: olmoe-1b-7b uncut (cut to 8 layers, its 512-token prefill sat
+# 1.136e-05 of max |logit| from the plain path with equal routing, past the
+# 1e-5 bar, so it keeps its 16) and deepseek-v2-lite-16b at its published
+# widths, depth cut 27 -> 9 layers (every layer is the same MoE block;
+# 5 683 063 296 parameters).  2050 tokens is the
 # group cliff's shortest cheap case: 2050 = 2 · 1025, so the reference's
 # rule (halve 2048 until it divides) runs 1025 groups of 2 with C = top_k,
 # 25.6x the expert rows of 2048 (2049 would run groups of 1: 51x, ~40 GB of
 # transient).  2048 is deepseek's longest prompt (64.8 GB of weights).
 OLMOE_LENGTHS = (17, 131, 512, 1024, 2048, 2050)
 DEEPSEEK_LENGTHS = (17, 131, 512, 1024, 2048)
+OLMOE_LAYERS, OLMOE_PARAMS = 16, 6_919_100_416
+DEEPSEEK_LAYERS, DEEPSEEK_PARAMS = 9, 5_683_063_296
 MOE_SHARED = (1024, 64)
-MOE_NEW = 32
+MOE_NEW = 16            # decode tokens past 16 repeat the step at the next position
 MOE_MAX_SEQ = 2112
 MOE_CHUNK = 256
 MOE_LOGITS_RTOL = 1e-5
@@ -398,9 +443,9 @@ QUANT_AGREE = 0.8
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 8
 TRAIN_MICRO = 2
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3         # the first step and two steady ones
 DRILL_SEQ = 1024
-DRILL_STEPS = 6
+DRILL_STEPS = 4         # crosses the step-2 checkpoint; more steps repeat it
 DRILL_FAIL = 3
 DRILL_ATOL = 1e-6       # tests/test_trainer_server.py's restart bar
 CHECK_SEQ = 256
@@ -430,8 +475,21 @@ MESH_DP_GAP = 5e-6
 MESH_KERNEL_DP_GAP = 1e-6
 MESH_EP_TOKENS = 512
 MESH_EP_TOL = 2e-4      # run_ep_moe.py's bar
+# phase 23 (mesh_train): smollm-135m uncut, train_4k's sequence cut 4096 ->
+# 1024 to hold the phase's time, the global batch of 8 in two microbatches,
+# 3 steps; losses and grad norms against mesh=None; the compression and
+# pipeline cases of the reference's multi-device scripts at full size
+MT_SEQ = 1024
+MT_BATCH = 8
+MT_MICRO = 2
+MT_STEPS = 3
+MT_RTOL = 1e-5
+MT_COMP_STEPS = 30      # run_compression.py's error-feedback steps
+PIPE_D, PIPE_C, PIPE_ROWS = 2048, 8, 256
+PIPE_TOL = 1e-5         # run_pipeline.py's bar
 
-PHASE_T0 = [time.perf_counter()]
+START_T0 = time.perf_counter()
+PHASE_T0 = [START_T0]
 
 
 def say(phase: str, **fields) -> None:
@@ -441,6 +499,8 @@ def say(phase: str, **fields) -> None:
 def phase_done(name: str) -> None:
     now = time.perf_counter()
     say("phase_time", name=name, seconds=f"{now - PHASE_T0[0]:.1f}")
+    print(f"[phase_done] name={name} since_start_s={now - START_T0:.1f}", file=sys.stderr,
+          flush=True)
     PHASE_T0[0] = now
 
 
@@ -490,6 +550,46 @@ def launches_per_call(fn) -> int:
     return sum(1 for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CPU
                and e.name.startswith("cudaLaunch"))
+
+
+def device_kernels(prof, kind, *, check: bool = False) -> list[tuple[str, int, float]]:
+    """The device work a torch.profiler run recorded, as ``(name, calls,
+    device_us)`` by name, most time first: kernels, copies and memsets.  On
+    the card the profiler's raw records on the device are summed (a device
+    record's time is all its own); building operator events from them, as
+    ``key_averages()`` does, took 7 s for 40 000 kernels on the H100's host
+    against 0.1 s for reading the raw records.  Elsewhere, or where the raw records cannot be read, it is
+    ``key_averages()``' self device time.  ``check`` computes both, prints
+    their busy times and requires them within 1% (the operator events may
+    round each record to whole microseconds)."""
+    def averaged():
+        return sorted(((e.key, e.count, float(e.self_device_time_total))
+                       for e in prof.key_averages()
+                       if e.device_type == kind and e.self_device_time_total > 0),
+                      key=lambda k: -k[2])
+
+    try:
+        if kind != torch.autograd.DeviceType.CUDA:
+            raise TypeError("no device records")
+        by_name: dict[str, list] = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == kind and e.duration_ns() > 0:
+                row = by_name.setdefault(e.name(), [0, 0.0])
+                row[0] += 1
+                row[1] += e.duration_ns() / 1e3
+        raw = sorted(((k, n, us) for k, (n, us) in by_name.items()), key=lambda k: -k[2])
+    except (AttributeError, TypeError):
+        return averaged()
+    if check:
+        avg = averaged()
+        want = sum(us for _, _, us in avg)
+        got = sum(us for _, _, us in raw)
+        say("profile_records", raw_busy_us=f"{got:.1f}", key_averages_busy_us=f"{want:.1f}",
+            raw_records=sum(n for _, n, _ in raw), averaged_records=sum(n for _, n, _ in avg))
+        require(abs(got - want) <= 1e-2 * max(want, 1.0),
+                f"profile: the raw device records sum to {got:.1f} us, key_averages() to "
+                f"{want:.1f} us")
+    return raw
 
 
 def max_err(got, want) -> float:
@@ -603,6 +703,58 @@ def stage_bound_ms(graph, consts: dict, B: int, T: int) -> tuple[float, str]:
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def clis_started(commands: dict, logs: Path):
+    """Start every ``commands`` entry at once, each a subprocess with its
+    output in a file under ``logs`` and a thread that notes when it exits;
+    yields them for :func:`clis_finished`, and kills any still running when
+    the block is left."""
+    import threading
+
+    def note_exit(proc, ended):
+        proc.wait()
+        ended.append(time.perf_counter())
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs.mkdir(parents=True, exist_ok=True)
+    started = {}
+    try:
+        for i, (name, cmd) in enumerate(commands.items()):
+            log = logs / f"cli_{i}.log"
+            with open(log, "w") as out:
+                proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=out,
+                                        stderr=subprocess.STDOUT)
+            ended: list = []
+            threading.Thread(target=note_exit, args=(proc, ended), daemon=True).start()
+            started[name] = (proc, log, time.perf_counter(), ended)
+        yield started
+    finally:
+        for proc, *_ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def clis_finished(started: dict, timeout_s: float = 600) -> dict:
+    """Wait for :func:`clis_started`'s commands: ``{name: (exit code or None
+    if still running after timeout_s, output lines, seconds from its start
+    to its exit)}``."""
+    deadline = time.perf_counter() + timeout_s
+    while (any(proc.poll() is None for proc, *_ in started.values())
+           and time.perf_counter() < deadline):
+        time.sleep(0.05)
+    out = {}
+    for name, (proc, log, t0, ended) in started.items():
+        if proc.poll() is None:
+            out[name] = (None, log.read_text().splitlines(), timeout_s)
+            continue
+        proc.wait()
+        while not ended:            # the thread notes the exit just after wait() returns
+            time.sleep(0.01)
+        out[name] = (proc.returncode, log.read_text().splitlines(), ended[0] - t0)
+    return out
 
 
 def replay_async(srv, trace, offset: int) -> dict:
@@ -872,34 +1024,76 @@ def serve_loadgen_smollm(scfg, sparams, dev, card: str,
     return run["calls"], run["launches"]
 
 
-def serve_loadgen_entry_points(card: str, device: str = "cuda") -> None:
-    """``python -m repro_torch.launch.serve`` and ``python -m
-    repro_torch.obs.report`` as subprocesses (started together), then
-    ``python -m repro_torch.obs.check`` on the four documents they write."""
+def launch_serve_cmd(arch: str, device: str) -> list[str]:
+    """``python -m repro_torch.launch.serve --arch <arch>`` (its smoke
+    config: 16 requests, chunked adaptive prefill with a prefix cache,
+    device-side decode blocks) on ``device``."""
+    return [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+            "--prefill-chunk", "16", "--prefill-adaptive", "--prefix-cache", "64",
+            "--persistent", "--device", device]
+
+
+def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFFTEST_SEEDS,
+                 train_args: tuple[str, ...] = ("--arch", "smollm-135m", "--steps", "2",
+                                                "--seq", "256", "--batch", "4")) -> None:
+    """Every entry point the smoke runs as a subprocess, all started
+    together while this process runs nothing else (each pays the start of a
+    Python process that imports torch, tens of seconds on a slow host):
+    ``python -m repro_torch.launch.serve`` (paper-lstm's loadgen replay,
+    its trace and metrics) and ``python -m repro_torch.obs.report``, then
+    ``python -m repro_torch.obs.check`` on the four documents they write
+    (phase 15d); ``launch.serve --arch zamba2-1.2b`` and ``--arch
+    olmoe-1b-7b`` (phases 19 and 20; each must report 16 requests served);
+    ``python -m repro_torch.verify.difftest``, its ``--regen-goldens`` into
+    ``build/bit_path/`` and ``python -m repro_torch.analyze --all-cells``
+    (phase 16; the analysis document checked, four goldens written); and
+    ``python -m repro_torch.launch.train`` at smollm-135m's published
+    widths into an emptied checkpoint directory (phase 21; it must print
+    ``final_loss=``); ``python -m repro_torch.analyze --lint-src`` (phase
+    17).  Each must exit 0."""
+    from repro_torch.obs.check import check_analyze_doc
+
     docs = ROOT / "build" / "serve_loadgen"
-    docs.mkdir(parents=True, exist_ok=True)
+    bit_docs = ROOT / "build" / "bit_path"
+    for d in (docs, bit_docs):
+        d.mkdir(parents=True, exist_ok=True)
     files = {k: docs / f"{k}.json" for k in ("loadgen", "trace", "metrics", "ledger")}
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    train_ckpt = ROOT / "build" / "train" / "launch"
+    shutil.rmtree(train_ckpt, ignore_errors=True)      # a full one would be resumed
+    py = [sys.executable, "-m"]
     commands = {
-        "launch.serve": [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "paper-lstm",
+        "launch.serve": [*py, "repro_torch.launch.serve", "--arch", "paper-lstm",
                          "--loadgen", "--prefill-chunk", "4", "--prefix-cache", "64",
                          "--loadgen-out", str(files["loadgen"]), "--trace-out", str(files["trace"]),
                          "--metrics-out", str(files["metrics"]), "--device", device],
-        "obs.report": [sys.executable, "-m", "repro_torch.obs.report", "--backends", "eager",
+        "obs.report": [*py, "repro_torch.obs.report", "--backends", "eager",
                        "kernel", "--out", str(files["ledger"]), "--device", device],
+        "launch.serve --arch zamba2-1.2b": launch_serve_cmd("zamba2-1.2b", device),
+        "launch.serve --arch olmoe-1b-7b": launch_serve_cmd("olmoe-1b-7b", device),
+        "verify.difftest": [*py, "repro_torch.verify.difftest", "--seeds", str(difftest_seeds),
+                            "--device", device],
+        "verify.difftest --regen-goldens": [*py, "repro_torch.verify.difftest",
+                                            "--regen-goldens", str(bit_docs / "goldens"),
+                                            "--device", device],
+        "analyze": [*py, "repro_torch.analyze", "--all-cells", "--bits", "8,16,32",
+                    "--out", str(bit_docs / "analyze.json"), "--device", device],
+        "launch.train " + " ".join(train_args): [
+            *py, "repro_torch.launch.train", *train_args,
+            "--ckpt-dir", str(train_ckpt), "--device", device],
+        "analyze --lint-src": [*py, "repro_torch.analyze", "--lint-src", "--device", device],
     }
-    procs = {name: subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-             for name, cmd in commands.items()}
-    for name, proc in procs.items():
-        try:
-            text, _ = proc.communicate(timeout=300)
-        finally:
-            proc.kill()
-            proc.wait()
-        for ln in text.splitlines()[-8:]:
-            say("entry_point", command=name, line=repr(ln))
-        require(proc.returncode == 0, f"python -m repro_torch.{name} exited {proc.returncode}")
+    must_print = {"launch.serve --arch zamba2-1.2b": "served 16 requests",
+                  "launch.serve --arch olmoe-1b-7b": "served 16 requests",
+                  "launch.train " + " ".join(train_args): "final_loss="}
+    with clis_started(commands, ROOT / "build" / "entry_points") as clis:
+        for name, (rc, lines, seconds) in clis_finished(clis).items():
+            for ln in lines[-4:]:
+                say("entry_point", command=name, line=repr(ln))
+            say("entry_point_run", command=repr(name), exit=rc, seconds=f"{seconds:.1f}")
+            require(rc == 0 and (name not in must_print
+                                 or any(must_print[name] in ln for ln in lines)),
+                    f"python -m repro_torch.{name} exited {rc}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     check = subprocess.run([sys.executable, "-m", "repro_torch.obs.check",
                             *map(str, files.values())], env=env, cwd=ROOT, capture_output=True,
                            text=True, timeout=120)
@@ -910,6 +1104,9 @@ def serve_loadgen_entry_points(card: str, device: str = "cuda") -> None:
     require(served["completed"] == served["requests"] and ledger
             and any("|kernel|" in row["program"] for row in ledger),
             "the entry points' documents are incomplete")
+    require(check_analyze_doc(json.loads((bit_docs / "analyze.json").read_text())) == []
+            and len(list((bit_docs / "goldens").glob("*.v"))) == 4,
+            "bit_path: the CLIs' documents are incomplete")
     say("entry_points", serve_digest=served["tokens_digest"], serve_ticks=served["ticks"],
         serve_tok_s=f"{served['throughput_tok_s']:.1f}", ledger_programs=len(ledger),
         obs_check="ok", card=repr(card))
@@ -931,15 +1128,14 @@ def _uniform(gen, shape, scale=1.0) -> torch.Tensor:
     return (torch.rand(shape, generator=gen) * 2 - 1) * scale
 
 
-def bit_path(dev, card: str, T: int = BIT_T, difftest_seeds: int = BIT_DIFFTEST_SEEDS
-             ) -> dict[str, int]:
+def bit_path(dev, card: str, T: int = BIT_T) -> dict[str, int]:
     """The paper's fixed-point path on the card: rtlsim against the golden
     model at full width, the ref/eager/kernel float legs on the same cells,
     the card against the CPU word for word, ``synthesize(backend="verilog")``
-    against the emission from CPU copies of the weights, the static gate
-    (``synthesize(backend="kernel", analyze=True)``), and the difftest and
-    analyze CLIs as subprocesses.  Returns the generated stage kernel's
-    launches by cell (the float legs and the gated synthesis)."""
+    against the emission from CPU copies of the weights and the static gate
+    (``synthesize(backend="kernel", analyze=True)``); its CLIs run with the
+    other entry points (:func:`entry_points`).  Returns the generated stage
+    kernel's launches by cell (the float legs and the gated synthesis)."""
     from repro_torch.analyze import AnalysisError, WaiverRegistry, analyze_program
     from repro_torch.codegen import build_program, emit_program, kernel_backend, rtlsim
     from repro_torch.configs.paper_mlp import CASE_STUDY, FIG10_A, FIG10_B
@@ -961,7 +1157,7 @@ def bit_path(dev, card: str, T: int = BIT_T, difftest_seeds: int = BIT_DIFFTEST_
         spec = NetworkSpec(WIDTH, 8, WIDTH, WIDTH, cell=cell, seq_len=0 if cell == "mlp" else T)
         prog = build_program(spec, dev)
         u = _uniform(gen, (BIT_BATCH, WIDTH) if cell == "mlp" else (BIT_BATCH, T, WIDTH))
-        for width in ((18, 24, 32) if cell == "lstm" else (18,)):
+        for width in ((18, 32) if cell == "lstm" else (18,)):
             sync()
             t0 = time.perf_counter()
             sim = rtlsim.simulate(prog, u, width=width, device=dev)
@@ -1074,33 +1270,6 @@ def bit_path(dev, card: str, T: int = BIT_T, difftest_seeds: int = BIT_DIFFTEST_
             min_safe_width=doc["min_safe_width"], converged=doc["converged"],
             iters=doc["iters"], analysis_s=f"{analysis_s:.2f}", card=repr(card))
 
-    # -- 16f. the CLIs as subprocesses ---------------------------------------------
-    docs = ROOT / "build" / "bit_path"
-    docs.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    commands = {
-        "verify.difftest": [sys.executable, "-m", "repro_torch.verify.difftest",
-                            "--seeds", str(difftest_seeds)],
-        "verify.difftest --regen-goldens": [sys.executable, "-m", "repro_torch.verify.difftest",
-                                            "--regen-goldens", str(docs / "goldens")],
-        "analyze": [sys.executable, "-m", "repro_torch.analyze", "--all-cells",
-                    "--bits", "8,16,32", "--out", str(docs / "analyze.json")],
-    }
-    if dev.type != "cuda":
-        for cmd in commands.values():
-            cmd += ["--device", "cpu"]
-    for name, cmd in commands.items():
-        t0 = time.perf_counter()
-        run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
-                             timeout=600)
-        for ln in (run.stdout + run.stderr).splitlines()[-4:]:
-            say("bit_path_cli", command=repr(name), line=repr(ln))
-        require(run.returncode == 0, f"python -m repro_torch.{name} exited {run.returncode}")
-        say("bit_path", step="cli", command=repr(name), exit=0,
-            seconds=f"{time.perf_counter() - t0:.1f}")
-    require(check_analyze_doc(json.loads((docs / "analyze.json").read_text())) == []
-            and len(list((docs / "goldens").glob("*.v"))) == 4,
-            "bit_path: the CLIs' documents are incomplete")
     return launches
 
 
@@ -1254,20 +1423,16 @@ def tune_chaos(dev, card: str, T: int = BIT_T) -> dict:
     commands = {
         "verify.chaos": [sys.executable, "-m", "repro_torch.verify.chaos", "--seed", "0",
                          "--out", str(chaos_doc)],
-        "analyze --lint-src": [sys.executable, "-m", "repro_torch.analyze", "--lint-src"],
     }
     if dev.type != "cuda":
         for cmd in commands.values():
             cmd += ["--device", "cpu"]
-    for name, cmd in commands.items():
-        t0 = time.perf_counter()
-        run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
-                             timeout=600)
-        for ln in (run.stdout + run.stderr).splitlines()[-3:]:
-            say("tune_chaos_cli", command=repr(name), line=repr(ln))
-        require(run.returncode == 0, f"python -m repro_torch.{name} exited {run.returncode}")
-        say("tune_chaos", step="cli", command=repr(name), exit=0,
-            seconds=f"{time.perf_counter() - t0:.1f}")
+    with clis_started(commands, docs / "logs") as clis:
+        for name, (rc, lines, seconds) in clis_finished(clis).items():
+            for ln in lines[-3:]:
+                say("tune_chaos_cli", command=repr(name), line=repr(ln))
+            require(rc == 0, f"python -m repro_torch.{name} exited {rc}")
+            say("tune_chaos", step="cli", command=repr(name), exit=0, seconds=f"{seconds:.1f}")
     check = subprocess.run([sys.executable, "-m", "repro_torch.obs.check", str(chaos_doc),
                             *map(str, sorted(docs.glob("tune_*.json")))], env=env, cwd=ROOT,
                            capture_output=True, text=True, timeout=120)
@@ -1614,33 +1779,14 @@ def serve_async(srv, traffic) -> dict:
     return {r.uid: list(r.out_tokens) for r in asyncio.run(drive())}
 
 
-def launch_serve(arch: str, dev) -> None:
-    """``python -m repro_torch.launch.serve --arch <arch>`` (its smoke
-    config: 16 requests, chunked adaptive prefill with a prefix cache,
-    device-side decode blocks) as a subprocess on ``dev``; it must exit 0
-    and report 16 requests served."""
-    launch = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-         "--prefill-chunk", "16", "--prefill-adaptive", "--prefix-cache", "64",
-         "--persistent", "--device", dev.type],
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT, capture_output=True,
-        text=True, timeout=300)
-    lines = (launch.stdout + launch.stderr).splitlines()
-    for ln in lines[-3:]:
-        say("entry_point", command=f"launch.serve --arch {arch}", line=repr(ln))
-    require(launch.returncode == 0 and any("served 16 requests" in ln for ln in lines),
-            f"python -m repro_torch.launch.serve --arch {arch} exited {launch.returncode}")
-
-
 def serve_zamba2(mcfg, params, dev, card: str, traffic, checked, *,
                  max_seq: int = ZAMBA_MAX_SEQ, chunk: int = ZAMBA_CHUNK,
                  profiled: int = ZAMBA_PROFILED) -> dict:
     """zamba2's main path: ``serve_long_prompts`` with a prefix cache sized
     by ``checkpoint_bytes`` and the logits bar ``ZAMBA_LOGITS_RTOL``; then
     adaptive prefill under ``step_block()`` with the cache, and chunked
-    prefill under ``AsyncServer``, each with ``step()``'s tokens; ``python
-    -m repro_torch.launch.serve --arch zamba2-1.2b`` (its smoke config) as
-    a subprocess; and one ``step()`` serve of the first ``profiled``
+    prefill under ``AsyncServer``, each with ``step()``'s tokens; and one
+    ``step()`` serve of the first ``profiled``
     requests under torch.profiler (the device only): busy ms, idle share
     over the run's wall and the top five kernels.  Returns the kernel's
     counts and the phase's peak allocation."""
@@ -1675,7 +1821,6 @@ def serve_zamba2(mcfg, params, dev, card: str, traffic, checked, *,
         requests=len(toks), wall_ms=f"{wall_ms:.1f}", decoded_tokens=st["decoded_tokens"],
         syncs_per_token=f"{st['decode_syncs'] / max(st['decoded_tokens'], 1):.4f}",
         identical_tokens=True, card=repr(card))
-    launch_serve(mcfg.name, dev)
     sub = traffic[:profiled]
     act = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
     with torch.no_grad(), profile(activities=[act]) as prof:
@@ -1689,19 +1834,16 @@ def serve_zamba2(mcfg, params, dev, card: str, traffic, checked, *,
     require(toks == {i: out["tokens"][i] for i in range(len(sub))},
             f"{mcfg.name}: the profiled step() run's tokens differ")
     kind = torch.autograd.DeviceType.CUDA if dev.type == "cuda" else torch.autograd.DeviceType.CPU
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == kind and e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = device_kernels(prof, kind)
+    busy_ms = sum(us for _, _, us in kernels) / 1e3
     say("profile", arch=mcfg.name, driver="step",
         prompts=",".join(str(len(p)) for p, _ in sub), wall_ms=f"{wall_ms:.1f}",
         device_busy_ms=f"{busy_ms:.1f}" if kernels else "not_measured",
         device_idle_share=f"{1 - busy_ms / wall_ms:.3f}" if kernels else "not_measured",
         card=repr(card))
-    for e in kernels[:5]:
-        say("profile_top", arch=mcfg.name, kernel=repr(e.key[:70]), calls=e.count,
-            device_ms=f"{e.self_device_time_total / 1e3:.2f}",
-            share=f"{e.self_device_time_total / 1e3 / busy_ms:.3f}")
+    for key, calls, us in kernels[:5]:
+        say("profile_top", arch=mcfg.name, kernel=repr(key[:70]), calls=calls,
+            device_ms=f"{us / 1e3:.2f}", share=f"{us / 1e3 / busy_ms:.3f}")
     out["peak_bytes"] = max(out["peak_bytes"], torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else 0)
     return {k: out[k] for k in ("calls", "window_calls", "launches", "peak_bytes")}
@@ -2106,20 +2248,21 @@ def mla_check(mcfg, params, dev, card: str, S: int = 64) -> float:
 
 
 def serve_moe_phase(dev, card: str) -> dict:
-    """Phase 20: olmoe-1b-7b uncut through ``serve_moe`` and the launcher,
+    """Phase 20: olmoe-1b-7b uncut through ``serve_moe``,
     then its int8 weights (``quantize_olmoe``, the fp32 tree freed,
     ``serve_dequantized``) and smollm-135m's (``quantize_dense_check``, held
-    to the reference's bars), then deepseek-v2-lite-16b uncut
+    to the reference's bars), then deepseek-v2-lite-16b (``DEEPSEEK_LAYERS``)
     (``mla_check``, ``serve_moe``).  Returns the ``flash_attention`` calls
     and launches by run."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
-    ocfg = dataclasses.replace(get_config("olmoe-1b-7b"), use_pallas=True)
+    ocfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=OLMOE_LAYERS, use_pallas=True)
     require((ocfg.n_layers, ocfg.d_model, ocfg.n_heads, ocfg.n_kv_heads, ocfg.head_dim,
              ocfg.qk_norm, ocfg.n_experts, ocfg.top_k, ocfg.n_shared_experts, ocfg.d_ff_expert,
              ocfg.capacity_factor, ocfg.vocab, ocfg.tie_embeddings, ocfg.layer_pattern)
-            == (16, 2048, 16, 16, 128, True, 64, 8, 0, 1024, 1.25, 50_304, False, ("moe",)),
+            == (OLMOE_LAYERS, 2048, 16, 16, 128, True, 64, 8, 0, 1024, 1.25, 50_304, False,
+                ("moe",)) and get_config("olmoe-1b-7b").n_layers == 16,
             f"olmoe-1b-7b is not at its published widths and depth: {ocfg}")
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()
@@ -2128,7 +2271,7 @@ def serve_moe_phase(dev, card: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     o_params = lm.param_count(oparams)
-    require(o_params == 6_919_100_416, f"olmoe-1b-7b has {o_params} parameters")
+    require(o_params == OLMOE_PARAMS, f"olmoe-1b-7b has {o_params} parameters")
     traffic = long_prompt_traffic(ocfg.vocab, lengths=OLMOE_LENGTHS, shared=MOE_SHARED,
                                   cross=None, new=MOE_NEW)
     say("serve_setup", arch=ocfg.name, n_layers=ocfg.n_layers, d_model=ocfg.d_model,
@@ -2141,7 +2284,6 @@ def serve_moe_phase(dev, card: str) -> dict:
     long_prompt = traffic[OLMOE_LENGTHS.index(2048)][0]
     olmoe_fa = serve_moe(ocfg, oparams, dev, card, traffic,
                          [OLMOE_LENGTHS.index(2048), len(traffic) - 1])
-    launch_serve(ocfg.name, dev)
     say("serve_memory", arch=ocfg.name, peak_alloc_gb=f"{olmoe_fa['peak_bytes'] / 1e9:.2f}",
         card=repr(card))
     phase_done("serve_olmoe")
@@ -2164,12 +2306,14 @@ def serve_moe_phase(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     phase_done("serve_olmoe_int8")
 
-    dcfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), use_pallas=True)
+    dcfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=DEEPSEEK_LAYERS,
+                               use_pallas=True)
     require((dcfg.n_layers, dcfg.d_model, dcfg.n_heads, dcfg.use_mla, dcfg.kv_lora_rank,
              dcfg.qk_nope_head_dim, dcfg.qk_rope_head_dim, dcfg.v_head_dim, dcfg.n_experts,
              dcfg.top_k, dcfg.n_shared_experts, dcfg.d_ff_expert, dcfg.vocab, dcfg.layer_pattern)
-            == (27, 2048, 16, True, 512, 128, 64, 128, 64, 6, 2, 1408, 102_400, ("moe",)),
-            f"deepseek-v2-lite-16b is not at its published widths and depth: {dcfg}")
+            == (DEEPSEEK_LAYERS, 2048, 16, True, 512, 128, 64, 128, 64, 6, 2, 1408, 102_400,
+                ("moe",)) and get_config("deepseek-v2-lite-16b").n_layers == 27,
+            f"deepseek-v2-lite-16b is not at its published widths: {dcfg}")
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -2177,7 +2321,8 @@ def serve_moe_phase(dev, card: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     d_params = lm.param_count(dparams)
-    require(d_params == 16_210_324_992, f"deepseek-v2-lite-16b has {d_params} parameters")
+    require(d_params == DEEPSEEK_PARAMS, f"deepseek-v2-lite-16b ({DEEPSEEK_LAYERS} layers) has "
+                                         f"{d_params} parameters")
     traffic = long_prompt_traffic(dcfg.vocab, lengths=DEEPSEEK_LENGTHS, shared=MOE_SHARED,
                                   cross=None, new=MOE_NEW)
     say("serve_setup", arch=dcfg.name, n_layers=dcfg.n_layers, d_model=dcfg.d_model,
@@ -2373,8 +2518,9 @@ def restart_drill(mcfg, dev, card: str, root: Path) -> float:
 def train_phase(dev, card: str) -> dict:
     """Phase 21: smollm-135m at its published widths and depth through
     ``Trainer`` on train_4k-length steps, the restart drill, the card against
-    the host's CPU, paper-lstm at full width, the ``use_pallas`` refusal and
-    ``launch.train``; no kernel launched on the training path."""
+    the host's CPU, paper-lstm at full width and the ``use_pallas`` refusal
+    (``launch.train`` runs in :func:`entry_points`); no kernel launched on
+    the training path."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig
     from repro_torch.models import lm
@@ -2420,18 +2566,6 @@ def train_phase(dev, card: str) -> dict:
     refuses_under_grad(lcfg, ltr.params, dev, "lstm_seq")
     del ltr
     torch.cuda.empty_cache()
-
-    # the launcher at the published widths, as a subprocess on the card
-    cmd = ["--arch", "smollm-135m", "--steps", "2", "--seq", "256", "--batch", "4",
-           "--ckpt-dir", str(root / "launch"), "--device", dev.type]
-    launch = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *cmd],
-                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
-                            capture_output=True, text=True, timeout=600)
-    lines = (launch.stdout + launch.stderr).splitlines()
-    for ln in lines[-2:]:
-        say("entry_point", command="launch.train " + " ".join(cmd[:8]), line=repr(ln))
-    require(launch.returncode == 0 and any("final_loss=" in ln for ln in lines),
-            f"python -m repro_torch.launch.train exited {launch.returncode}")
 
     after = kernel_counts()
     say("train_kernels", launches_during_phase={k: after[k] - before[k] for k in after})
@@ -2722,7 +2856,7 @@ def mesh_phase(dev, card: str, cfg, prompts, want_step, want_block, *, mcfg=None
     t0 = time.perf_counter()
     ranks = run_ranks(mesh_ranks_gloo, MESH_RANKS,
                       (dev_name, cfg, prompts, spec, tp_u, spec_c, dp_u), backend="gloo",
-                      timeout_s=400)
+                      timeout_s=200)
     gloo_s = time.perf_counter() - t0
     for driver in ("step", "block"):
         keys = [k for out in ranks for k in out[driver]["logits"]]
@@ -2785,7 +2919,7 @@ def mesh_phase(dev, card: str, cfg, prompts, want_step, want_block, *, mcfg=None
 
     t0 = time.perf_counter()
     [out] = run_ranks(mesh_ranks_nccl, 1, (dev_name, cfg, prompts, mcfg), backend=rank_backend,
-                      timeout_s=300)
+                      timeout_s=150)
     r = out["step"]
     require(out["backend"] == rank_backend, f"mesh: world-1 run on {out['backend']}")
     require(r["tokens"] == want_step, "mesh sharded dp=1 under NCCL: tokens differ")
@@ -2810,6 +2944,344 @@ def mesh_phase(dev, card: str, cfg, prompts, want_step, want_block, *, mcfg=None
         note="one card: NCCL allows one rank, so EP runs at world size 1",
         seconds=f"{time.perf_counter() - t0:.2f}", card=repr(card))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 23. mesh_train: Trainer(mesh=) with ZeRO shards, elastic restore, the
+# compressed all-reduce and the pipeline schedule
+# ---------------------------------------------------------------------------
+
+def mesh_train_config(smoke: bool = False):
+    """smollm-135m at its published widths and depth (the smoke config when
+    rehearsing on the CPU)."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    mcfg = (get_smoke_config if smoke else get_config)("smollm-135m")
+    require(smoke or (mcfg.n_layers, mcfg.d_model, mcfg.n_heads, mcfg.n_kv_heads, mcfg.d_ff,
+                      mcfg.vocab) == (30, 576, 9, 3, 1536, 49_152),
+            f"smollm-135m is not at its published widths and depth: {mcfg}")
+    return mcfg
+
+
+def mesh_trainer(mcfg, ckpt_dir: Path, dev, mesh):
+    """The phase's ``Trainer``: ``MT_STEPS`` steps of ``MT_BATCH`` ×
+    ``MT_SEQ`` tokens in ``MT_MICRO`` microbatches, a checkpoint after the
+    last, every step logged."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(total_steps=MT_STEPS, ckpt_every=MT_STEPS, ckpt_dir=str(ckpt_dir),
+                         log_every=1, microbatches=MT_MICRO, ckpt_async=False)
+    ocfg = optim.AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=MT_STEPS)
+    return Trainer(mcfg, tcfg, ocfg,
+                   DataConfig(vocab=mcfg.vocab, seq_len=MT_SEQ, global_batch=MT_BATCH),
+                   mesh, device=dev)
+
+
+def mesh_train_run(mcfg, ckpt_dir: Path, dev, mesh):
+    """A ``mesh_trainer`` run: the trainer, each step's (loss, grad_norm,
+    lr, seconds) and this process's peak allocation."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    trainer = mesh_trainer(mcfg, ckpt_dir, dev, mesh)
+    res = trainer.run()
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    steps = [(m["loss"], m["grad_norm"], m["lr"], m["sec"]) for m in res["metrics"]]
+    require(len(steps) == MT_STEPS and all(math.isfinite(x[0]) for x in steps),
+            f"mesh_train: {len(steps)} steps logged, losses {[x[0] for x in steps]}")
+    return trainer, steps, peak
+
+
+def saved_arrays(ckpt_dir: Path) -> dict:
+    with np.load(ckpt_dir / f"step_{MT_STEPS}" / "arrays.npz") as data:
+        return {k: data[k] for k in data.files}
+
+
+def equals_saved(trainer, ckpt_dir: Path) -> bool:
+    """Whether ``trainer``'s state is ``ckpt_dir``'s last checkpoint bit for
+    bit: each of this rank's shards against its block of the saved full
+    arrays, cut on the host (no collective)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import flatten_with_names
+
+    state = {"params": trainer.params, "opt": trainer.opt_state}
+    host = tree_map(lambda t: torch.empty(0, dtype=t.dtype), state)
+    want, _ = CheckpointManager(str(ckpt_dir)).restore(host, MT_STEPS, layout=trainer.layout)
+    got, want = flatten_with_names(state), flatten_with_names(want)
+    return sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
+
+
+def resumed_from(mcfg, ckpt_dir: Path, dev, mesh) -> tuple[int, bool]:
+    """A ``mesh_trainer`` on ``mesh`` over ``ckpt_dir``, whose last
+    checkpoint is the run's end: the steps it still took (0) and whether its
+    restored state is the saved full arrays bit for bit."""
+    trainer = mesh_trainer(mcfg, ckpt_dir, dev, mesh)
+    steps = len(trainer.run()["losses"])
+    return steps, equals_saved(trainer, ckpt_dir)
+
+
+def pipe_stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def compression_check(mcfg, params, mesh, dev) -> dict:
+    """The compressed all-reduce over the data ranks on the full gradient
+    tree of this rank's rows of the first microbatch: each leaf's gap to
+    the exact mean over its int8 step size (the one-step bound is 1), the
+    collectives, and ``MT_COMP_STEPS`` error-feedback steps on the largest
+    leaf (its average's gap over the step size: run_compression.py's bar
+    is 0.2)."""
+    from repro_torch._tree import tree_leaves_sorted, tree_map
+    from repro_torch.launch.mesh import local_shard
+    from repro_torch.parallel import comm, compression, zero
+
+    group = mesh.get_group("data")
+    batch = train_batch(mcfg.vocab, MT_BATCH, MT_SEQ, dev)
+    rows = zero.local_rows(batch, MT_MICRO, 2, local_shard(mesh))
+    first = {k: v[:MT_BATCH // MT_MICRO // 2] for k, v in rows.items()}
+    grads = tree_map(lambda g: g.to(torch.float32), grads_on(mcfg, params, first)[1])
+    comm.reset_counts()
+    t0 = time.perf_counter()
+    mean, _ = compression.make_compressed_allreduce(mesh, "data")(
+        grads, compression.init_error_feedback(grads))
+    sync(dev)
+    one_s = time.perf_counter() - t0
+    counts = dict(comm.COUNTS)
+    two = torch.tensor(2.0, device=dev)
+    exact = tree_map(lambda g: comm.all_reduce(g.clone(), group) / two, grads)
+    scales = tree_map(lambda g: comm.all_reduce_max(g.abs().max(), group) / 127.0, grads)
+    ratios = [float((m - e).abs().max() / s.clamp(min=1e-30)) for m, e, s in
+              zip(*(tree_leaves_sorted(t) for t in (mean, exact, scales)), strict=True)]
+    g, ex = grads["embed"]["table"], exact["embed"]["table"]
+    err, acc = torch.zeros_like(g), torch.zeros_like(g)
+    t0 = time.perf_counter()
+    for _ in range(MT_COMP_STEPS):
+        m, err = compression.compress_leaf(g, err, group)
+        acc += m
+    sync(dev)
+    avg_ratio = float((acc / MT_COMP_STEPS - ex).abs().max() / scales["embed"]["table"])
+    return {"leaves": len(ratios), "worst_one_step": max(ratios), "counts": counts,
+            "one_step_s": one_s, "avg30_over_scale": avg_ratio,
+            "steps_s": time.perf_counter() - t0, "largest": tuple(g.shape)}
+
+
+def pipeline_check(dev) -> dict:
+    """``pipeline_apply`` over this process's stage mesh at ``PIPE_D``:
+    the gap to ``sequential_reference``, the ring transfers, seconds."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.pipeline import pipeline_apply, sequential_reference
+
+    world = torch.distributed.get_world_size()
+    mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("stage",))
+    gen = torch.Generator(device=dev).manual_seed(23)
+    p = {"w": torch.randn(world, PIPE_D, PIPE_D, generator=gen, device=dev) / math.sqrt(PIPE_D),
+         "b": 0.1 * torch.randn(world, PIPE_D, generator=gen, device=dev)}
+    x = torch.randn(PIPE_C, PIPE_ROWS, PIPE_D, generator=gen, device=dev)
+    comm.reset_counts()
+    t0 = time.perf_counter()
+    y = pipeline_apply(pipe_stage, p, x, mesh)
+    sync(dev)
+    pipe_s = time.perf_counter() - t0
+    counts = dict(comm.COUNTS)
+    return {"err": float((y - sequential_reference(pipe_stage, p, x)).abs().max()),
+            "counts": counts, "s": pipe_s}
+
+
+def _phase_sizes(sizes: dict) -> None:
+    """A spawned rank re-imports this script: take the parent's sizes."""
+    globals().update(sizes)
+
+
+def mesh_train_gloo(rank: int, world: int, dev_name: str, root: str, smoke: bool,
+                    sizes: dict) -> dict:
+    """One of two ranks sharing the card over gloo: ``Trainer(mesh=
+    make_local_mesh(2, 1))``, its checkpoint restored under (1, 1, 2) and,
+    on rank 0, under (1, 1, 1), the compressed all-reduce and the
+    pipeline."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+
+    _phase_sizes(sizes)
+    dev = _rank_device(dev_name)
+    root = Path(root)
+    mcfg = mesh_train_config(smoke)
+    dp2, tp2, dp1 = make_local_mesh(2, 1), make_local_mesh(1, 2), make_local_mesh(1, 1)
+    before = kernel_counts()
+    trainer, steps, peak = mesh_train_run(mcfg, root / "dp2", dev, dp2)
+    out = {"steps": steps, "peak_gb": peak}
+    del trainer
+    # the gradients at the initial weights (every trainer's, from seed 0)
+    params = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    out["compression"] = compression_check(mcfg, params, dp2, dev)
+    del params
+    out["restore_1x1x2"] = resumed_from(mcfg, root / "dp2", dev, tp2)
+    if rank == 0:
+        out["restore_1x1x1"] = resumed_from(mcfg, root / "dp2", dev, dp1)
+    out["pipeline"] = pipeline_check(dev)
+    after = kernel_counts()
+    out["kernels"] = {k: after[k] - before[k] for k in after}
+    out["jax"] = "jax" in sys.modules
+    return out
+
+
+@contextlib.contextmanager
+def one_rank_group(backend: str, timeout_s: float):
+    """A ``torch.distributed`` group of this process alone (world size 1, a
+    ``file://`` rendezvous in a fresh directory), destroyed when the block
+    is left."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_rank_")
+    dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_train_nccl(rank: int, world: int, dev_name: str, root: str, smoke: bool,
+                    sizes: dict) -> dict:
+    """World size 1 under NCCL: ``Trainer(mesh=make_local_mesh(1, 1))``
+    against the ``mesh=None`` checkpoint (run in the phase's own process,
+    inside :func:`one_rank_group`)."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    _phase_sizes(sizes)
+    dev = _rank_device(dev_name)
+    root = Path(root)
+    mcfg = mesh_train_config(smoke)
+    mesh = make_local_mesh(1, 1)
+    before = kernel_counts()
+    trainer, steps, peak = mesh_train_run(mcfg, root / "nccl", dev, mesh)
+    out = {"steps": steps, "peak_gb": peak, "backend": torch.distributed.get_backend(),
+           "identical_to_none": equals_saved(trainer, root / "none")}
+    after = kernel_counts()
+    out["kernels"] = {k: after[k] - before[k] for k in after}
+    return out
+
+
+def mesh_train_phase(dev, card: str, *, smoke: bool = False, rank_backend: str = "nccl") -> None:
+    """Phase 23: smollm-135m through ``Trainer(mesh=None)``, ``Trainer(mesh=
+    make_local_mesh(2, 1))`` over two gloo ranks sharing the card and
+    ``make_local_mesh(1, 1)`` under ``rank_backend`` (NCCL, in this process), on the same
+    initial weights (every trainer draws them from seed 0): losses and grad
+    norms within ``MT_RTOL`` of ``mesh=None``, dp = 1 bit-identical, the
+    dp = 2 checkpoint restored under dp = 1 and (1, 1, 2) bit for bit; the
+    compressed all-reduce and the pipeline on the two ranks; no kernel
+    launched."""
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.models import lm
+
+    root = ROOT / "build" / "mesh_train"
+    shutil.rmtree(root, ignore_errors=True)
+    dev_name = "cuda:0" if dev.type == "cuda" else "cpu"
+    before = kernel_counts()
+    mcfg = mesh_train_config(smoke)
+    tokens = MT_BATCH * MT_SEQ
+    t0 = time.perf_counter()
+    trainer, base, peak = mesh_train_run(mcfg, root / "none", dev, None)
+    n_params = lm.param_count(trainer.params)
+    require(smoke or n_params == 134_515_008, f"smollm-135m has {n_params} parameters")
+    del trainer
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    none_s = time.perf_counter() - t0
+    runs = {"mesh_none": [(base, peak)]}
+    t1 = time.perf_counter()
+    sizes = {k: globals()[k] for k in ("MT_SEQ", "PIPE_D", "PIPE_ROWS")}
+    # each rank's collectives and the wait for the ranks time out well inside
+    # the script's limit (the ranks took ~51 s and ~29-37 s on the H100)
+    gloo = run_ranks(mesh_train_gloo, 2, (dev_name, str(root), smoke, sizes), backend="gloo",
+                     timeout_s=300)
+    gloo_s = time.perf_counter() - t1
+    runs["dp2_gloo"] = [(r["steps"], r["peak_gb"]) for r in gloo]
+    t1 = time.perf_counter()
+    # world size 1 needs no other process: this one joins a group of its own
+    with one_rank_group(rank_backend, timeout_s=240):
+        nccl = mesh_train_nccl(0, 1, dev_name, str(root), smoke, sizes)
+    nccl_s = time.perf_counter() - t1
+    runs[f"dp1_{rank_backend}"] = [(nccl["steps"], nccl["peak_gb"])]
+
+    for label, ranks in runs.items():
+        for rank, (steps, peak_gb) in enumerate(ranks):
+            per_rank = tokens // len(ranks)
+            for i, ((loss, gn, lr, sec), (b_loss, b_gn, b_lr, _)) in enumerate(zip(steps, base)):
+                loss_gap, gn_gap = abs(loss - b_loss) / abs(b_loss), abs(gn - b_gn) / abs(b_gn)
+                say("mesh_train_step", run=label, rank=rank, step=i, loss=f"{loss:.6f}",
+                    grad_norm=f"{gn:.6f}", lr=f"{lr:.3e}", ms=f"{1e3 * sec:.1f}",
+                    tokens_per_s_rank=f"{per_rank / sec:.0f}", loss_rel_gap=f"{loss_gap:.3e}",
+                    grad_norm_rel_gap=f"{gn_gap:.3e}", card=repr(card))
+                require(loss_gap <= MT_RTOL and gn_gap <= MT_RTOL and lr == b_lr,
+                        f"mesh_train {label} rank {rank} step {i}: loss {loss} / {b_loss}, "
+                        f"grad norm {gn} / {b_gn}, lr {lr} / {b_lr}")
+            steady = statistics.median(x[3] for x in steps[1:])
+            say("mesh_train", run=label, rank=rank, ranks=len(ranks), steady_step_ms=f"{1e3 * steady:.1f}",
+                first_step_ms=f"{1e3 * steps[0][3]:.1f}",
+                tokens_per_s_rank=f"{per_rank / steady:.0f}", peak_alloc_gb=f"{peak_gb:.2f}",
+                seq_len=MT_SEQ, global_batch=MT_BATCH, microbatches=MT_MICRO, params=n_params,
+                card=repr(card))
+
+    # the parameter gap after the last step, from the checkpoints' full arrays
+    none, dp2 = saved_arrays(root / "none"), saved_arrays(root / "dp2")
+    gaps = {k: float(np.abs(dp2[k] - v).max()) for k, v in none.items()
+            if k.startswith("params/")}
+    worst = max(gaps, key=gaps.get)
+    say("mesh_train", case="param_gap_dp2", worst_leaf=worst, max_abs_gap=f"{gaps[worst]:.3e}",
+        max_abs_param=f"{float(np.abs(none[worst]).max()):.3e}",
+        bit_identical=all(np.array_equal(dp2[k], none[k]) for k in gaps))
+    del none, dp2
+    require(nccl["backend"] == rank_backend, f"mesh_train: world-1 run on {nccl['backend']}")
+    say("mesh_train", case=f"dp1_{rank_backend}", bit_identical_to_mesh_none=nccl["identical_to_none"])
+    require(nccl["identical_to_none"],
+            f"mesh_train: dp = 1 under {rank_backend} is not bit-identical to mesh=None")
+    for case, (steps_taken, same) in (("dp2 -> (1, 1, 1)", gloo[0]["restore_1x1x1"]),
+                                      *((f"dp2 -> (1, 1, 2) rank {r}", g["restore_1x1x2"])
+                                        for r, g in enumerate(gloo))):
+        say("mesh_train", case="elastic_restore", mesh=repr(case), steps_after_resume=steps_taken,
+            bit_identical_to_saved=same)
+        require(steps_taken == 0 and same, f"mesh_train: elastic restore {case} "
+                                           f"({steps_taken} steps, identical {same})")
+    for rank, g in enumerate(gloo):
+        require(not g["jax"], f"mesh_train rank {rank} imported jax")
+        c = g["compression"]
+        payload = sorted(k for k in c["counts"] if k.startswith("all_reduce_") and k != "all_reduce_max")
+        say("mesh_train", case="compression", rank=rank, leaves=c["leaves"],
+            worst_one_step_gap_over_scale=f"{c['worst_one_step']:.3f}",
+            largest_leaf=c["largest"], steps=MT_COMP_STEPS,
+            avg_gap_over_scale=f"{c['avg30_over_scale']:.4f}", payload=payload,
+            counts=c["counts"], one_step_s=f"{c['one_step_s']:.2f}",
+            steps_s=f"{c['steps_s']:.2f}", card=repr(card))
+        require(c["worst_one_step"] <= 1.0, f"compression: a leaf {c['worst_one_step']:.3f} "
+                                            "steps from the exact mean")
+        require(c["avg30_over_scale"] < 0.2,
+                f"compression: the {MT_COMP_STEPS}-step average {c['avg30_over_scale']:.4f} of "
+                "the step size from the exact mean")
+        require(payload == ["all_reduce_int32"] and not c["counts"].get("all_reduce"),
+                f"compression: the payload crossed as {c['counts']}")
+        pp = g["pipeline"]
+        say("mesh_train", case="pipeline", rank=rank, stages=2, microbatches=PIPE_C,
+            rows=PIPE_ROWS, d=PIPE_D, max_abs_err=f"{pp['err']:.3e}", tol=PIPE_TOL,
+            counts=pp["counts"], seconds=f"{pp['s']:.3f}", card=repr(card))
+        require(pp["err"] <= PIPE_TOL and pp["counts"] == {"ppermute": PIPE_C + 1, "all_reduce": 1},
+                f"pipeline: {pp['err']:.3e} from sequential, collectives {pp['counts']}")
+    after = kernel_counts()
+    launched = {k: after[k] - before[k] + sum(r["kernels"][k] for r in gloo) for k in after}
+    say("mesh_train_kernels", launches_during_phase=launched)
+    require(not any(launched.values()), f"a kernel launched on the mesh training path: {launched}")
+    say("mesh_train", case="seconds", mesh_none=f"{none_s:.1f}",
+        gloo_ranks=f"{gloo_s:.1f}", nccl_rank=f"{nccl_s:.1f}")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -3315,7 +3787,7 @@ def main() -> int:
     for cell in ("lstm", "gru", "ssm"):
         synth_specs.append((f"{cell}_8x1024_T256", NetworkSpec(
             WIDTH, 8, WIDTH, WIDTH, cell=cell, seq_len=256), 8))
-    for bits in (8, 12):
+    for bits in (8,):       # 12 bits lies between the int8 and fp32 cells
         synth_specs.append((f"lstm_8x1024_T256_q{bits}", NetworkSpec(
             WIDTH, 8, WIDTH, WIDTH, cell="lstm", seq_len=256, quant_bits=bits), 8))
     with torch.no_grad():
@@ -3367,7 +3839,8 @@ def main() -> int:
     # -- 8. where the time goes: the use_pallas step() run under the profiler ---
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled_step_run(mcfg, mparams, counter, want_tokens, **serve_kw):
+    def profiled_step_run(mcfg, mparams, counter, want_tokens, *, check: bool = False,
+                          **serve_kw):
         """The ``step()`` serve run once more, on the first ``PROFILED``
         requests, under torch.profiler: device busy time and idle share over
         the run's wall, and the top kernels.  Only the device is traced: the
@@ -3379,22 +3852,18 @@ def main() -> int:
                                               counter, n=PROFILED, **serve_kw)
         require(tok_prof == {u: want_tokens[u] for u in range(PROFILED)},
                 f"{mcfg.name}: the profiled step() run's tokens differ")
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          and e.self_device_time_total > 0),
-                         key=lambda e: -e.self_device_time_total)
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        kernels = device_kernels(prof, torch.autograd.DeviceType.CUDA, check=check)
+        busy_ms = sum(us for _, _, us in kernels) / 1e3
         say("profile", arch=mcfg.name, driver="step", wall_ms=f"{prof_wall_ms:.1f}",
             device_busy_ms=f"{busy_ms:.1f}" if kernels else "not_measured",
             device_idle_share=f"{1 - busy_ms / prof_wall_ms:.3f}" if kernels else "not_measured",
             card=repr(card))
-        for e in kernels[:8]:
-            say("profile_top", arch=mcfg.name, kernel=repr(e.key[:70]), calls=e.count,
-                device_ms=f"{e.self_device_time_total / 1e3:.2f}",
-                share=f"{e.self_device_time_total / 1e3 / busy_ms:.3f}")
+        for key, calls, us in kernels[:8]:
+            say("profile_top", arch=mcfg.name, kernel=repr(key[:70]), calls=calls,
+                device_ms=f"{us / 1e3:.2f}", share=f"{us / 1e3 / busy_ms:.3f}")
 
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    profiled_step_run(cfg, params, lstm_ops.lstm_seq, tok_step)
+    profiled_step_run(cfg, params, lstm_ops.lstm_seq, tok_step, check=True)
     phase_done("profile")
 
     # -- 15a. serve_loadgen: full-width paper-lstm (use_pallas) ------------------
@@ -3633,7 +4102,8 @@ def main() -> int:
     phase_done("flash_attention")
 
     # -- 12. serve full-width falcon-mamba-7b (use_pallas) -----------------------
-    mcfg = dataclasses.replace(get_config("falcon-mamba-7b"), use_pallas=True)
+    mcfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=MAMBA_LAYERS,
+                               use_pallas=True)
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()     # what earlier phases still hold
     t0 = time.perf_counter()
@@ -3642,7 +4112,8 @@ def main() -> int:
     init_s = time.perf_counter() - t0
     m_params = lm.param_count(mparams)
     peak_init = torch.cuda.max_memory_allocated()
-    require((mcfg.n_layers, mcfg.d_model, mcfg.d_inner) == (64, 4096, 8192),
+    require((get_config("falcon-mamba-7b").n_layers, mcfg.d_model, mcfg.d_inner)
+            == (MAMBA_PUBLISHED_LAYERS, 4096, 8192),
             f"falcon-mamba-7b is not at its published widths: {mcfg}")
     say("serve_setup", arch=mcfg.name, n_layers=mcfg.n_layers, d_model=mcfg.d_model,
         d_inner=mcfg.d_inner, ssm_state=mcfg.ssm_state, dt_rank=mcfg.dt_rank_actual,
@@ -3672,8 +4143,8 @@ def main() -> int:
                     f"{mcfg.name} {path} prefill logits of shape "
                     f"{tuple(logits[path].shape)} or non-finite")
         blk = mcaches["groups"]["b0_mamba1"]
-        require(tuple(blk["h"].shape) == (64, 1, mcfg.d_inner, mcfg.ssm_state)
-                and tuple(blk["conv"].shape) == (64, 1, mcfg.d_conv - 1, mcfg.d_inner),
+        require(tuple(blk["h"].shape) == (mcfg.n_layers, 1, mcfg.d_inner, mcfg.ssm_state)
+                and tuple(blk["conv"].shape) == (mcfg.n_layers, 1, mcfg.d_conv - 1, mcfg.d_inner),
                 f"{mcfg.name}: prefill cache has the wrong layout")
         scale = float(logits["plain"].abs().max())
         m_diff = float((logits["use_pallas"] - logits["plain"]).abs().max())
@@ -3699,7 +4170,7 @@ def main() -> int:
                                                mparams["groups"])}
     lg_mamba_launches = serve_loadgen_mamba(
         lg_cfg, lg_params, dev, card,
-        cache_bytes=(1 << 30) * LOADGEN_MAMBA_LAYERS // mcfg.n_layers)
+        cache_bytes=(1 << 30) * LOADGEN_MAMBA_LAYERS // MAMBA_PUBLISHED_LAYERS)
     del mparams, lg_params
     torch.cuda.empty_cache()
     phase_done("serve_loadgen_falcon_mamba")
@@ -3823,13 +4294,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("prefill_phi4")
 
-    # -- 18. serve gemma3-27b (14 layers) and internlm2-20b (4 layers) -----------
+    # -- 18. serve gemma3-27b (8 layers) and internlm2-20b (4 layers) ------------
     gcfg = dataclasses.replace(get_config("gemma3-27b"), n_layers=GEMMA_LAYERS, use_pallas=True)
     require((gcfg.d_model, gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim, gcfg.d_ff, gcfg.vocab,
              gcfg.sliding_window, gcfg.rope_theta, gcfg.rope_theta_global, gcfg.qk_norm,
              gcfg.mlp_act, gcfg.tie_embeddings, gcfg.n_groups, gcfg.tail_pattern)
             == (5376, 32, 16, 128, 21_504, 262_144, 1024, 10_000.0, 1_000_000.0, True, "gelu",
-                True, 2, ("attn_local", "attn_local")),
+                True, 1, ("attn_local", "attn_local")),
             f"gemma3-27b is not at its published widths: {gcfg}")
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()
@@ -3876,15 +4347,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("serve_internlm2")
 
-    # -- 19. serve zamba2-1.2b at its published widths and depth ----------------
-    zcfg = dataclasses.replace(get_config("zamba2-1.2b"), use_pallas=True)
+    # -- 19. serve zamba2-1.2b at its published widths, depth cut ----------------
+    zcfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=ZAMBA_LAYERS,
+                               use_pallas=True)
     require((zcfg.n_layers, zcfg.d_model, zcfg.d_inner, zcfg.n_mamba_heads, zcfg.mamba_headdim,
              zcfg.ssm_state, zcfg.d_conv, zcfg.n_groups, zcfg.layer_pattern, zcfg.tail_pattern,
              zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim, zcfg.d_ff, zcfg.mlp_act,
              zcfg.gated_mlp, zcfg.shared_attn_lora_rank, zcfg.vocab, zcfg.tie_embeddings)
-            == (38, 2048, 4096, 64, 64, 64, 4, 6, ("mamba2",) * 5 + ("shared_attn",),
-                ("mamba2", "mamba2"), 32, 32, 64, 8192, "gelu", True, 128, 32_000, False),
-            f"zamba2-1.2b is not at its published widths and depth: {zcfg}")
+            == (ZAMBA_LAYERS, 2048, 4096, 64, 64, 64, 4, 2, ("mamba2",) * 5 + ("shared_attn",),
+                ("mamba2", "mamba2"), 32, 32, 64, 8192, "gelu", True, 128, 32_000, False)
+            and get_config("zamba2-1.2b").n_layers == 38,
+            f"zamba2-1.2b is not at its published widths: {zcfg}")
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -3894,7 +4367,8 @@ def main() -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     z_params = lm.param_count(zparams)
-    require(z_params == 1_026_412_544, f"zamba2-1.2b has {z_params} parameters")
+    require(z_params == ZAMBA_PARAMS, f"zamba2-1.2b ({ZAMBA_LAYERS} blocks) has {z_params} "
+                                      "parameters")
     traffic = long_prompt_traffic(zcfg.vocab, lengths=ZAMBA_LENGTHS, shared=ZAMBA_SHARED,
                                   cross=None, new=ZAMBA_NEW)
     say("serve_setup", arch=zcfg.name, n_layers=zcfg.n_layers, d_model=zcfg.d_model,
@@ -3914,19 +4388,19 @@ def main() -> int:
     phase_done("serve_zamba2")
 
     # -- 20. serve olmoe-1b-7b (fp32, then int8 weights) and deepseek-v2-lite-16b
-    # at their published widths and depth -----------------------------------------
+    # at their published widths, depth cut ------------------------------------------
     moe_fa = serve_moe_phase(dev, card)
 
-    # -- 15d. the entry points as subprocesses on the card ----------------------
-    serve_loadgen_entry_points(card)
-    phase_done("serve_loadgen_entry_points")
+    # -- 15d. every entry point that runs as a subprocess, started together -----
+    entry_points(card)
+    phase_done("entry_points")
 
     # -- 17. the Fig. 10 loop, the chaos suite and the lints ----------------------
     tc = tune_chaos(dev, card)
     codegen_launches["lstm"] += sum(n for label, n in tc["tune"].items() if "lstm" in label)
     phase_done("tune_chaos")
 
-    # -- 21. training: smollm-135m at train_4k length, paper-lstm, launch.train --
+    # -- 21. training: smollm-135m at train_4k length, paper-lstm -----------------
     train_phase(dev, card)
     phase_done("train")
 
@@ -3934,6 +4408,10 @@ def main() -> int:
     mesh_launches = mesh_phase(dev, card, cfg, prompts, tok_step, tok_block)
     codegen_launches["lstm"] += mesh_launches["codegen_stage"]
     phase_done("mesh")
+
+    # -- 23. mesh training: ZeRO shards, elastic restore, compression, pipeline --
+    mesh_train_phase(dev, card)
+    phase_done("mesh_train")
 
     summary = {"kernels": [{
         "name": "lstm_seq",

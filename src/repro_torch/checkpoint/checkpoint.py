@@ -14,7 +14,12 @@ Properties (each covered by tests):
     it (dict keys and NamedTuple fields by name, sequence items by index,
     joined with ``/``: ``opt/m/embed/table``); ``restore`` puts each leaf on
     the template leaf's device and dtype;
-  * **self-pruning**: keeps the newest ``keep`` checkpoints.
+  * **self-pruning**: keeps the newest ``keep`` checkpoints;
+  * **mesh-agnostic**: a tree of shards (given its
+    ``parallel.zero.ShardLayout``) is gathered and written whole, once, by
+    the mesh's first rank; restoring with a layout of any mesh cuts each
+    rank's shards from the full arrays, as restoring onto a template with
+    ``NamedSharding`` re-shards in the reference.
 
 numpy has no bfloat16, so a bf16 leaf is stored as its exact fp32 value;
 ``restore`` casts it back to the template's dtype.
@@ -124,12 +129,25 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save ----------------------------------------------------------------
-    def save(self, step: int, tree: PyTree, metadata: dict | None = None) -> None:
-        arrays = flatten_with_names(tree)  # host snapshot (synchronous)
-        self._write(step, arrays, metadata or {})
+    def _snapshot(self, tree: PyTree, layout) -> dict[str, np.ndarray] | None:
+        """The host arrays to write, or None on a rank that does not write
+        (a layout's gather is a collective: every rank of its mesh calls)."""
+        if layout is None:
+            return flatten_with_names(tree)
+        full = layout.gather(tree)
+        return flatten_with_names(full) if layout.writer else None
 
-    def save_async(self, step: int, tree: PyTree, metadata: dict | None = None) -> Future:
-        arrays = flatten_with_names(tree)  # snapshot NOW; write later
+    def save(self, step: int, tree: PyTree, metadata: dict | None = None, *,
+             layout=None) -> None:
+        arrays = self._snapshot(tree, layout)  # host snapshot (synchronous)
+        if arrays is not None:
+            self._write(step, arrays, metadata or {})
+
+    def save_async(self, step: int, tree: PyTree, metadata: dict | None = None, *,
+                   layout=None) -> Future | None:
+        arrays = self._snapshot(tree, layout)  # snapshot NOW; write later
+        if arrays is None:
+            return None
         fut = self._pool.submit(self._write, step, arrays, metadata or {})
         self._pending.append(fut)
         return fut
@@ -161,10 +179,12 @@ class CheckpointManager:
                     shutil.rmtree(os.path.join(self.dir, entry), ignore_errors=True)
 
     # -- restore ---------------------------------------------------------------
-    def restore(self, template: PyTree, step: int | None = None) -> tuple[PyTree, dict]:
+    def restore(self, template: PyTree, step: int | None = None, *,
+                layout=None) -> tuple[PyTree, dict]:
         """Restore onto the template's structure, each leaf on the template
         leaf's device and dtype; a leaf the checkpoint lacks raises
-        ``KeyError``."""
+        ``KeyError``.  With a ``layout`` the template holds this rank's
+        shards, and each is cut from the full array."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -173,7 +193,8 @@ class CheckpointManager:
         with open(os.path.join(d, "metadata.json")) as f:
             metadata = json.load(f)
         with np.load(os.path.join(d, "arrays.npz")) as data:
-            return _restore(template, data, ""), metadata
+            tree = _restore(template, data, "")
+        return (tree if layout is None else layout.shard(tree)), metadata
 
     def wait(self) -> None:
         """Barrier for outstanding async saves (used at shutdown); re-raises

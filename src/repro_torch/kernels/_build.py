@@ -97,8 +97,12 @@ def build(name: str, source: str | Path) -> Path:
     if isinstance(source, Path):
         cu = source
     else:
+        # written whole under another name first: processes that build the
+        # same source at once never let nvcc read a half-written file
         cu = out.with_suffix(".cu")
-        cu.write_text(source)
+        part = cu.with_name(f"{cu.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        part.write_text(source)
+        os.replace(part, cu)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(cu)],
                           capture_output=True, text=True, timeout=600)

@@ -171,7 +171,7 @@ def data_group(mesh):
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     """The reference's production mesh as a shape: 16 × 16 per pod, 2 pods
-    for ``multi_pod``.  The sharding rules and item 12b's dry run read it;
+    for ``multi_pod``.  The sharding rules and item 12c's dry run read it;
     nothing of the port runs on it."""
     if multi_pod:
         return AbstractMesh((2, 16, 16), AXES)

@@ -28,7 +28,7 @@ A sharded run reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
 plane over gloo, puts each rank on card ``LOCAL_RANK`` modulo the cards
 there are, and leaves the log and the documents to rank 0.  Without
 torchrun's environment it raises and prints the command line to use.
-``tp > 1`` serving is not ported yet (ROADMAP.md, Queue 1 item 12b).
+``tp > 1`` serving is not ported yet (ROADMAP.md, Queue 1 item 12c).
 """
 
 from __future__ import annotations

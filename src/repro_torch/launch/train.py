@@ -9,13 +9,25 @@ CPU (``--device cpu``).  Supports resume, failure injection (for drills)
 and metrics dumping.  Checkpoints go to ``--ckpt-dir`` (default
 ``$TMPDIR/repro_ckpt``); a run resumes from the newest one there unless
 ``--no-resume`` is given.
+
+Under torchrun (its environment: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) every rank joins a gloo process group and
+trains on ``make_local_mesh()``: every rank on ``"model"``, the reference's
+default mesh, the parameters and AdamW moments stored as each rank's
+shards.  On the card each rank takes card ``LOCAL_RANK`` modulo the cards
+there are; rank 0 logs and writes the metrics and the checkpoints.
+
+    torchrun --nproc-per-node=2 -m repro_torch.launch.train --arch smollm-135m --smoke
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import tempfile
+
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -37,9 +49,14 @@ def main(argv: list[str] | None = None) -> None:
                     help="where the trainer runs (default: the card)")
     args = ap.parse_args(argv)
 
+    import torch
+    import torch.distributed as dist
+
     from repro_torch import optim
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import DataConfig
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.obs import log
     from repro_torch.runtime import Trainer, TrainerConfig
 
@@ -53,12 +70,25 @@ def main(argv: list[str] | None = None) -> None:
                              total_steps=args.steps)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
 
-    trainer = Trainer(cfg, tcfg, ocfg, dcfg, device=args.device)
-    res = trainer.run(resume=not args.no_resume)
-    log.info(f"final_loss={res['final_loss']:.4f} "
-             f"entropy_floor={res['entropy_floor']:.4f}")
-    if args.metrics_out:
-        trainer.dump_metrics(args.metrics_out)
+    device, mesh, lead = resolve_device(args.device), None, True
+    if all(k in os.environ for k in TORCHRUN_ENV):
+        dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=600))
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                                  % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        mesh, lead = make_local_mesh(), dist.get_rank() == 0
+    try:
+        trainer = Trainer(cfg, tcfg, ocfg, dcfg, mesh, device=device)
+        res = trainer.run(resume=not args.no_resume)
+        if lead:
+            log.info(f"final_loss={res['final_loss']:.4f} "
+                     f"entropy_floor={res['entropy_floor']:.4f}")
+            if args.metrics_out:
+                trainer.dump_metrics(args.metrics_out)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

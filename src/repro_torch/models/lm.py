@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import constrain_activation
 
 from .config import ModelConfig
 from .layers import dense_init, embed, embedding_params, rmsnorm, rmsnorm_params
@@ -120,6 +121,7 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
     # its input for backward and recomputes its activations there
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for g in range(cfg.n_groups):
+        x = constrain_activation(x)   # each group's input: this rank's rows (a check)
         c_grp = None if caches is None else tree_map(lambda t: t[g], caches["groups"])
         if remat:
             x, aux, new_caches = checkpoint(group_body, g, x, aux, c_grp,
@@ -169,18 +171,23 @@ def forward(params, cfg: ModelConfig, tokens, *, mode="train"):
     return logits, aux
 
 
-def train_loss(params, cfg: ModelConfig, batch, z_loss_coef: float = 1e-4):
+def train_loss(params, cfg: ModelConfig, batch, z_loss_coef: float = 1e-4, *,
+               count: torch.Tensor | None = None):
     """batch: {"tokens": [B,S], "labels": [B,S]} → (loss, metrics).  Labels
     below 0 are masked out; the loss is the masked mean cross-entropy plus
     ``z_loss_coef`` times the mean squared log-partition plus
-    ``cfg.router_aux_coef`` times the MoE blocks' load-balancing loss."""
+    ``cfg.router_aux_coef`` times the MoE blocks' load-balancing loss.
+
+    ``count`` is the number of unmasked labels the means divide by (default:
+    this batch's own).  A data-parallel rank passes its global microbatch's,
+    so that the ranks' losses and gradients sum to the whole microbatch's."""
     logits, aux = forward(params, cfg, batch["tokens"], mode="train")
     labels = batch["labels"].long()
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(mask.sum() if count is None else count, min=1.0)
     ce = ((lse - gold) * mask).sum() / denom
     zl = (torch.square(lse) * mask).sum() / denom
     loss = ce + z_loss_coef * zl + cfg.router_aux_coef * aux

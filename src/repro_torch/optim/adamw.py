@@ -66,15 +66,20 @@ def init(params: PyTree) -> AdamWState:
     )
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
+def global_norm(tree: PyTree, layout=None) -> torch.Tensor:
     """sqrt of the sum of squares, the leaves summed in ``jax.tree.leaves``
-    order (dict keys sorted), as the reference sums them."""
+    order (dict keys sorted), as the reference sums them.  With a
+    ``layout`` (``parallel.zero.ShardLayout``) the tree holds this rank's
+    shards: each distinct shard is squared once and the sums are reduced
+    across the mesh."""
+    if layout is not None:
+        return torch.sqrt(layout.square_sum(tree))
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                           for g in tree_leaves_sorted(tree)))
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float):
-    gn = global_norm(grads)
+def clip_by_global_norm(grads: PyTree, max_norm: float, layout=None):
+    gn = global_norm(grads, layout)
     scale = torch.clamp(_f32(max_norm, gn) / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), gn
 
@@ -85,15 +90,19 @@ def apply(
     grads: PyTree,
     state: AdamWState,
     params: PyTree,
+    *,
+    layout=None,
 ) -> tuple[PyTree, AdamWState, dict]:
     """One AdamW update.  Params may be bf16; the update math is f32 and the
     new params are cast back to the param dtype (mixed-precision master-less
-    scheme; for true master weights keep params f32)."""
+    scheme; for true master weights keep params f32).  Given the
+    ``layout`` of sharded ``grads``, ``state`` and ``params``, only the
+    global norm crosses ranks; the rest is elementwise on the shards."""
     grads = tree_map(lambda g: g.to(torch.float32), grads)
     if cfg.clip_norm > 0:
-        grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gn = clip_by_global_norm(grads, cfg.clip_norm, layout)
     else:
-        gn = global_norm(grads)
+        gn = global_norm(grads, layout)
 
     step = state.step + 1
     lr = lr_schedule(cfg, step)

@@ -1,5 +1,5 @@
-"""Multi-device pieces of the port: the sharding rules (``sharding``), the
-counted collectives (``comm``), a forward split over the data ranks
-(``data_parallel``) and expert-parallel MoE (``ep_moe``).  The
-pipeline schedule and gradient compression of the reference's package are
-not ported yet (ROADMAP.md, Queue 1 item 12b)."""
+"""Multi-device pieces of the port: the sharding rules and activation pins
+(``sharding``), the counted collectives (``comm``), the sharded training
+state (``zero``), a forward split over the data ranks (``data_parallel``),
+expert-parallel MoE (``ep_moe``), the int8 error-feedback all-reduce
+(``compression``) and the GPipe/C-slow pipeline schedule (``pipeline``)."""

@@ -60,22 +60,63 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     return t
 
 
-def gather_rows_exact(local: torch.Tensor, index: int, count: int, group=None) -> torch.Tensor:
+def _join_exact(local: torch.Tensor, index: int, count: int, group) -> torch.Tensor:
     """``count`` equal row blocks, block ``index`` from this rank, joined
-    along dim 0 on every rank, bit for bit (counted as ``gather_rows``).
-
-    One integer ``all_reduce`` of the blocks' bit patterns, each rank's
-    block in its place and zeros elsewhere: every backend sums integers on
-    every device (gloo has no ``all_gather`` for CUDA tensors), and an
-    integer sum with zeros returns the bits it was given."""
-    COUNTS["gather_rows"] += 1
+    along dim 0, bit for bit (:func:`sum_exact` of the blocks, each rank's
+    in its place and zeros elsewhere)."""
     n = local.shape[0]
     full = torch.zeros((count * n,) + tuple(local.shape[1:]), dtype=local.dtype,
                        device=local.device)
     full[index * n:(index + 1) * n] = local
-    bits = {4: torch.int32, 8: torch.int64}.get(full.element_size(), torch.uint8)
-    dist.all_reduce(full.view(-1).view(bits), group=group)
+    sum_exact(full, group)
     return full
+
+
+def sum_exact(t: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place integer sum of ``t``'s bit patterns over ``group`` (not
+    counted: the callers count what it carries).  Where at most one rank
+    holds a nonzero value at each element, every rank ends with that
+    value's bits: every backend sums integers on every device (gloo has no
+    ``all_gather`` and no ``send``/``recv`` for CUDA tensors), and an
+    integer sum with zeros returns the bits it was given."""
+    bits = {4: torch.int32, 8: torch.int64}.get(t.element_size(), torch.uint8)
+    dist.all_reduce(t.view(-1).view(bits), group=group)
+    return t
+
+
+def gather_rows_exact(local: torch.Tensor, index: int, count: int, group=None) -> torch.Tensor:
+    """``count`` equal row blocks, block ``index`` from this rank, joined
+    along dim 0 on every rank, bit for bit (counted as ``gather_rows``)."""
+    COUNTS["gather_rows"] += 1
+    return _join_exact(local, index, count, group)
+
+
+def ppermute(t: torch.Tensor, shift: int = 1, group=None) -> torch.Tensor:
+    """The ring transfer of ``group`` (counted as ``ppermute``): rank ``i``'s
+    ``t`` arrives at rank ``(i + shift) % n``, and this rank gets rank
+    ``(i - shift) % n``'s, bit for bit."""
+    COUNTS["ppermute"] += 1
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return _join_exact(t[None], r, n, group)[(r - shift) % n]
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group`` (counted as
+    ``all_reduce_max``): every rank's values joined bit for bit, then the
+    max taken locally, so no backend's ``MAX`` on device tensors is
+    needed."""
+    COUNTS["all_reduce_max"] += 1
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return _join_exact(t.reshape(1, -1), r, n, group).amax(0).reshape(t.shape)
+
+
+def all_reduce_typed(t: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place sum over ``group``, counted as ``all_reduce_<dtype>``: the
+    count names the type that crossed the wire (the compressed all-reduce's
+    int32 codes)."""
+    COUNTS["all_reduce_" + str(t.dtype).removeprefix("torch.")] += 1
+    dist.all_reduce(t, group=group)
+    return t
 
 
 def control_group(ranks: tuple[int, ...]):
@@ -91,5 +132,6 @@ def control_group(ranks: tuple[int, ...]):
     return _CONTROL_GROUPS[ranks]
 
 
-__all__ = ["COUNTS", "all_gather", "all_reduce", "all_to_all_single", "broadcast",
-           "control_group", "gather_rows_exact", "reset_counts"]
+__all__ = ["COUNTS", "all_gather", "all_reduce", "all_reduce_max", "all_reduce_typed",
+           "all_to_all_single", "broadcast", "control_group", "gather_rows_exact", "ppermute",
+           "reset_counts", "sum_exact"]

@@ -24,18 +24,22 @@ Conventions (the reference's):
 
 The rules read only axis names and sizes, so they run on an
 :class:`~repro_torch.launch.mesh.AbstractMesh` and on leaves that carry only
-a ``.shape`` (fake or meta tensors, shape structs).  The activation pins
-(``activation_constraints``, ``constrain_activation``, ``activation_spec``)
-are not ported yet (ROADMAP.md, Queue 1 item 12b).
+a ``.shape`` (fake or meta tensors, shape structs).
+
+The activation pins (``activation_constraints``, ``constrain_activation``,
+``activation_spec``) check, inside the context, that each group's input
+holds this rank's share of the batch rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
+import threading
 from typing import TYPE_CHECKING, Any, Callable
 
-from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes
+from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes, is_device_mesh
 
 if TYPE_CHECKING:
     from repro_torch.models.config import ModelConfig
@@ -252,5 +256,74 @@ def placements(spec: Spec, mesh) -> list:
     return out
 
 
-__all__ = ["batch_specs", "cache_specs", "dp_axes", "fsdp_axis", "map_with_path",
+# ---------------------------------------------------------------------------
+# activation pins
+# ---------------------------------------------------------------------------
+#
+# The reference pins each group's activations to P(dp, ...) so that XLA's
+# propagation cannot lose the batch sharding.  A rank of the port holds a
+# plain tensor of its own rows, so a pin here is a check: inside the
+# context, the batch dim must be this rank's share of the global batch.  A
+# wrong share raises; nothing is ever resharded.  Thread-local, so tests and
+# single-device runs are untouched.
+
+_ACT = threading.local()
+
+
+@contextlib.contextmanager
+def activation_constraints(mesh, *, seq_axis: str | None = None,
+                           batch_axes: tuple[str, ...] | None = None,
+                           global_batch: int | None = None):
+    """Enable the batch-dim pin (and the sequence-dim spec) of
+    :func:`constrain_activation`.  ``global_batch`` is the rows the pinned
+    activations carry across the whole mesh (a plain tensor does not know
+    it); without it only the spec is formed.  The port shards no sequence,
+    so a ``seq_axis`` of size > 1 raises (ROADMAP.md, Queue 1 item 12c)."""
+    if seq_axis is not None and axis_sizes(mesh).get(seq_axis, 1) > 1:
+        raise NotImplementedError(
+            f"activation_constraints(seq_axis={seq_axis!r}): sequence-sharded activations "
+            "are not ported to repro_torch yet (ROADMAP.md, Queue 1 item 12c)")
+    prev = getattr(_ACT, "cfg", None)
+    _ACT.cfg = (mesh, seq_axis, batch_axes, global_batch)
+    try:
+        yield
+    finally:
+        _ACT.cfg = prev
+
+
+def constrain_activation(x):
+    """Pin ``[B, S, D]`` (or ``[B, ...]``) activations to batch-over-DP.
+
+    Outside an :func:`activation_constraints` context (or for a tensor of
+    rank < 2) ``x`` comes back unchanged.  Inside it, on a DeviceMesh with a
+    ``global_batch``, ``x``'s batch dim must be this rank's share: the
+    global batch over the DP axes' size when that divides it (the
+    reference's divisibility guard), else the whole batch.  Any other size
+    raises ``ValueError``.  ``x`` is returned as it is."""
+    ctx = getattr(_ACT, "cfg", None)
+    if ctx is None or not hasattr(x, "shape") or x.ndim < 2:
+        return x
+    mesh, _, batch_axes, global_batch = ctx
+    if global_batch is None or not is_device_mesh(mesh):
+        return x
+    # the reference's spec's batch entry, through its divisibility guard
+    [entry] = _guard((batch_axes or dp_axes(mesh),), (int(global_batch),), mesh)
+    axes = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+    share = int(global_batch) // math.prod(axis_sizes(mesh)[a] for a in axes)
+    if x.shape[0] != share:
+        raise ValueError(
+            f"constrain_activation: a batch dim of {x.shape[0]} rows, but this rank's share "
+            f"of the global batch {global_batch} over {axes or 'no axis'} is {share} "
+            "(activations are never resharded)")
+    return x
+
+
+def activation_spec(mesh, *dims) -> Spec:  # noqa: ARG001 - the reference's signature
+    """The spec of ``dims`` as a tuple (:func:`placements` turns it into
+    DTensor placements on ``mesh``)."""
+    return tuple(dims)
+
+
+__all__ = ["activation_constraints", "activation_spec", "batch_specs", "cache_specs",
+           "constrain_activation", "dp_axes", "fsdp_axis", "map_with_path",
            "opt_state_specs", "param_specs", "placements"]

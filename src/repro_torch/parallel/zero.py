@@ -1,0 +1,254 @@
+"""Sharded training state (ZeRO/FSDP): the port's counterpart of the
+``in_shardings`` that the reference hands ``jax.jit`` for its train step
+(``repro/runtime/trainer.py``).
+
+A :class:`ShardLayout` pairs a tree of specs (``param_specs(cfg, params,
+mesh, fsdp=True)``, ``opt_state_specs``, or any spec tree) with a
+``DeviceMesh``.  Each rank keeps, of every leaf, the block that its mesh
+coordinate selects, as a ``NamedSharding`` places it: dim ``d`` whose spec
+entry names axes ``(a, b)`` is cut in ``size(a)·size(b)`` equal blocks and
+this rank keeps block ``coord(a)·size(b) + coord(b)``; along the axes the
+spec does not name the block is replicated.  From there the layout gives
+
+* :meth:`~ShardLayout.shard`: this rank's blocks of a tree of full tensors;
+* :meth:`~ShardLayout.gather`: the full tensors from the blocks, bit for
+  bit, on every rank (one integer ``all_reduce`` per mesh axis of size > 1,
+  each block from one replica and zeros elsewhere; gloo has no
+  ``all_gather`` for CUDA tensors);
+* :meth:`~ShardLayout.reduce_grads`: a tree of full gradients summed over
+  the data axes and cut to this rank's blocks;
+* :meth:`~ShardLayout.square_sum`: the sum of squares of a sharded tree,
+  each distinct block counted once (a replica along an axis adds nothing),
+  the leaves summed in ``jax.tree.leaves`` order as the reference's
+  ``global_norm`` sums them.
+
+The data rows of a step (:func:`local_rows`) follow the reference's split:
+the global batch is cut into microbatches first, and each microbatch's
+rows over the data ranks.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from repro_torch._tree import tree_leaves, tree_leaves_sorted, tree_map
+from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes, require_group
+from repro_torch.parallel import comm
+
+PyTree = Any
+
+_ALIGN = 64     # elements: every leaf of a packed buffer starts 256-byte aligned
+
+
+class _Spec:
+    """A spec tuple held as a tree leaf (the tree helpers walk tuples)."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, entries: tuple):
+        self.entries = tuple(entries)
+
+
+def _wrap(specs: PyTree) -> PyTree:
+    """Spec tree → the same tree with each spec tuple a :class:`_Spec` leaf:
+    dicts and NamedTuples (the optimizer state) are containers, a plain
+    tuple is a spec."""
+    if isinstance(specs, dict):
+        return {k: _wrap(v) for k, v in specs.items()}
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(_wrap(v) for v in specs))
+    if isinstance(specs, tuple):
+        return _Spec(specs)
+    raise TypeError(f"not a spec tree node: {specs!r}")
+
+
+def param_shapes(cfg) -> PyTree:
+    """``cfg``'s parameter tree as meta tensors: the full shapes and dtypes
+    with no storage (drawn under ``FakeTensorMode``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import lm
+
+    with FakeTensorMode():
+        fake = lm.init_params(cfg, torch.Generator(), device="cpu")
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
+
+
+def refuse_moe_on_data(cfg, mesh) -> None:
+    """MoE groups and the Switch aux loss read every token of the global
+    batch; a data rank holds only its own rows, so the numbers would differ."""
+    sizes = axis_sizes(mesh)
+    dp = math.prod(sizes[a] for a in dp_axes(mesh))
+    if "moe" in tuple(cfg.layer_pattern) + tuple(cfg.tail_pattern) and dp > 1:
+        raise NotImplementedError(
+            f"training {cfg.name} on a data axis of {dp}: MoE groups and the router's "
+            "aux loss span the global batch, and data-parallel MoE training is not ported "
+            "to repro_torch yet (ROADMAP.md, Queue 1 item 12c: MoE on a training mesh)")
+
+
+def local_rows(batch: PyTree, microbatches: int, dp: int, shard: int) -> PyTree:
+    """This data shard's rows of a global batch: of each of the
+    ``microbatches`` consecutive microbatches, the ``shard``-th of ``dp``
+    equal slices, the slices in microbatch order (so ``accumulate_grads``
+    with ``microbatches`` gives microbatch ``i``'s slice as its ``i``-th)."""
+    def one(x):
+        n = microbatches
+        if x.shape[0] % (n * dp):
+            raise ValueError(f"a global batch of {x.shape[0]} rows does not split into "
+                             f"{n} microbatches over {dp} data shards")
+        per = x.shape[0] // (n * dp)
+        return x.reshape((n, dp, per) + tuple(x.shape[1:]))[:, shard].reshape(
+            (n * per,) + tuple(x.shape[1:]))
+
+    return tree_map(one, batch)
+
+
+class ShardLayout:
+    """``specs`` (a spec tree: dicts, NamedTuples, spec tuples) on a
+    ``DeviceMesh`` of an initialised process group that this rank is in."""
+
+    def __init__(self, mesh, specs: PyTree):
+        require_group(mesh)
+        self.mesh = mesh
+        self.specs = _wrap(specs)
+        self.sizes = axis_sizes(mesh)
+        self.coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+        self.groups = {a: mesh.get_group(a) for a in axis_names(mesh) if self.sizes[a] > 1}
+        self.data_groups = [self.groups[a] for a in dp_axes(mesh) if a in self.groups]
+
+    # -- one leaf ----------------------------------------------------------------
+    def _axes(self, entry) -> tuple[str, ...]:
+        return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+    def _box(self, spec: _Spec, shape) -> tuple[slice, ...]:
+        box = []
+        for d, n in enumerate(shape):
+            axes = self._axes(spec.entries[d]) if d < len(spec.entries) else ()
+            count = math.prod(self.sizes[a] for a in axes)
+            index = 0
+            for a in axes:
+                index = index * self.sizes[a] + self.coord[a]
+            if n % count:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split over {axes}")
+            box.append(slice(index * (n // count), (index + 1) * (n // count)))
+        return tuple(box)
+
+    def _owner(self, spec: _Spec) -> bool:
+        """Whether this rank is the first replica of its block: its
+        coordinate is 0 along every axis the spec does not name."""
+        named = {a for e in spec.entries for a in self._axes(e)}
+        return all(self.coord[a] == 0 for a in self.coord if a not in named)
+
+    # -- trees -------------------------------------------------------------------
+    def _leaves(self, tree: PyTree, order=tree_leaves) -> tuple[list, list]:
+        """``tree``'s leaves and their specs, in ``order``."""
+        return order(tree), order(tree_map(lambda _, s: s, tree, self.specs))
+
+    def shard(self, full: PyTree) -> PyTree:
+        """This rank's blocks of ``full``, each a contiguous copy."""
+        return tree_map(lambda t, s: t[self._box(s, t.shape)].clone(), full, self.specs)
+
+    def _full_shape(self, spec: _Spec, shape) -> tuple[int, ...]:
+        return tuple(n * (math.prod(self.sizes[a] for a in self._axes(spec.entries[d]))
+                          if d < len(spec.entries) else 1) for d, n in enumerate(shape))
+
+    def gather(self, local: PyTree) -> PyTree:
+        """The full tensors of a tree of this rank's blocks, on every rank,
+        bit for bit (counted as one ``gather_exact``): each element size's
+        leaves packed in one flat integer buffer, each block placed by its
+        first replica, zeros elsewhere, summed over every mesh axis of size
+        > 1.  The returned leaves are views of that buffer, each starting
+        256-byte aligned."""
+        comm.COUNTS["gather_exact"] += 1
+        leaves, specs = self._leaves(local)
+        out: list = [None] * len(leaves)
+        for es in sorted({t.element_size() for t in leaves}):
+            store = {4: torch.int32, 8: torch.int64}.get(es, torch.uint8)
+            units = es // store.itemsize
+            idx = [i for i, t in enumerate(leaves) if t.element_size() == es]
+            shapes = {i: self._full_shape(specs[i], leaves[i].shape) for i in idx}
+            offs, total = {}, 0
+            for i in idx:
+                offs[i] = total
+                total += -(-math.prod(shapes[i]) // _ALIGN) * _ALIGN
+            flat = torch.zeros(total * units, dtype=store, device=leaves[idx[0]].device)
+            for i in idx:
+                n = math.prod(shapes[i])
+                out[i] = flat[offs[i] * units:(offs[i] + n) * units].view(
+                    leaves[i].dtype).view(shapes[i])
+                if self._owner(specs[i]):
+                    out[i][self._box(specs[i], shapes[i])] = leaves[i]
+            for g in self.groups.values():
+                comm.sum_exact(flat, g)
+        it = iter(out)
+        return tree_map(lambda _: next(it), local)
+
+    def barrier(self) -> None:
+        """Every rank of the mesh waits for every other (one barrier per
+        axis of size > 1: together a barrier over the whole mesh)."""
+        for g in self.groups.values():
+            dist.barrier(group=g)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes what the mesh saves: its first rank."""
+        return dist.get_rank() == int(self.mesh.mesh.flatten()[0])
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data axes (in place when there are any)."""
+        for g in self.data_groups:
+            comm.all_reduce(t, g)
+        return t
+
+    def reduce_grads(self, grads: PyTree) -> PyTree:
+        """Full gradients (this rank's rows) summed over the data axes in
+        fp32, in one flat buffer, then cut to this rank's blocks."""
+        leaves, specs = self._leaves(grads)
+        flat = self.data_sum(torch.cat([g.reshape(-1).to(torch.float32) for g in leaves]))
+        parts = flat.split([g.numel() for g in leaves])
+        it = iter(p.view(g.shape)[self._box(s, g.shape)].clone()
+                  for p, g, s in zip(parts, leaves, specs, strict=True))
+        return tree_map(lambda _: next(it), grads)
+
+    def square_sum(self, tree: PyTree) -> torch.Tensor:
+        """Σ of squares over a sharded tree: each leaf's block squared and
+        summed on its first replica only, the per-leaf sums reduced over the
+        mesh, then added in ``jax.tree.leaves`` order."""
+        leaves, specs = self._leaves(tree, tree_leaves_sorted)
+        sq = torch.stack([torch.sum(torch.square(g.to(torch.float32))) for g in leaves])
+        sq = sq * torch.tensor([float(self._owner(s)) for s in specs], device=sq.device)
+        for g in self.groups.values():
+            comm.all_reduce(sq, g)
+        total = 0
+        for i in range(len(leaves)):
+            total = total + sq[i]
+        return total
+
+
+def param_layout(cfg, mesh) -> ShardLayout:
+    """The layout of ``cfg``'s parameters on ``mesh``: the reference
+    Trainer's ``param_specs(cfg, params, mesh)`` (FSDP over ``data``)."""
+    from repro_torch.parallel.sharding import param_specs
+
+    return ShardLayout(mesh, param_specs(cfg, param_shapes(cfg), mesh, fsdp=True))
+
+
+def state_layout(cfg, mesh) -> ShardLayout:
+    """The layout of ``{"params": ..., "opt": AdamWState}``: the moments
+    shard like their parameters (``opt_state_specs``), the step is
+    replicated."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.parallel.sharding import opt_state_specs, param_specs
+
+    shapes = param_shapes(cfg)
+    ospecs = opt_state_specs(cfg, shapes, mesh)
+    return ShardLayout(mesh, {"params": param_specs(cfg, shapes, mesh, fsdp=True),
+                              "opt": AdamWState((), ospecs, ospecs)})
+
+
+__all__ = ["ShardLayout", "local_rows", "param_layout", "param_shapes",
+           "refuse_moe_on_data", "state_layout"]

@@ -1,10 +1,9 @@
-"""Runtime: the single-device ``trainer.Trainer`` (checkpoint/restart,
-failure injection, the straggler monitor) and the serving stack: the
-continuous-batching ``server.DecodeServer``, its ``scheduler`` and asyncio
-front-end, the radix ``prefix_cache``, the seeded ``loadgen``, the
-``faults`` layer, weight-only int8 serving (``quantized``, imported by
-name) and mesh placement (``ShardPlan``, in both layouts).  ``Trainer(mesh=)``
-is not ported yet (ROADMAP.md, Queue 1 item 12b)."""
+"""Runtime: ``trainer.Trainer`` on one device or a mesh (checkpoint/restart,
+elastic re-sharding, failure injection, the straggler monitor) and the
+serving stack: the continuous-batching ``server.DecodeServer``, its
+``scheduler`` and asyncio front-end, the radix ``prefix_cache``, the seeded
+``loadgen``, the ``faults`` layer, weight-only int8 serving (``quantized``,
+imported by name) and mesh placement (``ShardPlan``, in both layouts)."""
 
 from .faults import FAULT_POINTS, FaultError, FaultPlan, FaultSpec, TransientFault, Watchdog
 from .loadgen import Trace, TraceItem, TraceSpec, make_trace, replay

@@ -70,9 +70,9 @@ of the prompt, then the least loaded one, then the lowest id.  Two layouts:
   generator, so the draws differ from the unsharded server's.  Decisions read from each
   rank's own clock would split the ranks, so this layout refuses the
   watchdog, load shedding, request deadlines and explicit priority aging,
-  and its default scheduler does not age (ROADMAP.md, Queue 1 item 12b).
+  and its default scheduler does not age (ROADMAP.md, Queue 1 item 12c).
   Tensor parallelism inside the served models (``tp > 1``) is not ported
-  yet either (item 12b) and raises.
+  yet either (item 12c) and raises.
 """
 
 from __future__ import annotations
@@ -418,7 +418,7 @@ class DecodeServer:
             raise NotImplementedError(
                 "DecodeServer(plan): request deadlines read each rank's own clock, "
                 "which would split the ranks of a sharded server; not ported yet "
-                "(ROADMAP.md, Queue 1 item 12b)")
+                "(ROADMAP.md, Queue 1 item 12c)")
         if req.deadline_s is not None:
             req.deadline_at = now + req.deadline_s
             if req.deadline_s <= 0:   # dead on arrival: expire before admit
@@ -462,7 +462,7 @@ class DecodeServer:
         if plan.tp > 1:
             raise NotImplementedError(
                 f"DecodeServer(plan): tensor parallelism inside the served models "
-                f"(tp={plan.tp}) is not ported yet (ROADMAP.md, Queue 1 item 12b); "
+                f"(tp={plan.tp}) is not ported yet (ROADMAP.md, Queue 1 item 12c); "
                 "serve with tp=1")
         plan.require_group()
         cfg = scheduler.cfg if isinstance(scheduler, Scheduler) else scheduler
@@ -474,7 +474,7 @@ class DecodeServer:
             raise NotImplementedError(
                 f"DecodeServer(plan): {why} reads each rank's own clock, which would "
                 "split the ranks of a sharded server; not ported yet (ROADMAP.md, "
-                "Queue 1 item 12b)")
+                "Queue 1 item 12c)")
 
     def _shard_of(self, b: int) -> int:
         return 0 if self.plan is None else b // self._slots_per_shard

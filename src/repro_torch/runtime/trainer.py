@@ -1,9 +1,11 @@
 """Training runtime: the control path (the paper's FSM state controller);
-the port's counterpart of ``repro/runtime/trainer.py``, on one device.
+the port's counterpart of ``repro/runtime/trainer.py``.
 
 Responsibilities:
   * the train step (loss → grads → AdamW, ``launch.steps.make_train_step``)
-    on the trainer's device: the card unless the caller asks for the CPU;
+    on the trainer's device (the card unless the caller asks for the CPU),
+    or over a mesh with the parameters and AdamW moments stored as this
+    rank's ZeRO/FSDP shards (``parallel.zero``);
   * checkpoint/restart: atomic async checkpoints every N steps, auto-resume
     from the latest valid one — deterministic continuation is covered by
     tests (same data pipeline step counter, same parameters from the seed);
@@ -11,10 +13,10 @@ Responsibilities:
     restart path;
   * straggler monitoring: per-step wall-times feed the monitor; steps slower
     than ``straggler_factor``× the median trigger work reassignment in the
-    data pipeline (simulated-host model) and are logged.
-
-Meshes (the reference's sharded train step and elastic re-sharding) are not
-ported yet (ROADMAP.md, Queue 1 item 12b).
+    data pipeline (simulated-host model) and are logged;
+  * elastic restarts: checkpoints hold full arrays (written once, by the
+    mesh's first rank), so a run restores onto another mesh by cutting
+    its own shards.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import zero
 
 PyTree = Any
 
@@ -94,7 +97,13 @@ class StragglerMonitor:
 class Trainer:
     """``params`` and ``opt_state`` are public: a caller may replace them
     (with bridged reference parameters and a fresh ``optim.init``) before
-    ``run``."""
+    ``run``; on a mesh they are this rank's shards, and :meth:`load_full`
+    sets them from full tensors.
+
+    ``mesh`` is a ``DeviceMesh`` over an initialised process group
+    (``launch.mesh.make_local_mesh``): every rank draws the same initial
+    parameters from the seed and keeps its shards, and trains its rows of
+    each global batch."""
 
     def __init__(
         self,
@@ -107,28 +116,43 @@ class Trainer:
         device: str | torch.device | None = None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh): sharded training (FSDP/ZeRO specs, elastic "
-                "re-sharding on restore) is not ported to repro_torch yet (ROADMAP.md, "
-                "Queue 1 item 12b: Multi-device training and the dry run)")
+            zero.refuse_moe_on_data(cfg, mesh)
+        self.layout = None if mesh is None else zero.state_layout(cfg, mesh)
         self.device = resolve_device(device)
-        self.cfg, self.tcfg, self.ocfg = cfg, tcfg, ocfg
+        self.cfg, self.tcfg, self.ocfg, self.mesh = cfg, tcfg, ocfg, mesh
         self.data = TokenPipeline(dcfg)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts)
         self.monitor = StragglerMonitor(tcfg.straggler_factor, tcfg.straggler_patience)
         self.metrics_log: list[dict] = []
         gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
-        self.params = lm.init_params(cfg, gen, device=self.device)
-        self.opt_state = optim.init(self.params)
-        self._step_fn = make_train_step(cfg, ocfg, tcfg.microbatches)
+        self.load_full(lm.init_params(cfg, gen, device=self.device))
+        self._step_fn = make_train_step(cfg, ocfg, tcfg.microbatches, mesh)
+
+    def load_full(self, params: PyTree, opt_state: optim.AdamWState | None = None) -> None:
+        """Set the parameters and the optimizer state (a fresh
+        ``optim.init`` unless given) from full tensors; on a mesh each rank
+        keeps its shards."""
+        opt_state = optim.init(params) if opt_state is None else opt_state
+        state = {"params": params, "opt": opt_state}
+        if self.layout is not None:
+            state = self.layout.shard(state)
+        self.params, self.opt_state = state["params"], state["opt"]
+
+    def full_state(self) -> dict:
+        """``{"params", "opt"}`` as full tensors (on a mesh, a collective:
+        every rank of the mesh calls it)."""
+        state = {"params": self.params, "opt": self.opt_state}
+        return state if self.layout is None else self.layout.gather(state)
 
     # ------------------------------------------------------------------
     def _resume(self) -> int:
+        if self.layout is not None:     # the writer's last checkpoint is on disk
+            self.layout.barrier()
         last = self.ckpt.latest_step()
         if last is None:
             return 0
         tree = {"params": self.params, "opt": self.opt_state}
-        restored, meta = self.ckpt.restore(tree, last)
+        restored, meta = self.ckpt.restore(tree, last, layout=self.layout)
         self.params = restored["params"]
         self.opt_state = restored["opt"]
         return int(meta["step"])
@@ -160,11 +184,11 @@ class Trainer:
                 self.metrics_log.append(rec)
             if (step + 1) % tcfg.ckpt_every == 0 or step == tcfg.total_steps - 1:
                 tree = {"params": self.params, "opt": self.opt_state}
-                if tcfg.ckpt_async:
-                    self.ckpt.save_async(step + 1, tree, {"step": step + 1})
-                else:
-                    self.ckpt.save(step + 1, tree, {"step": step + 1})
+                save = self.ckpt.save_async if tcfg.ckpt_async else self.ckpt.save
+                save(step + 1, tree, {"step": step + 1}, layout=self.layout)
         self.ckpt.wait()
+        if self.layout is not None:
+            self.layout.barrier()
         return {
             "final_loss": losses[-1] if losses else None,
             "losses": losses,

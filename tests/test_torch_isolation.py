@@ -56,7 +56,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                    "launch/train.py", "launch/mesh.py", "launch/spawn.py",
                    "parallel/__init__.py", "parallel/sharding.py", "parallel/comm.py",
                    "parallel/ep_moe.py", "parallel/data_parallel.py",
-                   "runtime/shard_plan.py"):
+                   "runtime/shard_plan.py", "parallel/zero.py", "parallel/compression.py",
+                   "parallel/pipeline.py"):
         assert module in names, module
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}

@@ -246,7 +246,7 @@ def test_stats_keys_match_reference(weights):
 # raises before it looks for a process group
 @pytest.mark.parametrize("kw", [dict(plan=ShardPlan(AbstractMesh((1, 1, 2), AXES)))])
 def test_unported_server_features_raise(weights, kw):
-    with pytest.raises(NotImplementedError, match="not ported.*item 12b"):
+    with pytest.raises(NotImplementedError, match="not ported.*item 12c"):
         _server(weights, **kw)
 
 

@@ -336,8 +336,8 @@ def test_sharded_layout_refusals(runs):
     _, _, _, sharded = runs
     for out in sharded:
         watchdog, deadline = out["refusals"]
-        assert "watchdog_s" in watchdog and "item 12b" in watchdog
-        assert "deadlines" in deadline and "item 12b" in deadline
+        assert "watchdog_s" in watchdog and "item 12c" in watchdog
+        assert "deadlines" in deadline and "item 12c" in deadline
 
 
 def test_plan_refusals_without_a_group(runs):
@@ -346,8 +346,8 @@ def test_plan_refusals_without_a_group(runs):
     with pytest.raises(RuntimeError, match="needs a DeviceMesh over an initialised"):
         DecodeServer(cfg, params, num_slots=8, max_seq=32, device="cpu",
                      plan=ShardPlan(AbstractMesh((1, DP, 1), AXES)))
-    # tp > 1 serving is item 12b; folded tp > 1 is the reference's ValueError
-    with pytest.raises(NotImplementedError, match="tp=2.*item 12b"):
+    # tp > 1 serving is item 12c; folded tp > 1 is the reference's ValueError
+    with pytest.raises(NotImplementedError, match="tp=2.*item 12c"):
         DecodeServer(cfg, params, num_slots=8, max_seq=32, device="cpu",
                      plan=ShardPlan(AbstractMesh((1, 4, 2), AXES)))
     with pytest.raises(ValueError, match="tensor parallelism needs the physical layout"):

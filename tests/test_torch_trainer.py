@@ -3,8 +3,8 @@ falls toward the data's entropy floor within the reference's thresholds
 (``tests/test_trainer_server.py``), a failure at step 25 and a resume give
 the uninterrupted run's parameters, the straggler monitor flags a slow
 host, five steps from the reference's initial parameters give the
-reference ``Trainer``'s losses, a mesh is refused, and ``python -m
-repro_torch.launch.train`` runs."""
+reference ``Trainer``'s losses, MoE on a data axis is refused, and
+``python -m repro_torch.launch.train`` runs."""
 
 import dataclasses
 import os
@@ -130,9 +130,19 @@ def test_five_steps_match_the_reference_trainer(tmp_path):
 
 
 def test_mesh_is_not_ported(tmp_path):
+    """MoE on a data axis > 1 is refused (its groups and aux loss span the
+    global batch), before any process group is needed; a dense config on
+    the same mesh gets as far as asking for the group."""
+    from repro_torch.launch.mesh import AXES, AbstractMesh
+
     cfg, tcfg, ocfg, dcfg = _setup(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12b: Multi-device training"):
-        Trainer(cfg, tcfg, ocfg, dcfg, mesh=object(), device="cpu")
+    moe_cfg = get_smoke_config("olmoe-1b-7b")
+    mesh = AbstractMesh((1, 2, 1), AXES)
+    with pytest.raises(NotImplementedError, match="data axis of 2.*item 12c: MoE on a training"):
+        Trainer(moe_cfg, tcfg, ocfg, dataclasses.replace(dcfg, vocab=moe_cfg.vocab), mesh=mesh,
+                device="cpu")
+    with pytest.raises(RuntimeError, match="needs a DeviceMesh over an initialised"):
+        Trainer(cfg, tcfg, ocfg, dcfg, mesh=mesh, device="cpu")
 
 
 def test_train_launcher_runs_on_the_cpu(tmp_path):
