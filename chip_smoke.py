@@ -50,9 +50,11 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    resumed at step 100 bit-identical to the one-shot scan, and its time at
    T = 256 and at the chunked prefill's T = 64 beside the plain version's
    and its bound, with its launches per call (which must be 1);
-10. ``int8_matmul`` bit-exact against its plain version, and its time beside
-   the plain version's, ``torch._int_mm``'s and its bound (no path of the
-   port calls it, so its ``launches`` in the summary are 0);
+10. ``int8_matmul`` bit-exact against its plain version, and its time at a
+   falcon-mamba prefill's x projection (M = 256) and at one row (M = 1)
+   beside the plain version's, ``torch._int_mm``'s and its bound, with the
+   path the library takes (TMA or byte-wise) and its launches per call (no
+   path of the port calls it, so its ``launches`` in the summary are 0);
 11. ``flash_attention`` against its plain version (the reference's five
    kernel cases in fp32 and bf16, S != T, S = T = 1, rows that see no key,
    hd 128 with a 1024 window), and its time at two ``smollm-135m`` layers
@@ -513,18 +515,24 @@ def flush_l2(buf: torch.Tensor) -> None:
     buf.add_(1.0)  # 128 MB write: evicts the 50 MB L2 between timed runs
 
 
-def time_ms(fn, buf: torch.Tensor, reps: int = REPS) -> float:
+def time_ms(fn, buf: torch.Tensor, reps: int = REPS, clean: bool = False) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up,
     with a cold L2 at the start of every run.  After the flush the card
     spins for HOST_COVER_CYCLES, so that the host has enqueued all of ``fn``
     (0.06-0.1 ms through the Python wrappers) before the start event fires:
     without it a kernel shorter than the host's enqueue was timed with the
-    host's time in it."""
+    host's time in it.  The flush writes ``buf``, so ``fn``'s first reads
+    also write back up to 50 MB of dirty lines; ``clean`` flushes by
+    reading ``buf`` instead, which leaves the L2 cold and clean."""
+    sink = torch.empty((), device=buf.device) if clean else None
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
-        flush_l2(buf)
+        if clean:
+            torch.sum(buf, dim=0, out=sink)
+        else:
+            flush_l2(buf)
         torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -632,6 +640,41 @@ def int8_bound_ms(M, K, N) -> tuple[float, str]:
     rate."""
     n_bytes = 1.0 * (M * K + K * N) + 4.0 * (M + N + M * N)
     return bound_ms(2.0 * M * K * N / PEAK_INT8_OPS, n_bytes)
+
+
+def int8_time(i8_ops, i8_kernel, args, l2, card: str) -> dict:
+    """``int8_matmul``'s time on ``args`` beside its plain version's, one
+    ``torch._int_mm`` call's with the same rescale (a yardstick; cuBLASLt
+    refuses some shapes, and then ``library_ms`` is None with its error
+    printed), its bound, the path the library takes and its launches per
+    call; prints the ``[kernel_time]`` line."""
+    a, b, a_s, b_s = args
+    M, K = a.shape
+    N = b.shape[1]
+    out = {"ms": time_ms(lambda: i8_ops.int8_matmul(*args), l2),
+           "ms_clean_l2": time_ms(lambda: i8_ops.int8_matmul(*args), l2, clean=True),
+           "launches_per_call": launches_per_call(lambda: i8_ops.int8_matmul(*args)),
+           "plain_ms": time_ms(lambda: i8_ops.int8_matmul_ref(*args), l2),
+           "path": i8_kernel.plan(a, b)}
+    lib = lambda: torch._int_mm(a, b).to(torch.float32) * a_s * b_s   # noqa: E731
+    try:
+        lib_exact = torch.equal(lib(), i8_ops.int8_matmul(*args))
+        out["library_ms"] = time_ms(lib, l2)
+        lib_text = {"library_ms": f"{out['library_ms']:.4f}", "library_bit_exact": lib_exact}
+    except RuntimeError as e:
+        out["library_ms"] = None
+        lib_text = {"library_ms": "none", "library_error": repr(str(e).splitlines()[0])}
+    out["bound_ms"], out["bound_by"] = int8_bound_ms(M, K, N)
+    require(out["launches_per_call"] == 1,
+            f"int8_matmul {M}x{K}x{N}: {out['launches_per_call']} launches a call, expected 1")
+    say("kernel_time", kernel="int8_matmul", M=M, K=K, N=N, ms=f"{out['ms']:.4f}",
+        ms_clean_l2=f"{out['ms_clean_l2']:.4f}",
+        plain_ms=f"{out['plain_ms']:.4f}", **lib_text, library="torch._int_mm(cuBLASLt)+scales",
+        bound_ms=f"{out['bound_ms']:.4f}", bound_by=out["bound_by"],
+        bound_share=f"{out['bound_ms'] / out['ms']:.3f}", path=out["path"]["path"],
+        bm=out["path"]["bm"], cluster=out["path"]["cluster"],
+        launches_per_call=out["launches_per_call"], reps=REPS, card=repr(card))
+    return out
 
 
 def attn_pairs(S, T, causal: bool, window: int) -> int:
@@ -2141,10 +2184,10 @@ def int8_logits_quality(lf, lq) -> tuple[float, float]:
     return float(np.mean(output_snr_db(a, b))), float(np.mean(a.argmax(-1) == b.argmax(-1)))
 
 
-def serve_dequantized(mcfg, qp, lf, routes, prompt, dev, card: str, traffic,
+def serve_dequantized(mcfg, dq, lf, routes, prompt, dev, card: str, traffic,
                       fp32_tokens) -> dict:
-    """Dequantize the int8 tree; print the logits of ``prompt`` against its
-    fp32 logits ``lf`` (SNR and greedy agreement, the reference's metrics)
+    """The dequantized int8 tree ``dq``: print the logits of ``prompt``
+    against its fp32 logits ``lf`` (SNR and greedy agreement, the reference's metrics)
     with the int8 model's own routing, whose decisions against the fp32
     ``routes`` are counted by layer, and with the routing pinned to
     ``routes`` (``pinned_routes``); hold the dequantized model's prefill
@@ -2156,9 +2199,7 @@ def serve_dequantized(mcfg, qp, lf, routes, prompt, dev, card: str, traffic,
     reference's own quantization reroutes most tokens (PERF.md §6).
     Returns the kernel's counts."""
     from repro_torch.models import lm
-    from repro_torch.runtime.quantized import dequantize_lm_params
 
-    dq = dequantize_lm_params(qp)
     toks = torch.as_tensor([prompt], device=dev)
     with torch.no_grad(), record_routes() as free_routes:
         lq, _ = lm.forward(dq, mcfg, toks)
@@ -2180,6 +2221,10 @@ def serve_dequantized(mcfg, qp, lf, routes, prompt, dev, card: str, traffic,
     runs = {}
     with torch.no_grad():
         for label, block in (("int8 step", False), ("int8 step_block", True)):
+            # each serve starts from an unfragmented pool: its 2050-token
+            # prefill runs groups of 2 tokens, ~12 GiB of expert activations
+            # a layer, on top of the resident tree
+            torch.cuda.empty_cache()
             runs[label], srv, counts = dense_serve(mcfg, dq, traffic, label, dev, card,
                                                     block=block, max_seq=MOE_MAX_SEQ)
             total += counts
@@ -2249,13 +2294,14 @@ def mla_check(mcfg, params, dev, card: str, S: int = 64) -> float:
 
 def serve_moe_phase(dev, card: str) -> dict:
     """Phase 20: olmoe-1b-7b uncut through ``serve_moe``,
-    then its int8 weights (``quantize_olmoe``, the fp32 tree freed,
-    ``serve_dequantized``) and smollm-135m's (``quantize_dense_check``, held
+    then its int8 weights (``quantize_olmoe``, the fp32 tree freed, the
+    dequantized tree through ``serve_dequantized`` once the codes are freed) and smollm-135m's (``quantize_dense_check``, held
     to the reference's bars), then deepseek-v2-lite-16b (``DEEPSEEK_LAYERS``)
     (``mla_check``, ``serve_moe``).  Returns the ``flash_attention`` calls
     and launches by run."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
+    from repro_torch.runtime.quantized import dequantize_lm_params
 
     ocfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=OLMOE_LAYERS, use_pallas=True)
     require((ocfg.n_layers, ocfg.d_model, ocfg.n_heads, ocfg.n_kv_heads, ocfg.head_dim,
@@ -2289,10 +2335,15 @@ def serve_moe_phase(dev, card: str) -> dict:
     phase_done("serve_olmoe")
     qp, lf, routes = quantize_olmoe(ocfg, oparams, dev, card, long_prompt)
     del oparams
+    # only the dequantized tree is served: the int8 codes (6.9 GB) go before
+    # it runs (with them resident, a serve ran out of memory at 61.5 GiB
+    # allocated and 14.7 GiB reserved but free)
+    dq = dequantize_lm_params(qp)
+    del qp
     torch.cuda.empty_cache()
-    olmoe_q = serve_dequantized(ocfg, qp, lf, routes, long_prompt, dev, card, traffic,
+    olmoe_q = serve_dequantized(ocfg, dq, lf, routes, long_prompt, dev, card, traffic,
                                 olmoe_fa["tokens"])
-    del qp, lf, routes
+    del dq, lf, routes
     torch.cuda.empty_cache()
     say("serve_memory", arch=f"{ocfg.name} int8",
         peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
@@ -3949,7 +4000,10 @@ def main() -> int:
         return a, b, a_s, b_s
 
     with torch.no_grad():
-        for M, K, N in ((256, 4096, 8192), (1, 4096, 8192), (33, 100, 77), (3, 5, 7)):
+        # the TMA path at both timed shapes, a block of 64 rows of a, a last m
+        # tile of 44 rows with a K tail; the byte-wise path at ragged shapes
+        for M, K, N in ((256, 4096, 8192), (1, 4096, 8192), (33, 4096, 8192),
+                        (300, 4112, 1024), (33, 100, 77), (3, 5, 7)):
             args = int8_inputs(M, K, N)
             got = i8_ops.int8_matmul(*args)
             torch.cuda.synchronize()
@@ -3960,20 +4014,9 @@ def main() -> int:
                     f"difference {float((got - want).abs().max()):.3e}")
             say("kernel_vs_plain", kernel="int8_matmul", M=M, K=K, N=N, bit_exact=True, ok=True)
         # timing at a falcon-mamba prefill's x projection (u @ w_x, 256 tokens)
-        M, K, N = 256, 4096, 8192
-        args = int8_inputs(M, K, N)
-        i8_ms = time_ms(lambda: i8_ops.int8_matmul(*args), l2)
-        i8_calls = launches_per_call(lambda: i8_ops.int8_matmul(*args))
-        i8_plain_ms = time_ms(lambda: i8_ops.int8_matmul_ref(*args), l2)
-        a, b, a_s, b_s = args
-        i8_lib = lambda: torch._int_mm(a, b).to(torch.float32) * a_s * b_s   # yardstick only
-        lib_exact = torch.equal(i8_lib(), i8_ops.int8_matmul(*args))
-        i8_lib_ms = time_ms(i8_lib, l2)
-    i8_bound, i8_bound_by = int8_bound_ms(M, K, N)
-    say("kernel_time", kernel="int8_matmul", M=M, K=K, N=N, ms=f"{i8_ms:.4f}",
-        plain_ms=f"{i8_plain_ms:.4f}", library_ms=f"{i8_lib_ms:.4f}",
-        library="torch._int_mm(cuBLASLt)+scales", library_bit_exact=lib_exact,
-        bound_ms=f"{i8_bound:.4f}", bound_by=i8_bound_by, reps=REPS, card=repr(card))
+        # and at one decode-sized row through the same weight
+        i8_time = {M: int8_time(i8_ops, i8_kernel, int8_inputs(M, 4096, 8192), l2, card)
+                   for M in (256, 1)}
     phase_done("int8_matmul")
 
     # -- 11. flash_attention vs plain ------------------------------------------
@@ -4497,15 +4540,23 @@ def main() -> int:
         "launches": 0,     # no path of the port (or of the reference) calls it
         "note": "standalone op: no path of the port or the reference calls it",
         "max_abs_err": 0.0,
-        "ms": i8_ms,
-        "plain_ms": i8_plain_ms,
-        "bound_ms": i8_bound,
-        "bound_by": i8_bound_by,
-        "library_ms": i8_lib_ms,
-        "launches_per_call": i8_calls,
+        "ms": i8_time[256]["ms"],
+        "plain_ms": i8_time[256]["plain_ms"],
+        "bound_ms": i8_time[256]["bound_ms"],
+        "bound_by": i8_time[256]["bound_by"],
+        "library_ms": i8_time[256]["library_ms"],
+        "launches_per_call": i8_time[256]["launches_per_call"],
         "weights_resident": None,
         "us_per_step": None,
-        "over_library": i8_ms / i8_lib_ms,
+        "over_library": i8_time[256]["ms"] / i8_time[256]["library_ms"],
+        "path": i8_time[256]["path"],
+        "ms_clean_l2": i8_time[256]["ms_clean_l2"],
+        "ms_M1": i8_time[1]["ms"],
+        "ms_clean_l2_M1": i8_time[1]["ms_clean_l2"],
+        "plain_ms_M1": i8_time[1]["plain_ms"],
+        "bound_ms_M1": i8_time[1]["bound_ms"],
+        "library_ms_M1": i8_time[1]["library_ms"],
+        "path_M1": i8_time[1]["path"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

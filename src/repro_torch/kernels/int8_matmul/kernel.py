@@ -33,6 +33,9 @@ def load() -> ctypes.CDLL:
         lib = _build.load("int8_matmul", SOURCE)
         lib.int8_matmul_s8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.int8_matmul_s8.restype = ctypes.c_int
+        lib.int8_matmul_s8_plan.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                            + [ctypes.POINTER(ctypes.c_int)] * 2)
+        lib.int8_matmul_s8_plan.restype = ctypes.c_int
         lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
         lib.int8_matmul_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -50,6 +53,20 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, numel: int,
                          f"expected {numel} elements")
     if not t.is_contiguous():
         raise ValueError(f"int8_matmul kernel: {name} must be contiguous")
+
+
+def plan(a_q: torch.Tensor, b_q: torch.Tensor) -> dict:
+    """The path the kernel takes for these operands, as the library decides
+    it: ``{"path": "tma", "bm": a's tile rows, "cluster": blocks sharing
+    a's tile}`` where K and N are multiples of 16 and both operands start
+    on a 16-byte boundary (the output, allocated fresh, always does), else
+    ``{"path": "bytewise", ...}`` (the ``mma.sync`` kernel)."""
+    M, K = a_q.shape
+    N = b_q.shape[1]
+    bm, cluster = ctypes.c_int(), ctypes.c_int()
+    tma = load().int8_matmul_s8_plan(a_q.data_ptr(), b_q.data_ptr(), None, M, N, K,
+                                     ctypes.byref(bm), ctypes.byref(cluster))
+    return {"path": "tma" if tma else "bytewise", "bm": bm.value, "cluster": cluster.value}
 
 
 def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
@@ -82,4 +99,4 @@ def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
     return out
 
 
-__all__ = ["SOURCE", "build", "int8_matmul", "load"]
+__all__ = ["SOURCE", "build", "int8_matmul", "load", "plan"]

@@ -514,7 +514,17 @@ def test_mamba1_use_pallas_prefill_matches_plain_path(cuda):
 
 @pytest.mark.parametrize("M,K,N", [(32, 64, 16), (33, 100, 77), (3, 5, 7), (1, 4096, 8192),
                                    (256, 4096, 512), (130, 65, 200), (130, 4112, 144),
-                                   (257, 48, 8200)])
+                                   (257, 48, 8200),
+                                   # the TMA path: blocks of 16 to 256 rows of a, a
+                                   # warpgroup with no row below M, partial last m
+                                   # tiles, one k tile (the pair's second half empty)
+                                   # and odd counts of them, K tails
+                                   (1, 16, 128), (8, 32, 256), (64, 48, 8192),
+                                   (65, 4112, 256), (255, 48, 8192), (257, 16, 384),
+                                   (300, 32, 1024), (1024, 4112, 64),
+                                   # the byte-wise path: N or K off a multiple of 16
+                                   (8, 4112, 200), (255, 16, 24), (1024, 48, 200),
+                                   (300, 4112, 8), (1, 32, 8200)])
 def test_int8_matmul_kernel_bit_exact(cuda, M, K, N):
     from repro_torch.kernels.int8_matmul import ops
 
@@ -546,6 +556,51 @@ def test_int8_matmul_kernel_unaligned_operands(cuda):
     b_s = torch.as_tensor(r.uniform(0.01, 0.1, size=(1, N)), dtype=torch.float32, device=cuda)
     assert a.data_ptr() % 16 and b.data_ptr() % 8
     assert torch.equal(ops.int8_matmul(a, b, a_s, b_s), ops.int8_matmul_ref(a, b, a_s, b_s))
+
+
+@pytest.mark.parametrize("path", ["tma", "bytewise"])
+def test_int8_matmul_kernel_full_code_range(cuda, path):
+    """Every code from -128 to 127 at K = 4096, with a row of a and a column
+    of b all -128 (the largest products), on both paths."""
+    from repro_torch.kernels.int8_matmul import kernel, ops
+
+    M, K, N = 64, 4096, 256 if path == "tma" else 200
+    r = np.random.default_rng(11)
+    a = r.integers(-128, 128, size=(M, K))
+    b = r.integers(-128, 128, size=(K, N))
+    a[:, :256] = np.arange(-128, 128)
+    b[:256, :] = np.arange(-128, 128)[:, None]
+    a[0, :] = -128
+    b[:, 0] = -128
+    a = torch.as_tensor(a, dtype=torch.int8, device=cuda)
+    b = torch.as_tensor(b, dtype=torch.int8, device=cuda)
+    a_s = torch.as_tensor(r.uniform(0.01, 0.1, size=(M, 1)), dtype=torch.float32, device=cuda)
+    b_s = torch.as_tensor(r.uniform(0.01, 0.1, size=(1, N)), dtype=torch.float32, device=cuda)
+    assert kernel.plan(a, b)["path"] == path
+    assert torch.equal(ops.int8_matmul(a, b, a_s, b_s), ops.int8_matmul_ref(a, b, a_s, b_s))
+
+
+@pytest.mark.parametrize("M,K,N,offset,want", [
+    (1, 4096, 8192, 0, {"path": "tma", "bm": 16, "cluster": 2}),
+    (17, 4096, 8192, 0, {"path": "tma", "bm": 32, "cluster": 2}),
+    (33, 4096, 8192, 0, {"path": "tma", "bm": 64, "cluster": 2}),
+    (100, 4096, 8192, 0, {"path": "tma", "bm": 128, "cluster": 2}),
+    (256, 4096, 8192, 0, {"path": "tma", "bm": 256, "cluster": 2}),
+    (257, 16, 384, 0, {"path": "tma", "bm": 256, "cluster": 2}),
+    (64, 4096, 8200, 0, {"path": "bytewise", "bm": 128, "cluster": 1}),
+    (64, 4104, 8192, 0, {"path": "bytewise", "bm": 128, "cluster": 1}),
+    (64, 128, 256, 1, {"path": "bytewise", "bm": 128, "cluster": 1}),
+])
+def test_int8_matmul_kernel_path(cuda, M, K, N, offset, want):
+    """Which path and tile the library takes: TMA where K and N are
+    multiples of 16 and the operands 16-byte aligned (a block's rows of a
+    from M, up to 256; a pair of blocks splitting K), else the byte-wise
+    mma.sync kernel."""
+    from repro_torch.kernels.int8_matmul import kernel
+
+    a = torch.zeros(M * K + offset, dtype=torch.int8, device=cuda)[offset:].view(M, K)
+    b = torch.zeros(K * N + offset, dtype=torch.int8, device=cuda)[offset:].view(K, N)
+    assert kernel.plan(a, b) == want
 
 
 def test_quantized_matmul_on_the_card_matches_the_cpu(cuda):

@@ -45,6 +45,37 @@ def test_int8_matmul_bit_exact_with_reference(M, K, N):
     assert ops.int8_matmul.launches == 0          # the CPU path is the plain version
 
 
+# The card's two paths (TMA, byte-wise) turn on M, K % 16 and N % 16; their
+# edge values at CPU sizes: M in {1, 8, 64, 65, 255, 257, 300, 1024}, K in
+# {16, 32, 48, 4112}, N in {8, 24, 200, 8200}.
+EDGE_SHAPES = [(1, 4112, 8200), (8, 16, 8), (64, 32, 200), (65, 48, 24), (255, 4112, 8),
+               (257, 16, 8200), (300, 32, 24), (1024, 48, 200)]
+
+
+def _interpret_steps(M, K, N, bm=32, bn=32, bk=32):
+    """Grid steps of the reference's Pallas kernel: it halves each block
+    until it divides its axis, so a prime M or N runs blocks of 1."""
+    def block(n, b):
+        b = min(b, n)
+        while n % b:
+            b //= 2
+        return b
+    return (M // block(M, bm)) * (N // block(N, bn)) * (K // block(K, bk))
+
+
+@pytest.mark.parametrize("M,K,N", EDGE_SHAPES)
+def test_int8_matmul_edge_shapes_bit_exact(M, K, N):
+    """The full code range at each edge shape: the port's plain path
+    against the reference's oracle, and against its Pallas kernel (interpret
+    mode) where the kernel's blocks stay coarse enough to run."""
+    arrs = _operands(M, K, N, seed=M + 7 * K + N, lo=-128)
+    got = ops.int8_matmul(*(torch.as_tensor(a) for a in arrs))
+    assert tuple(got.shape) == (M, N)
+    _equal(got, jax_ref(*(jnp.asarray(a) for a in arrs)))
+    if _interpret_steps(M, K, N) <= 100:
+        _equal(got, jax_ops.int8_matmul(*(jnp.asarray(a) for a in arrs), bm=32, bn=32, bk=32))
+
+
 def test_int8_matmul_full_code_range():
     """-128 codes (outside the quantizers' ±127) and a long K still give the
     reference's bits: the int32 accumulator is exact."""
