@@ -302,6 +302,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -489,6 +490,19 @@ MT_RTOL = 1e-5
 MT_COMP_STEPS = 30      # run_compression.py's error-feedback steps
 PIPE_D, PIPE_C, PIPE_ROWS = 2048, 8, 256
 PIPE_TOL = 1e-5         # run_pipeline.py's bar
+# 24: olmoe-1b-7b's 16 layers cut to 1 (16 layers x 16 B a parameter of
+# training state is ~110 GB, past the card however it is sharded, as every
+# rank shares it); a 2048-token MoE group is one rank's rows at S = 1024 and
+# spans both ranks at S = 512
+MM_LAYERS = 1
+# the dry run's CLI in the entry points: the MoE cell refused before MoE ran
+# on a data mesh, and a multi-pod one
+DRYRUN_CLI = (("olmoe-1b-7b", "pod"), ("smollm-135m", "multipod"))
+MM_SEQS = (1024, 512)
+MM_BATCH = 8
+MM_MICRO = 2
+MM_STEPS = 2
+MM_RTOL = 1e-5
 
 START_T0 = time.perf_counter()
 PHASE_T0 = [START_T0]
@@ -1103,6 +1117,8 @@ def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFF
     files = {k: docs / f"{k}.json" for k in ("loadgen", "trace", "metrics", "ledger")}
     train_ckpt = ROOT / "build" / "train" / "launch"
     shutil.rmtree(train_ckpt, ignore_errors=True)      # a full one would be resumed
+    dry_docs = ROOT / "build" / "dryrun"
+    shutil.rmtree(dry_docs, ignore_errors=True)
     py = [sys.executable, "-m"]
     commands = {
         "launch.serve": [*py, "repro_torch.launch.serve", "--arch", "paper-lstm",
@@ -1124,8 +1140,13 @@ def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFF
             *py, "repro_torch.launch.train", *train_args,
             "--ckpt-dir", str(train_ckpt), "--device", device],
         "analyze --lint-src": [*py, "repro_torch.analyze", "--lint-src", "--device", device],
+        **{f"launch.dryrun --arch {arch} --mesh {mesh}": [
+            *py, "repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k", "--mesh",
+            mesh, "--out", str(dry_docs), "--device", device] for arch, mesh in DRYRUN_CLI},
     }
-    must_print = {"launch.serve --arch zamba2-1.2b": "served 16 requests",
+    must_print = {**{f"launch.dryrun --arch {arch} --mesh {mesh}": "[ok]"
+                     for arch, mesh in DRYRUN_CLI},
+                  "launch.serve --arch zamba2-1.2b": "served 16 requests",
                   "launch.serve --arch olmoe-1b-7b": "served 16 requests",
                   "launch.train " + " ".join(train_args): "final_loss="}
     with clis_started(commands, ROOT / "build" / "entry_points") as clis:
@@ -1150,6 +1171,16 @@ def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFF
     require(check_analyze_doc(json.loads((bit_docs / "analyze.json").read_text())) == []
             and len(list((bit_docs / "goldens").glob("*.v"))) == 4,
             "bit_path: the CLIs' documents are incomplete")
+    for arch, mesh in DRYRUN_CLI:
+        name = "16x16" if mesh == "pod" else "2x16x16"
+        rec = json.loads((dry_docs / f"{arch}__train_4k__{name}.json").read_text())
+        require(rec["collectives"] and rec["flops_corrected"] > 0,
+                f"launch.dryrun {arch} {mesh}: an incomplete record {rec}")
+        say("dryrun_cli", arch=arch, mesh=name, rows_per_rank=rec["rows_per_rank"],
+            flops=f"{rec['flops_corrected']:.4e}",
+            argument_gb=f"{rec['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f}",
+            peak_gb=f"{rec['memory_analysis']['peak_size_in_bytes'] / 1e9:.2f}",
+            collectives=rec["collectives"], trace_s=rec["lower_s"], card=repr(card))
     say("entry_points", serve_digest=served["tokens_digest"], serve_ticks=served["ticks"],
         serve_tok_s=f"{served['throughput_tok_s']:.1f}", ledger_programs=len(ledger),
         obs_check="ok", card=repr(card))
@@ -1903,7 +1934,7 @@ def pinned_routes(ids: list):
 
     orig, it = moe.route, iter(ids)
 
-    def pinned(p, cfg, x):
+    def pinned(p, cfg, x, data=None):      # data: a data mesh's share (not used here)
         e = next(it).reshape(x.shape[:-1] + (cfg.top_k,))
         w = torch.softmax(x.float() @ p["router"], dim=-1).gather(-1, e)
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
@@ -3335,6 +3366,278 @@ def mesh_train_phase(dev, card: str, *, smoke: bool = False, rank_backend: str =
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 24. moe_mesh_train: MoE on a data mesh, and the dry run against the card
+# ---------------------------------------------------------------------------
+
+def moe_mesh_config(smoke: bool = False):
+    """olmoe-1b-7b at its published widths, its 16 layers cut to
+    ``MM_LAYERS`` (the smoke config when rehearsing on the CPU)."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if smoke:
+        return get_smoke_config("olmoe-1b-7b")
+    full = get_config("olmoe-1b-7b")
+    require((full.n_layers, full.d_model, full.n_experts, full.top_k, full.d_ff_expert,
+             full.vocab) == (16, 2048, 64, 8, 1024, 50_304),
+            f"olmoe-1b-7b is not at its published widths and depth: {full}")
+    return dataclasses.replace(full, n_layers=MM_LAYERS)
+
+
+def moe_mesh_shape(seq: int):
+    from repro_torch.models.config import ShapeSpec
+
+    return ShapeSpec(f"train_S{seq}", seq, MM_BATCH, "train")
+
+
+def moe_mesh_steps(mcfg, seq: int, dev, mesh, *, keep_state: bool = False) -> dict:
+    """``MM_STEPS`` train steps (``make_train_step(mesh=)``) of ``MM_BATCH``
+    × ``seq`` tokens in ``MM_MICRO`` microbatches from seed-0 weights: each
+    step's (loss, grad norm, seconds), each step's router calls (the expert
+    ids and each token's least gap between two of its k + 1 most probable
+    experts: how near a tie its routing was), the last step's collectives, the step's argument bytes (this rank's shards
+    and the global batch) and the peak GB; with ``keep_state`` the final
+    full state."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.trace_analysis import tensor_bytes
+    from repro_torch.models import lm, moe
+    from repro_torch.parallel import comm, zero
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = {"params": params, "opt": optim.init(params)}
+    del params
+    layout = None if mesh is None else zero.state_layout(mcfg, mesh)
+    if layout is not None:
+        state = layout.shard(state)
+    step = make_train_step(mcfg, optim.AdamWConfig(lr_peak=3e-4, warmup_steps=2,
+                                                   total_steps=MM_STEPS), MM_MICRO, mesh)
+    data = TokenPipeline(DataConfig(vocab=mcfg.vocab, seq_len=seq, global_batch=MM_BATCH))
+    routes, inner = [], moe.route
+
+    def spy(p, cfg, x, data=None):
+        out = inner(p, cfg, x, data)
+        with torch.no_grad():
+            top = torch.softmax(x.float() @ p["router"], -1).topk(cfg.top_k + 1, -1).values
+        routes[-1].append((out[0].reshape(-1, cfg.top_k),
+                           (top[..., :-1] - top[..., 1:]).amin(-1).reshape(-1)))
+        return out
+
+    out = {"steps": []}
+    moe.route = spy
+    try:
+        for i in range(MM_STEPS):
+            routes.append([])
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.global_batch_at(i).items()}
+            args = (state["params"], state["opt"], batch)
+            out["arg_bytes"] = tensor_bytes(args)
+            comm.reset_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            new_params, new_opt, m = step(*args)
+            loss = float(m["loss"])               # waits for the step
+            out["steps"].append((loss, float(m["grad_norm"]), time.perf_counter() - t0))
+            out["collectives"] = comm.counters()
+            state = {"params": new_params, "opt": new_opt}
+            del args, batch, new_params, new_opt
+    finally:
+        moe.route = inner
+    out["routes"] = [[(ids.cpu().numpy(), gap.cpu().numpy()) for ids, gap in calls]
+                     for calls in routes]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    if keep_state:
+        out["state"] = state if layout is None else layout.gather(state)
+    return out
+
+
+def moe_mesh_gloo(rank: int, world: int, dev_name: str, smoke: bool, sizes: dict) -> dict:
+    """One of two ranks sharing the card over gloo: ``moe_mesh_steps`` on
+    ``make_local_mesh(2, 1)`` at each of ``MM_SEQS``."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    _phase_sizes(sizes)
+    dev = _rank_device(dev_name)
+    mcfg = moe_mesh_config(smoke)
+    mesh = make_local_mesh(2, 1)
+    before = kernel_counts()
+    out = {seq: moe_mesh_steps(mcfg, seq, dev, mesh) for seq in MM_SEQS}
+    after = kernel_counts()
+    return {"runs": out, "kernels": {k: after[k] - before[k] for k in after},
+            "jax": "jax" in sys.modules}
+
+
+def route_gap(got: list, want: list, dp: int, shard: int, spanning: bool) -> dict:
+    """This rank's router calls against ``mesh=None``'s, step by step: the
+    calls, the tokens whose expert ids (or their order, which sets the
+    capacity slots) differ in each step, and the least gap between two of
+    the k + 1 most probable experts among them (``mesh=None``'s)."""
+    flips, margin, calls = [], math.inf, 0
+    for step_got, step_want in zip(got, want, strict=True):
+        n_bad = 0
+        for (ids, _), (full, gap) in zip(step_got, step_want, strict=True):
+            n = full.shape[0] // dp
+            ref, ref_gap = (full, gap) if spanning else (full[shard * n:(shard + 1) * n],
+                                                         gap[shard * n:(shard + 1) * n])
+            bad = (ids != ref).any(-1)
+            n_bad += int(bad.sum())
+            if bad.any():
+                margin = min(margin, float(ref_gap[bad].min()))
+            calls += 1
+        flips.append(n_bad)
+    return {"calls": calls, "flips": flips, "margin": margin}
+
+
+def moe_mesh_train_phase(dev, card: str, train: dict, *, smoke: bool = False,
+                         rank_backend: str = "nccl") -> None:
+    """Phase 24: olmoe-1b-7b (1 of its 16 layers) through ``make_train_step``
+    with ``mesh=None`` in this process, over two gloo ranks sharing the card
+    (dp = 2) and under ``rank_backend`` at dp = 1, at S = 1024 (a 2048-token
+    group is one rank's rows: aligned) and S = 512 (a group spans both
+    ranks: gathered); the dry run of the same cells against the ranks, and
+    of phase 21's one-device smollm cell against its measured peak and
+    step time; no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AXES, AbstractMesh, make_local_mesh
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.models import lm, moe
+    from repro_torch.models.config import ShapeSpec
+
+    dev_name = "cuda:0" if dev.type == "cuda" else "cpu"
+    before = kernel_counts()
+    mcfg = moe_mesh_config(smoke)
+    t0 = time.perf_counter()
+    base = {seq: moe_mesh_steps(mcfg, seq, dev, None, keep_state=seq == MM_SEQS[0])
+            for seq in MM_SEQS}
+    none_s = time.perf_counter() - t0
+    n_params = lm.param_count(base[MM_SEQS[0]]["state"]["params"])
+
+    # the dry runs, each in a process of its own (a fake process group), beside the ranks
+    records, threads = {}, []
+
+    def dry(key, *args, **kwargs):
+        try:
+            records[key] = dryrun.spawn_cell(*args, timeout_s=300, **kwargs)
+        except BaseException as e:  # noqa: BLE001 - read below
+            records[key] = e
+
+    scfg = mesh_train_config(smoke) if smoke else get_config("smollm-135m")
+    s_seq = CHECK_SEQ if smoke else TRAIN_SEQ
+    cells = {seq: ("olmoe-1b-7b", dict(mesh_shape=AbstractMesh((1, 2, 1), AXES),
+                                       shape=moe_mesh_shape(seq), cfg=mcfg, microbatches=MM_MICRO))
+             for seq in MM_SEQS}
+    # phase 21's cell: one device, its batch and microbatches
+    cells["smollm"] = ("smollm-135m", dict(one_device=True, cfg=scfg, microbatches=TRAIN_MICRO,
+                                           shape=ShapeSpec(f"train_S{s_seq}", s_seq, TRAIN_BATCH,
+                                                           "train")))
+    for key, (arch, kw) in cells.items():
+        threads.append(threading.Thread(target=dry, args=(key, arch, "", False),
+                                        kwargs=dict(kw, device=dev_name)))
+        threads[-1].start()
+    t1 = time.perf_counter()
+    sizes = {k: globals()[k] for k in ("MM_SEQS",)}
+    try:
+        gloo = run_ranks(moe_mesh_gloo, 2, (dev_name, smoke, sizes), backend="gloo",
+                         timeout_s=300)
+    finally:
+        for t in threads:
+            t.join()
+    gloo_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    with one_rank_group(rank_backend, timeout_s=240):
+        nccl = moe_mesh_steps(mcfg, MM_SEQS[0], dev, make_local_mesh(1, 1), keep_state=True)
+    nccl_s = time.perf_counter() - t1
+    want_state = base[MM_SEQS[0]].pop("state")
+    from repro_torch._tree import tree_leaves
+
+    identical = all(torch.equal(a, b) for a, b in zip(tree_leaves(nccl.pop("state")),
+                                                      tree_leaves(want_state), strict=True))
+    del want_state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    tokens = MM_BATCH
+    for seq in MM_SEQS:
+        b = base[seq]
+        local = MM_BATCH // MM_MICRO // 2 * seq          # a rank's tokens in a microbatch
+        spanning = local % moe.group_size_of(2 * local, mcfg.moe_group_size
+                                             or moe.DEFAULT_GROUP_SIZE) != 0
+        runs = [("mesh_none", 0, b, None)] + [("dp2_gloo", r, g["runs"][seq], r)
+                                              for r, g in enumerate(gloo)]
+        if seq == MM_SEQS[0]:
+            runs.append((f"dp1_{rank_backend}", 0, nccl, None))
+        for label, rank, run, shard in runs:
+            dp = 2 if label == "dp2_gloo" else 1
+            rg = route_gap(run["routes"], b["routes"], dp, shard or 0, spanning or dp == 1)
+            for i, ((loss, gn, sec), (b_loss, b_gn, _)) in enumerate(zip(run["steps"], b["steps"])):
+                same_routes = not any(rg["flips"][:i + 1])   # a flip moves this step and later
+                loss_gap, gn_gap = abs(loss - b_loss) / abs(b_loss), abs(gn - b_gn) / abs(b_gn)
+                say("moe_mesh_step", run=label, rank=rank, seq_len=seq, step=i,
+                    loss=f"{loss:.6f}", grad_norm=f"{gn:.6f}", ms=f"{1e3 * sec:.1f}",
+                    tokens_per_s_rank=f"{tokens * seq / dp / sec:.0f}",
+                    loss_rel_gap=f"{loss_gap:.3e}", grad_norm_rel_gap=f"{gn_gap:.3e}",
+                    routing_flips=rg["flips"][i], held_to=MM_RTOL if same_routes else "none",
+                    card=repr(card))
+                require(math.isfinite(loss) and math.isfinite(gn),
+                        f"moe_mesh {label} S={seq} step {i}: loss {loss}, grad norm {gn}")
+                if same_routes:
+                    require(loss_gap <= MM_RTOL and gn_gap <= MM_RTOL,
+                            f"moe_mesh {label} rank {rank} S={seq} step {i}: loss {loss} / "
+                            f"{b_loss}, grad norm {gn} / {b_gn}")
+            steady = statistics.median(x[2] for x in run["steps"][1:])
+            say("moe_mesh", run=label, rank=rank, seq_len=seq,
+                groups="spanning" if spanning and dp > 1 else "aligned",
+                router_calls=rg["calls"], routing_flips_by_step=rg["flips"],
+                flip_margin=f"{rg['margin']:.3e}" if any(rg["flips"]) else "none",
+                steady_step_ms=f"{1e3 * steady:.1f}", first_step_ms=f"{1e3 * run['steps'][0][2]:.1f}",
+                tokens_per_s_rank=f"{tokens * seq / dp / steady:.0f}",
+                peak_alloc_gb=f"{run['peak_gb']:.2f}", collectives=run["collectives"],
+                global_batch=MM_BATCH, microbatches=MM_MICRO, layers=mcfg.n_layers,
+                params=n_params, card=repr(card))
+    say("moe_mesh", case=f"dp1_{rank_backend}", bit_identical_to_mesh_none=identical)
+    require(identical, f"moe_mesh: dp = 1 under {rank_backend} is not bit-identical to mesh=None")
+
+    for key, rec in records.items():
+        if isinstance(rec, BaseException):
+            raise rec
+    for seq in MM_SEQS:
+        rec = records[seq]
+        for rank, g in enumerate(gloo):
+            run = g["runs"][seq]
+            same = (rec["memory_analysis"]["argument_size_in_bytes"] == run["arg_bytes"]
+                    and rec["collectives"] == run["collectives"])
+            say("moe_mesh_dryrun", seq_len=seq, rank=rank, mesh=rec["mesh"],
+                argument_bytes=rec["memory_analysis"]["argument_size_in_bytes"],
+                rank_argument_bytes=run["arg_bytes"], collectives=rec["collectives"],
+                rank_collectives=run["collectives"], equal=same,
+                predicted_peak_gb=f"{rec['memory_analysis']['peak_size_in_bytes'] / 1e9:.2f}",
+                rank_peak_alloc_gb=f"{run['peak_gb']:.2f}",
+                flops=f"{rec['flops_corrected']:.4e}", trace_s=rec["lower_s"])
+            require(same, f"moe_mesh dry run S={seq}: arguments {rec['memory_analysis']} and "
+                          f"collectives {rec['collectives']} against rank {rank}'s "
+                          f"{run['arg_bytes']} and {run['collectives']}")
+    rec = records["smollm"]
+    say("train_dryrun", arch=scfg.name, seq_len=s_seq, global_batch=TRAIN_BATCH, mesh=rec["mesh"],
+        microbatches=rec["microbatches"],
+        predicted_peak_gb=f"{rec['memory_analysis']['peak_size_in_bytes'] / 1e9:.2f}",
+        measured_peak_alloc_gb=f"{train['peak_gb']:.2f}", flops=f"{rec['flops_corrected']:.4e}",
+        measured_step_s=f"{train['step_s']:.4f}",
+        achieved_tflop_s=f"{rec['flops_corrected'] / train['step_s'] / 1e12:.2f}",
+        trace_s=rec["lower_s"], card=repr(card))
+    for rank, g in enumerate(gloo):
+        require(not g["jax"], f"moe_mesh rank {rank} imported jax")
+    after = kernel_counts()
+    launched = {k: after[k] - before[k] + sum(g["kernels"][k] for g in gloo) for k in after}
+    say("moe_mesh_kernels", launches_during_phase=launched)
+    require(not any(launched.values()), f"a kernel launched on the MoE mesh path: {launched}")
+    say("moe_mesh", case="seconds", mesh_none=f"{none_s:.1f}", gloo_ranks_and_dry_runs=f"{gloo_s:.1f}",
+        nccl_rank=f"{nccl_s:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4444,7 +4747,7 @@ def main() -> int:
     phase_done("tune_chaos")
 
     # -- 21. training: smollm-135m at train_4k length, paper-lstm -----------------
-    train_phase(dev, card)
+    train = train_phase(dev, card)
     phase_done("train")
 
     # -- 22. the mesh: ShardPlan serving, synthesize(mesh=), EP MoE --------------
@@ -4455,6 +4758,10 @@ def main() -> int:
     # -- 23. mesh training: ZeRO shards, elastic restore, compression, pipeline --
     mesh_train_phase(dev, card)
     phase_done("mesh_train")
+
+    # -- 24. MoE training on a data mesh; the dry run against the card ------------
+    moe_mesh_train_phase(dev, card, train)
+    phase_done("moe_mesh_train")
 
     summary = {"kernels": [{
         "name": "lstm_seq",

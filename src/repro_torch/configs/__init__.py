@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ALL_SHAPES, ModelConfig, ShapeSpec, applicable_shapes
 
 _MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
@@ -43,4 +43,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "ModelConfig"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "ModelConfig", "ShapeSpec",
+           "ALL_SHAPES", "applicable_shapes"]

@@ -14,7 +14,13 @@ missing axis counts as size 1.  The port knows two kinds:
 
 Building a mesh never initialises a process group: :func:`make_local_mesh`
 refuses when there is none (start the ranks under ``torchrun``, or give
-``init_process_group`` an address, a world size and a rank).
+``init_process_group`` an address, a world size and a rank).  The one
+exception is the dry run's :func:`make_fake_mesh`: rank 0's DeviceMesh of a
+mesh shape over torch's ``"fake"`` process group, whose collectives return
+at once, so that one process traces a step of the production meshes.  A
+fake group never reaches a real step: :func:`require_group` accepts it only
+while a ``FakeTensorMode`` is active, and :func:`make_local_mesh` refuses
+it.
 
 The rank arithmetic that serving and synthesis share lives here too: a
 DeviceMesh's ranks as a ``[dp, tp]`` grid (:func:`rank_grid`), this rank's
@@ -24,6 +30,7 @@ data shard and model index, and the ``model`` and data groups.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -77,9 +84,23 @@ def axis_sizes(mesh) -> dict[str, int]:
     """``{axis name: size}`` in the mesh's axis order."""
     if isinstance(mesh, AbstractMesh):
         return mesh.shape
-    return dict(zip(axis_names(mesh), (int(s) for s in mesh.mesh.shape)))
+    return dict(zip(axis_names(mesh), (int(s) for s in mesh.shape)))
 
 
+def _host(fn):
+    """Run ``fn`` with no dispatch mode active: a DeviceMesh's rank map is
+    host metadata, which a trace's ``FakeTensorMode`` must not take in."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+@_host
 def mesh_ranks(mesh) -> tuple[int, ...] | None:
     """The global ranks of a DeviceMesh in row-major mesh order; None for an
     :class:`AbstractMesh`."""
@@ -111,9 +132,15 @@ def mesh_tp(mesh) -> int:
 _DATA_GROUPS: dict[tuple, list] = {}
 
 
+def _fake_group() -> bool:
+    return dist.is_available() and dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def require_group(mesh) -> None:
     """Raise unless this process is a rank of ``mesh``'s initialised process
-    group: a sharded layout never falls back to one device."""
+    group: a sharded layout never falls back to one device.  A ``"fake"``
+    group (:func:`make_fake_mesh`) passes only while a ``FakeTensorMode``
+    is active: its collectives move nothing, so only shapes may meet it."""
     if not is_device_mesh(mesh):
         raise RuntimeError(
             "the sharded layout needs a DeviceMesh over an initialised process group "
@@ -126,8 +153,16 @@ def require_group(mesh) -> None:
     if mesh.get_coordinate() is None:
         raise RuntimeError(f"the sharded layout: rank {dist.get_rank()} is not in the "
                            f"mesh {mesh_ranks(mesh)}")
+    if _fake_group():
+        from torch._guards import detect_fake_mode
+
+        if detect_fake_mode() is None:
+            raise RuntimeError("the sharded layout: the process group is the dry run's fake "
+                               "group, whose collectives move nothing; it takes fake tensors "
+                               "only (launch.steps.lower_cell)")
 
 
+@_host
 def rank_grid(mesh) -> torch.Tensor:
     """The mesh's global ranks as a ``[dp, tp]`` grid (pod-major shards)."""
     names = axis_names(mesh)
@@ -136,16 +171,19 @@ def rank_grid(mesh) -> torch.Tensor:
         mesh_dp(mesh), mesh_tp(mesh))
 
 
+@_host
 def shard_rank(mesh, shard: int, model: int = 0) -> int:
     """Global rank that holds data shard ``shard`` at model index ``model``."""
     return int(rank_grid(mesh)[shard, model])
 
 
+@_host
 def local_shard(mesh) -> int:
     """This rank's data shard."""
     return int((rank_grid(mesh) == dist.get_rank()).nonzero()[0, 0])
 
 
+@_host
 def model_index(mesh) -> int:
     """This rank's index on the ``model`` axis."""
     return int((rank_grid(mesh) == dist.get_rank()).nonzero()[0, 1])
@@ -156,6 +194,7 @@ def model_group(mesh):
     return mesh.get_group("model") if "model" in axis_names(mesh) else None
 
 
+@_host
 def data_group(mesh):
     """The ranks of this rank's model index over the DP axes, on the mesh's
     backend."""
@@ -171,11 +210,33 @@ def data_group(mesh):
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     """The reference's production mesh as a shape: 16 × 16 per pod, 2 pods
-    for ``multi_pod``.  The sharding rules and item 12c's dry run read it;
-    nothing of the port runs on it."""
+    for ``multi_pod``.  The sharding rules read it, and the dry run traces
+    its rank 0 (:func:`make_fake_mesh`); nothing of the port runs on it."""
     if multi_pod:
         return AbstractMesh((2, 16, 16), AXES)
     return AbstractMesh((16, 16), ("data", "model"))
+
+
+def make_fake_mesh(shape: AbstractMesh):
+    """Rank 0's ``DeviceMesh`` of ``shape`` (an :class:`AbstractMesh`, such
+    as :func:`make_production_mesh`'s) over torch's ``"fake"`` process group
+    at ``shape``'s world size: the dry run's mesh (``launch/dryrun.py``).
+
+    It starts this process's default group (a process has one), so call it
+    in a process of its own: the dry run's CLI, or ``dryrun.spawn_cell``.
+    An earlier fake group is replaced; a real one is refused."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if not _fake_group():
+            raise RuntimeError("make_fake_mesh: this process already belongs to a "
+                               f"{dist.get_backend()} process group; the dry run's fake "
+                               "group needs a process of its own")
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=shape.size)
+    ranks = torch.arange(shape.size).reshape(shape.axis_sizes)
+    return DeviceMesh("cpu", ranks, mesh_dim_names=shape.axis_names)
 
 
 def make_local_mesh(dp: int | None = None, tp: int | None = None):
@@ -201,6 +262,9 @@ def make_local_mesh(dp: int | None = None, tp: int | None = None):
             f"start {need} ranks with `torchrun --nproc-per-node={need} ...` (or "
             "init_process_group with an address, a world size and a rank), or "
             "describe a one-process folded mesh with AbstractMesh((1, dp, 1), AXES)")
+    if _fake_group():
+        raise RuntimeError("make_local_mesh: the process group is the dry run's fake group, "
+                           "whose collectives move nothing; start real ranks")
     from torch.distributed.device_mesh import DeviceMesh
 
     world = dist.get_world_size()
@@ -218,6 +282,6 @@ def make_local_mesh(dp: int | None = None, tp: int | None = None):
 
 
 __all__ = ["AXES", "AbstractMesh", "axis_names", "axis_sizes", "data_group", "dp_axes",
-           "is_device_mesh", "local_shard", "make_local_mesh", "make_production_mesh",
+           "is_device_mesh", "local_shard", "make_fake_mesh", "make_local_mesh", "make_production_mesh",
            "mesh_dp", "mesh_ranks", "mesh_tp", "model_group", "model_index", "rank_grid",
            "require_group", "shard_rank"]

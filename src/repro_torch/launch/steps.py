@@ -1,27 +1,107 @@
-"""Step functions; the port's counterpart of the step half of
-``repro/launch/steps.py``.
+"""Step functions and the dry run's shape structs for every (arch × shape);
+the port's counterpart of ``repro/launch/steps.py``.
 
   * train   → ``train_step(params, opt_state, batch)`` (fwd + bwd + AdamW),
     on one device or, given a mesh, on this rank's shards
   * prefill → ``prefill_step(params, batch)`` → (last logits, caches)
   * decode  → ``serve_step(params, batch, caches, pos)`` (one new token
-    against the caches)
+    against a seq_len-deep cache/SSM state)
 
-The reference's ``input_specs``, ``param_structs``, ``plan_shardings`` and
-``lower_cell`` (shape structs, sharding plans and lowering of one
-arch × shape × mesh cell) are the dry run's half and are not ported yet
-(ROADMAP.md, Queue 1 item 12c); the sharding rules they read are
-(:mod:`repro_torch.parallel.sharding`).
+``input_specs(cfg, shape)`` gives every step input as a meta tensor (shape
+and dtype, no storage: built under ``FakeTensorMode``), ``plan_shardings``
+the specs that lay them out on a mesh, and ``lower_cell`` traces one
+arch × shape × mesh cell on fake tensors through these step functions, the
+port's counterpart of lowering it (``launch/dryrun.py`` records it).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+from typing import Any
+
 import torch
 
 from repro_torch import optim
+from repro_torch._tree import tree_map
 from repro_torch.models import lm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeSpec
 
+PyTree = Any
+
+
+def dryrun_config(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """bf16 weights/activations for production realism."""
+    return dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16", **overrides)
+
+
+# ---------------------------------------------------------------------------
+# shape structs (no allocation anywhere): meta tensors
+# ---------------------------------------------------------------------------
+
+def _struct(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _meta(build) -> PyTree:
+    """``build(device)``'s tree as meta tensors, built on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = build("cpu")
+    return tree_map(lambda t: _struct(t.shape, t.dtype), fake)
+
+
+def param_structs(cfg: ModelConfig) -> PyTree:
+    from repro_torch.parallel import zero
+
+    return zero.param_shapes(cfg)
+
+
+def opt_structs(params: PyTree) -> optim.AdamWState:
+    return optim.AdamWState(step=_struct((), torch.int32),
+                            m=tree_map(lambda p: _struct(p.shape, torch.float32), params),
+                            v=tree_map(lambda p: _struct(p.shape, torch.float32), params))
+
+
+def cache_structs(cfg: ModelConfig, batch: int, max_seq: int) -> PyTree:
+    return _meta(lambda dev: lm.init_cache(cfg, batch, max_seq, dev))
+
+
+def batch_structs(cfg: ModelConfig, shape: ShapeSpec) -> PyTree:
+    B, S = shape.global_batch, shape.seq_len
+    bs: dict[str, Any] = {}
+    if cfg.family == "encoder":
+        bs["embeds"] = _struct((B, S, cfg.frontend_dim), cfg.act_dtype)
+    else:
+        bs["tokens"] = _struct((B, S), torch.int32)
+    if shape.kind == "train":
+        bs["labels"] = _struct((B, S), torch.int32)
+    if cfg.family == "vlm":
+        bs["memory"] = _struct((B, cfg.frontend_tokens, cfg.frontend_dim), cfg.act_dtype)
+    return bs
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, PyTree]:
+    """All step inputs as meta tensors, keyed by argument name."""
+    if shape.kind == "train":
+        params = param_structs(cfg)
+        return {"params": params, "opt_state": opt_structs(params),
+                "batch": batch_structs(cfg, shape)}
+    if shape.kind == "prefill":
+        return {"params": param_structs(cfg), "batch": batch_structs(cfg, shape)}
+    # decode: one token against a seq_len-deep cache
+    B = shape.global_batch
+    toks = {"tokens": _struct((B, 1), torch.int32)}
+    if cfg.family == "vlm":
+        toks["memory"] = _struct((B, cfg.frontend_tokens, cfg.frontend_dim), cfg.act_dtype)
+    return {"params": param_structs(cfg), "batch": toks,
+            "caches": cache_structs(cfg, B, shape.seq_len), "pos": _struct((), torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
 
 def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int = 1,
                     mesh=None):
@@ -36,7 +116,8 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     count as the loss's denominator, the gradients and the loss are summed
     over the data axes and cut to this rank's shards, and AdamW updates
     the shards with the mesh-wide grad norm.  Ranks along ``model`` train
-    the same rows on the whole parameters."""
+    the same rows on the whole parameters.  MoE layers form their groups
+    over the global microbatch (``models.moe.moe_apply``)."""
     if mesh is None:
         def train_step(params, opt_state, batch):
             loss_fn = lambda p, b: lm.train_loss(p, cfg, b)
@@ -50,7 +131,6 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     from repro_torch.parallel import zero
     from repro_torch.parallel.sharding import activation_constraints
 
-    zero.refuse_moe_on_data(cfg, mesh)
     layout = zero.param_layout(cfg, mesh)
     dp, shard = mesh_dp(mesh), local_shard(mesh)
 
@@ -73,18 +153,165 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def _whole(cfg: ModelConfig, mesh):
+    """``params -> the whole tree``: itself without a mesh; with one, the
+    gather of this rank's shards (``zero.param_layout``)."""
+    if mesh is None:
+        return lambda params: params
+    from repro_torch.parallel import zero
+
+    return zero.param_layout(cfg, mesh).gather
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """``prefill_step(params, batch)`` on ``batch``'s rows; with a ``mesh``,
+    ``params`` are this rank's shards, gathered whole first, and ``batch``
+    is this rank's rows (the port computes no tensor-parallel shard: ROADMAP
+    Queue 1 item 12c(c))."""
+    whole = _whole(cfg, mesh)
+
     def prefill_step(params, batch):
-        return lm.prefill(params, cfg, batch["tokens"])
+        return lm.prefill(whole(params), cfg, batch["tokens"])
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None):
+    """``serve_step(params, batch, caches, pos)``; with a ``mesh``, as
+    :func:`make_prefill_step`: the shards gathered whole, this rank's rows
+    and their caches."""
+    whole = _whole(cfg, mesh)
+
     def serve_step(params, batch, caches, pos):
-        return lm.decode_step(params, cfg, batch["tokens"], caches, pos)
+        return lm.decode_step(whole(params), cfg, batch["tokens"], caches, pos)
 
     return serve_step
 
 
-__all__ = ["make_prefill_step", "make_serve_step", "make_train_step"]
+# ---------------------------------------------------------------------------
+# sharding plans per step
+# ---------------------------------------------------------------------------
+
+def plan_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh, specs: dict) -> dict:
+    """Spec trees matching ``input_specs`` for this cell (the reference's
+    ``NamedSharding`` trees, as spec tuples: ``parallel.sharding``)."""
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.parallel import sharding as shd
+
+    pspec = shd.param_specs(cfg, specs["params"], mesh)
+    out: dict[str, Any] = {"params": pspec}
+    if shape.kind == "train":
+        out["opt_state"] = optim.AdamWState(step=(), m=pspec, v=pspec)
+    out["batch"] = shd.batch_specs(cfg, shape, mesh, specs["batch"])
+    if shape.kind == "decode":
+        shard_seq = shape.global_batch < axis_sizes(mesh).get("data", 1)
+        out["caches"] = shd.cache_specs(cfg, specs["caches"], mesh, shard_seq=shard_seq)
+        out["pos"] = ()
+    return out
+
+
+def local_shape(spec: tuple, shape, mesh) -> tuple[int, ...]:
+    """One rank's block of a leaf of ``shape`` under ``spec``."""
+    from repro_torch.launch.mesh import axis_sizes
+
+    sizes = axis_sizes(mesh)
+    out = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        axes = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        for a in axes:
+            n //= sizes[a]
+        out.append(n)
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class LoweredCell:
+    """One traced arch × shape × mesh cell (``lower_cell``)."""
+
+    rows: int                   # the batch rows this rank computes
+    stats: Any                  # trace_analysis.TraceStats, per rank
+
+
+def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
+               ocfg: optim.AdamWConfig | None = None, microbatches: int = 1,
+               constrain_acts: bool = False, seq_axis: str | None = None, *,
+               device: str | torch.device = "cuda") -> LoweredCell:
+    """Trace one (arch × shape × mesh) cell on fake tensors: the port's
+    counterpart of lowering it.  Returns a :class:`LoweredCell` whose
+    ``stats`` are rank 0's (``launch.trace_analysis``).
+
+    ``mesh`` is None (one device) or a ``DeviceMesh``, usually rank 0's of
+    ``launch.mesh.make_fake_mesh``.  The inputs are fake tensors on
+    ``device`` of the shapes this rank holds: for train, its parameter and
+    AdamW shards (``plan_shardings``) and the global batch, as the step
+    takes them; for prefill and decode, its parameter shards and its rows
+    of the batch and the caches (every head and position: the port shards
+    no head and no sequence, item 12c(c)).  The port's real step functions
+    run on them, ``make_train_step(mesh=)`` with its collectives on the
+    fake group.
+
+    The trace runs with ``use_pallas=False``: a kernel launch through
+    ``ctypes`` cannot take fake tensors, and training reaches no kernel in
+    either package.  ``constrain_acts`` pins prefill and decode activations
+    to this rank's rows as a check (a train step on a mesh always pins);
+    ``seq_axis`` of size > 1 raises, as the port shards no sequence (ROADMAP
+    Queue 1 item 12c(c))."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import trace_analysis
+    from repro_torch.launch.mesh import axis_sizes, mesh_dp
+    from repro_torch.parallel.sharding import activation_constraints
+
+    if seq_axis is not None and (mesh is None or axis_sizes(mesh).get(seq_axis, 1) > 1):
+        raise NotImplementedError(
+            f"lower_cell(seq_axis={seq_axis!r}): sequence-sharded activations are not ported "
+            "to repro_torch yet (ROADMAP.md, Queue 1 item 12c(c))")
+    if cfg.pure_dp:
+        raise NotImplementedError(
+            "lower_cell: a pure_dp plan cuts the batch over the model axis, which the port's "
+            "steps do not (ROADMAP.md, Queue 1 item 12c(c): the model axis's compute)")
+    cfg = dataclasses.replace(cfg, use_pallas=False, use_codegen=False)
+    specs = input_specs(cfg, shape)
+    sh = plan_shardings(cfg, shape, mesh, specs) if mesh is not None else None
+    dev = torch.device(device)
+
+    def fake(tree, spec_tree=None):
+        if spec_tree is None:
+            return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev), tree)
+        return tree_map(lambda t, s: torch.zeros(local_shape(s, t.shape, mesh), dtype=t.dtype,
+                                                 device=dev), tree, spec_tree)
+
+    with FakeTensorMode():
+        rows = shape.global_batch
+        if mesh is not None and shape.kind != "train":
+            rows = local_shape(sh["batch"]["tokens"], specs["batch"]["tokens"].shape, mesh)[0]
+        if shape.kind == "train":
+            step = make_train_step(cfg, ocfg or optim.AdamWConfig(), microbatches, mesh)
+            if mesh is not None:
+                rows //= mesh_dp(mesh)
+            args = (fake(specs["params"], sh and sh["params"]),
+                    fake(specs["opt_state"], sh and sh["opt_state"]), fake(specs["batch"]))
+            _, stats = trace_analysis.trace(step, args)
+        else:
+            local = dataclasses.replace(shape, global_batch=rows)
+            params = fake(specs["params"], sh and sh["params"])
+            batch = fake(batch_structs(cfg, local) if shape.kind == "prefill"
+                         else {"tokens": _struct((rows, 1), torch.int32)})
+            pin = (activation_constraints(mesh, global_batch=shape.global_batch)
+                   if constrain_acts and mesh is not None else contextlib.nullcontext())
+            with pin:
+                if shape.kind == "prefill":
+                    _, stats = trace_analysis.trace(make_prefill_step(cfg, mesh),
+                                                    (params, batch))
+                else:
+                    caches = fake(cache_structs(cfg, rows, shape.seq_len))
+                    pos = torch.zeros((), dtype=torch.int32, device=dev)
+                    _, stats = trace_analysis.trace(make_serve_step(cfg, mesh),
+                                                    (params, batch, caches, pos))
+    return LoweredCell(rows=rows, stats=stats)
+
+
+__all__ = ["LoweredCell", "batch_structs", "cache_structs", "dryrun_config", "input_specs",
+           "local_shape", "lower_cell", "make_prefill_step", "make_serve_step",
+           "make_train_step", "opt_structs", "param_structs", "plan_shardings"]

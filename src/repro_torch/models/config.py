@@ -5,7 +5,9 @@ so that one configuration means the same network in both packages.  The
 recurrent, ssm (Mamba-1), dense and hybrid (Mamba-2 with a shared block)
 families run in the port so far, but ``layer_pattern``, ``n_groups`` and
 ``kv_cache_bytes`` agree with the reference for every family.  The two dtype properties return
-``torch.dtype``s.
+``torch.dtype``s.  The shape cells (``ShapeSpec``, ``ALL_SHAPES``,
+``applicable_shapes``) are the reference's, and the dry run
+(``launch/dryrun.py``) sweeps them.
 """
 
 from __future__ import annotations
@@ -186,4 +188,37 @@ class ModelConfig:
         return total * self.n_groups
 
 
-__all__ = ["BlockKind", "ModelConfig"]
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def applicable_shapes(cfg: ModelConfig) -> tuple[ShapeSpec, ...]:
+    """Task rules: encoder-only ⇒ no decode; pure full attention ⇒ no 500k."""
+    shapes: list[ShapeSpec] = [TRAIN_4K, PREFILL_32K]
+    if cfg.is_decoder:
+        shapes.append(DECODE_32K)
+        sub_quadratic = (
+            cfg.family in ("ssm", "hybrid", "recurrent")
+            or (cfg.sliding_window > 0 and cfg.global_every > 0)  # mostly-local
+        )
+        if sub_quadratic:
+            shapes.append(LONG_500K)
+    return tuple(shapes)
+
+
+__all__ = ["ALL_SHAPES", "BlockKind", "DECODE_32K", "LONG_500K", "ModelConfig", "PREFILL_32K",
+           "ShapeSpec", "TRAIN_4K", "applicable_shapes"]

@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
-from repro_torch.parallel.sharding import constrain_activation
+from repro_torch.parallel.sharding import constrain_activation, recompute_contexts
 
 from .config import ModelConfig
 from .layers import dense_init, embed, embedding_params, rmsnorm, rmsnorm_params
@@ -125,7 +125,8 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
         c_grp = None if caches is None else tree_map(lambda t: t[g], caches["groups"])
         if remat:
             x, aux, new_caches = checkpoint(group_body, g, x, aux, c_grp,
-                                            use_reentrant=False)
+                                            use_reentrant=False,
+                                            context_fn=recompute_contexts)
         else:
             x, aux, new_caches = group_body(g, x, aux, c_grp)
         per_group.append(new_caches)

@@ -16,6 +16,15 @@ held to the reference's tokens.  The expert einsums are batched GEMMs that
 the reference computes outside any Pallas kernel, so they are plain
 PyTorch here.
 
+In a data-parallel train step (``launch/steps.py``'s ``make_train_step(
+mesh=)``) each rank holds its rows of the global microbatch, and the layer
+still forms the reference's groups over the global token count
+(:func:`moe_apply`): a rank whose rows hold whole groups routes them
+itself, and a group that spans ranks is gathered whole.  The Switch aux
+loss is a product of two means over every token, so each rank adds its
+tokens' share of the global aux: the shares sum to the reference's aux
+over the data ranks, in value and in gradient.
+
 The router state (expert assignments) is part of the layer's
 *combinational logic* in the paper's language; no sequential state is
 carried, so MoE layers drop into the layer stack unchanged.
@@ -71,10 +80,17 @@ def group_size_of(tokens: int, group_size: int = DEFAULT_GROUP_SIZE) -> int:
     return g
 
 
-def route(p, cfg: ModelConfig, x: torch.Tensor):
+def route(p, cfg: ModelConfig, x: torch.Tensor, data=None):
     """x: [..., D] → (top-k expert ids, normalised weights in x's dtype,
     Switch aux loss).  The ids are in descending order of probability, as
-    ``jax.lax.top_k`` gives them: the slot order depends on it."""
+    ``jax.lax.top_k`` gives them: the slot order depends on it.
+
+    ``data`` is ``(group, dp)`` when ``x`` is this rank's tokens of a
+    global batch over ``dp`` data ranks: the expert fractions are then
+    counted over every rank's tokens (one ``all_reduce``, no gradient), and
+    the aux is this rank's share, ``E · Σ_e f_e · Σ_{t here} p_te / T``
+    with T the global token count; the ranks' shares sum to the global
+    aux."""
     logits = x.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, cfg.top_k, dim=-1)
@@ -83,21 +99,65 @@ def route(p, cfg: ModelConfig, x: torch.Tensor):
     # Switch-style load-balance loss: E · Σ_e fraction_e · mean_prob_e
     E = cfg.n_experts
     lead = tuple(range(top_e.dim() - 1))
-    f = F.one_hot(top_e, E).float().sum(dim=-2).mean(dim=lead) / cfg.top_k
-    pbar = probs.mean(dim=lead)
+    chosen = F.one_hot(top_e, E).float().sum(dim=-2)
+    if data is None:
+        f = chosen.mean(dim=lead) / cfg.top_k
+        pbar = probs.mean(dim=lead)
+    else:
+        from repro_torch.parallel import comm
+
+        group, dp = data
+        tokens = chosen[..., 0].numel() * dp
+        f = comm.all_reduce(chosen.sum(dim=lead), group) / tokens / cfg.top_k
+        pbar = probs.sum(dim=lead) / tokens
     aux = E * torch.sum(f * pbar)
     return top_e, top_w.to(x.dtype), aux
 
 
 def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE):
-    """x: [B, S, D] → (y, aux_loss).  Capacity-based top-k dispatch."""
+    """x: [B, S, D] → (y, aux_loss).  Capacity-based top-k dispatch.
+
+    Inside a data-parallel train step (``parallel.sharding.data_share``)
+    ``x`` is this rank's ``B`` rows of a global microbatch of ``dp · B``,
+    and the groups are the reference's over its ``dp · B · S`` tokens:
+
+    * **aligned**: when a group lies inside this rank's rows, the rank
+      routes its own groups, and only the expert fractions are summed over
+      the data ranks (:func:`route`);
+    * **spanning**: when a group spans ranks, the tokens are gathered
+      exactly over the data ranks (``comm.gather_rows_grad``, whose
+      backward sums the gradient over the ranks and keeps this rank's
+      rows), the whole microbatch is routed as one device routes it, and
+      this rank keeps its rows and ``aux / dp``.
+
+    Either way each rank's aux is its share: summed over the data ranks,
+    as the train step sums the ranks' losses, it is the reference's aux
+    once in value and once per token in gradient."""
+    from repro_torch.parallel.sharding import data_share
+
     B, S, D = x.shape
+    share = data_share(B)
+    if share is None:
+        return _moe_groups(p, cfg, x, group_size_of(B * S, group_size))
+    group, index, dp = share
     T = B * S
-    g = group_size_of(T, group_size)
-    G = T // g
+    g = group_size_of(dp * T, group_size)
+    if T % g == 0:
+        return _moe_groups(p, cfg, x, g, data=(group, dp))
+    from repro_torch.parallel import comm
+
+    xg = comm.gather_rows_grad(x.reshape(T, D), index, dp, group)
+    y, aux = _moe_groups(p, cfg, xg.reshape(dp * B, S, D), g)
+    return y[index * B:(index + 1) * B], aux / dp
+
+
+def _moe_groups(p, cfg: ModelConfig, x: torch.Tensor, g: int, data=None):
+    """The dispatch over groups of ``g`` consecutive tokens of ``x``."""
+    B, S, D = x.shape
+    G = B * S // g
     xt = x.reshape(G, g, D)
 
-    top_e, top_w, aux = route(p, cfg, xt)        # [G,g,k] ids / weights
+    top_e, top_w, aux = route(p, cfg, xt, data)  # [G,g,k] ids / weights
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(g, cfg)
 

@@ -67,9 +67,11 @@ def causal_conv1d(x, w, b, tail=None):
 
 
 def conv_step(conv_state, x_t, w, b):
-    """Single decode step.  conv_state: [B, k-1, C] (trailing inputs)."""
+    """Single decode step.  conv_state: [B, k-1, C] (trailing inputs).  A
+    bf16 model's fp32 state promotes the window, and the taps with it, as
+    ``jnp.einsum`` promotes its operands."""
     window = torch.cat([conv_state, x_t[:, None]], dim=1)  # [B,k,C]
-    y = torch.einsum("bkc,kc->bc", window, w) + b
+    y = torch.einsum("bkc,kc->bc", window, w.to(window.dtype)) + b
     return window[:, 1:], y
 
 

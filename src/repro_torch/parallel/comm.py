@@ -2,10 +2,15 @@
 ``torch.distributed``.
 
 Every collective that the mesh code issues goes through here, and each call
-adds one to :data:`COUNTS` under its name, so a test or ``chip_smoke.py``
-can hold a forward to its schedule (one ``all_reduce`` per gate contraction
-under TP, two ``all_to_all_single`` per MoE layer under EP) the way the
-reference counts collectives in its compiled HLO.
+adds one to :data:`COUNTS` under its name and its payload to :data:`BYTES`
+under the same name, so a test or ``chip_smoke.py`` can hold a forward to
+its schedule (one ``all_reduce`` per gate contraction under TP, two
+``all_to_all_single`` per MoE layer under EP) the way the reference counts
+collectives in its compiled HLO.  A payload is the bytes of the result this
+rank gets, as the reference's ``collective_stats`` sums an HLO
+collective's result shape: the reduced tensor, the joined rows, the
+exchanged slots.  The dry run (``launch/dryrun.py``) reads the same two
+counters, so its collectives and a real run's are one measurement.
 
 Two kinds of group carry them:
 
@@ -23,31 +28,48 @@ import torch
 import torch.distributed as dist
 
 COUNTS: Counter = Counter()
+BYTES: Counter = Counter()
 
 _CONTROL_GROUPS: dict[tuple[int, ...], object] = {}
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+    BYTES.clear()
+
+
+def record(kind: str, nbytes: int) -> None:
+    """Count one collective of ``kind`` carrying ``nbytes`` to this rank."""
+    COUNTS[kind] += 1
+    BYTES[kind] += int(nbytes)
+
+
+def counters() -> dict[str, dict[str, int]]:
+    """``{kind: {"count", "bytes"}}`` of what the counters hold."""
+    return {k: {"count": int(COUNTS[k]), "bytes": int(BYTES[k])} for k in sorted(COUNTS)}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     """In-place sum over ``group``."""
-    COUNTS["all_reduce"] += 1
+    record("all_reduce", _nbytes(t))
     dist.all_reduce(t, group=group)
     return t
 
 
 def all_to_all_single(out: torch.Tensor, inp: torch.Tensor, group=None) -> torch.Tensor:
     """Equal splits of ``inp``'s dim 0 to every rank of ``group``."""
-    COUNTS["all_to_all_single"] += 1
+    record("all_to_all_single", _nbytes(out))
     dist.all_to_all_single(out, inp, group=group)
     return out
 
 
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """``[n, ...]`` from every rank → ``[world·n, ...]`` in rank order."""
-    COUNTS["all_gather"] += 1
+    record("all_gather", _nbytes(t) * dist.get_world_size(group))
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
@@ -55,7 +77,7 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """In place from global rank ``src``."""
-    COUNTS["broadcast"] += 1
+    record("broadcast", _nbytes(t))
     dist.broadcast(t, src, group=group)
     return t
 
@@ -87,17 +109,41 @@ def sum_exact(t: torch.Tensor, group=None) -> torch.Tensor:
 def gather_rows_exact(local: torch.Tensor, index: int, count: int, group=None) -> torch.Tensor:
     """``count`` equal row blocks, block ``index`` from this rank, joined
     along dim 0 on every rank, bit for bit (counted as ``gather_rows``)."""
-    COUNTS["gather_rows"] += 1
-    return _join_exact(local, index, count, group)
+    full = _join_exact(local, index, count, group)
+    record("gather_rows", _nbytes(full))
+    return full
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`gather_rows_exact` with its adjoint as the backward."""
+
+    @staticmethod
+    def forward(ctx, local, index, count, group):
+        ctx.rows, ctx.index, ctx.group = local.shape[0], index, group
+        return gather_rows_exact(local, index, count, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = all_reduce(grad.contiguous().clone(), ctx.group)
+        n, i = ctx.rows, ctx.index
+        return total[i * n:(i + 1) * n], None, None, None
+
+
+def gather_rows_grad(local: torch.Tensor, index: int, count: int, group=None) -> torch.Tensor:
+    """:func:`gather_rows_exact` on the autograd path: its backward sums
+    the incoming gradient over the ranks (an ``all_reduce``) and keeps this
+    rank's rows, the adjoint of the join."""
+    return _GatherRows.apply(local, index, count, group)
 
 
 def ppermute(t: torch.Tensor, shift: int = 1, group=None) -> torch.Tensor:
     """The ring transfer of ``group`` (counted as ``ppermute``): rank ``i``'s
     ``t`` arrives at rank ``(i + shift) % n``, and this rank gets rank
     ``(i - shift) % n``'s, bit for bit."""
-    COUNTS["ppermute"] += 1
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    return _join_exact(t[None], r, n, group)[(r - shift) % n]
+    full = _join_exact(t[None], r, n, group)
+    record("ppermute", _nbytes(full))
+    return full[(r - shift) % n]
 
 
 def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -105,16 +151,17 @@ def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
     ``all_reduce_max``): every rank's values joined bit for bit, then the
     max taken locally, so no backend's ``MAX`` on device tensors is
     needed."""
-    COUNTS["all_reduce_max"] += 1
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    return _join_exact(t.reshape(1, -1), r, n, group).amax(0).reshape(t.shape)
+    full = _join_exact(t.reshape(1, -1), r, n, group)
+    record("all_reduce_max", _nbytes(full))
+    return full.amax(0).reshape(t.shape)
 
 
 def all_reduce_typed(t: torch.Tensor, group=None) -> torch.Tensor:
     """In-place sum over ``group``, counted as ``all_reduce_<dtype>``: the
     count names the type that crossed the wire (the compressed all-reduce's
     int32 codes)."""
-    COUNTS["all_reduce_" + str(t.dtype).removeprefix("torch.")] += 1
+    record("all_reduce_" + str(t.dtype).removeprefix("torch."), _nbytes(t))
     dist.all_reduce(t, group=group)
     return t
 
@@ -132,6 +179,6 @@ def control_group(ranks: tuple[int, ...]):
     return _CONTROL_GROUPS[ranks]
 
 
-__all__ = ["COUNTS", "all_gather", "all_reduce", "all_reduce_max", "all_reduce_typed",
-           "all_to_all_single", "broadcast", "control_group", "gather_rows_exact", "ppermute",
-           "reset_counts", "sum_exact"]
+__all__ = ["BYTES", "COUNTS", "all_gather", "all_reduce", "all_reduce_max", "all_reduce_typed",
+           "all_to_all_single", "broadcast", "control_group", "counters", "gather_rows_exact", "gather_rows_grad", "ppermute",
+           "record", "reset_counts", "sum_exact"]

@@ -283,12 +283,26 @@ def activation_constraints(mesh, *, seq_axis: str | None = None,
         raise NotImplementedError(
             f"activation_constraints(seq_axis={seq_axis!r}): sequence-sharded activations "
             "are not ported to repro_torch yet (ROADMAP.md, Queue 1 item 12c)")
+    with _pins((mesh, seq_axis, batch_axes, global_batch)):
+        yield
+
+
+@contextlib.contextmanager
+def _pins(cfg):
     prev = getattr(_ACT, "cfg", None)
-    _ACT.cfg = (mesh, seq_axis, batch_axes, global_batch)
+    _ACT.cfg = cfg
     try:
         yield
     finally:
         _ACT.cfg = prev
+
+
+def recompute_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the pins in force at a
+    group's forward, put back around its recompute.  Autograd may run the
+    backward, and so the recompute, on a thread of its own (it does for
+    CUDA tensors), where the thread-local pins would be missing."""
+    return contextlib.nullcontext(), _pins(getattr(_ACT, "cfg", None))
 
 
 def constrain_activation(x):
@@ -318,6 +332,27 @@ def constrain_activation(x):
     return x
 
 
+def data_share(rows: int):
+    """Where a batch of ``rows`` rows is this rank's share of a global
+    batch cut over the data axes (inside :func:`activation_constraints`
+    with a ``global_batch``, on a DeviceMesh whose data axes hold dp > 1
+    ranks): ``(group over the data axes, this rank's data shard, dp)``;
+    else None.  The MoE layer reads it to form its groups over the global
+    batch."""
+    ctx = getattr(_ACT, "cfg", None)
+    if ctx is None:
+        return None
+    mesh, _, _, global_batch = ctx
+    if global_batch is None or not is_device_mesh(mesh):
+        return None
+    from repro_torch.launch.mesh import data_group, local_shard, mesh_dp
+
+    dp = mesh_dp(mesh)
+    if dp == 1 or rows * dp != int(global_batch):
+        return None
+    return data_group(mesh), local_shard(mesh), dp
+
+
 def activation_spec(mesh, *dims) -> Spec:  # noqa: ARG001 - the reference's signature
     """The spec of ``dims`` as a tuple (:func:`placements` turns it into
     DTensor placements on ``mesh``)."""
@@ -325,5 +360,5 @@ def activation_spec(mesh, *dims) -> Spec:  # noqa: ARG001 - the reference's sign
 
 
 __all__ = ["activation_constraints", "activation_spec", "batch_specs", "cache_specs",
-           "constrain_activation", "dp_axes", "fsdp_axis", "map_with_path",
+           "constrain_activation", "data_share", "dp_axes", "recompute_contexts", "fsdp_axis", "map_with_path",
            "opt_state_specs", "param_specs", "placements"]

@@ -29,6 +29,7 @@ rows over the data ranks.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -36,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch._tree import tree_leaves, tree_leaves_sorted, tree_map
-from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes, require_group
+from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes, mesh_ranks, require_group
 from repro_torch.parallel import comm
 
 PyTree = Any
@@ -66,9 +67,11 @@ def _wrap(specs: PyTree) -> PyTree:
     raise TypeError(f"not a spec tree node: {specs!r}")
 
 
+@functools.lru_cache(maxsize=16)
 def param_shapes(cfg) -> PyTree:
     """``cfg``'s parameter tree as meta tensors: the full shapes and dtypes
-    with no storage (drawn under ``FakeTensorMode``)."""
+    with no storage (drawn under ``FakeTensorMode``; one tree per config,
+    shared by its callers)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.models import lm
@@ -76,18 +79,6 @@ def param_shapes(cfg) -> PyTree:
     with FakeTensorMode():
         fake = lm.init_params(cfg, torch.Generator(), device="cpu")
     return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
-
-
-def refuse_moe_on_data(cfg, mesh) -> None:
-    """MoE groups and the Switch aux loss read every token of the global
-    batch; a data rank holds only its own rows, so the numbers would differ."""
-    sizes = axis_sizes(mesh)
-    dp = math.prod(sizes[a] for a in dp_axes(mesh))
-    if "moe" in tuple(cfg.layer_pattern) + tuple(cfg.tail_pattern) and dp > 1:
-        raise NotImplementedError(
-            f"training {cfg.name} on a data axis of {dp}: MoE groups and the router's "
-            "aux loss span the global batch, and data-parallel MoE training is not ported "
-            "to repro_torch yet (ROADMAP.md, Queue 1 item 12c: MoE on a training mesh)")
 
 
 def local_rows(batch: PyTree, microbatches: int, dp: int, shard: int) -> PyTree:
@@ -162,9 +153,10 @@ class ShardLayout:
         leaves packed in one flat integer buffer, each block placed by its
         first replica, zeros elsewhere, summed over every mesh axis of size
         > 1.  The returned leaves are views of that buffer, each starting
-        256-byte aligned."""
-        comm.COUNTS["gather_exact"] += 1
+        256-byte aligned.  Its payload is every buffer once per axis it is
+        summed over."""
         leaves, specs = self._leaves(local)
+        payload = 0
         out: list = [None] * len(leaves)
         for es in sorted({t.element_size() for t in leaves}):
             store = {4: torch.int32, 8: torch.int64}.get(es, torch.uint8)
@@ -184,6 +176,8 @@ class ShardLayout:
                     out[i][self._box(specs[i], shapes[i])] = leaves[i]
             for g in self.groups.values():
                 comm.sum_exact(flat, g)
+                payload += flat.numel() * flat.element_size()
+        comm.record("gather_exact", payload)
         it = iter(out)
         return tree_map(lambda _: next(it), local)
 
@@ -196,7 +190,7 @@ class ShardLayout:
     @property
     def writer(self) -> bool:
         """Whether this rank writes what the mesh saves: its first rank."""
-        return dist.get_rank() == int(self.mesh.mesh.flatten()[0])
+        return dist.get_rank() == mesh_ranks(self.mesh)[0]
 
     def data_sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the data axes (in place when there are any)."""
@@ -250,5 +244,4 @@ def state_layout(cfg, mesh) -> ShardLayout:
                               "opt": AdamWState((), ospecs, ospecs)})
 
 
-__all__ = ["ShardLayout", "local_rows", "param_layout", "param_shapes",
-           "refuse_moe_on_data", "state_layout"]
+__all__ = ["ShardLayout", "local_rows", "param_layout", "param_shapes", "state_layout"]

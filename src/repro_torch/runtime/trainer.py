@@ -115,8 +115,6 @@ class Trainer:
         *,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            zero.refuse_moe_on_data(cfg, mesh)
         self.layout = None if mesh is None else zero.state_layout(cfg, mesh)
         self.device = resolve_device(device)
         self.cfg, self.tcfg, self.ocfg, self.mesh = cfg, tcfg, ocfg, mesh

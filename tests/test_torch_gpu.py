@@ -11,8 +11,9 @@ card, held against the CPU) and its shared block through
 absorbed decode at deepseek's and int8 quantization on the card against
 the CPU, and olmoe's attention (shape g) through ``flash_attention``; and
 training: ``train_loss`` gradients on the card against the CPU, every
-kernel wrapper refusing autograd (and launching without it), and a
-``Trainer`` whose checkpoint restores onto the card.
+kernel wrapper refusing autograd (and launching without it), a
+``Trainer`` whose checkpoint restores onto the card, and ``Trainer(mesh=)``
+on gloo ranks sharing the card, dense and MoE.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one.  On a machine with the card (which has no JAX, so the
@@ -1890,3 +1891,50 @@ def test_mesh_training_on_the_card(cuda, tmp_path, backend, world):
         np.testing.assert_allclose(out["steps"], want, rtol=1e-4)
         assert out["compression"][0] <= 1.0 and out["compression"][1] == 1
         assert out["pipeline"][0] <= 1e-5 and out["pipeline"][1] == 6 + world - 1
+
+
+# -- MoE training on a data mesh: two gloo ranks sharing the card ------------
+
+def _ranks_card_moe_mesh(rank, world, tmp, group_size):
+    """The olmoe smoke config through Trainer(mesh=(world, 1)) on cuda:0."""
+    from repro_torch import optim
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"), moe_group_size=group_size)
+    t = Trainer(cfg, TrainerConfig(total_steps=3, ckpt_every=3, ckpt_dir=f"{tmp}/moe{rank}",
+                                   log_every=1, microbatches=2, ckpt_async=False),
+                optim.AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=6),
+                DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8),
+                make_local_mesh(world, 1), device=dev)
+    return [(m["loss"], m["grad_norm"]) for m in t.run()["metrics"]]
+
+
+@pytest.mark.parametrize("groups,group_size", [("aligned", 32), ("spanning", 0)])
+def test_moe_mesh_training_on_the_card(cuda, tmp_path, groups, group_size):
+    """The olmoe smoke config over dp = 2 gloo ranks sharing the card
+    (MoE groups over the global microbatch: a 32-token group inside a
+    rank's rows, or the default one spanning both) gives mesh=None's losses
+    and grad norms within 1e-5 at the first step and 1e-4 after (the
+    48-wide smoke model's bar in test_mesh_training_on_the_card)."""
+    from repro_torch import optim
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"), moe_group_size=group_size)
+    t = Trainer(cfg, TrainerConfig(total_steps=3, ckpt_every=3, ckpt_dir=str(tmp_path / "one"),
+                                   log_every=1, microbatches=2, ckpt_async=False),
+                optim.AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=6),
+                DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8), device=cuda)
+    want = [(m["loss"], m["grad_norm"]) for m in t.run()["metrics"]]
+    for got in run_ranks(_ranks_card_moe_mesh, 2, (str(tmp_path), group_size), backend="gloo",
+                         timeout_s=300):
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+        np.testing.assert_allclose(got, want, rtol=1e-4)

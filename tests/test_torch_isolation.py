@@ -57,7 +57,7 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                    "parallel/__init__.py", "parallel/sharding.py", "parallel/comm.py",
                    "parallel/ep_moe.py", "parallel/data_parallel.py",
                    "runtime/shard_plan.py", "parallel/zero.py", "parallel/compression.py",
-                   "parallel/pipeline.py"):
+                   "parallel/pipeline.py", "launch/dryrun.py", "launch/trace_analysis.py"):
         assert module in names, module
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -174,3 +174,9 @@ def test_entry_points_default_to_the_card():
                 DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         train_launcher.main(["--smoke", "--arch", "paper-lstm", "--steps", "1"])
+
+    # the dry run: its fake tensors carry the card's device unless asked
+    from repro_torch.launch import dryrun
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k"])

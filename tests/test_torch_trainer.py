@@ -129,16 +129,17 @@ def test_five_steps_match_the_reference_trainer(tmp_path):
     assert got["entropy_floor"] == want["entropy_floor"]
 
 
-def test_mesh_is_not_ported(tmp_path):
-    """MoE on a data axis > 1 is refused (its groups and aux loss span the
-    global batch), before any process group is needed; a dense config on
-    the same mesh gets as far as asking for the group."""
+def test_a_mesh_needs_an_initialised_group(tmp_path):
+    """MoE on a data axis > 1 trains (its groups and aux loss span the
+    global batch: tests/test_torch_moe_mesh.py), so an MoE config on an
+    AbstractMesh gets as far as asking for the process group, as a dense
+    config does."""
     from repro_torch.launch.mesh import AXES, AbstractMesh
 
     cfg, tcfg, ocfg, dcfg = _setup(tmp_path)
     moe_cfg = get_smoke_config("olmoe-1b-7b")
     mesh = AbstractMesh((1, 2, 1), AXES)
-    with pytest.raises(NotImplementedError, match="data axis of 2.*item 12c: MoE on a training"):
+    with pytest.raises(RuntimeError, match="needs a DeviceMesh over an initialised"):
         Trainer(moe_cfg, tcfg, ocfg, dataclasses.replace(dcfg, vocab=moe_cfg.vocab), mesh=mesh,
                 device="cpu")
     with pytest.raises(RuntimeError, match="needs a DeviceMesh over an initialised"):
