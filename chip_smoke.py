@@ -60,8 +60,10 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    hd 128 with a 1024 window), and its time at two ``smollm-135m`` layers
    (64 and 256 tokens), one ``phi4-mini-3.8b`` layer, gemma3's local and
    global layers, one ``internlm2-20b`` layer, one application of
-   ``zamba2-1.2b``'s shared block and one ``olmoe-1b-7b`` layer (2048
-   tokens each), each held to the fp32 bar, beside the plain
+   ``zamba2-1.2b``'s shared block, one ``olmoe-1b-7b`` layer, one
+   ``hubert-xlarge`` layer (non-causal, hd 80) and one
+   ``llama-3.2-vision-90b`` self-attention layer (GQA 64/8) (2048 tokens
+   each), each held to the fp32 bar, beside the plain
    version's, ``F.scaled_dot_product_attention``'s, its bound on the
    tensor cores in 3xTF32 and the fp32-FMA bound (``fma_bound_ms``), with
    its q tile, the key shares the host chose and its launches per call
@@ -281,7 +283,25 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    the 49 152 × 576 embedding averaging within 0.2 of it, an int32
    payload); ``pipeline_apply`` over the two ranks at D = 2048, C = 8
    microbatches of 256 rows, within 1e-5 of ``sequential_reference`` with
-   C + P − 1 ring transfers; and no kernel launched during the phase.
+   C + P − 1 ring transfers; and no kernel launched during the phase;
+24. moe_mesh_train — ``olmoe-1b-7b`` at its widths cut to 1 layer through
+   ``make_train_step`` on a data mesh (``mesh=None``, dp = 2 over gloo, dp =
+   1 under NCCL) and the dry run of those cells beside the ranks;
+25. encoder and vlm — ``hubert-xlarge`` uncut (945 143 040 parameters):
+   a 2048-frame forward with ``use_pallas`` (48 non-causal
+   ``flash_attention`` calls) against the plain path at every position
+   within 1e-5 of max |logit|, position 0 moved by a change of the last
+   frame, one full-width ``make_train_step`` step on 4 × 1024 frame
+   embeddings (step ms, tokens/s, peak GB), ``train_loss`` and its
+   gradients on the card against the CPU at 4 layers; then
+   ``llama-3.2-vision-90b`` at its widths cut to 10 layers (two groups: 8
+   self-attention and 2 cross blocks, 10 655 801 858 parameters) with every
+   cross gate at 0.5 and a seeded [1, 1601, 7680] memory: a 2048-token
+   prefill through ``flash_attention`` (8 calls) against the plain path at
+   every position within 1e-5, ``prefill_chunk`` chained in 256-token
+   chunks against it (the reference's chained-prefill bar, atol 1e-4), 16
+   greedy tokens through ``decode_step`` equal to ``plain_greedy``'s, and
+   a zero memory moving the logits by at least 1e-3 of max |logit|.
 
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
@@ -503,6 +523,28 @@ MM_BATCH = 8
 MM_MICRO = 2
 MM_STEPS = 2
 MM_RTOL = 1e-5
+
+# 25. cross-attention and the encoder frontend: hubert-xlarge uncut (945 M
+# parameters, 3.78 GB fp32), llama-3.2-vision-90b at its widths cut from 100
+# layers to two whole 5-layer groups (8 self-attention and 2 cross blocks,
+# 42.62 GB fp32; one group would leave the group loop and the [G, ...] cache
+# stacking at G = 1, and 100 layers are 350.6 GB)
+HUBERT_PARAMS = 945_143_040
+HUBERT_SEQ = 2048
+HUBERT_TRAIN = (4, 1024)        # (B, S) of the full-width train step
+HUBERT_CHECK = (4, 2, 64)       # (layers, B, S) of the card-against-CPU check
+LLAMA_LAYERS = 10
+LLAMA_PARAMS = 10_655_801_858
+LLAMA_PROMPT = 2048
+LLAMA_CHUNK = 256
+LLAMA_NEW = 16
+LLAMA_GATE = 0.5                # the reference opens every cross gate at 0
+VLM_LOGITS_RTOL = 1e-5
+# the chunk chain against the one-shot prefill: the reference's own bar for
+# that comparison (tests/test_serving_stack.py: atol 1e-4); at 10 layers of
+# width 8192 the two orders of the fp32 sums part by ~1e-5 of max |logit|
+CHUNK_ATOL = 1e-4
+MEMORY_ABLATION_MIN = 1e-3      # of max |logit|: the cross blocks are on the path
 
 START_T0 = time.perf_counter()
 PHASE_T0 = [START_T0]
@@ -1561,21 +1603,22 @@ def fa_per_prefill(mcfg, n: int, dev) -> tuple[int, int, int]:
     return len(kinds), sum(w > 0 for w in windows), launches
 
 
-def plain_greedy(mcfg, params, prompt, n: int, max_seq: int, dev) -> list[int]:
+def plain_greedy(mcfg, params, prompt, n: int, max_seq: int, dev, memory=None) -> list[int]:
     """The model's own greedy loop on the plain path (``use_pallas=False``):
     the prompt as one ``prefill_chunk`` from a fresh B=1 cache, then
-    ``decode_step``; no server and no ``splice_cache`` on the way."""
+    ``decode_step`` (a VLM's cross blocks reading ``memory`` in both); no
+    server and no ``splice_cache`` on the way."""
     from repro_torch.models import lm
 
     pcfg = dataclasses.replace(mcfg, use_pallas=False)
     caches = lm.init_cache(pcfg, 1, max_seq, dev)
     lg, caches = lm.prefill_chunk(params, pcfg, torch.as_tensor([prompt], device=dev),
-                                  caches, 0)
+                                  caches, 0, memory=memory)
     out = [int(lg[0].argmax())]
     pos = len(prompt)
     while len(out) < n:
         lg, caches = lm.decode_step(params, pcfg, torch.as_tensor([[out[-1]]], device=dev),
-                                    caches, pos)
+                                    caches, pos, memory=memory)
         out.append(int(lg[0].argmax()))
         pos += 1
     return out
@@ -2462,14 +2505,17 @@ def grads_on(mcfg, params, batch):
     return value_and_grad(lambda p, b: lm.train_loss(p, mcfg, b), params, batch)
 
 
-def card_against_cpu(mcfg, params, dev, card: str, B: int, S: int) -> tuple[float, float]:
+def card_against_cpu(mcfg, params, dev, card: str, B: int, S: int,
+                     batch: dict | None = None) -> tuple[float, float]:
     """One ``train_loss`` and its gradients on the card and on the host's CPU
-    (the same parameters and batch): the loss gap relative to the loss and
-    the worst per-leaf gradient gap as a share of that leaf's max |g|."""
+    (the same parameters and batch: ``train_batch``'s B x S tokens unless
+    ``batch`` is given): the loss gap relative to the loss and the worst
+    per-leaf gradient gap as a share of that leaf's max |g|."""
     from repro_torch._tree import tree_map
     from repro_torch.checkpoint.checkpoint import flatten_with_names
 
-    batch = train_batch(mcfg.vocab, B, S, dev, seed=1)
+    if batch is None:
+        batch = train_batch(mcfg.vocab, B, S, dev, seed=1)
     t0 = time.perf_counter()
     (l_g, _), g_g = grads_on(mcfg, params, batch)
     sync(dev)
@@ -3638,6 +3684,279 @@ def moe_mesh_train_phase(dev, card: str, train: dict, *, smoke: bool = False,
         nccl_rank=f"{nccl_s:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# 25. cross-attention and the encoder frontend: hubert-xlarge, llama-vision
+# ---------------------------------------------------------------------------
+
+def logits_gap(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """max |got - want| as a share of max |want|, and max |want|."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale, scale
+
+
+def timed(fn, dev):
+    """``fn()``'s result and its wall ms, the card synchronised on both sides."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def fa_reset() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fa = fa_ops.flash_attention
+    fa.calls = fa.window_calls = fa.launches = 0
+
+
+def fa_read() -> tuple[int, int]:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return fa_ops.flash_attention.calls, fa_ops.flash_attention.launches
+
+
+def encoder_phase(dev, card: str) -> dict:
+    """hubert-xlarge uncut: a 2048-frame forward through ``flash_attention``
+    (non-causal, 48 calls) against the plain path at every position, the
+    first position moved by the last frame, one full-width train step on an
+    ``embeds`` batch, and ``train_loss`` on the card against the CPU at 4
+    layers.  Returns the kernel's calls and launches."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), use_pallas=True)
+    require((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             cfg.d_ff, cfg.vocab, cfg.frontend_dim, cfg.causal, cfg.gated_mlp, cfg.mlp_act,
+             cfg.partial_rotary)
+            == ("encoder", 48, 1280, 16, 16, 80, 5120, 504, 512, False, False, "gelu", 0.0),
+            f"hubert-xlarge is not at its published widths and depth: {cfg}")
+    pcfg = dataclasses.replace(cfg, use_pallas=False)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, init_ms = timed(lambda: lm.init_params(cfg, gen, device=dev), dev)
+    n_params = lm.param_count(params)
+    require(n_params == HUBERT_PARAMS, f"hubert-xlarge has {n_params} parameters")
+    x = torch.randn((1, HUBERT_SEQ, cfg.frontend_dim), generator=gen, device=dev)
+    want_calls, _, want_launches = fa_per_prefill(cfg, HUBERT_SEQ, dev)
+    with torch.no_grad():
+        lm.forward(params, cfg, x[:, :64], mode="prefill")          # warm the kernel's path
+        fa_reset()
+        (lg_k, _, _), k_ms = timed(lambda: lm.forward(params, cfg, x, mode="prefill"), dev)
+        calls, launches = fa_read()
+        require((calls, launches) == (want_calls, want_launches) and calls == cfg.n_layers,
+                f"hubert-xlarge forward: flash_attention calls, launches {(calls, launches)}, "
+                f"not {(want_calls, want_launches)}")
+        (lg_p, _, _), p_ms = timed(lambda: lm.forward(params, pcfg, x, mode="prefill"), dev)
+        require(lg_k.shape == (1, HUBERT_SEQ, cfg.vocab) and bool(torch.isfinite(lg_k).all()),
+                f"hubert-xlarge logits of shape {tuple(lg_k.shape)} or non-finite")
+        gap, scale = logits_gap(lg_k, lg_p)
+        require(gap <= VLM_LOGITS_RTOL,
+                f"hubert-xlarge use_pallas forward differs from the plain path by {gap:.3e} "
+                f"of max |logit| {scale:.3e}")
+        # non-causal: the last frame reaches position 0, beyond the kernel's
+        # run-to-run noise on the same input
+        again, _, _ = lm.forward(params, cfg, x, mode="prefill")
+        noise = float((again[:, 0] - lg_k[:, 0]).abs().max())
+        x2 = x.clone()
+        x2[:, -1] = torch.randn((1, cfg.frontend_dim), generator=gen, device=dev)
+        moved_lg, _, _ = lm.forward(params, cfg, x2, mode="prefill")
+        moved = float((moved_lg[:, 0] - lg_k[:, 0]).abs().max())
+        phase_calls, phase_launches = fa_read()
+        require(moved > 0 and moved > 10 * noise,
+                f"hubert-xlarge: changing the last frame moved position 0 by {moved:.3e} "
+                f"(run-to-run {noise:.3e}); the attention is causal")
+        del lg_k, lg_p, again, moved_lg
+    say("encoder_forward", arch=cfg.name, params=n_params, param_gb=f"{4 * n_params / 1e9:.2f}",
+        init_ms=f"{init_ms:.1f}", frames=HUBERT_SEQ, flash_attention_calls=calls,
+        flash_attention_launches=launches, phase_calls=phase_calls,
+        phase_launches=phase_launches, rel_gap=f"{gap:.3e}", max_abs_logit=f"{scale:.3e}",
+        rtol_of_max=VLM_LOGITS_RTOL, forward_ms_use_pallas=f"{k_ms:.2f}",
+        forward_ms_plain=f"{p_ms:.2f}", position0_moved_by=f"{moved:.3e}",
+        position0_run_to_run=f"{noise:.3e}", predicted_forward_ms="150-250",
+        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
+
+    # one full-width train step on frame embeddings (the plain path: training
+    # reaches no kernel in either package)
+    before = kernel_counts()
+    B, S = HUBERT_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    batch = {"embeds": torch.randn((B, S, cfg.frontend_dim), generator=gen, device=dev),
+             "labels": torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    step = make_train_step(pcfg, optim.AdamWConfig())
+    opt = optim.init(params)
+    step_ms = []
+    for _ in range(2):
+        (params, opt, m), ms = timed(lambda: step(params, opt, batch), dev)
+        step_ms.append(ms)
+        require(math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"])),
+                f"hubert-xlarge train step: loss {float(m['loss'])}, "
+                f"grad norm {float(m['grad_norm'])}")
+    after = kernel_counts()
+    require(after == before, f"a kernel launched on hubert's training path: {before} -> {after}")
+    say("encoder_train", arch=cfg.name, batch=B, seq_len=S, first_step_ms=f"{step_ms[0]:.1f}",
+        step_ms=f"{step_ms[1]:.1f}", tokens_per_s=f"{B * S / step_ms[1] * 1e3:.0f}",
+        loss=f"{float(m['loss']):.4f}", grad_norm=f"{float(m['grad_norm']):.4f}",
+        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
+    del params, opt, batch, step, m
+    torch.cuda.empty_cache()
+
+    n, B, S = HUBERT_CHECK
+    ccfg = dataclasses.replace(pcfg, n_layers=n)
+    cparams = lm.init_params(ccfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    cgen = torch.Generator(device=dev).manual_seed(2)
+    cbatch = {"embeds": torch.randn((B, S, ccfg.frontend_dim), generator=cgen, device=dev),
+              "labels": torch.randint(0, ccfg.vocab, (B, S), generator=cgen, device=dev,
+                                      dtype=torch.int32)}
+    card_against_cpu(ccfg, cparams, dev, card, B, S, batch=cbatch)
+    del cparams, cbatch
+    torch.cuda.empty_cache()
+    return {"calls": phase_calls, "launches": phase_launches}
+
+
+def vlm_decode_cache(mcfg, prefill_caches, max_seq: int, dev):
+    """A B=1 decode cache of ``max_seq`` positions holding a one-shot
+    prefill's keys and values; the cross blocks' dummy leaves stay
+    ``init_cache``'s."""
+    from repro_torch.models import lm
+
+    caches = lm.init_cache(mcfg, 1, max_seq, dev)
+    for name, leaf in caches["groups"].items():
+        if isinstance(leaf, dict):
+            for k in ("k", "v"):
+                src = prefill_caches["groups"][name][k]
+                leaf[k][:, :, :src.shape[2]] = src
+    return caches
+
+
+def vlm_phase(dev, card: str) -> dict:
+    """llama-3.2-vision-90b at its widths, 10 layers, every cross gate open:
+    a 2048-token prompt against a seeded [1, 1601, 7680] memory through
+    ``flash_attention`` (8 calls) against the plain path at every position,
+    ``prefill_chunk`` chained in 256-token chunks against it, 16 greedy
+    tokens through ``decode_step`` against ``plain_greedy``, and the memory
+    ablation.  Returns the kernel's calls and launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"), n_layers=LLAMA_LAYERS,
+                              use_pallas=True)
+    require((cfg.family, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+             cfg.vocab, cfg.rope_theta, cfg.frontend_dim, cfg.frontend_tokens, cfg.n_groups,
+             cfg.layer_pattern)
+            == ("vlm", 8192, 64, 8, 128, 28_672, 128_256, 500_000.0, 7680, 1601, 2,
+                ("attn",) * 4 + ("cross",))
+            and get_config("llama-3.2-vision-90b").n_layers == 100,
+            f"llama-3.2-vision-90b is not at its published widths: {cfg}")
+    pcfg = dataclasses.replace(cfg, use_pallas=False)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, init_ms = timed(lambda: lm.init_params(cfg, gen, device=dev), dev)
+    n_params = lm.param_count(params)
+    require(n_params == LLAMA_PARAMS, f"llama-3.2-vision-90b ({LLAMA_LAYERS} layers) has "
+                                      f"{n_params} parameters")
+    params["groups"]["b4_cross"]["cross"]["gate"].fill_(LLAMA_GATE)
+    init_peak = torch.cuda.max_memory_allocated()
+    memory = torch.randn((1, cfg.frontend_tokens, cfg.frontend_dim), generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, LLAMA_PROMPT), generator=gen, device=dev)
+    max_seq = LLAMA_PROMPT + LLAMA_NEW
+    want_calls, _, want_launches = fa_per_prefill(cfg, LLAMA_PROMPT, dev)
+    with torch.no_grad():
+        lm.forward(params, cfg, toks[:, :64], memory=memory, mode="prefill")   # warm the path
+        torch.cuda.reset_peak_memory_stats()
+        fa_reset()
+        (lg_k, c_k, _), k_ms = timed(
+            lambda: lm.forward(params, cfg, toks, memory=memory, mode="prefill"), dev)
+        calls, launches = fa_read()
+        require((calls, launches) == (want_calls, want_launches) and calls == 8,
+                f"llama-3.2-vision-90b prefill: flash_attention calls, launches "
+                f"{(calls, launches)}, not {(want_calls, want_launches)}")
+        require(tuple(c_k["groups"]["b4_cross"].shape) == (cfg.n_groups,),
+                f"the cross leaf after a one-shot prefill is "
+                f"{tuple(c_k['groups']['b4_cross'].shape)}, the reference's is (G,)")
+        prefill_peak = torch.cuda.max_memory_allocated()
+        (lg_p, _, _), p_ms = timed(
+            lambda: lm.forward(params, pcfg, toks, memory=memory, mode="prefill"), dev)
+        require(lg_k.shape == (1, LLAMA_PROMPT, cfg.vocab) and bool(torch.isfinite(lg_k).all()),
+                f"llama-3.2-vision-90b logits of shape {tuple(lg_k.shape)} or non-finite")
+        gap, scale = logits_gap(lg_k, lg_p)
+        require(gap <= VLM_LOGITS_RTOL,
+                f"llama-3.2-vision-90b use_pallas prefill differs from the plain path by "
+                f"{gap:.3e} of max |logit| {scale:.3e}")
+
+        # chunked prefill from init_cache: each chunk's last logits against
+        # the one-shot prefill's at that position
+        caches = lm.init_cache(cfg, 1, max_seq, dev)
+        chunk_lg = []
+        sync(dev)
+        t0 = time.perf_counter()
+        for s0 in range(0, LLAMA_PROMPT, LLAMA_CHUNK):
+            lg_c, caches = lm.prefill_chunk(params, cfg, toks[:, s0:s0 + LLAMA_CHUNK], caches,
+                                            s0, memory=memory)
+            chunk_lg.append(lg_c)
+        sync(dev)
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        ends = [s0 + LLAMA_CHUNK - 1 for s0 in range(0, LLAMA_PROMPT, LLAMA_CHUNK)]
+        chunk_abs = max(float((c - lg_k[:, e]).abs().max()) for e, c in zip(ends, chunk_lg))
+        chunk_gap = max(logits_gap(c, lg_k[:, e])[0] for e, c in zip(ends, chunk_lg))
+        chunk_gap_plain = max(logits_gap(c, lg_p[:, e])[0] for e, c in zip(ends, chunk_lg))
+        require(fa_read()[0] == calls, "a chunk of prefill_chunk reached flash_attention")
+        require(tuple(caches["groups"]["b4_cross"].shape) == (cfg.n_groups, 1),
+                "the cross leaf after the chunk chain is not (G, 1)")
+        require(chunk_abs <= CHUNK_ATOL,
+                f"llama-3.2-vision-90b chunked prefill ({LLAMA_CHUNK}-token chunks) differs "
+                f"from the one-shot prefill by {chunk_abs:.3e} ({chunk_gap:.3e} of max |logit|)")
+        del caches, lg_c, chunk_lg, lg_p
+
+        # greedy decode from the kernel prefill's cache, against the plain loop
+        dcache = vlm_decode_cache(cfg, c_k, max_seq, dev)
+        del c_k
+        out = [int(lg_k[0, -1].argmax())]
+        sync(dev)
+        t0 = time.perf_counter()
+        for pos in range(LLAMA_PROMPT, LLAMA_PROMPT + LLAMA_NEW - 1):
+            lg_d, dcache = lm.decode_step(params, cfg, torch.as_tensor([[out[-1]]], device=dev),
+                                          dcache, pos, memory=memory)
+            out.append(int(lg_d[0].argmax()))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (LLAMA_NEW - 1)
+        del dcache
+        want = plain_greedy(cfg, params, toks[0].tolist(), LLAMA_NEW, max_seq, dev,
+                            memory=memory)
+        require(out == want, f"llama-3.2-vision-90b greedy tokens {out} differ from the plain "
+                             f"loop's {want}")
+
+        # the memory ablation: the cross blocks are on the path
+        lg_0, _ = lm.prefill(params, cfg, toks, memory=memory * 0)
+        ablation, _ = logits_gap(lg_0, lg_k[:, -1])
+        require(ablation >= MEMORY_ABLATION_MIN,
+                f"llama-3.2-vision-90b: a zero memory moved the logits by only {ablation:.3e} "
+                "of max |logit|")
+        calls, launches = fa_read()
+    say("vlm_prefill", arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+        param_gb=f"{4 * n_params / 1e9:.2f}", init_ms=f"{init_ms:.1f}",
+        init_peak_gb=f"{init_peak / 1e9:.2f}", memory="x".join(map(str, memory.shape)),
+        gate=LLAMA_GATE, prompt_len=LLAMA_PROMPT, flash_attention_calls=want_calls,
+        flash_attention_launches=want_launches, rel_gap=f"{gap:.3e}",
+        max_abs_logit=f"{scale:.3e}", rtol_of_max=VLM_LOGITS_RTOL,
+        prefill_ms_use_pallas=f"{k_ms:.2f}", prefill_ms_plain=f"{p_ms:.2f}",
+        predicted_prefill_ms="800-1000", prefill_peak_gb=f"{prefill_peak / 1e9:.2f}",
+        chunk=LLAMA_CHUNK, chunk_max_abs_diff=f"{chunk_abs:.3e}", chunk_atol=CHUNK_ATOL,
+        chunk_rel_gap=f"{chunk_gap:.3e}", chunk_rel_gap_to_plain=f"{chunk_gap_plain:.3e}",
+        chunked_prefill_ms=f"{chunk_ms:.2f}",
+        card=repr(card))
+    say("vlm_decode", arch=cfg.name, new_tokens=LLAMA_NEW, tokens_equal_plain=out == want,
+        decode_ms_per_token=f"{decode_ms:.2f}", predicted_decode_ms=">=12.7",
+        memory_ablation_rel=f"{ablation:.3e}", ablation_min=MEMORY_ABLATION_MIN,
+        phase_calls=calls, phase_launches=launches,
+        peak_alloc_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card))
+    del params, memory, lg_k, lg_0
+    torch.cuda.empty_cache()
+    return {"calls": calls, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4372,7 +4691,9 @@ def main() -> int:
         # prompt, (b) one phi4-mini-3.8b layer of 2048 tokens, (c) gemma3's
         # local-layer shape, (d) its global layer, (e) one internlm2-20b layer,
         # (f) one application of zamba2-1.2b's shared block (MHA, hd 64),
-        # (g) one olmoe-1b-7b layer (MHA 16/16, hd 128, after qk-norm)
+        # (g) one olmoe-1b-7b layer (MHA 16/16, hd 128, after qk-norm),
+        # (h) one hubert-xlarge layer (non-causal MHA 16/16, hd 80), (i) one
+        # llama-3.2-vision-90b self-attention layer (GQA 64/8, hd 128)
         attn_time = {}
         for name, c in (("a1_smollm_S64", dict(B=1, S=64, T=64, H=9, KV=3, hd=64, window=0)),
                         ("a_smollm_S256", dict(B=1, S=256, T=256, H=9, KV=3, hd=64, window=0)),
@@ -4386,44 +4707,50 @@ def main() -> int:
                         ("f_zamba2_shared_S2048",
                          dict(B=1, S=2048, T=2048, H=32, KV=32, hd=64, window=0)),
                         ("g_olmoe_S2048",
-                         dict(B=1, S=2048, T=2048, H=16, KV=16, hd=128, window=0))):
+                         dict(B=1, S=2048, T=2048, H=16, KV=16, hd=128, window=0)),
+                        ("h_hubert_S2048_nc",
+                         dict(B=1, S=2048, T=2048, H=16, KV=16, hd=80, window=0, causal=False)),
+                        ("i_llama_S2048",
+                         dict(B=1, S=2048, T=2048, H=64, KV=8, hd=128, window=0))):
             q, k, v = attn_inputs(c)
-            w = c["window"]
+            w, causal = c["window"], c.get("causal", True)
+            kw = dict(causal=causal, window=w)
             shape_err = check_close(f"flash_attention {name}",
-                                    [fa_ops.flash_attention(q, k, v, window=w)],
-                                    [fa_ops.flash_attention_ref(q, k, v, window=w)], ATTN_TOL)
+                                    [fa_ops.flash_attention(q, k, v, **kw)],
+                                    [fa_ops.flash_attention_ref(q, k, v, **kw)], ATTN_TOL)
             attn_err = max(attn_err, shape_err)
-            k_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, window=w), l2)
-            calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v, window=w))
-            n_splits = fa_kernel.splits(q, k, window=w)
+            k_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), l2)
+            calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v, **kw))
+            n_splits = fa_kernel.splits(q, k, **kw)
             counted = fa_ops.flash_attention.launches
-            fa_ops.flash_attention(q, k, v, window=w)
+            fa_ops.flash_attention(q, k, v, **kw)
             counted = fa_ops.flash_attention.launches - counted
             require(calls == fa_kernel.launches_per_call(n_splits) == counted,
                     f"flash_attention {name}: {calls} launches a call with {n_splits} key "
                     f"shares, {counted} counted by the wrapper")
             if name == "a_smollm_S256":
                 fa_calls = calls
-            p_ms = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v, window=w), l2)
+            p_ms = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v, **kw), l2)
             # the library call, a yardstick only: SDPA on the same fp32 tensors
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             qpos = torch.arange(c["S"], device=dev)[:, None]
             kpos = torch.arange(c["T"], device=dev)[None, :]
             win_mask = (kpos <= qpos) & (kpos > qpos - w)
             sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)) if w == 0 else \
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)) if w == 0 else \
                    (lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=win_mask, enable_gqa=True))
-            lib_diff = float((sdpa().transpose(1, 2) - fa_ops.flash_attention(q, k, v, window=w))
+            lib_diff = float((sdpa().transpose(1, 2) - fa_ops.flash_attention(q, k, v, **kw))
                              .abs().max())
             l_ms = time_ms(sdpa, l2)
             bnd, by, fma_bnd = attn_bound_ms(c["B"], c["S"], c["T"], c["H"], c["KV"], c["hd"],
-                                             True, w)
+                                             causal, w)
             attn_time[name] = (k_ms, p_ms, l_ms, bnd, by, fma_bnd, n_splits, shape_err)
             say("kernel_time", kernel="flash_attention", shape=name,
-                **{n: c[n] for n in ("B", "S", "T", "H", "KV", "hd")}, causal=True, window=w,
+                **{n: c[n] for n in ("B", "S", "T", "H", "KV", "hd")}, causal=causal, window=w,
                 max_abs_err=f"{shape_err:.3e}", tol=ATTN_TOL,
                 ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", library_ms=f"{l_ms:.4f}",
+                over_library=f"{k_ms / l_ms:.3f}",
                 library="F.scaled_dot_product_attention(enable_gqa)",
                 library_max_abs_diff=f"{lib_diff:.3e}", bound_ms=f"{bnd:.4f}", bound_by=by,
                 bound_share=f"{bnd / k_ms:.3f}", fma_bound_ms=f"{fma_bnd:.4f}",
@@ -4763,6 +5090,12 @@ def main() -> int:
     moe_mesh_train_phase(dev, card, train)
     phase_done("moe_mesh_train")
 
+    # -- 25. cross-attention and the encoder frontend ------------------------------
+    hubert_fa = encoder_phase(dev, card)
+    phase_done("encoder")
+    llama_fa = vlm_phase(dev, card)
+    phase_done("vlm")
+
     summary = {"kernels": [{
         "name": "lstm_seq",
         "route": "cuda",
@@ -4874,22 +5207,26 @@ def main() -> int:
         # (32), gemma3-27b's serve runs and prefills (14 per one-shot prefill,
         # 12 of them windowed), internlm2-20b's (4), zamba2-1.2b's (6, its
         # shared block), olmoe-1b-7b's in fp32 and int8 (16; none from
-        # deepseek's MLA) and the chaos suite (30 per one-shot prefill);
-        # times at shape (a)
+        # deepseek's MLA), the chaos suite (30 per one-shot prefill),
+        # hubert-xlarge's forwards (48, non-causal) and llama-3.2-vision-90b's
+        # prefills (8: its cross blocks are plain); times at shape (a)
         "launches": (f1 + f2 + f3 + lg_smollm_launches + p_launch + gemma_fa["launches"]
                      + internlm_fa["launches"] + zamba_fa["launches"]
                      + moe_fa["olmoe"]["launches"] + moe_fa["olmoe_int8"]["launches"]
-                     + tc["smollm-135m"]),
+                     + tc["smollm-135m"] + hubert_fa["launches"] + llama_fa["launches"]),
         "calls": (c1 + c2 + c3 + lg_smollm_calls + p_call + gemma_fa["calls"]
                   + internlm_fa["calls"] + zamba_fa["calls"] + moe_fa["olmoe"]["calls"]
-                  + moe_fa["olmoe_int8"]["calls"] + tc["smollm-135m_calls"]),
+                  + moe_fa["olmoe_int8"]["calls"] + tc["smollm-135m_calls"]
+                  + hubert_fa["calls"] + llama_fa["calls"]),
         "window_calls": gemma_fa["window_calls"],
         "launches_by_model": {"gemma3-27b": gemma_fa["launches"],
                               "internlm2-20b": internlm_fa["launches"],
                               "zamba2-1.2b": zamba_fa["launches"],
                               "olmoe-1b-7b": (moe_fa["olmoe"]["launches"]
                                               + moe_fa["olmoe_int8"]["launches"]),
-                              "deepseek-v2-lite-16b": moe_fa["deepseek"]["launches"]},
+                              "deepseek-v2-lite-16b": moe_fa["deepseek"]["launches"],
+                              "hubert-xlarge": hubert_fa["launches"],
+                              "llama-3.2-vision-90b": llama_fa["launches"]},
         "max_abs_err": attn_err,
         "ms": attn_time["a_smollm_S256"][0],
         "plain_ms": attn_time["a_smollm_S256"][1],
@@ -4909,6 +5246,8 @@ def main() -> int:
         "bound_ms_by_shape": {n: t[3] for n, t in attn_time.items()},
         "plain_ms_by_shape": {n: t[1] for n, t in attn_time.items()},
         "library_ms_by_shape": {n: t[2] for n, t in attn_time.items()},
+        "over_library_by_shape": {n: t[0] / t[2] for n, t in attn_time.items()},
+        "key_splits_by_shape": {n: t[6] for n, t in attn_time.items()},
     }]}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

@@ -29,7 +29,9 @@ def params_from_jax(np_tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     with its ``attn`` and its ``moe`` subtree: ``router``, ``w_in``,
     ``w_gate``, ``w_out`` and the ``shared`` experts' MLP; MLA's ``wq``,
     ``w_dkv``, ``w_krope``, ``w_uk``, ``w_uv``, ``wo`` and ``kv_norm`` under
-    ``attn``), and so do the unstacked ``"tail"`` blocks (``t0_attn_local``,
+    ``attn``; ``b4_cross`` with its ``cross`` subtree, the ``gate`` among
+    its leaves, and its ``mlp``; an encoder's ``embed.proj``), and so do the
+    unstacked ``"tail"`` blocks (``t0_attn_local``,
     ``t0_mamba2``) of a config with a ``tail_pattern`` and the ``"shared"``
     block of a config whose pattern has ``shared_attn``.  A ``router``
     stays fp32 whatever ``cfg.p_dtype`` is, as the reference keeps it.
@@ -120,7 +122,8 @@ def program_from_jax(np_params: PyTree, spec, device=None):
 def cache_from_jax(np_tree: PyTree, device=None) -> PyTree:
     """The reference's decode caches (numpy leaves: recurrent ``h``/``c``,
     Mamba-1 ``h``/``conv``, Mamba-2 ``h`` and the nested ``conv: {x, bc}``,
-    attention ``k``/``v``, MLA ``c_kv``/``k_rope``, sliding-window rings; the ``"groups"`` subtree
+    attention ``k``/``v``, MLA ``c_kv``/``k_rope``, sliding-window rings, a
+    cross block's dummy leaf; the ``"groups"`` subtree
     and, with a ``tail_pattern``, the unstacked ``"tail"`` one) → port
     caches of the same layout, fp32."""
     dev = resolve_device(device)

@@ -1,11 +1,11 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
-The recurrent (``paper-lstm``), Mamba-1 (``falcon-mamba-7b``), dense
-transformer (``smollm-135m``, ``phi4-mini-3.8b``, ``gemma3-27b``,
-``internlm2-20b``), hybrid (``zamba2-1.2b``) and MoE (``olmoe-1b-7b``;
-``deepseek-v2-lite-16b`` with MLA) configurations are registered in the
-port so far; the other families of the reference's registry
-(cross-attention, the audio encoder) come with their blocks.
+The reference's eleven architectures, in alphabetical order: MoE
+(``deepseek-v2-lite-16b`` with MLA, ``olmoe-1b-7b``), the audio encoder
+(``hubert-xlarge``), Mamba-1 (``falcon-mamba-7b``), dense transformers
+(``gemma3-27b``, ``internlm2-20b``, ``smollm-135m``, ``phi4-mini-3.8b``),
+the VLM (``llama-3.2-vision-90b``), the hybrid (``zamba2-1.2b``) and the
+recurrent ``paper-lstm``.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ _MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "gemma3-27b": "gemma3_27b",
+    "hubert-xlarge": "hubert_xlarge",
     "internlm2-20b": "internlm2_20b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "paper-lstm": "paper_lstm",
     "phi4-mini-3.8b": "phi4_mini_3_8b",

@@ -82,6 +82,14 @@ def batch_structs(cfg: ModelConfig, shape: ShapeSpec) -> PyTree:
     return bs
 
 
+def decode_batch_structs(cfg: ModelConfig, batch: int) -> PyTree:
+    """A decode step's batch: one token a row, and a VLM's memory."""
+    toks = {"tokens": _struct((batch, 1), torch.int32)}
+    if cfg.family == "vlm":
+        toks["memory"] = _struct((batch, cfg.frontend_tokens, cfg.frontend_dim), cfg.act_dtype)
+    return toks
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, PyTree]:
     """All step inputs as meta tensors, keyed by argument name."""
     if shape.kind == "train":
@@ -92,10 +100,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, PyTree]:
         return {"params": param_structs(cfg), "batch": batch_structs(cfg, shape)}
     # decode: one token against a seq_len-deep cache
     B = shape.global_batch
-    toks = {"tokens": _struct((B, 1), torch.int32)}
-    if cfg.family == "vlm":
-        toks["memory"] = _struct((B, cfg.frontend_tokens, cfg.frontend_dim), cfg.act_dtype)
-    return {"params": param_structs(cfg), "batch": toks,
+    return {"params": param_structs(cfg), "batch": decode_batch_structs(cfg, B),
             "caches": cache_structs(cfg, B, shape.seq_len), "pos": _struct((), torch.int32)}
 
 
@@ -139,7 +144,8 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
         return lm.train_loss(p, cfg, b, count=count)
 
     def train_step(params, opt_state, batch):
-        rows = batch["tokens"].shape[0] // microbatches     # a global microbatch
+        # a global microbatch's rows (of the tokens, or an encoder's embeds)
+        rows = batch.get("embeds", batch.get("tokens")).shape[0] // microbatches
         full = layout.gather(params)
         with activation_constraints(mesh, global_batch=rows):
             loss, grads, _ = optim.accumulate_grads(
@@ -171,7 +177,8 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     whole = _whole(cfg, mesh)
 
     def prefill_step(params, batch):
-        return lm.prefill(whole(params), cfg, batch["tokens"])
+        inputs = batch.get("embeds", batch.get("tokens"))
+        return lm.prefill(whole(params), cfg, inputs, memory=batch.get("memory"))
 
     return prefill_step
 
@@ -183,7 +190,8 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
     whole = _whole(cfg, mesh)
 
     def serve_step(params, batch, caches, pos):
-        return lm.decode_step(whole(params), cfg, batch["tokens"], caches, pos)
+        return lm.decode_step(whole(params), cfg, batch["tokens"], caches, pos,
+                              memory=batch.get("memory"))
 
     return serve_step
 
@@ -285,7 +293,8 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     with FakeTensorMode():
         rows = shape.global_batch
         if mesh is not None and shape.kind != "train":
-            rows = local_shape(sh["batch"]["tokens"], specs["batch"]["tokens"].shape, mesh)[0]
+            lead = "embeds" if "embeds" in specs["batch"] else "tokens"
+            rows = local_shape(sh["batch"][lead], specs["batch"][lead].shape, mesh)[0]
         if shape.kind == "train":
             step = make_train_step(cfg, ocfg or optim.AdamWConfig(), microbatches, mesh)
             if mesh is not None:
@@ -297,7 +306,7 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
             local = dataclasses.replace(shape, global_batch=rows)
             params = fake(specs["params"], sh and sh["params"])
             batch = fake(batch_structs(cfg, local) if shape.kind == "prefill"
-                         else {"tokens": _struct((rows, 1), torch.int32)})
+                         else decode_batch_structs(cfg, rows))
             pin = (activation_constraints(mesh, global_batch=shape.global_batch)
                    if constrain_acts and mesh is not None else contextlib.nullcontext())
             with pin:
@@ -312,6 +321,7 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     return LoweredCell(rows=rows, stats=stats)
 
 
-__all__ = ["LoweredCell", "batch_structs", "cache_structs", "dryrun_config", "input_specs",
+__all__ = ["LoweredCell", "batch_structs", "cache_structs", "decode_batch_structs",
+           "dryrun_config", "input_specs",
            "local_shape", "lower_cell", "make_prefill_step", "make_serve_step",
            "make_train_step", "opt_structs", "param_structs", "plan_shardings"]

@@ -1,5 +1,5 @@
-"""Attention: grouped-query attention and MLA (DeepSeek); the port's
-counterpart of ``repro/models/attention.py``.
+"""Attention: grouped-query attention, MLA (DeepSeek) and cross-attention
+(llama-vision); the port's counterpart of ``repro/models/attention.py``.
 
 Every variant offers a *prefill* path (full sequence) and a *decode* path
 (S ≥ 1 query tokens against a cache): the serving state-space view, in
@@ -11,9 +11,10 @@ attention core to ``kernels/flash_attention`` (the hand-written CUDA kernel
 for CUDA tensors, its plain version on the CPU).  Decode and chunked prefill
 attend over the cache in plain PyTorch, as the reference computes them
 outside any Pallas kernel.  MLA has no kernel in either package: its naive
-prefill and absorbed decode are plain einsums.  Cross-attention
-(llama-vision) is not ported: its entry points raise
-``NotImplementedError`` naming ROADMAP.md.
+prefill and absorbed decode are plain einsums.  Cross-attention is plain
+PyTorch in every mode, as the reference computes it outside any Pallas
+kernel: its keys and values are projected from the memory on every call,
+decode included (the memory is an input, not cached state).
 """
 
 from __future__ import annotations
@@ -32,11 +33,6 @@ if TYPE_CHECKING:
 PyTree = Any
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps softmax NaN-free on fully-masked rows
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1, item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -81,12 +77,18 @@ def mla_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     }
 
 
-def cross_attn_params(gen, cfg):  # noqa: ARG001 — the reference's signature
-    raise _unported("cross-attention (llama-3.2-vision-90b)", 13)
-
-
-def cross_attn(p, cfg, x, memory):  # noqa: ARG001 — the reference's signature
-    raise _unported("cross-attention (llama-3.2-vision-90b)", 13)
+def cross_attn_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.p_dtype
+    return {
+        "wq": dense_init(gen, (D, H * hd), dt),
+        "wk": dense_init(gen, (cfg.frontend_dim, KV * hd), dt),
+        "wv": dense_init(gen, (cfg.frontend_dim, KV * hd), dt),
+        "wo": dense_init(gen, (H * hd, D), dt),
+        "gate": torch.zeros((1,), dtype=dt, device=gen.device),  # tanh-gated residual
+        "q_norm": rmsnorm_params(hd, dt, gen.device),
+        "k_norm": rmsnorm_params(hd, dt, gen.device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +281,27 @@ def mla_decode(p, cfg: ModelConfig, x, cache: PyTree, pos):
     w_uv = p["w_uv"].reshape(r, H, dv)
     out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv.float()).to(x.dtype)
     return out.reshape(B, S, -1) @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (vision/audio memory; llama-3.2-vision style)
+# ---------------------------------------------------------------------------
+
+def cross_attn(p, cfg: ModelConfig, x, memory):
+    """x: [B,S,D] attends to memory [B,M,frontend_dim] (every query sees
+    every memory row; no RoPE; q and k RMS-normed over hd); the output is
+    scaled by ``tanh(gate)``, so a closed gate adds nothing."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    M = memory.shape[1]
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (memory @ p["wk"]).reshape(B, M, KV, hd)
+    v = (memory @ p["wv"]).reshape(B, M, KV, hd)
+    q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    mask = torch.ones((1, 1, S, M), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask)
+    return torch.tanh(p["gate"]) * (out.reshape(B, S, -1) @ p["wo"])
 
 
 __all__ = [

@@ -1,10 +1,10 @@
 """Model configuration: the port's copy of ``repro/models/config.py``.
 
 The same fields and derived properties as the reference's ``ModelConfig``,
-so that one configuration means the same network in both packages.  The
-recurrent, ssm (Mamba-1), dense and hybrid (Mamba-2 with a shared block)
-families run in the port so far, but ``layer_pattern``, ``n_groups`` and
-``kv_cache_bytes`` agree with the reference for every family.  The two dtype properties return
+so that one configuration means the same network in both packages: every
+family of the reference (recurrent, ssm, dense, hybrid, moe, the encoder and
+the vlm) runs in the port, and ``layer_pattern``, ``n_groups`` and
+``kv_cache_bytes`` agree with the reference's.  The two dtype properties return
 ``torch.dtype``s.  The shape cells (``ShapeSpec``, ``ALL_SHAPES``,
 ``applicable_shapes``) are the reference's, and the dry run
 (``launch/dryrun.py``) sweeps them.

@@ -1,6 +1,5 @@
-"""Shared neural layers: the port's copy of the parts of
-``repro/models/layers.py`` that the ported families use (norms, RoPE, the
-gated MLP, embeddings).
+"""Shared neural layers: the port's copy of ``repro/models/layers.py``
+(norms, RoPE, the gated MLP, embeddings and the logits head).
 
 Parameters are plain nested dicts of tensors with the reference's layout.
 Every random draw takes an explicit ``torch.Generator`` and lands on that
@@ -50,6 +49,21 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
+
+
+def layernorm_params(dim: int, dtype, device) -> PyTree:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (biased variance) computed in fp32, returned in x's dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +126,7 @@ def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# embeddings
+# embeddings / head
 # ---------------------------------------------------------------------------
 
 def embedding_params(gen: torch.Generator, vocab: int, d_model: int, dtype) -> PyTree:
@@ -123,15 +137,24 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
 
 
+def unembed(params, x: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:
+    """Logits head ``x @ params["w"]``; pass ``table`` for tied embeddings
+    (``x @ table.T``)."""
+    return x @ table.T if table is not None else x @ params["w"]
+
+
 __all__ = [
     "apply_rope",
     "dense_init",
     "embed",
     "embed_init",
     "embedding_params",
+    "layernorm",
+    "layernorm_params",
     "mlp_apply",
     "mlp_params",
     "rmsnorm",
     "rmsnorm_params",
     "rope_freqs",
+    "unembed",
 ]

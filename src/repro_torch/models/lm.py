@@ -1,7 +1,13 @@
-"""Top-level language model: embed → groups → tail → head; the port's
-counterpart of ``repro/models/lm.py`` for the families ported so far
-(recurrent, ssm, dense with gemma3's ``tail_pattern``, and hybrid; no
-cross-attention ``memory`` argument yet).
+"""Top-level language / encoder / VLM model: embed → groups → tail → head;
+the port's counterpart of ``repro/models/lm.py`` for every family of the
+reference (recurrent, ssm, dense with gemma3's ``tail_pattern``, hybrid,
+moe, the ``encoder`` and the ``vlm``).
+
+An encoder (hubert) takes precomputed frame embeddings ``[B, S,
+frontend_dim]`` in place of tokens and projects them with
+``embed.proj``; a VLM (llama-vision) takes token ids and a ``memory=``
+``[B, M, frontend_dim]`` that its ``cross`` blocks attend to in every entry
+point, decode included.
 
 The whole network is one state-space system (paper eq. 8): in prefill the
 state is the activations flowing across layer groups; in decode the state
@@ -10,7 +16,8 @@ of a Mamba stack, the KV cache of a transformer, both in a hybrid) and one
 ``decode_step`` is one application of the state-update map f with the new
 token as input u[k].
 
-The parameter layout mirrors the reference's: ``{"embed": {"table"},
+The parameter layout mirrors the reference's: ``{"embed": {"table"} (an
+encoder's: {"proj"}),
 "groups": {"b0_recurrent" | "b0_mamba1" | "b0_attn" | "b0_attn_local" |
 "b0_mamba2" … "b5_shared_attn": ...}, "final_norm": {"scale"}}`` (+
 ``"shared": {"attn", "mlp"}``, the one shared transformer block, when the
@@ -64,10 +71,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> PyTre
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator is on {gen.device}, parameters go to {dev}")
+    params: dict[str, Any] = {}
     if cfg.family == "encoder":
-        raise NotImplementedError("encoder frontends are not ported to repro_torch yet")
-    params: dict[str, Any] = {
-        "embed": embedding_params(gen, cfg.vocab, cfg.d_model, cfg.p_dtype)}
+        # audio frontend stub: precomputed frame embeddings -> linear proj
+        params["embed"] = {"proj": dense_init(gen, (cfg.frontend_dim, cfg.d_model), cfg.p_dtype)}
+    else:
+        params["embed"] = embedding_params(gen, cfg.vocab, cfg.d_model, cfg.p_dtype)
     # each stacked [G, ...] leaf is allocated once and filled group by group,
     # so the peak is the tree plus one group (stacking G per-group trees
     # would hold the tree twice: 58 GB for falcon-mamba-7b in fp32)
@@ -99,7 +108,7 @@ def param_count(params: PyTree) -> int:
 # group stack
 # ---------------------------------------------------------------------------
 
-def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
+def _apply_groups(params, cfg: ModelConfig, x, *, memory, caches, pos, mode):
     pattern = cfg.layer_pattern
     shared = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -111,10 +120,13 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
         for i, kind in enumerate(pattern):
             name = f"b{i}_{kind}"
             c_in = None if c_grp is None else c_grp.get(name)
-            x, c_out, aux_i = apply_block(p_grp[name], shared, cfg, kind, x,
+            x, c_out, aux_i = apply_block(p_grp[name], shared, cfg, kind, x, memory=memory,
                                           cache=c_in, pos=pos, mode=mode)
             aux = aux + aux_i
-            new_caches[name] = c_out
+            # the reference's scan stores a scalar for a block without a
+            # cache (a cross block in prefill): its leaf stacks to [G]
+            new_caches[name] = c_out if c_out is not None else \
+                torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux, new_caches
 
     # the reference's jax.checkpoint of the group body: a group keeps only
@@ -136,7 +148,7 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
         name = f"t{i}_{kind}"
         c_in = None if tail_in is None else tail_in.get(name)
         x, c_out, aux_i = apply_block(params["tail"][name], shared, cfg, kind, x,
-                                      cache=c_in, pos=pos, mode=mode)
+                                      memory=memory, cache=c_in, pos=pos, mode=mode)
         aux = aux + aux_i
         tail_out[name] = c_out
     if mode == "train":
@@ -147,8 +159,10 @@ def _apply_groups(params, cfg: ModelConfig, x, *, caches, pos, mode):
     return x, aux, out_caches
 
 
-def _embed_in(params, cfg: ModelConfig, tokens):
-    return embed(params["embed"], tokens.long()).to(cfg.act_dtype)
+def _embed_in(params, cfg: ModelConfig, tokens_or_embeds):
+    if cfg.family == "encoder":
+        return tokens_or_embeds.to(cfg.act_dtype) @ params["embed"]["proj"]
+    return embed(params["embed"], tokens_or_embeds.long()).to(cfg.act_dtype)
 
 
 def _head(params, cfg: ModelConfig, h):
@@ -162,10 +176,12 @@ def _head(params, cfg: ModelConfig, h):
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ModelConfig, tokens, *, mode="train"):
-    """Full-sequence forward.  mode: "train" (no caches) | "prefill"."""
+def forward(params, cfg: ModelConfig, tokens, *, memory=None, mode="train"):
+    """Full-sequence forward of token ids [B,S] (an encoder's frame
+    embeddings [B,S,frontend_dim]).  mode: "train" (no caches) | "prefill"."""
     x = _embed_in(params, cfg, tokens)
-    h, aux, out_caches = _apply_groups(params, cfg, x, caches=None, pos=None, mode=mode)
+    h, aux, out_caches = _apply_groups(params, cfg, x, memory=memory, caches=None, pos=None,
+                                       mode=mode)
     logits = _head(params, cfg, h)
     if mode == "prefill":
         return logits, out_caches, aux
@@ -174,7 +190,8 @@ def forward(params, cfg: ModelConfig, tokens, *, mode="train"):
 
 def train_loss(params, cfg: ModelConfig, batch, z_loss_coef: float = 1e-4, *,
                count: torch.Tensor | None = None):
-    """batch: {"tokens": [B,S], "labels": [B,S]} → (loss, metrics).  Labels
+    """batch: {"tokens": [B,S] or "embeds": [B,S,F], "labels": [B,S],
+    optional "memory": [B,M,F]} → (loss, metrics).  Labels
     below 0 are masked out; the loss is the masked mean cross-entropy plus
     ``z_loss_coef`` times the mean squared log-partition plus
     ``cfg.router_aux_coef`` times the MoE blocks' load-balancing loss.
@@ -182,7 +199,8 @@ def train_loss(params, cfg: ModelConfig, batch, z_loss_coef: float = 1e-4, *,
     ``count`` is the number of unmasked labels the means divide by (default:
     this batch's own).  A data-parallel rank passes its global microbatch's,
     so that the ranks' losses and gradients sum to the whole microbatch's."""
-    logits, aux = forward(params, cfg, batch["tokens"], mode="train")
+    inputs = batch.get("embeds", batch.get("tokens"))
+    logits, aux = forward(params, cfg, inputs, memory=batch.get("memory"), mode="train")
     labels = batch["labels"].long()
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
@@ -195,27 +213,29 @@ def train_loss(params, cfg: ModelConfig, batch, z_loss_coef: float = 1e-4, *,
     return loss, {"ce": ce, "z_loss": zl, "router_aux": aux}
 
 
-def prefill(params, cfg: ModelConfig, tokens):
+def prefill(params, cfg: ModelConfig, tokens, *, memory=None):
     """Returns (last-token logits, caches) — cache seeding for serving."""
-    logits, caches, _ = forward(params, cfg, tokens, mode="prefill")
+    logits, caches, _ = forward(params, cfg, tokens, memory=memory, mode="prefill")
     return logits[:, -1], caches
 
 
-def prefill_chunk(params, cfg: ModelConfig, tokens, caches, pos):
+def prefill_chunk(params, cfg: ModelConfig, tokens, caches, pos, *, memory=None):
     """Resumable prefill: one chunk of the prompt scan, applied against
     existing decode-layout ``caches`` from absolute position ``pos``.
     Chaining chunks from a fresh ``init_cache`` reproduces one-shot
     :func:`prefill`.  Returns (last-token logits [B, V], updated caches)."""
     x = _embed_in(params, cfg, tokens)
-    h, _, out_caches = _apply_groups(params, cfg, x, caches=caches, pos=pos, mode="chunk")
+    h, _, out_caches = _apply_groups(params, cfg, x, memory=memory, caches=caches, pos=pos,
+                                     mode="chunk")
     logits = _head(params, cfg, h)
     return logits[:, -1], out_caches
 
 
-def decode_step(params, cfg: ModelConfig, tokens, caches, pos):
+def decode_step(params, cfg: ModelConfig, tokens, caches, pos, *, memory=None):
     """One serving step: tokens [B,1] at position(s) ``pos``: f(x[k], u[k])
     of the serving state-space system."""
     x = _embed_in(params, cfg, tokens)
-    h, _, out_caches = _apply_groups(params, cfg, x, caches=caches, pos=pos, mode="decode")
+    h, _, out_caches = _apply_groups(params, cfg, x, memory=memory, caches=caches, pos=pos,
+                                     mode="decode")
     logits = _head(params, cfg, h)
     return logits[:, -1], out_caches

@@ -1,11 +1,12 @@
 """Block assembly: layer stacks as groups of blocks; the port's counterpart of
 ``repro/models/transformer.py``.
 
-The recurrent, ``mamba1``, ``mamba2``, ``attn`` (dense transformer: GQA +
-MLP), ``attn_local`` (gemma3's sliding-window attention), ``shared_attn``
-(zamba2's shared transformer block) and ``moe`` (attention + the MoE FFN of
-olmoe and deepseek) kinds are ported, with GQA or MLA attention
-(``cfg.use_mla``); the ``cross`` kind raises.  A group is one period
+Every kind of the reference runs: recurrent, ``mamba1``, ``mamba2``,
+``attn`` (dense transformer: GQA + MLP), ``attn_local`` (gemma3's
+sliding-window attention), ``shared_attn`` (zamba2's shared transformer
+block), ``moe`` (attention + the MoE FFN of olmoe and deepseek), with GQA or
+MLA attention (``cfg.use_mla``), and ``cross`` (llama-vision's gated
+cross-attention to a ``memory`` + MLP).  A group is one period
 of ``ModelConfig.layer_pattern``; per-group parameters and decode caches
 are stacked on a leading ``G`` axis, exactly as the reference lays them out
 for its scan over groups.  Blocks of ``ModelConfig.tail_pattern`` (gemma3's
@@ -23,7 +24,8 @@ A local layer's decode cache is a ring buffer of ``min(max_seq,
 sliding_window)`` positions: position ``p`` lives at slot ``p mod W``.  A
 ``shared_attn`` block's is a full-length K/V cache, never a ring.  Under
 MLA an ``attn`` or ``moe`` block caches the latent ``c_kv [B, S, r]`` and
-the shared rope key ``k_rope [B, S, dr]`` instead of K/V.
+the shared rope key ``k_rope [B, S, dr]`` instead of K/V.  A ``cross`` block's cache is a
+dummy ``(1,)`` fp32 leaf: the memory is an input of every call, not state.
 """
 
 from __future__ import annotations
@@ -43,13 +45,6 @@ from .config import ModelConfig
 from .layers import apply_rope, mlp_apply, mlp_params, rmsnorm, rmsnorm_params
 
 PyTree = Any
-
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind '{kind}' is not ported to repro_torch yet (ROADMAP.md "
-        "Queue 1, item 13); 'recurrent', 'mamba1', 'mamba2', 'attn', 'attn_local', "
-        "'shared_attn' and 'moe' run")
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +68,13 @@ def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> PyTree:
             "ln_mlp": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
             "moe": moe_lib.moe_params(gen, cfg),
         }
+    if kind == "cross":
+        return {
+            "ln_attn": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+            "cross": attn_lib.cross_attn_params(gen, cfg),
+            "ln_mlp": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
+            "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.p_dtype),
+        }
     if kind == "recurrent":
         return {"ln": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
                 "rnn": rnn_lib.recurrent_params(gen, cfg)}
@@ -89,7 +91,7 @@ def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> PyTree:
             "lora": attn_lib.gqa_params(gen, cfg, lora_rank=cfg.shared_attn_lora_rank)["lora"],
             "ln_mlp": rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device),
         }
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def group_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
@@ -139,7 +141,10 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) 
         return ssm_lib.mamba1_init_state(cfg, batch, device)
     if kind == "mamba2":
         return ssm_lib.mamba2_init_state(cfg, batch, device)
-    raise _unported(kind)
+    if kind == "cross":
+        # the memory is static: a dummy state
+        return torch.zeros((1,), dtype=torch.float32, device=device)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
@@ -154,7 +159,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
     ``moe`` block's are the latent ``c_kv [G, batch, max_seq, r]`` and
     ``k_rope [G, batch, max_seq, dr]``) and an ``attn_local`` block's the
     ring ``[G, batch, min(max_seq, window), KV, hd]``, in the activation
-    dtype.  Tail leaves are the same without the
+    dtype; a ``cross`` block's is the dummy ``[G, 1]`` fp32.  Tail leaves are the same without the
     ``G`` axis: the slot is their axis 0, the sequence their axis 1."""
     G = cfg.n_groups
     groups = {}
@@ -179,13 +184,16 @@ def apply_block(
     kind: str,
     x: torch.Tensor,
     *,
+    memory=None,
     cache=None,
     pos=None,
     mode: str = "train",
 ):
     """One block, all modes.  Returns (x, new_cache, aux_loss).  ``shared``
     is the model's ``"shared"`` subtree (None without one), which only a
-    ``shared_attn`` block reads.
+    ``shared_attn`` block reads; ``memory`` [B, M, frontend_dim] is what a
+    ``cross`` block attends to, in every mode (it returns the cache it was
+    given, None in prefill and train).
 
     mode="chunk" is the resumable prefill step: S ≥ 1 tokens applied against
     an existing cache at offset ``pos`` — the same state-update map as
@@ -225,6 +233,11 @@ def apply_block(
         else:
             y = mlp_apply(p_blk["mlp"], h, cfg.mlp_act)
         return x + y, cache, aux
+    if kind == "cross":
+        h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
+        x = x + attn_lib.cross_attn(p_blk["cross"], cfg, h, memory)
+        h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
+        return x + mlp_apply(p_blk["mlp"], h, cfg.mlp_act), cache, aux
     if kind == "shared_attn":
         # the shared weights with this application's LoRA deltas; a chunk
         # attends over the cache as decode does, only a one-shot prefill
@@ -253,7 +266,7 @@ def apply_block(
             cache = st if mode == "prefill" else None
         return x + y, cache, aux
     if kind != "recurrent":
-        raise _unported(kind)
+        raise ValueError(kind)
     # LSTM/GRU cell: the serving state IS the (h, c) carry (paper eq. 1)
     h = rmsnorm(p_blk["ln"], x, cfg.norm_eps)
     if mode == "chunk":

@@ -28,6 +28,8 @@ layers and once per application of zamba2's shared block; zamba2's
 Mamba-2 blocks have no kernel); chunks run ``lstm_seq`` and ``ssm_scan``
 too, while attention chunks attend over the cache in plain PyTorch, as the
 reference's do.
+A VLM (no cross-attention memory: the reference's server passes none) and
+an encoder (no decode) are refused at construction.
 Cache leaves keep their slot and sequence axes where :data:`CACHE_AXES`
 says (a tail block's leaves have no ``G`` axis), and every function that
 writes or slices a slot reads them there.
@@ -245,6 +247,15 @@ class DecodeServer:
                  watchdog_s: float | None = None,
                  plan: ShardPlan | None = None,
                  device: str | torch.device | None = None):
+        if cfg.family == "vlm":
+            raise NotImplementedError(
+                f"DecodeServer: {cfg.name} is a VLM, and the reference's server passes no "
+                "cross-attention memory (its cross blocks fail on memory=None); drive "
+                "lm.prefill / lm.decode_step with memory= instead")
+        if cfg.family == "encoder":
+            raise NotImplementedError(
+                f"DecodeServer: {cfg.name} is an encoder, and an encoder has no decode; "
+                "use lm.forward")
         # Mesh placement: the slot pool in contiguous per-shard blocks over
         # the plan's data axis; plan=None is the single-device server.
         self.plan = plan

@@ -308,12 +308,15 @@ def test_causal_mask_matches_reference():
 
 
 def test_unported_attention_variants_raise():
+    """Every attention variant is ported now: cross-attention (item 13)
+    draws the reference's shapes (``test_torch_cross_attention.py`` holds
+    its numbers), and so do MLA and the LoRA / qk-norm branches."""
     cfg = get_smoke_config("smollm-135m")
     gen = torch.Generator().manual_seed(0)
-    for call in (lambda: attention.cross_attn_params(gen, cfg),
-                 lambda: attention.cross_attn({}, cfg, None, None)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    vcfg = get_smoke_config("llama-3.2-vision-90b")
+    want = jax.tree.map(lambda a: tuple(a.shape), jax_attn.cross_attn_params(
+        jax.random.PRNGKey(0), jax_configs.get_smoke_config("llama-3.2-vision-90b")))
+    assert tree_map(lambda t: tuple(t.shape), attention.cross_attn_params(gen, vcfg)) == want
     # MLA is ported (item 10): its parameters have the reference's shapes
     dcfg = get_smoke_config("deepseek-v2-lite-16b")
     want = jax.tree.map(lambda a: tuple(a.shape), jax_attn.mla_params(

@@ -161,17 +161,56 @@ def test_shard_shapes_match_the_reference_plan(specs, multi_pod):
 
 def test_every_arch_decodes_in_bf16_on_fake_tensors():
     """``dryrun_config``'s bf16 weights and activations trace a decode
-    step end to end on every port arch (the smoke configs): the fp32
-    recurrent and SSM states meet bf16 activations, which ``jnp`` promotes
-    and the port must too."""
+    step end to end on every port arch with a decoder (the smoke configs;
+    an encoder has none, as the reference's
+    ``test_smoke_decode_matches_prefill`` skips it): the fp32 recurrent and
+    SSM states meet bf16 activations, which ``jnp`` promotes and the port
+    must too."""
     from repro_torch.configs import ARCH_IDS, get_smoke_config
     from repro_torch.launch import steps
     from repro_torch.models.config import ShapeSpec
 
     for arch in ARCH_IDS:
+        if not get_smoke_config(arch).is_decoder:
+            continue
         cell = steps.lower_cell(steps.dryrun_config(get_smoke_config(arch)),
                                 ShapeSpec("decode", 64, 2, "decode"), None, device="cpu")
         assert cell.rows == 2 and cell.stats.flops > 0, arch
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "hubert-xlarge"])
+def test_vlm_and_encoder_cells_trace_on_one_device_and_a_mesh(arch):
+    """Every applicable shape of the VLM and the encoder (their smoke
+    configs, 4 rows of 32 tokens) traces through the port's step functions
+    on one device and on rank 0 of a fake (1, 2, 1) mesh: the encoder's
+    ``embeds`` and the VLM's ``memory`` reach every step, and each rank
+    computes its half of the rows.  With them ``--all`` sweeps the
+    reference's 36 cells a mesh (``tests/test_archs_smoke.py``'s count)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import ARCH_IDS, applicable_shapes, get_config, get_smoke_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import AXES, AbstractMesh
+
+    assert sum(len(applicable_shapes(get_config(a))) for a in ARCH_IDS) == 36
+    cfg = get_smoke_config(arch)
+    shapes = [dataclasses.replace(s, seq_len=32, global_batch=4)
+              for s in applicable_shapes(get_config(arch))]
+    assert [s.kind for s in shapes] == (["train", "prefill", "decode"] if cfg.is_decoder
+                                        else ["train", "prefill"])
+    for shape in shapes:
+        cell = steps.lower_cell(cfg, shape, None, device="cpu")
+        assert cell.rows == 4 and cell.stats.flops > 0, shape
+    mesh = AbstractMesh((1, 2, 1), AXES)
+    with ThreadPoolExecutor(len(shapes)) as pool:
+        recs = list(pool.map(lambda s: dryrun.spawn_cell(
+            arch, s.name, False, device="cpu", mesh_shape=mesh, shape=s, cfg=cfg,
+            timeout_s=240), shapes))
+    for shape, rec in zip(shapes, recs):
+        assert (rec["mesh"], rec["n_devices"], rec["shape"]) == ("1x2x1", 2, shape.name)
+        assert rec["rows_per_rank"] == 2 and rec["flops_corrected"] > 0, rec
+        if shape.kind == "train":      # the loss and the gradients summed over data
+            assert rec["collectives"]["all_reduce"]["count"] > 0
 
 
 # -- FLOPs -------------------------------------------------------------------

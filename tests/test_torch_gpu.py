@@ -9,8 +9,10 @@ server's drivers; and zamba2's Mamba-2 / SSD blocks (plain PyTorch on the
 card, held against the CPU) and its shared block through
 ``flash_attention`` and the server; the MoE FFN at olmoe's width, MLA's
 absorbed decode at deepseek's and int8 quantization on the card against
-the CPU, and olmoe's attention (shape g) through ``flash_attention``; and
-training: ``train_loss`` gradients on the card against the CPU, every
+the CPU, and olmoe's attention (shape g) through ``flash_attention``;
+hubert's non-causal attention and llama-vision's 8-query GQA (shapes h and
+i) through ``flash_attention``, and both models' smoke prefills against the
+plain path; and training: ``train_loss`` gradients on the card against the CPU, every
 kernel wrapper refusing autograd (and launching without it), a
 ``Trainer`` whose checkpoint restores onto the card, and ``Trainer(mesh=)``
 on gloo ranks sharing the card, dense and MoE.
@@ -1938,3 +1940,58 @@ def test_moe_mesh_training_on_the_card(cuda, tmp_path, groups, group_size):
                          timeout_s=300):
         np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
         np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention and the encoder frontend: llama-3.2-vision-90b, hubert-xlarge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [dict(H=16, KV=16, hd=80, causal=False),
+                                   dict(H=64, KV=8, hd=128, causal=True)],
+                         ids=["h_hubert_nc", "i_llama"])
+def test_flash_attention_at_hubert_and_llama_shapes(cuda, shape):
+    """Shapes (h) and (i) cut to S = T = 256: hubert's non-causal MHA at hd
+    80 and llama-vision's GQA, 8 query heads a KV head, at hd 128; the fp32
+    bar against the plain version."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, 256, shape["H"], shape["hd"]), generator=gen, device=cuda)
+    k, v = (torch.randn((1, 256, shape["KV"], shape["hd"]), generator=gen, device=cuda)
+            for _ in range(2))
+    launches = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=shape["causal"])
+    assert ops.flash_attention.launches - launches == kernel.launches_per_call(
+        kernel.splits(q, k, causal=shape["causal"]))
+    torch.testing.assert_close(got, ops.flash_attention_ref(q, k, v, causal=shape["causal"]),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "hubert-xlarge"])
+def test_vlm_and_encoder_use_pallas_prefill_matches_plain_path(cuda, arch):
+    """The smoke configs on the card, the VLM's cross gates open (0.5) and
+    its memory drawn: the one-shot prefill under ``use_pallas`` (every
+    self-attention layer through ``flash_attention``, non-causal for the
+    encoder) against the plain path, within 1e-5 of max |logit|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config(arch)
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    rng = np.random.default_rng(8)
+    memory = None
+    if cfg.family == "vlm":
+        params["groups"]["b4_cross"]["cross"]["gate"].fill_(0.5)
+        memory = torch.as_tensor(rng.normal(size=(1, cfg.frontend_tokens, cfg.frontend_dim)),
+                                 dtype=torch.float32, device=cuda)
+        x = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 45)), device=cuda)
+    else:
+        x = torch.as_tensor(rng.normal(size=(1, 45, cfg.frontend_dim)), dtype=torch.float32,
+                            device=cuda)
+    lg_p, _ = lm.prefill(params, cfg, x, memory=memory)
+    ops.flash_attention.calls = 0
+    lg_k, _ = lm.prefill(params, dataclasses.replace(cfg, use_pallas=True), x, memory=memory)
+    n_attn = sum(k != "cross" for k in cfg.layer_pattern) * cfg.n_groups
+    assert ops.flash_attention.calls == n_attn
+    assert float((lg_k - lg_p).abs().max()) <= 1e-5 * float(lg_p.abs().max())

@@ -55,9 +55,10 @@ def test_config_matches_reference_for_every_family():
             assert cfg.rnn_hidden_actual == jcfg.rnn_hidden_actual
             assert cfg.act_dtype == getattr(torch, jcfg.dtype)
     assert ARCH_IDS == ("deepseek-v2-lite-16b", "falcon-mamba-7b", "gemma3-27b",
-                        "internlm2-20b", "olmoe-1b-7b", "paper-lstm", "phi4-mini-3.8b",
-                        "smollm-135m", "zamba2-1.2b")
-    assert set(ARCH_IDS) <= set(jax_configs.ARCH_IDS)
+                        "hubert-xlarge", "internlm2-20b", "llama-3.2-vision-90b",
+                        "olmoe-1b-7b", "paper-lstm", "phi4-mini-3.8b", "smollm-135m",
+                        "zamba2-1.2b")
+    assert set(ARCH_IDS) == set(jax_configs.ARCH_IDS)
     for arch in ARCH_IDS:
         assert get_config(arch) == ModelConfig(**dataclasses.asdict(
             jax_configs.get_config(arch)))
@@ -139,13 +140,19 @@ def test_cache_layout_and_bridge(bridged):
 
 
 def test_unported_families_raise():
-    """Cross-attention (llama-vision) blocks are not ported yet and name
-    their ROADMAP item; MoE and MLA (olmoe, deepseek) build, and an MLA
-    ``attn`` block caches the latent, as the reference's does."""
-    cfg = ModelConfig(**dataclasses.asdict(
-        jax_configs.get_smoke_config("llama-3.2-vision-90b")))
-    with pytest.raises(NotImplementedError, match="not ported.*item 13"):
-        lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    """No family is left unported: the VLM (llama-vision's cross blocks)
+    and the encoder (hubert's frontend) build with the reference's layout
+    and caches; MoE and MLA (olmoe, deepseek) build, and an MLA ``attn``
+    block caches the latent, as the reference's does."""
+    for arch in ("llama-3.2-vision-90b", "hubert-xlarge"):
+        jcfg = jax_configs.get_smoke_config(arch)
+        cfg = ModelConfig(**dataclasses.asdict(jcfg))
+        p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        assert jax.tree.map(lambda t: tuple(t.shape), p) == jax.tree.map(
+            lambda a: tuple(a.shape), jax.eval_shape(
+                lambda: jax_lm.init_params(jcfg, jax.random.PRNGKey(0))))
+        assert jax.tree.map(lambda t: tuple(t.shape), lm.init_cache(cfg, 2, 8, "cpu")) == \
+            jax.tree.map(lambda a: tuple(a.shape), jax_lm.init_cache(jcfg, 2, 8))
     for arch in ("olmoe-1b-7b", "deepseek-v2-lite-16b"):
         lm.init_params(get_smoke_config(arch), torch.Generator().manual_seed(0), device="cpu")
     mla = dataclasses.replace(get_smoke_config("smollm-135m"), use_mla=True, kv_lora_rank=16,
