@@ -301,7 +301,26 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    every position within 1e-5, ``prefill_chunk`` chained in 256-token
    chunks against it (the reference's chained-prefill bar, atol 1e-4), 16
    greedy tokens through ``decode_step`` equal to ``plain_greedy``'s, and
-   a zero memory moving the logits by at least 1e-3 of max |logit|.
+   a zero memory moving the logits by at least 1e-3 of max |logit|;
+26. tp — tensor-parallel compute along ``model`` on two gloo ranks sharing
+   the card, each drawing the weights from seed 0 and cutting its own
+   model shard: ``internlm2-20b`` at its widths cut to 4 layers (phase
+   18's traffic) and ``falcon-mamba-7b`` cut to 16 (4 of phase 12's
+   requests, 16 new tokens) through ``DecodeServer(plan=ShardPlan(
+   make_local_mesh(1, 2)))``: resident parameter bytes a rank against the
+   share ``param_specs(fsdp=False)`` gives, tokens equal to the
+   ``plan=None`` runs of phases 18 and 12 and every prefill and decode
+   logit row within 1e-5 of max |logit| of theirs (recorded there),
+   ``flash_attention`` (24 of 48 query heads, 4 of 8 KV heads) and
+   ``ssm_scan`` (4096 of 8192 channels) launched on every prefill, decode
+   tok/s and prefill ms beside theirs; ``smollm-135m`` uncut through
+   ``Trainer(mesh=make_local_mesh(1, 2))`` on phase 23's cell, losses and
+   grad norms against its ``mesh=None`` run (1e-5 at step 0, 1e-4 after),
+   the leaves replicated along ``model`` bit-identical across the ranks,
+   no gather over ``model`` in a step and no kernel launched; the dry run
+   of that (1, 1, 2) cell beside the ranks, its argument bytes and
+   collectives equal to theirs; ``flash_attention`` at the rank's shape
+   (j) and ``ssm_scan`` at D = 4096 against their plain versions, timed.
 
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
@@ -545,6 +564,20 @@ VLM_LOGITS_RTOL = 1e-5
 # width 8192 the two orders of the fp32 sums part by ~1e-5 of max |logit|
 CHUNK_ATOL = 1e-4
 MEMORY_ABLATION_MIN = 1e-3      # of max |logit|: the cross blocks are on the path
+
+# 26. tensor-parallel compute along model: two gloo ranks share the card;
+# the serving oracles are phases 18's and 12's plan=None runs, the training
+# one phase 23's mesh=None run
+TP_RANKS = 2
+TP_LOGIT_GAP = 1e-5             # of max |logit|, against the plan=None run
+TP_MAMBA_REQUESTS = 4
+TP_MAMBA_NEW = 16
+TP_TRAIN_RTOL0 = 1e-5           # step 0 (ROADMAP.md, Queue 3, marginal checks)
+TP_TRAIN_RTOL = 1e-4            # later steps
+TP_RESIDENT_RTOL = 1e-3         # resident parameter bytes against the reckoned share
+TP_ATTN_SHAPE = ("j_internlm2_tp2_S2048", dict(B=1, S=2048, T=2048, H=24, KV=4, hd=128,
+                                               window=0))
+TP_SCAN_SHAPE = (1, 256, 4096, 16)      # (B, T, D, N): falcon-mamba-7b's rank at tp = 2
 
 START_T0 = time.perf_counter()
 PHASE_T0 = [START_T0]
@@ -1685,7 +1718,7 @@ def prefill_against_plain(mcfg, params, prompts, dev, card: str,
 
 
 def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: bool = False,
-                 srv=None, uid0: int = 0, **kw):
+                 srv=None, uid0: int = 0, record: dict | None = None, **kw):
     """Drive ``DecodeServer`` over ``traffic``; returns the tokens by
     request index, the server, and the ``flash_attention`` calls, windowed
     calls and launches of the run (counts set to 0 just before it, read just
@@ -1708,9 +1741,11 @@ def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: boo
     fa = fa_ops.flash_attention
     fa.calls = fa.window_calls = fa.launches = 0
     t0 = time.perf_counter()
-    done = [r for r in srv.run_until_drained(persistent=block) if r.uid >= uid0]
-    sync(dev)
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    prompts = {} if record is None else {uid0 + i: p for i, (p, _) in enumerate(traffic)}
+    with served_logits(srv, range(srv.B), prompts) as logits:
+        done = [r for r in srv.run_until_drained(persistent=block) if r.uid >= uid0]
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
     counts = (fa.calls, fa.window_calls, fa.launches)
     st = srv.stats()
     require(len(done) == len(traffic), f"{mcfg.name} {label}: {len(done)} of "
@@ -1739,6 +1774,9 @@ def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: boo
     decode_ms = sum(ev["dur"] for ev in srv.obs.tracer.events()
                     if ev.get("name") in ("decode_step", "decode_block")) / 1e3
     pc = st.get("prefix_cache", {})
+    if record is not None:
+        record.update(logits=logits, decode_tok_s=st["decoded_tokens"] / max(decode_ms / 1e3, 1e-9),
+                      prefill_ms=(wall_ms - decode_ms) / len(done))
     say("serve", arch=mcfg.name, driver=label, requests=len(done), wall_ms=f"{wall_ms:.1f}",
         decode_tok_s=f"{st['decoded_tokens'] / max(decode_ms / 1e3, 1e-9):.1f}",
         prefill_ms_per_prompt=f"{(wall_ms - decode_ms) / len(done):.2f}",
@@ -1823,9 +1861,11 @@ def serve_internlm2(mcfg, params, dev, card: str, lengths=INTERNLM_LENGTHS,
     with torch.no_grad():
         gap, calls, win, launches, _ = prefill_against_plain(mcfg, params, [traffic[-1][0]],
                                                           dev, card)
+        oracle = {}
         toks, srv, counts = dense_serve(mcfg, params, traffic, "step", dev, card,
-                                         max_seq=max_seq)
+                                         max_seq=max_seq, record=oracle)
         del srv
+        oracle.update(traffic=traffic, tokens=toks)
         for i, (prompt, n) in enumerate(traffic):
             want = plain_greedy(mcfg, params, prompt, n, max_seq, dev)
             require(toks[i] == want, f"{mcfg.name}: the served tokens of the {len(prompt)}-"
@@ -1834,7 +1874,7 @@ def serve_internlm2(mcfg, params, dev, card: str, lengths=INTERNLM_LENGTHS,
         prefill_rel_gap=f"{gap:.3e}", rtol_of_max=DENSE_LOGITS_RTOL,
         flash_attention_calls=calls + counts[0], launches=launches + counts[2], card=repr(card))
     return {"calls": calls + counts[0], "window_calls": win + counts[1],
-            "launches": launches + counts[2]}
+            "launches": launches + counts[2], "oracle": oracle}
 
 
 def perturb_hybrid(params, gen: torch.Generator) -> None:
@@ -3299,7 +3339,7 @@ def mesh_train_nccl(rank: int, world: int, dev_name: str, root: str, smoke: bool
     return out
 
 
-def mesh_train_phase(dev, card: str, *, smoke: bool = False, rank_backend: str = "nccl") -> None:
+def mesh_train_phase(dev, card: str, *, smoke: bool = False, rank_backend: str = "nccl") -> list:
     """Phase 23: smollm-135m through ``Trainer(mesh=None)``, ``Trainer(mesh=
     make_local_mesh(2, 1))`` over two gloo ranks sharing the card and
     ``make_local_mesh(1, 1)`` under ``rank_backend`` (NCCL, in this process), on the same
@@ -3307,7 +3347,7 @@ def mesh_train_phase(dev, card: str, *, smoke: bool = False, rank_backend: str =
     norms within ``MT_RTOL`` of ``mesh=None``, dp = 1 bit-identical, the
     dp = 2 checkpoint restored under dp = 1 and (1, 1, 2) bit for bit; the
     compressed all-reduce and the pipeline on the two ranks; no kernel
-    launched."""
+    launched.  Returns ``mesh=None``'s steps (phase 26's oracle)."""
     from repro_torch.launch.spawn import run_ranks
     from repro_torch.models import lm
 
@@ -3410,6 +3450,7 @@ def mesh_train_phase(dev, card: str, *, smoke: bool = False, rank_backend: str =
     say("mesh_train", case="seconds", mesh_none=f"{none_s:.1f}",
         gloo_ranks=f"{gloo_s:.1f}", nccl_rank=f"{nccl_s:.1f}")
     shutil.rmtree(root, ignore_errors=True)
+    return base
 
 
 # ---------------------------------------------------------------------------
@@ -3957,6 +3998,453 @@ def vlm_phase(dev, card: str) -> dict:
     return {"calls": calls, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# 26. tp: tensor-parallel compute along model (serving, training, dry run)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def served_logits(srv, rows, prompts: dict):
+    """``{("prefill", uid): row, (uid, position): row}`` of ``srv``'s
+    one-shot prefills and decode calls for the requests ``prompts`` names
+    (uid -> prompt) on this process's slot ``rows`` (the first call at a
+    position), each row joined over ``model`` (``tensor_parallel.
+    join_vocab``: a whole row as it is).  The device rows are kept and read
+    after the run.  With no ``prompts`` nothing is wrapped."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import tensor_parallel as tp
+
+    got: dict = {}
+    if not prompts:
+        yield got
+        return
+    by_prompt = {tuple(p): uid for uid, p in prompts.items()}
+    pre, calls, inner_pre, inner_dec = [], [], lm.prefill, lm.decode_step
+
+    def prefill(params, cfg, tokens, **kw):
+        out = inner_pre(params, cfg, tokens, **kw)
+        uid = by_prompt.get(tuple(tokens[0].tolist()))
+        if uid is not None:
+            pre.append((uid, tp.join_vocab(out[0], cfg.vocab)[0]))
+        return out
+
+    def decode(params, cfg, tokens, caches, pos, **kw):
+        out = inner_dec(params, cfg, tokens, caches, pos, **kw)
+        uids = [srv.slot_req[b].uid if srv.slot_req[b] is not None
+                and srv.slot_req[b].uid in prompts else None for b in rows]
+        if any(u is not None for u in uids):
+            calls.append((uids, pos.clone(), tp.join_vocab(out[0], cfg.vocab)))
+        return out
+
+    lm.prefill, lm.decode_step = prefill, decode
+    try:
+        yield got
+    finally:
+        lm.prefill, lm.decode_step = inner_pre, inner_dec
+    for uid, row in pre:
+        got.setdefault(("prefill", uid), row.float().cpu().numpy())
+    for uids, pos, logits in calls:
+        pos = pos.reshape(-1).cpu().numpy()
+        logits = logits.float().reshape(len(uids), -1).cpu().numpy()
+        for j, uid in enumerate(uids):
+            if uid is not None:
+                got.setdefault((uid, int(pos[j])), logits[j])
+
+
+def leaf_checksums(tree, keep) -> dict:
+    """``{path: (Σ bits, Σ bits·w)}`` of the leaves whose path ``keep``
+    accepts, their bit patterns as int32 summed in int64 on the device, the
+    second sum weighted by the position (a bit-for-bit comparison across
+    ranks without moving the leaves to the host)."""
+    from repro_torch.checkpoint.checkpoint import _children
+
+    out = {}
+
+    def walk(t, path):
+        kids = _children(t)
+        if kids is not None:
+            for k, v in kids:
+                walk(v, f"{path}/{k}" if path else k)
+        elif keep(path):
+            bits = t.detach().reshape(-1).view(torch.int32 if t.element_size() == 4 else
+                                                torch.int16).long()
+            w = torch.arange(1, bits.numel() + 1, device=bits.device) % 65_521
+            out[path] = (int(bits.sum()), int((bits * w).sum()))
+
+    walk(tree, "")
+    return out
+
+
+def tp_serve(arch: str, n_layers: int, traffic, slots: int, max_seq: int, dev, plan,
+             smoke: bool = False) -> dict:
+    """One model through ``DecodeServer(plan=)`` at tp = 2 on this rank:
+    the weights drawn from seed 0 on the card (as the ``plan=None`` run
+    drew them), cut to this rank's model block; ``traffic`` under
+    ``step()`` with every request's prefill and decode logits recorded;
+    the kernels' counts set to 0 just before the run and read just after."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.launch.trace_analysis import tensor_bytes
+    from repro_torch.models import lm
+    from repro_torch.obs import Observability
+    from repro_torch.runtime.server import DecodeServer, Request
+
+    mcfg = dataclasses.replace((get_smoke_config if smoke else get_config)(arch),
+                               n_layers=n_layers, use_pallas=True)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    full = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    full_bytes = tensor_bytes(full)
+    params = plan.local_params(mcfg, full)
+    del full
+    if cuda:
+        torch.cuda.empty_cache()
+    resident = tensor_bytes(params)
+    srv = DecodeServer(mcfg, params, num_slots=slots, max_seq=max_seq, block_k=BLOCK_K,
+                       obs=Observability(trace=True), plan=plan, device=dev)
+    del params
+    for i, (p, n) in enumerate(traffic):
+        srv.submit(Request(uid=i, prompt=list(p), max_new_tokens=n))
+    sync(dev)
+    fa, scan = fa_ops.flash_attention, scan_ops.ssm_scan
+    fa.calls = fa.window_calls = fa.launches = scan.launches = 0
+    rows = plan.slots_of_shard(plan.local_shard, slots)
+    t0 = time.perf_counter()
+    with torch.no_grad(), served_logits(srv, rows, {i: p for i, (p, _) in
+                                                    enumerate(traffic)}) as logits:
+        done = srv.run_until_drained()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {"flash_attention": (fa.calls, fa.launches), "ssm_scan": scan.launches}
+    # the launches one-shot prefills make at this rank's heads (fa_per_prefill's rule)
+    want_fa = 0
+    if mcfg.family == "dense" and cuda:
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+        h, kv = mcfg.n_heads // plan.tp, mcfg.n_kv_heads // plan.tp
+        for p, _ in traffic:
+            q = torch.empty((1, len(p), h, mcfg.head_dim), device=dev)
+            k = torch.empty((1, len(p), kv, mcfg.head_dim), device=dev)
+            want_fa += mcfg.n_layers * fa_kernel.launches_per_call(fa_kernel.splits(q, k))
+    decode_ms = sum(ev["dur"] for ev in srv.obs.tracer.events()
+                    if ev.get("name") in ("decode_step", "decode_block")) / 1e3
+    st = srv.stats()
+    kv = next(iter(srv.caches["groups"].values()))
+    return {"tokens": {r.uid: list(r.out_tokens) for r in done}, "logits": logits,
+            "counts": counts, "want_fa_launches": want_fa,
+            "full_bytes": full_bytes, "resident_bytes": resident,
+            "cache_shapes": {k: tuple(v.shape) for k, v in kv.items()},
+            "decode_tok_s": st["decoded_tokens"] / max(decode_ms / 1e3, 1e-9),
+            "prefill_ms": (wall_ms - decode_ms) / len(done),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+            "host_state": hashlib.sha256(repr(srv.host_state()).encode()).hexdigest()}
+
+
+def tp_train(dev, mesh, smoke: bool, root: Path) -> dict:
+    """smollm-135m through ``Trainer(mesh=(1, 1, 2))`` on phase 23's cell:
+    each step's (loss, grad norm, seconds), argument bytes and collectives,
+    and the checksums of the leaves replicated along ``model``."""
+    from repro_torch.checkpoint.checkpoint import _children
+    from repro_torch.launch.trace_analysis import tensor_bytes
+    from repro_torch.parallel import comm
+
+    mcfg = mesh_train_config(smoke)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    trainer = mesh_trainer(mcfg, root, dev, mesh)
+    specs = {}
+
+    def walk(t, path):
+        kids = _children(t)
+        if kids is not None:
+            for k, v in kids:
+                walk(v, f"{path}/{k}" if path else k)
+        else:
+            specs[path] = t.entries
+
+    walk(trainer.layout.specs, "")
+    replicated = lambda path: not any(  # noqa: E731
+        e is not None and "model" in (e if isinstance(e, tuple) else (e,))
+        for e in specs[path])
+    inner, steps = trainer._step_fn, []
+
+    def step(params, opt, batch):
+        args = (params, opt, batch)
+        comm.reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        new_params, new_opt, m = inner(*args)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        sec = time.perf_counter() - t0
+        steps.append({"loss": loss, "grad_norm": gn, "s": sec, "arg_bytes": tensor_bytes(args),
+                      "collectives": comm.counters(),
+                      "replicated": leaf_checksums({"params": new_params, "opt": new_opt},
+                                                   replicated)})
+        return new_params, new_opt, m
+
+    trainer._step_fn = step
+    before = kernel_counts()
+    trainer.run()
+    sync(dev)
+    after = kernel_counts()
+    return {"steps": steps, "model_shard": inner.model_shard,
+            "param_bytes": tensor_bytes(trainer.params),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0,
+            "kernels": {k: after[k] - before[k] for k in after}}
+
+
+def tp_ranks(rank: int, world: int, dev_name: str, serves: dict, smoke: bool, root: str,
+             sizes: dict) -> dict:
+    """One of two ranks sharing the card over gloo: the two models served at
+    tp = 2, then smollm-135m trained at (1, 1, 2)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import ShardPlan
+
+    _phase_sizes(sizes)
+    dev = _rank_device(dev_name)
+    mesh = make_local_mesh(1, world)
+    plan = ShardPlan(mesh)
+    out = {name: tp_serve(*args, dev=dev, plan=plan, smoke=smoke)
+           for name, args in serves.items()}
+    out["train"] = tp_train(dev, mesh, smoke, Path(root) / "tp2")
+    out["jax"] = "jax" in sys.modules
+    return out
+
+
+def tp_share_bytes(arch: str, n_layers: int, tp: int, smoke: bool = False) -> tuple[int, int]:
+    """(full bytes, one rank's bytes) of ``arch`` cut to ``n_layers`` under
+    ``param_specs(fsdp=False)`` on a (1, 1, tp) mesh, reckoned from the
+    shapes (no storage)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import AXES, AbstractMesh
+    from repro_torch.launch.steps import local_shape
+    from repro_torch.parallel.sharding import map_with_path, param_specs
+    from repro_torch.parallel.zero import param_shapes
+
+    mcfg = dataclasses.replace((get_smoke_config if smoke else get_config)(arch),
+                               n_layers=n_layers, use_pallas=True)
+    mesh = AbstractMesh((1, 1, tp), AXES)
+    shapes = param_shapes(mcfg)
+    specs = param_specs(mcfg, shapes, mesh, fsdp=False)
+    full, mine = [0], [0]
+
+    def one(path, t):
+        spec = specs
+        for k in path.split("/"):
+            spec = spec[k]
+        full[0] += t.numel() * t.element_size()
+        mine[0] += math.prod(local_shape(spec, t.shape, mesh)) * t.element_size()
+
+    map_with_path(one, shapes)
+    return full[0], mine[0]
+
+
+def tp_phase(dev, card: str, oracles: dict, train_base, *, smoke: bool = False,
+             layers: dict | None = None) -> dict:
+    """Phase 26.  ``oracles``: ``{"internlm2-20b": phase 18's record,
+    "falcon-mamba-7b": phase 12's}``, each with its traffic, tokens and
+    logits; ``train_base``: phase 23's ``mesh=None`` steps.  Returns the
+    kernels' launches and the (j) and D = 4096 timings for the summary."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AXES, AbstractMesh
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.models.config import ShapeSpec
+
+    layers = layers or {"internlm2-20b": INTERNLM_LAYERS, "falcon-mamba-7b": MAMBA_LAYERS}
+    root = ROOT / "build" / "tp"
+    shutil.rmtree(root, ignore_errors=True)
+    dev_name = "cuda:0" if dev.type == "cuda" else "cpu"
+    i_or, m_or = oracles["internlm2-20b"], oracles["falcon-mamba-7b"]
+    m_traffic = [(m_or["prompts"][i], TP_MAMBA_NEW) for i in range(TP_MAMBA_REQUESTS)]
+    serves = {"internlm2-20b": ("internlm2-20b", layers["internlm2-20b"], i_or["traffic"],
+                                SERVE_SLOTS, GEMMA_MAX_SEQ),
+              "falcon-mamba-7b": ("falcon-mamba-7b", layers["falcon-mamba-7b"], m_traffic,
+                                  NUM_SLOTS, MAX_SEQ)}
+    mcfg = mesh_train_config(smoke)
+    record = {}
+
+    def dry():
+        try:
+            record["cell"] = dryrun.spawn_cell(
+                "smollm-135m", "", False, mesh_shape=AbstractMesh((1, 1, TP_RANKS), AXES),
+                shape=ShapeSpec(f"train_S{MT_SEQ}", MT_SEQ, MT_BATCH, "train"), cfg=mcfg,
+                microbatches=MT_MICRO, device=dev_name, timeout_s=300)
+        except BaseException as e:  # noqa: BLE001 - read below
+            record["cell"] = e
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=dry)
+    thread.start()
+    sizes = {k: globals()[k] for k in ("MT_SEQ",)}
+    try:
+        ranks = run_ranks(tp_ranks, TP_RANKS, (dev_name, serves, smoke, str(root), sizes),
+                          backend="gloo", timeout_s=400)
+    finally:
+        thread.join()
+    ranks_s = time.perf_counter() - t0
+    for rank, r in enumerate(ranks):
+        require(not r["jax"], f"tp rank {rank} imported jax")
+
+    # [tp_serve]: tokens, logits, resident bytes and launches against the oracles
+    launches = {"flash_attention": 0, "flash_attention_calls": 0, "ssm_scan": 0}
+    for arch, oracle in (("internlm2-20b", i_or), ("falcon-mamba-7b", m_or)):
+        full_want, share_want = tp_share_bytes(arch, layers[arch], TP_RANKS, smoke)
+        n_prefills = len(serves[arch][2])
+        for rank, r in enumerate(ranks):
+            run = r[arch]
+            for uid, toks in run["tokens"].items():
+                want = list(oracle["tokens"][uid])[:len(toks)]
+                require(toks == want, f"tp {arch} rank {rank}: request {uid}'s tokens "
+                                      f"{toks} differ from the plan=None run's {want}")
+            keys = sorted(run["logits"], key=str)
+            missing = [k for k in keys if k not in oracle["logits"]]
+            require(keys and not missing, f"tp {arch} rank {rank}: {len(missing)} of "
+                                          f"{len(keys)} logit rows missing from the oracle")
+            gap = max(float(np.abs(run["logits"][k] - oracle["logits"][k]).max()) for k in keys)
+            scale = max(float(np.abs(oracle["logits"][k]).max()) for k in keys)
+            require(gap <= TP_LOGIT_GAP * scale,
+                    f"tp {arch} rank {rank}: logits {gap:.3e} from the plan=None run's "
+                    f"(max |logit| {scale:.3e})")
+            share = run["resident_bytes"] / run["full_bytes"]
+            require(run["full_bytes"] == full_want
+                    and abs(run["resident_bytes"] - share_want) <= TP_RESIDENT_RTOL * share_want,
+                    f"tp {arch} rank {rank}: {run['resident_bytes']} of {run['full_bytes']} "
+                    f"bytes resident, reckoned {share_want} of {full_want}")
+            if arch == "internlm2-20b":
+                calls, fa_launches = run["counts"]["flash_attention"]
+                require(calls == layers[arch] * n_prefills
+                        and fa_launches == run["want_fa_launches"],
+                        f"tp {arch} rank {rank}: flash_attention {calls} calls, {fa_launches} "
+                        f"launches for {n_prefills} one-shot prefills of {layers[arch]} layers")
+                launches["flash_attention"] += fa_launches
+                launches["flash_attention_calls"] += calls
+            else:
+                require(run["counts"]["ssm_scan"] == layers[arch] * n_prefills,
+                        f"tp {arch} rank {rank}: ssm_scan launched {run['counts']['ssm_scan']} "
+                        f"times for {n_prefills} prefills of {layers[arch]} layers")
+                launches["ssm_scan"] += run["counts"]["ssm_scan"]
+            say("tp_serve", arch=arch, rank=rank, tp=TP_RANKS, layers=layers[arch],
+                requests=n_prefills, identical_tokens=True, logit_rows=len(keys),
+                max_abs_gap=f"{gap:.3e}", max_abs_logit=f"{scale:.3e}",
+                rel_gap=f"{gap / scale:.3e}", bar=TP_LOGIT_GAP,
+                resident_gb=f"{run['resident_bytes'] / 1e9:.4f}",
+                full_gb=f"{run['full_bytes'] / 1e9:.4f}", share=f"{share:.4f}",
+                reckoned_gb=f"{share_want / 1e9:.4f}", cache=run["cache_shapes"],
+                kernel_counts=run["counts"], decode_tok_s=f"{run['decode_tok_s']:.1f}",
+                decode_tok_s_plan_none=f"{oracle['decode_tok_s']:.1f}",
+                prefill_ms=f"{run['prefill_ms']:.2f}",
+                prefill_ms_plan_none=f"{oracle['prefill_ms']:.2f}",
+                peak_alloc_gb=f"{run['peak_gb']:.2f}", card=repr(card))
+        require(ranks[0][arch]["host_state"] == ranks[1][arch]["host_state"],
+                f"tp {arch}: the ranks' host states differ")
+
+    # [tp_train]: against phase 23's mesh=None run
+    tokens = MT_BATCH * MT_SEQ
+    for rank, r in enumerate(ranks):
+        tr = r["train"]
+        require(tr["model_shard"], "tp_train: the step did not compute on its model shard")
+        require(not any(tr["kernels"].values()),
+                f"tp_train rank {rank}: a kernel launched on the training path: {tr['kernels']}")
+        for i, (st, (b_loss, b_gn, _, _)) in enumerate(zip(tr["steps"], train_base)):
+            tol = TP_TRAIN_RTOL0 if i == 0 else TP_TRAIN_RTOL
+            lg, gg = abs(st["loss"] - b_loss) / abs(b_loss), abs(st["grad_norm"] - b_gn) / abs(b_gn)
+            gathers = sorted(k for k in st["collectives"] if k.startswith("gather"))
+            say("tp_train_step", rank=rank, step=i, loss=f"{st['loss']:.6f}",
+                grad_norm=f"{st['grad_norm']:.6f}", loss_rel_gap=f"{lg:.3e}",
+                grad_norm_rel_gap=f"{gg:.3e}", bar=tol, ms=f"{1e3 * st['s']:.1f}",
+                tokens_per_s=f"{tokens / st['s']:.0f}", gathers=gathers,
+                collectives=st["collectives"], card=repr(card))
+            require(lg <= tol and gg <= tol, f"tp_train rank {rank} step {i}: loss "
+                    f"{st['loss']} / {b_loss}, grad norm {st['grad_norm']} / {b_gn}")
+            require(not gathers, f"tp_train rank {rank} step {i}: gathers {gathers} in a step")
+        require(len(tr["steps"]) == len(train_base) == MT_STEPS,
+                f"tp_train rank {rank}: {len(tr['steps'])} steps")
+    same = all(a["replicated"] == b["replicated"] for a, b in
+               zip(ranks[0]["train"]["steps"], ranks[1]["train"]["steps"]))
+    n_rep = len(ranks[0]["train"]["steps"][0]["replicated"])
+    require(same and n_rep > 0, f"tp_train: the {n_rep} leaves replicated along model differ "
+                                "across the ranks")
+    steady = statistics.median(st["s"] for st in ranks[0]["train"]["steps"][1:])
+    say("tp_train", mesh="1x1x2", ranks=TP_RANKS, steps=MT_STEPS, seq_len=MT_SEQ,
+        global_batch=MT_BATCH, microbatches=MT_MICRO, steady_step_ms=f"{1e3 * steady:.1f}",
+        tokens_per_s=f"{tokens / steady:.0f}", replicated_leaves_bit_identical=n_rep,
+        param_gb_rank=f"{ranks[0]['train']['param_bytes'] / 1e9:.4f}",
+        peak_alloc_gb_rank=",".join(f"{r['train']['peak_gb']:.2f}" for r in ranks),
+        card=repr(card))
+
+    # [tp_dryrun]: the (1, 1, 2) cell's record against the ranks' last step
+    rec = record.get("cell")
+    require(isinstance(rec, dict), f"tp dry run of the (1, 1, 2) smollm cell failed: {rec}")
+    for rank, r in enumerate(ranks):
+        last = r["train"]["steps"][-1]
+        same = (rec["memory_analysis"]["argument_size_in_bytes"] == last["arg_bytes"]
+                and rec["collectives"] == last["collectives"] and rec["model_shard"])
+        say("tp_dryrun", rank=rank, mesh=rec["mesh"], model_shard=rec["model_shard"],
+            argument_bytes=rec["memory_analysis"]["argument_size_in_bytes"],
+            rank_argument_bytes=last["arg_bytes"], collectives=rec["collectives"],
+            rank_collectives=last["collectives"], equal=same,
+            flops=rec["flops_corrected"], lower_s=rec["lower_s"], card=repr(card))
+        require(same, f"tp dry run: arguments and collectives differ from rank {rank}'s")
+
+    # [kernel_time]: the two kernels at their per-rank shapes
+    gen = torch.Generator(device=dev).manual_seed(26)
+    l2 = torch.zeros(32 * 1024 * 1024, device=dev)
+    name, c = TP_ATTN_SHAPE
+    q = torch.randn((c["B"], c["S"], c["H"], c["hd"]), generator=gen, device=dev)
+    k, v = (torch.randn((c["B"], c["T"], c["KV"], c["hd"]), generator=gen, device=dev)
+            for _ in range(2))
+    with torch.no_grad():
+        a_err = check_close(f"flash_attention {name}", [fa_ops.flash_attention(q, k, v)],
+                            [fa_ops.flash_attention_ref(q, k, v)], ATTN_TOL)
+        a_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), l2)
+        a_calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v))
+        a_plain = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v), l2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        a_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), l2)
+    a_bnd, a_by, a_fma = attn_bound_ms(c["B"], c["S"], c["T"], c["H"], c["KV"], c["hd"], True, 0)
+    n_splits = fa_kernel.splits(q, k)
+    say("kernel_time", kernel="flash_attention", shape=name,
+        **{n: c[n] for n in ("B", "S", "T", "H", "KV", "hd")}, causal=True, window=0,
+        max_abs_err=f"{a_err:.3e}", tol=ATTN_TOL, ms=f"{a_ms:.4f}", plain_ms=f"{a_plain:.4f}",
+        library_ms=f"{a_lib:.4f}", over_library=f"{a_ms / a_lib:.3f}",
+        library="F.scaled_dot_product_attention(enable_gqa)", bound_ms=f"{a_bnd:.4f}",
+        bound_by=a_by, bound_share=f"{a_bnd / a_ms:.3f}", fma_bound_ms=f"{a_fma:.4f}",
+        key_splits=n_splits, launches_per_call=a_calls, reps=REPS, card=repr(card))
+    del q, k, v, qt, kt, vt
+    Bsz, T, Dm, N = TP_SCAN_SHAPE
+    x = torch.randn((Bsz, T, Dm), generator=gen, device=dev)
+    dl = 0.001 + 0.799 * torch.rand((Bsz, T, Dm), generator=gen, device=dev)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(Dm, N).contiguous()
+    Bm, Cm = (torch.randn((Bsz, T, N), generator=gen, device=dev) for _ in range(2))
+    with torch.no_grad():
+        got = scan_ops.ssm_scan(x, dl, A, Bm, Cm)
+        sync(dev)
+        s_err = check_close(f"ssm_scan B{Bsz}_T{T}_D{Dm}_N{N}", list(got),
+                            list(scan_ops.ssm_scan_ref(x, dl, A, Bm, Cm, None)), TOL)
+        s_ms = time_ms(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm), l2)
+        s_calls = launches_per_call(lambda: scan_ops.ssm_scan(x, dl, A, Bm, Cm))
+        s_plain = time_ms(lambda: scan_ops.ssm_scan_ref(x, dl, A, Bm, Cm), l2, reps=5)
+    s_bnd, s_by = scan_bound_ms(Bsz, T, Dm, N)
+    say("kernel_time", kernel="ssm_scan", B=Bsz, T=T, D=Dm, N=N, max_abs_err=f"{s_err:.3e}",
+        tol=TOL, ms=f"{s_ms:.4f}", plain_ms=f"{s_plain:.4f}", library_ms="none",
+        bound_ms=f"{s_bnd:.4f}", bound_by=s_by, bound_share=f"{s_bnd / s_ms:.3f}",
+        launches_per_call=s_calls, reps=REPS, card=repr(card))
+    require(s_calls == 1, f"ssm_scan at D = {Dm}: {s_calls} launches a call")
+    say("tp", case="seconds", ranks_and_dry_run=f"{ranks_s:.1f}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "max_abs_err": max(a_err, s_err),
+            "attn": (name, (a_ms, a_plain, a_lib, a_bnd, a_by, a_fma, n_splits, a_err)),
+            "scan": {"ms_D4096": s_ms, "plain_ms_D4096": s_plain, "bound_ms_D4096": s_bnd,
+                     "bound_by_D4096": s_by, "max_abs_err_D4096": s_err}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4116,7 +4604,8 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lengths]
 
     def serve(mcfg, params, label: str, block: bool, counter, chunks_launch: bool = True,
-              launches_per_prefill=None, n: int = N_REQUESTS, **kw):
+              launches_per_prefill=None, n: int = N_REQUESTS, record: dict | None = None,
+              **kw):
         """Drive ``DecodeServer`` over the first ``n`` of the 16 requests;
         ``counter`` is the
         wrapper whose launches this run must show exactly once per layer of
@@ -4135,9 +4624,11 @@ def main() -> int:
         if launches_per_prefill is not None:
             counter.calls = 0
         t0 = time.perf_counter()
-        done = srv.run_until_drained(persistent=block)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with served_logits(srv, range(NUM_SLOTS), {} if record is None else record["prompts"]) \
+                as logits:
+            done = srv.run_until_drained(persistent=block)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
         launches = counter.launches
         calls = counter.calls if launches_per_prefill is not None else launches
         decode_ms = sum(ev["dur"] for ev in obs.tracer.events()
@@ -4174,6 +4665,9 @@ def main() -> int:
             syncs_per_token=f"{st['syncs_per_token']:.4f}", kernel_syncs=kernel_syncs,
             kernel_calls=calls, kernel_launches=launches, prefill_calls=n_prefills,
             card=repr(card))
+        if record is not None:
+            record.update(logits=logits, decode_tok_s=st["decoded_tokens"] / (decode_ms / 1e3),
+                          prefill_ms=(wall_ms - decode_ms) / n)
         return {r.uid: r.out_tokens for r in done}, launches, wall_ms
 
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -4797,7 +5291,11 @@ def main() -> int:
     with torch.no_grad():
         lm.prefill(mparams, mcfg, toks)      # untimed: first use of each GEMM shape
         torch.cuda.synchronize()
-        mtok_step, k1, _ = serve(mcfg, mparams, "step", False, scan_ops.ssm_scan)
+        # the oracle of phase 26: the first requests' prefill and decode logits
+        mamba_oracle = {"prompts": {i: prompts[i] for i in range(TP_MAMBA_REQUESTS)}}
+        mtok_step, k1, _ = serve(mcfg, mparams, "step", False, scan_ops.ssm_scan,
+                                 record=mamba_oracle)
+        mamba_oracle["tokens"] = {i: list(mtok_step[i]) for i in range(TP_MAMBA_REQUESTS)}
         mtok_block, k2, _ = serve(mcfg, mparams, "step_block", True, scan_ops.ssm_scan)
         mtok_chunk, k3, _ = serve(mcfg, mparams, f"step+prefill_chunk={CHUNK}", False,
                                   scan_ops.ssm_scan, prefill_chunk=CHUNK)
@@ -5083,7 +5581,7 @@ def main() -> int:
     phase_done("mesh")
 
     # -- 23. mesh training: ZeRO shards, elastic restore, compression, pipeline --
-    mesh_train_phase(dev, card)
+    mt_base = mesh_train_phase(dev, card)
     phase_done("mesh_train")
 
     # -- 24. MoE training on a data mesh; the dry run against the card ------------
@@ -5095,6 +5593,14 @@ def main() -> int:
     phase_done("encoder")
     llama_fa = vlm_phase(dev, card)
     phase_done("vlm")
+
+    # -- 26. tensor-parallel compute along model: serving, training, dry run ---------
+    tp = tp_phase(dev, card, {"internlm2-20b": internlm_fa["oracle"],
+                              "falcon-mamba-7b": mamba_oracle}, mt_base)
+    attn_time[tp["attn"][0]] = tp["attn"][1]
+    attn_err = max(attn_err, tp["attn"][1][7])
+    scan_err = max(scan_err, tp["scan"]["max_abs_err_D4096"])
+    phase_done("tp")
 
     summary = {"kernels": [{
         "name": "lstm_seq",
@@ -5159,7 +5665,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:81",
-        "launches": k1 + k2 + k3 + lg_mamba_launches,
+        # phase 12's three serve runs and its loadgen run, and phase 26's two
+        # tp = 2 ranks (each on its 4096 channels)
+        "launches": k1 + k2 + k3 + lg_mamba_launches + tp["launches"]["ssm_scan"],
+        "launches_by_model": {"falcon-mamba-7b": (k1 + k2 + k3 + lg_mamba_launches
+                                                  + tp["launches"]["ssm_scan"])},
+        "launches_tp2": {"falcon-mamba-7b": tp["launches"]["ssm_scan"]},
         "max_abs_err": scan_err,
         "ms": scan_ms,
         "plain_ms": scan_plain_ms,
@@ -5172,6 +5683,7 @@ def main() -> int:
         "over_library": None,
         "ms_T64": scan_ms_64,
         "bound_ms_T64": scan_bound_64,
+        **{k: v for k, v in tp["scan"].items() if k != "max_abs_err_D4096"},
     }, {
         "name": "int8_matmul",
         "route": "cuda",
@@ -5208,19 +5720,24 @@ def main() -> int:
         # 12 of them windowed), internlm2-20b's (4), zamba2-1.2b's (6, its
         # shared block), olmoe-1b-7b's in fp32 and int8 (16; none from
         # deepseek's MLA), the chaos suite (30 per one-shot prefill),
-        # hubert-xlarge's forwards (48, non-causal) and llama-3.2-vision-90b's
-        # prefills (8: its cross blocks are plain); times at shape (a)
+        # hubert-xlarge's forwards (48, non-causal), llama-3.2-vision-90b's
+        # prefills (8: its cross blocks are plain) and internlm2-20b's at
+        # tp = 2 (4 a rank, on 24 of 48 heads); times at shape (a)
         "launches": (f1 + f2 + f3 + lg_smollm_launches + p_launch + gemma_fa["launches"]
                      + internlm_fa["launches"] + zamba_fa["launches"]
                      + moe_fa["olmoe"]["launches"] + moe_fa["olmoe_int8"]["launches"]
-                     + tc["smollm-135m"] + hubert_fa["launches"] + llama_fa["launches"]),
+                     + tc["smollm-135m"] + hubert_fa["launches"] + llama_fa["launches"]
+                     + tp["launches"]["flash_attention"]),
         "calls": (c1 + c2 + c3 + lg_smollm_calls + p_call + gemma_fa["calls"]
                   + internlm_fa["calls"] + zamba_fa["calls"] + moe_fa["olmoe"]["calls"]
                   + moe_fa["olmoe_int8"]["calls"] + tc["smollm-135m_calls"]
-                  + hubert_fa["calls"] + llama_fa["calls"]),
+                  + hubert_fa["calls"] + llama_fa["calls"]
+                  + tp["launches"]["flash_attention_calls"]),
         "window_calls": gemma_fa["window_calls"],
+        "launches_tp2": {"internlm2-20b": tp["launches"]["flash_attention"]},
         "launches_by_model": {"gemma3-27b": gemma_fa["launches"],
-                              "internlm2-20b": internlm_fa["launches"],
+                              "internlm2-20b": (internlm_fa["launches"]
+                                                + tp["launches"]["flash_attention"]),
                               "zamba2-1.2b": zamba_fa["launches"],
                               "olmoe-1b-7b": (moe_fa["olmoe"]["launches"]
                                               + moe_fa["olmoe_int8"]["launches"]),

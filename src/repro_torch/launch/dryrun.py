@@ -23,11 +23,14 @@ without one).  Nothing is allocated on it and nothing runs there.
 A record keeps the reference's key names where the meaning is the same.
 It has no ``compile_s`` (nothing compiles), no ``while_trips`` (an eager
 trace is unrolled), no ``hlo_bytes`` and no generated-code or alias sizes
-(there is no HLO).  ``lower_s`` is the trace's seconds.  Per rank, the
-port computes what it computes today: the parameters gathered whole and
-every rank along ``model`` on the same rows (ROADMAP.md, Queue 1 item
-12c(c)), so a rank's FLOPs are the model axis's size times a reference
-device's.
+(there is no HLO).  ``lower_s`` is the trace's seconds.  ``model_shard``
+says whether the cell computed on its model shard
+(``sharding.computes_on_model_shard``): the dense transformer and Mamba-1
+compute on this rank's heads, FFN columns, inner channels and vocabulary
+rows, as a reference device does.  The other families gather their
+parameters whole and every rank along ``model`` computes the same rows
+(ROADMAP.md, Queue 1 item 12c(c)), so their rank's FLOPs are the model
+axis's size times a reference device's.
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, microbatches: int = 1,
         "microbatches": microbatches,
         "device": str(device),
         "rows_per_rank": cell.rows,
+        "model_shard": cell.model_shard,
         "cost_analysis": {"flops": st.flops, "bytes accessed": st.bytes_accessed},
         "memory_analysis": {"argument_size_in_bytes": st.argument_bytes,
                             "output_size_in_bytes": st.output_bytes,

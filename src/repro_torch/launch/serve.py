@@ -20,15 +20,19 @@ documents pass ``python -m repro_torch.obs.check``.
 
     # folded: the dp shards are logical, one process, one device
     python -m repro_torch.launch.serve --arch paper-lstm --mesh 8x1 --mesh-layout folded
-    # sharded: one rank per shard, started by torchrun
+    # sharded: one rank per mesh position, started by torchrun
     torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch paper-lstm --mesh 2x1
+    # tensor-parallel: the dense and Mamba-1 families on their model shards
+    torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch internlm2-20b \
+        --mesh 1x2 --mesh-layout sharded
 
 A sharded run reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), runs its serving control
-plane over gloo, puts each rank on card ``LOCAL_RANK`` modulo the cards
-there are, and leaves the log and the documents to rank 0.  Without
-torchrun's environment it raises and prints the command line to use.
-``tp > 1`` serving is not ported yet (ROADMAP.md, Queue 1 item 12c).
+plane and its ``model`` collectives over gloo, puts each rank on card
+``LOCAL_RANK`` modulo the cards there are, and leaves the log and the
+documents to rank 0.  Without torchrun's environment it raises and prints
+the command line to use.  ``tp > 1`` on a family outside the dense
+transformer and Mamba-1 raises (ROADMAP.md, Queue 1 item 12c(c)).
 """
 
 from __future__ import annotations
@@ -106,7 +110,7 @@ def main(argv: list[str] | None = None) -> None:
                     help="write metrics snapshot + ledger JSON")
     ap.add_argument("--mesh", default=None, metavar="DPxTP",
                     help="shard the server over a mesh, e.g. 8x1 (slots over the "
-                         "data axis); tp > 1 is not ported yet")
+                         "data axis) or 1x2 (the model on two model shards)")
     ap.add_argument("--mesh-layout", choices=["sharded", "folded"], default="sharded",
                     help="'sharded': one torchrun rank per data shard; 'folded': "
                          "the shards are logical and decode through one datapath "
@@ -147,7 +151,7 @@ def main(argv: list[str] | None = None) -> None:
         plan, dev = _mesh_plan(args.mesh, dp, tp, args.mesh_layout,
                                sys.argv[1:] if argv is None else list(argv), dev)
     # a sharded server's ranks serve alike; rank 0 logs and writes
-    lead = plan is None or plan.fold_data or plan.local_shard == 0
+    lead = plan is None or plan.fold_data or torch.distributed.get_rank() == 0
     if plan is not None and lead:
         log.info(f"mesh: {plan.describe()}")
     obs = obs_lib.Observability(trace=bool(args.trace_out))

@@ -26,6 +26,7 @@ from repro_torch import optim
 from repro_torch._tree import tree_map
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, ShapeSpec
+from repro_torch.parallel.sharding import computes_on_model_shard
 
 PyTree = Any
 
@@ -116,13 +117,22 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     With a ``mesh`` (a ``DeviceMesh`` this rank is in), ``params`` and
     ``opt_state`` are this rank's shards (``parallel.zero.param_layout``)
     and the step is the reference's sharded train step: the parameters are
-    gathered whole, ``accumulate_grads`` runs on this rank's rows of each
-    microbatch (``zero.local_rows``) with the global microbatch's label
-    count as the loss's denominator, the gradients and the loss are summed
-    over the data axes and cut to this rank's shards, and AdamW updates
-    the shards with the mesh-wide grad norm.  Ranks along ``model`` train
-    the same rows on the whole parameters.  MoE layers form their groups
-    over the global microbatch (``models.moe.moe_apply``)."""
+    gathered along the data axes, ``accumulate_grads`` runs on this rank's
+    rows of each microbatch (``zero.local_rows``) with the global
+    microbatch's label count as the loss's denominator, the gradients and
+    the loss are summed over the data axes and cut to this rank's shards,
+    and AdamW updates the shards with the mesh-wide grad norm.
+
+    Where ``sharding.computes_on_model_shard`` holds (the dense and Mamba-1
+    families on a ``model`` axis of size > 1), each leaf keeps its
+    ``model`` block and the step computes on this rank's heads, FFN
+    columns, inner channels and vocabulary rows (``parallel.
+    tensor_parallel``); no TP'd leaf and no ``[B, S, V]`` logits cross the
+    ``model`` group.  Otherwise the parameters are gathered whole and the
+    ranks along ``model`` train the same rows on the whole network
+    (ROADMAP.md, Queue 1 item 12c(c)).  ``train_step.model_shard`` says
+    which path the step takes.  MoE layers form their groups over the
+    global microbatch (``models.moe.moe_apply``)."""
     if mesh is None:
         def train_step(params, opt_state, batch):
             loss_fn = lambda p, b: lm.train_loss(p, cfg, b)
@@ -130,6 +140,7 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
             new_params, new_opt, om = optim.apply(ocfg, grads, opt_state, params)
             return new_params, new_opt, {"loss": loss, "grad_norm": om["grad_norm"]}
 
+        train_step.model_shard = False
         return train_step
 
     from repro_torch.launch.mesh import local_shard, mesh_dp
@@ -138,6 +149,7 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
 
     layout = zero.param_layout(cfg, mesh)
     dp, shard = mesh_dp(mesh), local_shard(mesh)
+    tp = computes_on_model_shard(cfg, mesh)
 
     def loss_fn(p, b):
         count = layout.data_sum((b["labels"] >= 0).to(torch.float32).sum())
@@ -146,53 +158,70 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     def train_step(params, opt_state, batch):
         # a global microbatch's rows (of the tokens, or an encoder's embeds)
         rows = batch.get("embeds", batch.get("tokens")).shape[0] // microbatches
-        full = layout.gather(params)
-        with activation_constraints(mesh, global_batch=rows):
+        full = layout.gather(params, keep_model=tp)
+        with activation_constraints(mesh, global_batch=rows), _shard_ctx(tp, mesh):
             loss, grads, _ = optim.accumulate_grads(
                 loss_fn, full, zero.local_rows(batch, microbatches, dp, shard), microbatches)
         del full
         loss = layout.data_sum(loss)
-        grads = layout.reduce_grads(grads)
+        grads = layout.reduce_grads(grads, keep_model=tp)
         new_params, new_opt, om = optim.apply(ocfg, grads, opt_state, params, layout=layout)
         return new_params, new_opt, {"loss": loss, "grad_norm": om["grad_norm"]}
 
+    train_step.model_shard = tp
     return train_step
 
 
+def _shard_ctx(tp: bool, mesh):
+    """The model-shard context of ``mesh`` where the step computes on it."""
+    from repro_torch.parallel.sharding import model_shard
+
+    return model_shard(mesh) if tp else contextlib.nullcontext()
+
+
 def _whole(cfg: ModelConfig, mesh):
-    """``params -> the whole tree``: itself without a mesh; with one, the
-    gather of this rank's shards (``zero.param_layout``)."""
+    """``(params -> the tree the step computes on, on the model shard?)``:
+    itself without a mesh; with one, the gather of this rank's shards
+    (``zero.param_layout``), along the data axes only where the step
+    computes on its model shard."""
     if mesh is None:
-        return lambda params: params
+        return (lambda params: params), False
     from repro_torch.parallel import zero
 
-    return zero.param_layout(cfg, mesh).gather
+    tp = computes_on_model_shard(cfg, mesh)
+    gather = zero.param_layout(cfg, mesh).gather
+    return (lambda params: gather(params, keep_model=tp)), tp
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None):
     """``prefill_step(params, batch)`` on ``batch``'s rows; with a ``mesh``,
-    ``params`` are this rank's shards, gathered whole first, and ``batch``
-    is this rank's rows (the port computes no tensor-parallel shard: ROADMAP
-    Queue 1 item 12c(c))."""
-    whole = _whole(cfg, mesh)
+    ``params`` are this rank's shards and ``batch`` is this rank's rows:
+    on its model shard where ``computes_on_model_shard`` holds (the logits
+    the rank's vocabulary slice, the caches its heads or channels), else
+    on the shards gathered whole."""
+    whole, tp = _whole(cfg, mesh)
 
     def prefill_step(params, batch):
         inputs = batch.get("embeds", batch.get("tokens"))
-        return lm.prefill(whole(params), cfg, inputs, memory=batch.get("memory"))
+        with _shard_ctx(tp, mesh):
+            return lm.prefill(whole(params), cfg, inputs, memory=batch.get("memory"))
 
+    prefill_step.model_shard = tp
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None):
     """``serve_step(params, batch, caches, pos)``; with a ``mesh``, as
-    :func:`make_prefill_step`: the shards gathered whole, this rank's rows
-    and their caches."""
-    whole = _whole(cfg, mesh)
+    :func:`make_prefill_step`: this rank's rows and their caches, on its
+    model shard or on the shards gathered whole."""
+    whole, tp = _whole(cfg, mesh)
 
     def serve_step(params, batch, caches, pos):
-        return lm.decode_step(whole(params), cfg, batch["tokens"], caches, pos,
-                              memory=batch.get("memory"))
+        with _shard_ctx(tp, mesh):
+            return lm.decode_step(whole(params), cfg, batch["tokens"], caches, pos,
+                                  memory=batch.get("memory"))
 
+    serve_step.model_shard = tp
     return serve_step
 
 
@@ -239,6 +268,7 @@ class LoweredCell:
 
     rows: int                   # the batch rows this rank computes
     stats: Any                  # trace_analysis.TraceStats, per rank
+    model_shard: bool = False   # the step computed on this rank's model shard
 
 
 def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
@@ -254,10 +284,11 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     ``device`` of the shapes this rank holds: for train, its parameter and
     AdamW shards (``plan_shardings``) and the global batch, as the step
     takes them; for prefill and decode, its parameter shards and its rows
-    of the batch and the caches (every head and position: the port shards
-    no head and no sequence, item 12c(c)).  The port's real step functions
-    run on them, ``make_train_step(mesh=)`` with its collectives on the
-    fake group.
+    of the batch and the caches, the caches of this rank's heads or
+    channels where the step computes on its model shard
+    (``computes_on_model_shard``; every position: the port shards no
+    sequence, item 12c(c)).  The port's real step functions run on them,
+    with their collectives on the fake group.
 
     The trace runs with ``use_pallas=False``: a kernel launch through
     ``ctypes`` cannot take fake tensors, and training reaches no kernel in
@@ -280,6 +311,7 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
             "lower_cell: a pure_dp plan cuts the batch over the model axis, which the port's "
             "steps do not (ROADMAP.md, Queue 1 item 12c(c): the model axis's compute)")
     cfg = dataclasses.replace(cfg, use_pallas=False, use_codegen=False)
+    tp = mesh is not None and computes_on_model_shard(cfg, mesh)
     specs = input_specs(cfg, shape)
     sh = plan_shardings(cfg, shape, mesh, specs) if mesh is not None else None
     dev = torch.device(device)
@@ -314,11 +346,12 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                     _, stats = trace_analysis.trace(make_prefill_step(cfg, mesh),
                                                     (params, batch))
                 else:
-                    caches = fake(cache_structs(cfg, rows, shape.seq_len))
+                    with _shard_ctx(tp, mesh):
+                        caches = fake(cache_structs(cfg, rows, shape.seq_len))
                     pos = torch.zeros((), dtype=torch.int32, device=dev)
                     _, stats = trace_analysis.trace(make_serve_step(cfg, mesh),
                                                     (params, batch, caches, pos))
-    return LoweredCell(rows=rows, stats=stats)
+    return LoweredCell(rows=rows, stats=stats, model_shard=tp)
 
 
 __all__ = ["LoweredCell", "batch_structs", "cache_structs", "decode_batch_structs",

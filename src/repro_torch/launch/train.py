@@ -13,11 +13,15 @@ and metrics dumping.  Checkpoints go to ``--ckpt-dir`` (default
 Under torchrun (its environment: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``) every rank joins a gloo process group and
 trains on ``make_local_mesh()``: every rank on ``"model"``, the reference's
-default mesh, the parameters and AdamW moments stored as each rank's
-shards.  On the card each rank takes card ``LOCAL_RANK`` modulo the cards
-there are; rank 0 logs and writes the metrics and the checkpoints.
+default mesh (``--mesh DPxTP`` for another), the parameters and AdamW
+moments stored as each rank's shards.  The dense transformer and Mamba-1
+compute on their model shards there (``launch.steps.make_train_step``).
+On the card each rank takes card ``LOCAL_RANK`` modulo the cards there
+are; rank 0 logs and writes the metrics and the checkpoints.
 
     torchrun --nproc-per-node=2 -m repro_torch.launch.train --arch smollm-135m --smoke
+    torchrun --nproc-per-node=2 -m repro_torch.launch.train --arch smollm-135m \
+        --mesh 1x2 --mesh-layout sharded
 """
 
 from __future__ import annotations
@@ -47,7 +51,20 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="where the trainer runs (default: the card)")
+    ap.add_argument("--mesh", default=None, metavar="DPxTP",
+                    help="under torchrun: the (data, model) mesh, e.g. 1x2 "
+                         "(default: every rank on model)")
+    ap.add_argument("--mesh-layout", choices=["sharded"], default="sharded",
+                    help="one torchrun rank per mesh position (the only layout "
+                         "training has)")
     args = ap.parse_args(argv)
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+            dp, tp = mesh_shape
+        except ValueError:
+            ap.error(f"--mesh must look like 1x2, got {args.mesh!r}")
 
     import torch
     import torch.distributed as dist
@@ -77,7 +94,14 @@ def main(argv: list[str] | None = None) -> None:
             device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
                                   % torch.cuda.device_count())
             torch.cuda.set_device(device)
-        mesh, lead = make_local_mesh(), dist.get_rank() == 0
+        if mesh_shape and dp * tp != dist.get_world_size():
+            raise RuntimeError(f"--mesh {args.mesh} needs {dp * tp} ranks, torchrun "
+                               f"started {dist.get_world_size()}")
+        mesh, lead = make_local_mesh(*(mesh_shape or ())), dist.get_rank() == 0
+    elif mesh_shape:
+        raise RuntimeError(f"--mesh {args.mesh} needs ranks started by torchrun; run\n  "
+                           f"torchrun --nproc-per-node={dp * tp} -m repro_torch.launch.train "
+                           "...")
     try:
         trainer = Trainer(cfg, tcfg, ocfg, dcfg, mesh, device=device)
         res = trainer.run(resume=not args.no_resume)

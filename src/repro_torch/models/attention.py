@@ -24,6 +24,7 @@ from typing import Any, TYPE_CHECKING
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.parallel import tensor_parallel as tp_lib
 
 from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_params
 
@@ -130,8 +131,15 @@ def causal_mask(S: int, T: int, offset: int = 0, window: int = 0, causal: bool =
 # ---------------------------------------------------------------------------
 
 def _project_qkv(p, cfg: ModelConfig, x):
+    """q ``[B, S, H, hd]`` and k, v ``[B, S, KV, hd]``: the heads are the
+    projections' columns, so a rank whose ``wq``/``wk``/``wv`` hold its
+    model shard's columns projects its ``H/tp`` query and ``KV/tp`` KV
+    heads.  The columns are cut in whole heads and query head ``h`` of a
+    shard reads KV head ``h // (H/KV)`` of the same shard: the contiguous
+    cut keeps every GQA group on one rank."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -144,9 +152,34 @@ def _project_qkv(p, cfg: ModelConfig, x):
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if H != cfg.n_heads:
+            # replicated scales on this rank's heads: their gradients are
+            # summed over model (each rank's holds its heads' part)
+            qn, kn = ({"scale": tp_lib.copy_to_model(t["scale"])} for t in (qn, kn))
+        q = rmsnorm(qn, q, cfg.norm_eps)
+        k = rmsnorm(kn, k, cfg.norm_eps)
+    if H == cfg.n_heads and tp_lib.attn_splits(cfg):
+        # whole projections on a model shard (a tail block): this rank's
+        # heads, as its cache holds them
+        q, k, v = (tp_lib.own_part(t, 2) for t in (q, k, v))
     return q, k, v
+
+
+def attn_out(p, cfg: ModelConfig, out):
+    """``out [B, S, heads, hd]`` through ``wo``.  On a model shard whose
+    ``wo`` keeps its rows whole and cuts its output dim (a tail block), the
+    heads are joined over ``model`` first and the output's columns after,
+    so the result is whole on every rank; a row-parallel ``wo`` leaves the
+    sum over ``model`` to the caller."""
+    B, S = out.shape[:2]
+    o = out.reshape(B, S, -1)
+    w = p["wo"]
+    if w.shape[0] != o.shape[-1]:
+        o = tp_lib.gather_from_model(o)
+    if w.shape[-1] != cfg.d_model:
+        return tp_lib.gather_from_model(tp_lib.copy_to_model(o) @ w)
+    return o @ w
 
 
 def gqa_prefill(p, cfg: ModelConfig, x, *, window: int = 0, positions=None):
@@ -163,7 +196,7 @@ def gqa_prefill(p, cfg: ModelConfig, x, *, window: int = 0, positions=None):
     else:
         mask = causal_mask(S, S, window=window, causal=cfg.causal, device=x.device)
         out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
-    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+    return attn_out(p, cfg, out), (k, v)
 
 
 def _posv(pos, B: int, device) -> torch.Tensor:
@@ -197,7 +230,7 @@ def gqa_decode(p, cfg: ModelConfig, x, cache: PyTree, pos, *, window: int = 0):
     if window > 0:
         mask = mask & (kpos > (qpos - window)[:, None, :, None])
     out = _sdpa(q, ck, cv, mask, cfg.attn_logit_softcap)
-    return out.reshape(B, S, -1) @ p["wo"], {"k": ck, "v": cv}
+    return attn_out(p, cfg, out), {"k": ck, "v": cv}
 
 
 # ---------------------------------------------------------------------------

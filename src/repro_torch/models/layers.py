@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.state_space import resolve_activation
+from repro_torch.parallel import tensor_parallel as tp_lib
 
 PyTree = Any
 
@@ -116,13 +117,25 @@ def mlp_params(gen: torch.Generator, d_model: int, d_ff: int, gated: bool, dtype
     return p
 
 
-def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor, act: str = "silu", *, split: bool = False) -> torch.Tensor:
     """``act(x @ w_gate) * (x @ w_in) @ w_out`` when gated, else
-    ``act(x @ w_in) @ w_out``; ``act`` from the port's activation table."""
+    ``act(x @ w_in) @ w_out``; ``act`` from the port's activation table.
+
+    ``split``: the hidden columns are this rank's share over ``model``
+    (column-parallel ``w_in``/``w_gate``, row-parallel ``w_out``), and the
+    output is summed over the model ranks.  A ``w_out`` whose output dim
+    is this rank's share (a tail block on a model shard) takes the whole
+    hidden and its output columns are joined over ``model``."""
     fn = resolve_activation(act)
+    if split:
+        x = tp_lib.copy_to_model(x)
     h = x @ params["w_in"]
     h = fn(x @ params["w_gate"]) * h if "w_gate" in params else fn(h)
-    return h @ params["w_out"]
+    w_out = params["w_out"]
+    if w_out.shape[-1] != x.shape[-1]:
+        return tp_lib.gather_from_model(tp_lib.copy_to_model(h) @ w_out)
+    y = h @ w_out
+    return tp_lib.reduce_from_model(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -133,8 +146,12 @@ def embedding_params(gen: torch.Generator, vocab: int, d_model: int, dtype) -> P
     return {"table": embed_init(gen, (vocab, d_model), dtype)}
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params, tokens: torch.Tensor, vocab: int | None = None) -> torch.Tensor:
+    """``table[tokens]``; given the full ``vocab``, a table of this rank's
+    vocabulary rows looks up over ``model`` (``tensor_parallel.embed_lookup``)."""
+    if vocab is None:
+        return params["table"][tokens]
+    return tp_lib.embed_lookup(params["table"], tokens, vocab)
 
 
 def unembed(params, x: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.parallel import tensor_parallel as tp_lib
 from repro_torch.parallel.sharding import constrain_activation, recompute_contexts
 
 from .config import ModelConfig
@@ -162,14 +163,16 @@ def _apply_groups(params, cfg: ModelConfig, x, *, memory, caches, pos, mode):
 def _embed_in(params, cfg: ModelConfig, tokens_or_embeds):
     if cfg.family == "encoder":
         return tokens_or_embeds.to(cfg.act_dtype) @ params["embed"]["proj"]
-    return embed(params["embed"], tokens_or_embeds.long()).to(cfg.act_dtype)
+    return embed(params["embed"], tokens_or_embeds.long(), cfg.vocab).to(cfg.act_dtype)
 
 
 def _head(params, cfg: ModelConfig, h):
+    """The logits: this rank's vocabulary slice on a model shard whose
+    table (or head) holds its rows (columns) of the vocabulary."""
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ params["embed"]["table"].T
-    return h @ params["head"]["w"]
+        return tp_lib.vocab_logits(h, params["embed"]["table"], cfg.vocab, tied=True)
+    return tp_lib.vocab_logits(h, params["head"]["w"], cfg.vocab, tied=False)
 
 
 # ---------------------------------------------------------------------------
@@ -203,8 +206,8 @@ def train_loss(params, cfg: ModelConfig, batch, z_loss_coef: float = 1e-4, *,
     logits, aux = forward(params, cfg, inputs, memory=batch.get("memory"), mode="train")
     labels = batch["labels"].long()
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    # over vocab-sharded logits on a model shard: never gathered whole
+    lse, gold = tp_lib.lse_and_gold(logits, labels, cfg.vocab)
     mask = (labels >= 0).to(torch.float32)
     denom = torch.clamp(mask.sum() if count is None else count, min=1.0)
     ce = ((lse - gold) * mask).sum() / denom
@@ -214,7 +217,10 @@ def train_loss(params, cfg: ModelConfig, batch, z_loss_coef: float = 1e-4, *,
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, memory=None):
-    """Returns (last-token logits, caches) — cache seeding for serving."""
+    """Returns (last-token logits, caches) — cache seeding for serving.
+    On a model shard (as every entry point here) the logits are this
+    rank's vocabulary slice and the caches its heads or channels;
+    ``tensor_parallel.join_vocab`` joins the rows a caller samples from."""
     logits, caches, _ = forward(params, cfg, tokens, memory=memory, mode="prefill")
     return logits[:, -1], caches
 

@@ -10,7 +10,9 @@ Mamba-1: the state is ``{"h": [B, DI, N], "conv": [B, k-1, DI]}``.
 ``cfg.use_pallas`` runs the selective scan through ``kernels/ssm_scan``
 (the hand-written CUDA kernel for CUDA tensors, its plain version on the
 CPU), with the carry ``h0`` as an input, so a resumed (chunked) prefill
-runs the kernel too.  Without it the scan is the plain step loop
+runs the kernel too.  On a model shard (``parallel.tensor_parallel``) a
+rank holds ``DI/tp`` of the inner channels and the kernel scans those.
+Without it the scan is the plain step loop
 (``kernels/ssm_scan/ref.py``): the reference's chunking of that loop
 (``chunk``, ``cfg.ssm_chunk``) bounds its activation memory under XLA and
 changes no number, so it is not carried over.
@@ -37,6 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.parallel import tensor_parallel as tp_lib
+from repro_torch.parallel.sharding import current_model_shard
 
 from .layers import dense_init, rmsnorm, rmsnorm_params
 
@@ -114,12 +118,24 @@ def mamba1_params(gen: torch.Generator, cfg: "ModelConfig") -> PyTree:
 def _mamba1_gather(p, cfg: "ModelConfig", u, conv_tail=None):
     """Shared projections: (x_pre, x_conv, z, Δ, B, C) for the scan.  The
     pre-conv projection ``x_pre`` is returned for the decode conv state, so
-    it is not recomputed (the reference recomputes ``u @ w_x``; same math)."""
+    it is not recomputed (the reference recomputes ``u @ w_x``; same math).
+
+    On a model shard the inner channels are this rank's ``DI/tp``:
+    ``w_x``/``w_z`` column-parallel, the conv, ``dt_proj``'s columns,
+    ``dt_bias``, ``A_log``, ``D`` and the scan local, and ``x_proj``'s rows
+    the rank's, so ``[..., R+2N]`` is summed over ``model`` once before Δ,
+    B and C are split (and, being read by every rank's channels, its
+    gradient is summed back)."""
     N, R = cfg.ssm_state, cfg.dt_rank_actual
+    split = _splits_inner(cfg)
+    if split:
+        u = tp_lib.copy_to_model(u)
     x_pre = u @ p["w_x"]
     z = u @ p["w_z"]
     x = F.silu(causal_conv1d(x_pre, p["conv_w"], p["conv_b"], tail=conv_tail))
     dbc = x @ p["x_proj"]
+    if split:
+        dbc = tp_lib.copy_to_model(tp_lib.reduce_from_model(dbc))
     dt, B, C = dbc[..., :R], dbc[..., R : R + N], dbc[..., R + N :]
     delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])  # [B,T,DI]
     return x_pre, x, z, delta, B, C
@@ -144,18 +160,22 @@ def mamba1_prefill(p, cfg: "ModelConfig", u, h0=None, state: PyTree | None = Non
     y, h = scan(f32(x), f32(delta), A, f32(Bm), f32(Cm), h0)
     y = y + x * p["D"]
     y = y * F.silu(z)
-    out = y.to(u.dtype) @ p["out_proj"]
+    out = _out_proj(y.to(u.dtype), p, cfg)
     return out, {"h": h, "conv": _conv_tail(x_pre, conv_tail0, cfg.d_conv)}
 
 
 def mamba1_decode(p, cfg: "ModelConfig", u_t, state: PyTree):
     """One token.  u_t: [B,1,D]; state = {"h": [B,DI,N], "conv": [B,k-1,DI]}."""
     N, R = cfg.ssm_state, cfg.dt_rank_actual
-    x_pre = u_t[:, 0] @ p["w_x"]
-    z = u_t[:, 0] @ p["w_z"]
+    split = _splits_inner(cfg)
+    u0 = tp_lib.copy_to_model(u_t[:, 0]) if split else u_t[:, 0]
+    x_pre = u0 @ p["w_x"]
+    z = u0 @ p["w_z"]
     conv_state, x = conv_step(state["conv"], x_pre, p["conv_w"], p["conv_b"])
     x = F.silu(x)
     dbc = x @ p["x_proj"]
+    if split:
+        dbc = tp_lib.copy_to_model(tp_lib.reduce_from_model(dbc))
     dt, Bm, Cm = dbc[..., :R], dbc[..., R : R + N], dbc[..., R + N :]
     delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
@@ -164,17 +184,35 @@ def mamba1_decode(p, cfg: "ModelConfig", u_t, state: PyTree):
     h = a * state["h"] + b
     y = torch.einsum("bdn,bn->bd", h, Cm) + x * p["D"]
     y = y * F.silu(z)
-    out = (y.to(u_t.dtype) @ p["out_proj"])[:, None]
+    out = _out_proj(y.to(u_t.dtype), p, cfg)[:, None]
     return out, {"h": h, "conv": conv_state}
 
 
 def mamba1_init_state(cfg: "ModelConfig", batch: int, device) -> PyTree:
+    """``{"h": [B, DI, N], "conv": [B, k-1, DI]}`` in fp32, with this rank's
+    ``DI/tp`` channels on a model shard (``cache_specs`` cuts them so)."""
+    di = tp_lib.local(cfg.d_inner)
     return {
-        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                         device=device),
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=torch.float32,
-                            device=device),
+        "h": torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=torch.float32, device=device),
     }
+
+
+def _splits_inner(cfg: "ModelConfig") -> bool:
+    return tp_lib.splits(cfg.d_inner)
+
+
+def _out_proj(y, p, cfg: "ModelConfig"):
+    """``y @ out_proj``; row-parallel on a model shard, summed over it."""
+    out = y @ p["out_proj"]
+    return tp_lib.reduce_from_model(out) if _splits_inner(cfg) else out
+
+
+def _no_model_shard(what: str) -> None:
+    if current_model_shard() is not None:
+        raise NotImplementedError(
+            f"{what}: Mamba-2's gated RMSNorm runs over the whole inner dim, so it does not "
+            "compute on a model shard yet (ROADMAP.md, Queue 1 item 12c(c))")
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +343,7 @@ def mamba2_prefill(p, cfg: "ModelConfig", u, h0=None, state: PyTree | None = Non
     continue from where the previous piece stopped (serving's chunked
     prefill).  The conv tails are the trailing k-1 *pre-conv* projections.
     """
+    _no_model_shard("mamba2_prefill")
     Bsz, T, _ = u.shape
     DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_mamba_heads, cfg.mamba_headdim
     tail_x = tail_bc = None
@@ -335,6 +374,7 @@ def mamba2_prefill(p, cfg: "ModelConfig", u, h0=None, state: PyTree | None = Non
 def mamba2_decode(p, cfg: "ModelConfig", u_t, state: PyTree):
     """One token.  u_t: [B,1,D]; state = {"h": [B,H,P,N], "conv": {"x":
     [B,k-1,DI], "bc": [B,k-1,2N]}}."""
+    _no_model_shard("mamba2_decode")
     Bsz = u_t.shape[0]
     DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_mamba_heads, cfg.mamba_headdim
     u0 = u_t[:, 0]
@@ -359,6 +399,7 @@ def mamba2_decode(p, cfg: "ModelConfig", u_t, state: PyTree):
 
 
 def mamba2_init_state(cfg: "ModelConfig", batch: int, device) -> PyTree:
+    _no_model_shard("mamba2_init_state")
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "h": torch.zeros((batch, cfg.n_mamba_heads, cfg.mamba_headdim, cfg.ssm_state), **f32),

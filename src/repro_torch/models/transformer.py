@@ -36,6 +36,8 @@ from typing import Any
 import torch
 
 from repro_torch._tree import tree_map
+from repro_torch.parallel import tensor_parallel as tp_lib
+from repro_torch.parallel.sharding import current_model_shard
 from repro_torch.recurrent import block as rnn_lib
 
 from . import attention as attn_lib
@@ -121,6 +123,12 @@ def tail_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree | None:
 # cache construction (decode state)
 # ---------------------------------------------------------------------------
 
+def _kv_heads(cfg: ModelConfig) -> int:
+    """The KV heads a cache holds: this rank's ``KV/tp`` where attention
+    computes on a model shard (``cache_specs`` cuts them so), else all."""
+    return tp_lib.local(cfg.n_kv_heads) if tp_lib.attn_splits(cfg) else cfg.n_kv_heads
+
+
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) -> PyTree:
     if kind in ("attn", "moe", "shared_attn"):
         if cfg.use_mla and kind != "shared_attn":
@@ -128,11 +136,11 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) 
                                         dtype=cfg.act_dtype, device=device),
                     "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim),
                                           dtype=cfg.act_dtype, device=device)}
-        shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch, max_seq, _kv_heads(cfg), cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
     if kind == "attn_local":
-        shape = (batch, min(max_seq, cfg.sliding_window), cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch, min(max_seq, cfg.sliding_window), _kv_heads(cfg), cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
     if kind == "recurrent":
@@ -177,6 +185,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
 # block application
 # ---------------------------------------------------------------------------
 
+# the block kinds that compute on a model shard (sharding.computes_on_model_shard)
+TP_KINDS = ("attn", "attn_local", "mamba1")
+
+
 def apply_block(
     p_blk: PyTree,
     shared: PyTree | None,
@@ -203,12 +215,23 @@ def apply_block(
     prefill trajectory.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if current_model_shard() is not None and (kind not in TP_KINDS or cfg.use_mla):
+        raise NotImplementedError(
+            f"apply_block: a {'MLA ' if cfg.use_mla else ''}{kind} block does not compute on "
+            "a model shard yet (ROADMAP.md, Queue 1 item 12c(c))")
     if kind in ("attn", "attn_local", "moe"):
         window = cfg.sliding_window if kind == "attn_local" else 0
         acfg = cfg
         if kind == "attn" and cfg.global_every and cfg.rope_theta_global:
             acfg = dataclasses.replace(cfg, rope_theta=cfg.rope_theta_global)
         h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
+        # attention on this rank's heads: the block's input whole on every
+        # model rank, wo row-parallel, the output summed before the residual
+        # (a tail block's wo keeps its rows: attn_out joins its output)
+        split = tp_lib.attn_splits(cfg) and not cfg.use_mla \
+            and p_blk["attn"]["wo"].shape[0] < cfg.n_heads * cfg.head_dim
+        if split:
+            h = tp_lib.copy_to_model(h)
         decode = mode in ("decode", "chunk")
         if cfg.use_mla and decode:
             a, cache = attn_lib.mla_decode(p_blk["attn"], acfg, h, cache, pos)
@@ -225,13 +248,16 @@ def apply_block(
             # splice_cache folds a local layer's into its ring
             a, kv = attn_lib.gqa_prefill(p_blk["attn"], acfg, h, window=window)
             cache = {"k": kv[0], "v": kv[1]} if mode == "prefill" else None
+        if split:
+            a = tp_lib.reduce_from_model(a)
         x = x + a
         h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
         if kind == "moe":
             y, aux = moe_lib.moe_apply(p_blk["moe"], cfg, h,
                                        group_size=cfg.moe_group_size or moe_lib.DEFAULT_GROUP_SIZE)
         else:
-            y = mlp_apply(p_blk["mlp"], h, cfg.mlp_act)
+            y = mlp_apply(p_blk["mlp"], h, cfg.mlp_act,
+                          split=p_blk["mlp"]["w_out"].shape[0] < cfg.d_ff)
         return x + y, cache, aux
     if kind == "cross":
         h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
@@ -316,7 +342,7 @@ def _gqa_decode_local(p, cfg: ModelConfig, x, cache, pos):
     mask = (kpos >= 0) & (kpos >= posv[:, None] - W + 1) & (kpos <= posv[:, None])
     out = attn_lib._sdpa(q, cache["k"], cache["v"], mask[:, None, None, :],
                          cfg.attn_logit_softcap)
-    return out.reshape(B, S, -1) @ p["wo"], cache
+    return attn_lib.attn_out(p, cfg, out), cache
 
 
 def _gqa_local_chunk(p, cfg: ModelConfig, x, cache, pos):
@@ -355,7 +381,7 @@ def _gqa_local_chunk(p, cfg: ModelConfig, x, cache, pos):
     bidx = torch.arange(B, device=dev)[:, None].expand(B, Wp)
     ck = cache["k"].index_put((bidx, tail_slot), k[:, S - Wp:].to(cache["k"].dtype))
     cv = cache["v"].index_put((bidx, tail_slot), v[:, S - Wp:].to(cache["v"].dtype))
-    return out.reshape(B, S, -1) @ p["wo"], {"k": ck, "v": cv}
+    return attn_lib.attn_out(p, cfg, out), {"k": ck, "v": cv}
 
 
 __all__ = ["apply_block", "group_params", "init_cache", "shared_block_params", "tail_params"]

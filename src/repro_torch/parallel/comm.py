@@ -106,11 +106,12 @@ def sum_exact(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
-def gather_rows_exact(local: torch.Tensor, index: int, count: int, group=None) -> torch.Tensor:
+def gather_rows_exact(local: torch.Tensor, index: int, count: int, group=None, *,
+                      kind: str = "gather_rows") -> torch.Tensor:
     """``count`` equal row blocks, block ``index`` from this rank, joined
-    along dim 0 on every rank, bit for bit (counted as ``gather_rows``)."""
+    along dim 0 on every rank, bit for bit (counted as ``kind``)."""
     full = _join_exact(local, index, count, group)
-    record("gather_rows", _nbytes(full))
+    record(kind, _nbytes(full))
     return full
 
 

@@ -28,7 +28,10 @@ a ``.shape`` (fake or meta tensors, shape structs).
 
 The activation pins (``activation_constraints``, ``constrain_activation``,
 ``activation_spec``) check, inside the context, that each group's input
-holds this rank's share of the batch rows.
+holds this rank's share of the batch rows.  The model-shard context
+(``model_shard``) tells the model code which part of ``model`` this rank
+computes (``parallel/tensor_parallel.py``), where
+``computes_on_model_shard`` admits the config.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import contextlib
 import math
 import re
 import threading
-from typing import TYPE_CHECKING, Any, Callable
+from typing import TYPE_CHECKING, Any, Callable, NamedTuple
 
 from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes, is_device_mesh
 
@@ -298,11 +301,19 @@ def _pins(cfg):
 
 
 def recompute_contexts():
-    """``torch.utils.checkpoint``'s ``context_fn``: the pins in force at a
-    group's forward, put back around its recompute.  Autograd may run the
-    backward, and so the recompute, on a thread of its own (it does for
-    CUDA tensors), where the thread-local pins would be missing."""
-    return contextlib.nullcontext(), _pins(getattr(_ACT, "cfg", None))
+    """``torch.utils.checkpoint``'s ``context_fn``: the pins and the model
+    shard in force at a group's forward, put back around its recompute.
+    Autograd may run the backward, and so the recompute, on a thread of its
+    own (it does for CUDA tensors), where the thread-local contexts would be
+    missing; a recompute repeats the forward's collectives over ``model``."""
+    return contextlib.nullcontext(), _restored(getattr(_ACT, "cfg", None),
+                                               getattr(_ACT, "shard", None))
+
+
+@contextlib.contextmanager
+def _restored(pins, shard):
+    with _pins(pins), _shard_ctx(shard):
+        yield
 
 
 def constrain_activation(x):
@@ -353,12 +364,91 @@ def data_share(rows: int):
     return data_group(mesh), local_shard(mesh), dp
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel compute along ``model``
+# ---------------------------------------------------------------------------
+#
+# The reference's partitioner splits attention heads, FFN columns, Mamba's
+# inner channels and the vocabulary over ``model`` from the rules above.
+# The port computes on its model shard for the families whose split falls
+# between kernels (``parallel/tensor_parallel.py`` holds the collectives):
+# the dense transformer and Mamba-1.  Everything else keeps its parameters
+# whole along ``model`` (ROADMAP.md, Queue 1 item 12c(c)).
+
+TP_FAMILIES = ("dense", "ssm")
+
+
+def model_shard_refusal(cfg: ModelConfig) -> str | None:
+    """Why ``cfg`` cannot compute on a model shard of any width > 1, or
+    None when it can (its attention split may still depend on the width:
+    :func:`computes_on_model_shard`)."""
+    if cfg.pure_dp:
+        return "a pure_dp plan spreads the batch over the model axis instead"
+    if cfg.family not in TP_FAMILIES or cfg.use_mla:
+        what = "MLA" if cfg.use_mla else f"the {cfg.family} family"
+        return (f"tensor-parallel compute for {what} ({cfg.name}) is not ported yet "
+                "(ROADMAP.md, Queue 1 item 12c(c))")
+    return None
+
+
+def computes_on_model_shard(cfg: ModelConfig, mesh) -> bool:
+    """Whether a step of ``cfg`` on ``mesh`` computes on this rank's model
+    shard: a ``model`` axis of size > 1, a family of :data:`TP_FAMILIES`
+    without MLA, ``pure_dp`` off, and attention either replicated
+    (``attn_tp=False``) or cut into whole query and KV heads.  Otherwise
+    the parameters are gathered whole along ``model`` and every model rank
+    computes the whole network."""
+    tp = 1 if mesh is None else axis_sizes(mesh).get("model", 1)
+    if tp <= 1 or model_shard_refusal(cfg) is not None:
+        return False
+    has_attn = cfg.family == "dense"
+    return not (has_attn and cfg.attn_tp and (cfg.n_heads % tp or cfg.n_kv_heads % tp))
+
+
+class ModelShard(NamedTuple):
+    """This rank's place on ``model``: the group, its index there, the
+    axis's size."""
+
+    group: Any
+    index: int
+    tp: int
+
+
+@contextlib.contextmanager
+def _shard_ctx(shard: ModelShard | None):
+    prev = getattr(_ACT, "shard", None)
+    _ACT.shard = shard
+    try:
+        yield
+    finally:
+        _ACT.shard = prev
+
+
+def model_shard(mesh):
+    """The model-shard context of ``mesh`` (a DeviceMesh this rank is in):
+    inside it the model code computes on this rank's heads, FFN columns,
+    inner channels and vocabulary rows, with the collectives of
+    ``parallel.tensor_parallel`` between its kernels.  Thread-local, like
+    the pins."""
+    from repro_torch.launch.mesh import model_group, model_index, mesh_tp
+
+    tp = mesh_tp(mesh)
+    return _shard_ctx(ModelShard(model_group(mesh), model_index(mesh), tp) if tp > 1 else None)
+
+
+def current_model_shard() -> ModelShard | None:
+    """The :class:`ModelShard` in force on this thread, or None."""
+    return getattr(_ACT, "shard", None)
+
+
 def activation_spec(mesh, *dims) -> Spec:  # noqa: ARG001 - the reference's signature
     """The spec of ``dims`` as a tuple (:func:`placements` turns it into
     DTensor placements on ``mesh``)."""
     return tuple(dims)
 
 
-__all__ = ["activation_constraints", "activation_spec", "batch_specs", "cache_specs",
-           "constrain_activation", "data_share", "dp_axes", "recompute_contexts", "fsdp_axis", "map_with_path",
-           "opt_state_specs", "param_specs", "placements"]
+__all__ = ["TP_FAMILIES", "ModelShard", "activation_constraints", "activation_spec",
+           "batch_specs", "cache_specs", "computes_on_model_shard", "constrain_activation",
+           "current_model_shard", "data_share", "dp_axes", "fsdp_axis", "map_with_path",
+           "model_shard", "model_shard_refusal", "opt_state_specs", "param_specs",
+           "placements", "recompute_contexts"]

@@ -17,6 +17,10 @@ spec does not name the block is replicated.  From there the layout gives
   ``all_gather`` for CUDA tensors);
 * :meth:`~ShardLayout.reduce_grads`: a tree of full gradients summed over
   the data axes and cut to this rank's blocks;
+* both in a ``keep_model`` form for a step that computes on its model
+  shard (``parallel.tensor_parallel``): the gather runs along the data
+  axes only and keeps each leaf's ``model`` block, and the gradients of
+  those blocks are cut along the data axes only;
 * :meth:`~ShardLayout.square_sum`: the sum of squares of a sharded tree,
   each distinct block counted once (a replica along an axis adds nothing),
   the leaves summed in ``jax.tree.leaves`` order as the reference's
@@ -115,10 +119,22 @@ class ShardLayout:
     def _axes(self, entry) -> tuple[str, ...]:
         return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
 
-    def _box(self, spec: _Spec, shape) -> tuple[slice, ...]:
+    def _named(self, spec: _Spec, d: int, over: tuple[str, ...] | None) -> tuple[str, ...]:
+        """The axes dim ``d``'s entry names, of ``over`` only when given
+        (the data-axis forms keep the ``model`` block: an entry must then
+        name axes of ``over`` only, or none of them)."""
+        axes = self._axes(spec.entries[d]) if d < len(spec.entries) else ()
+        if over is None:
+            return axes
+        mine = tuple(a for a in axes if a in over)
+        if mine and len(mine) != len(axes):
+            raise ValueError(f"spec entry {axes} mixes the axes {over} with others")
+        return mine
+
+    def _box(self, spec: _Spec, shape, over: tuple[str, ...] | None = None) -> tuple[slice, ...]:
         box = []
         for d, n in enumerate(shape):
-            axes = self._axes(spec.entries[d]) if d < len(spec.entries) else ()
+            axes = self._named(spec, d, over)
             count = math.prod(self.sizes[a] for a in axes)
             index = 0
             for a in axes:
@@ -128,11 +144,13 @@ class ShardLayout:
             box.append(slice(index * (n // count), (index + 1) * (n // count)))
         return tuple(box)
 
-    def _owner(self, spec: _Spec) -> bool:
+    def _owner(self, spec: _Spec, over: tuple[str, ...] | None = None) -> bool:
         """Whether this rank is the first replica of its block: its
-        coordinate is 0 along every axis the spec does not name."""
+        coordinate is 0 along every axis the spec does not name (of
+        ``over`` only, when given)."""
         named = {a for e in spec.entries for a in self._axes(e)}
-        return all(self.coord[a] == 0 for a in self.coord if a not in named)
+        return all(self.coord[a] == 0 for a in self.coord
+                   if a not in named and (over is None or a in over))
 
     # -- trees -------------------------------------------------------------------
     def _leaves(self, tree: PyTree, order=tree_leaves) -> tuple[list, list]:
@@ -143,18 +161,28 @@ class ShardLayout:
         """This rank's blocks of ``full``, each a contiguous copy."""
         return tree_map(lambda t, s: t[self._box(s, t.shape)].clone(), full, self.specs)
 
-    def _full_shape(self, spec: _Spec, shape) -> tuple[int, ...]:
-        return tuple(n * (math.prod(self.sizes[a] for a in self._axes(spec.entries[d]))
-                          if d < len(spec.entries) else 1) for d, n in enumerate(shape))
+    def _full_shape(self, spec: _Spec, shape, over: tuple[str, ...] | None = None
+                    ) -> tuple[int, ...]:
+        return tuple(n * math.prod(self.sizes[a] for a in self._named(spec, d, over))
+                     for d, n in enumerate(shape))
 
-    def gather(self, local: PyTree) -> PyTree:
+    def gather(self, local: PyTree, *, keep_model: bool = False) -> PyTree:
         """The full tensors of a tree of this rank's blocks, on every rank,
         bit for bit (counted as one ``gather_exact``): each element size's
         leaves packed in one flat integer buffer, each block placed by its
         first replica, zeros elsewhere, summed over every mesh axis of size
         > 1.  The returned leaves are views of that buffer, each starting
         256-byte aligned.  Its payload is every buffer once per axis it is
-        summed over."""
+        summed over.
+
+        ``keep_model``: gather along the data axes only, each leaf whole
+        along them and still this rank's block along ``model`` (counted as
+        one ``gather_data``; nothing crosses the ``model`` group): the
+        parameters of a step that computes on its model shard."""
+        over = dp_axes(self.mesh) if keep_model else None
+        groups = [g for a, g in self.groups.items() if over is None or a in over]
+        if keep_model and not groups:       # no data axis of size > 1: the blocks as they are
+            return tree_map(lambda t: t, local)
         leaves, specs = self._leaves(local)
         payload = 0
         out: list = [None] * len(leaves)
@@ -162,7 +190,7 @@ class ShardLayout:
             store = {4: torch.int32, 8: torch.int64}.get(es, torch.uint8)
             units = es // store.itemsize
             idx = [i for i, t in enumerate(leaves) if t.element_size() == es]
-            shapes = {i: self._full_shape(specs[i], leaves[i].shape) for i in idx}
+            shapes = {i: self._full_shape(specs[i], leaves[i].shape, over) for i in idx}
             offs, total = {}, 0
             for i in idx:
                 offs[i] = total
@@ -172,12 +200,12 @@ class ShardLayout:
                 n = math.prod(shapes[i])
                 out[i] = flat[offs[i] * units:(offs[i] + n) * units].view(
                     leaves[i].dtype).view(shapes[i])
-                if self._owner(specs[i]):
-                    out[i][self._box(specs[i], shapes[i])] = leaves[i]
-            for g in self.groups.values():
+                if self._owner(specs[i], over):
+                    out[i][self._box(specs[i], shapes[i], over)] = leaves[i]
+            for g in groups:
                 comm.sum_exact(flat, g)
                 payload += flat.numel() * flat.element_size()
-        comm.record("gather_exact", payload)
+        comm.record("gather_data" if keep_model else "gather_exact", payload)
         it = iter(out)
         return tree_map(lambda _: next(it), local)
 
@@ -198,13 +226,17 @@ class ShardLayout:
             comm.all_reduce(t, g)
         return t
 
-    def reduce_grads(self, grads: PyTree) -> PyTree:
+    def reduce_grads(self, grads: PyTree, *, keep_model: bool = False) -> PyTree:
         """Full gradients (this rank's rows) summed over the data axes in
-        fp32, in one flat buffer, then cut to this rank's blocks."""
+        fp32, in one flat buffer, then cut to this rank's blocks.
+        ``keep_model``: the gradients are already this rank's ``model``
+        blocks (of :meth:`gather`'s ``keep_model`` form) and are cut along
+        the data axes only."""
+        over = dp_axes(self.mesh) if keep_model else None
         leaves, specs = self._leaves(grads)
         flat = self.data_sum(torch.cat([g.reshape(-1).to(torch.float32) for g in leaves]))
         parts = flat.split([g.numel() for g in leaves])
-        it = iter(p.view(g.shape)[self._box(s, g.shape)].clone()
+        it = iter(p.view(g.shape)[self._box(s, g.shape, over)].clone()
                   for p, g, s in zip(parts, leaves, specs, strict=True))
         return tree_map(lambda _: next(it), grads)
 

@@ -73,12 +73,20 @@ of the prompt, then the least loaded one, then the lowest id.  Two layouts:
   rank's own clock would split the ranks, so this layout refuses the
   watchdog, load shedding, request deadlines and explicit priority aging,
   and its default scheduler does not age (ROADMAP.md, Queue 1 item 12c).
-  Tensor parallelism inside the served models (``tp > 1``) is not ported
-  yet either (item 12c) and raises.
+  At ``tp > 1`` the ranks along ``model`` of a data shard all hold its
+  slots and compute them together on their model shards
+  (``sharding.computes_on_model_shard``: the dense transformer and
+  Mamba-1): the server cuts the parameters to this rank's block
+  (``ShardPlan.local_params``), its caches hold this rank's KV heads or
+  inner channels, and every logit row it samples from is joined exactly
+  over ``model`` first (``tensor_parallel.join_vocab``), so the argmax and
+  the draws are the same on every model rank.  Other families at ``tp >
+  1`` raise, citing item 12c(c).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -95,6 +103,9 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
 from repro_torch.parallel import comm
+from repro_torch.parallel import tensor_parallel as tp_lib
+from repro_torch.parallel.sharding import (computes_on_model_shard, model_shard,
+                                           model_shard_refusal)
 
 from . import faults as faults_lib
 from .faults import Watchdog
@@ -263,9 +274,15 @@ class DecodeServer:
         self._slots_per_shard = (plan.validate_slots(num_slots)
                                  if plan is not None else num_slots)
         self._rows = None           # this rank's slots (the sharded layout)
+        self._tp_mesh = None        # the mesh whose model shard this rank computes on
         if plan is not None and not plan.fold_data:
-            self._check_sharded(plan, scheduler, watchdog_s)
+            self._check_sharded(cfg, plan, scheduler, watchdog_s)
             self._rows = plan.slots_of_shard(plan.local_shard, num_slots)
+            if plan.tp > 1:
+                # this rank's model block of the parameters; the model code
+                # computes on it inside the model-shard context
+                self._tp_mesh = plan.mesh
+                params = plan.local_params(cfg, params)
             self._group = plan.control_group()
             world = self._group if self._group is not None else dist.group.WORLD
             # the shards' owners, in shard order: global ranks and group ranks
@@ -321,9 +338,11 @@ class DecodeServer:
         self.faults = faults
         self._watch = Watchdog(watchdog_s) if watchdog_s else None
         self._last_work = 0                 # progress marker for the watchdog
-        # the sharded layout allocates this rank's slot rows only
-        self.caches = lm.init_cache(cfg, num_slots if self._rows is None else len(self._rows),
-                                    max_seq, self.device)
+        # the sharded layout allocates this rank's slot rows only (and, at
+        # tp > 1, this rank's heads or channels)
+        with self._model_ctx():
+            self.caches = lm.init_cache(
+                cfg, num_slots if self._rows is None else len(self._rows), max_seq, self.device)
         self.pos = np.zeros(num_slots, np.int32)        # next write position
         self.live = np.zeros(num_slots, bool)
         self.reserved = np.zeros(num_slots, bool)       # prefill job in flight
@@ -467,14 +486,14 @@ class DecodeServer:
     # -- mesh placement (all trivial when plan is None) -----------------------
 
     @staticmethod
-    def _check_sharded(plan: ShardPlan, scheduler, watchdog_s) -> None:
+    def _check_sharded(cfg: ModelConfig, plan: ShardPlan, scheduler, watchdog_s) -> None:
         """The sharded layout's refusals: what it cannot run says so, and
         nothing falls back to one device."""
-        if plan.tp > 1:
-            raise NotImplementedError(
-                f"DecodeServer(plan): tensor parallelism inside the served models "
-                f"(tp={plan.tp}) is not ported yet (ROADMAP.md, Queue 1 item 12c); "
-                "serve with tp=1")
+        if plan.tp > 1 and not computes_on_model_shard(cfg, plan.mesh):
+            why = model_shard_refusal(cfg) or (
+                f"{cfg.name}'s attention heads ({cfg.n_heads} query, {cfg.n_kv_heads} KV) "
+                f"do not cut whole over tp={plan.tp} (ROADMAP.md, Queue 1 item 12c(c))")
+            raise NotImplementedError(f"DecodeServer(plan) at tp={plan.tp}: {why}")
         plan.require_group()
         cfg = scheduler.cfg if isinstance(scheduler, Scheduler) else scheduler
         why = ("watchdog_s" if watchdog_s else
@@ -498,6 +517,14 @@ class DecodeServer:
     def _lb(self, b: int) -> int:
         """Slot ``b``'s row in this process's cache tensors."""
         return b if self._rows is None else b - self._rows.start
+
+    def _model_ctx(self):
+        """The model-shard context at tp > 1 (every model call and cache
+        allocation runs in it, and every logit row the server samples
+        from is joined over ``model`` there: ``tensor_parallel.
+        join_vocab``), else nothing."""
+        return model_shard(self._tp_mesh) if self._tp_mesh is not None else \
+            contextlib.nullcontext()
 
     def _pc(self, shard: int) -> PrefixCache | None:
         """The prefix cache of ``shard``'s slots (the single cache when
@@ -809,9 +836,11 @@ class DecodeServer:
         """One prefill call, with the host round-trips its kernels make
         (counted on this thread) added to ``prefill_kernel_syncs``."""
         syncs = _build.host_syncs()
-        out = fn(self.params, self.cfg, *args)
+        with self._model_ctx():
+            logits, caches = fn(self.params, self.cfg, *args)
+            logits = tp_lib.join_vocab(logits, self.cfg.vocab)
         self._m_kernel_syncs.inc(_build.host_syncs() - syncs)
-        return out
+        return logits, caches
 
     def _cache_boundary(self, job: _PrefillJob, nbytes: int) -> None:
         """Checkpoint the job's current state into its shard's prefix cache.
@@ -850,8 +879,9 @@ class DecodeServer:
     def _inflate_entry(self, entry) -> PyTree:
         """A stored checkpoint re-expanded into a fresh B=1, ``max_seq``
         cache (a copy: the stored tensors are only read)."""
-        return splice_cache(lm.init_cache(self.cfg, 1, self.S, self.device), entry.caches, 0,
-                            self.S)
+        with self._model_ctx():
+            fresh = lm.init_cache(self.cfg, 1, self.S, self.device)
+        return splice_cache(fresh, entry.caches, 0, self.S)
 
     def _admit(self) -> None:
         """Fill free slots from the scheduler.  Admission is a prefix-cache
@@ -909,8 +939,11 @@ class DecodeServer:
                 if not adaptive_oneshot:
                     caches = None
                     if owner:
-                        caches = (self._inflate_entry(entry) if entry is not None
-                                  else lm.init_cache(self.cfg, 1, self.S, self.device))
+                        if entry is not None:
+                            caches = self._inflate_entry(entry)
+                        else:
+                            with self._model_ctx():
+                                caches = lm.init_cache(self.cfg, 1, self.S, self.device)
                     start = entry.length if entry is not None else 0
                     if pc is not None:
                         if entry is not None:
@@ -1035,9 +1068,11 @@ class DecodeServer:
                            args={"live": int(self.live.sum())}):
             if self._dispatch_fault():
                 return int(self.live.sum())
-            logits, self.caches = lm.decode_step(
-                self.params, self.cfg, self._tokens(self.cur_tokens[rows, None]),
-                self.caches, self._tokens(self.pos[rows]))
+            with self._model_ctx():
+                logits, self.caches = lm.decode_step(
+                    self.params, self.cfg, self._tokens(self.cur_tokens[rows, None]),
+                    self.caches, self._tokens(self.pos[rows]))
+                logits = tp_lib.join_vocab(logits, self.cfg.vocab)
             with self._tr.span("device_sync", cat="sync"):
                 logits = logits.float().cpu().numpy()
         self._m_syncs.inc()
@@ -1120,7 +1155,9 @@ class DecodeServer:
         sampling = bool((temps > 0).any())
         outs = []
         for _ in range(k):
-            logits, caches = lm.decode_step(self.params, self.cfg, cur[:, None], caches, pos)
+            with self._model_ctx():
+                logits, caches = lm.decode_step(self.params, self.cfg, cur[:, None], caches, pos)
+                logits = tp_lib.join_vocab(logits, self.cfg.vocab)
             logits = logits.float()
             pos = pos + live.long()
             finite = torch.isfinite(logits).all(dim=-1)

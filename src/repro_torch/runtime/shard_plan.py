@@ -22,7 +22,8 @@ asks:
 * **placement**: which shard owns slot ``b`` (contiguous blocks);
 * **specs**: the decode caches' (batch over DP) and the serving
   parameters' (replicated over DP, TP factors over ``model``, FSDP off), as
-  spec tuples or as DTensor placements;
+  spec tuples or as DTensor placements, and this rank's block of the
+  parameters (:meth:`ShardPlan.local_params`);
 * **identity**: a hashable :meth:`key` for synthesis memo keys and a
   :meth:`describe` dict for ``stats()`` and ``health()``.
 
@@ -48,7 +49,7 @@ from typing import Any
 
 import torch
 
-from repro_torch._tree import tree_leaves
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import axis_names, axis_sizes, mesh_ranks
 from repro_torch.parallel import comm
@@ -124,6 +125,28 @@ class ShardPlan:
         """Serving parameter specs: TP over ``model`` where divisible,
         replicated over DP (``fsdp=False``)."""
         return self._as(param_specs(cfg, params_tree, self.mesh, fsdp=False), as_placements)
+
+    def local_params(self, cfg, params: PyTree) -> PyTree:
+        """This rank's serving parameters: each leaf that
+        :meth:`param_shardings` cuts over ``model`` as this rank's block (a
+        contiguous copy), the others as they are.  A leaf already of its
+        block's shape is kept, so a caller may make the cut itself.  The
+        sharded layout only (a DeviceMesh this rank is in)."""
+        from repro_torch.parallel.zero import ShardLayout, param_shapes
+
+        shapes = param_shapes(cfg)
+        layout = ShardLayout(self.mesh, self.param_shardings(cfg, shapes))
+
+        def one(t, full, spec):
+            box = layout._box(spec, full.shape)
+            if tuple(t.shape) == tuple(b.stop - b.start for b in box):
+                return t
+            if tuple(t.shape) != tuple(full.shape):
+                raise ValueError(f"a parameter of shape {tuple(t.shape)} is neither "
+                                 f"{tuple(full.shape)} nor this rank's block of it")
+            return t[box].clone()
+
+        return tree_map(one, params, shapes, layout.specs)
 
     def replicated(self, *, as_placements: bool = False):
         """The fully replicated spec (splice sources, prefix checkpoints)."""

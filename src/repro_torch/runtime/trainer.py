@@ -103,7 +103,8 @@ class Trainer:
     ``mesh`` is a ``DeviceMesh`` over an initialised process group
     (``launch.mesh.make_local_mesh``): every rank draws the same initial
     parameters from the seed and keeps its shards, and trains its rows of
-    each global batch."""
+    each global batch, on its model shard where the family computes there
+    (``launch.steps.make_train_step``)."""
 
     def __init__(
         self,

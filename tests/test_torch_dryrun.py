@@ -10,8 +10,9 @@ half, ``launch.trace_analysis``) against the reference's.
   8 × 16 batch) the trace's FLOPs equal the reference's
   ``hlo_analysis.analyze`` of its compiled step on one CPU device (exactly
   for smollm and olmoe; zamba2 within ``ZAMBA_FLOPS_RTOL``, see below),
-  and on smollm-135m at full size on 16×16 the analytic 6·N·D plus the
-  plain attention's 12·L·S·H·hd a token.
+  and on smollm-135m at full size on 16×16, on its model shard, the
+  analytic 6·D·(replicated N + TP'd N / 16) plus the plain attention's
+  12·L·S·H·hd a token.
 * Collectives: on a (1, 2, 2) olmoe smoke cell the dry run's counts and
   bytes by kind, and its argument bytes, equal a real ``make_train_step(
   mesh=)`` step's on four gloo CPU ranks.
@@ -434,30 +435,41 @@ def test_cli_writes_the_reference_s_record(cli):
             "temp_size_in_bytes"} <= set(rec["memory_analysis"])
     assert (rec["arch"], rec["shape"], rec["mesh"], rec["n_devices"]) == \
         ("smollm-135m", "train_4k", "16x16", 256)
-    # the parameters gathered (one exact gather over both axes), the label
+    # smollm computes on its model shard: the parameters gathered along the
+    # data axis only (one exact gather, nothing over ``model``), the label
     # count, the loss and the gradients summed over data, the grad norm's
     # squares over the mesh
-    assert rec["collectives"]["gather_exact"]["count"] == 1
+    assert rec["model_shard"] is True
+    assert rec["collectives"]["gather_data"]["count"] == 1
+    assert "gather_exact" not in rec["collectives"]
     assert rec["memory_analysis"]["temp_size_in_bytes"] > 0
 
 
 def test_full_size_flops_are_6ND_plus_the_attention(cli):
-    """smollm-135m on 16×16: 16 rows of 4096 tokens a rank (every rank
-    along ``model`` on the same rows), no remat.  The matmul parameters N
-    (all but the norm scales; the tied table once, as the head) give
-    6·N·D, and the plain attention's scores and values over all S keys
-    4·S·H·hd a token forward, 12 with the backward."""
+    """smollm-135m on 16×16: 16 rows of 4096 tokens a rank, on its model
+    shard, no remat.  The matmul parameters (all but the norm scales; the
+    tied table once, as the head) give 6·D·(N_replicated + N_TP / 16): the
+    table and the MLP are cut over ``model``, the attention is replicated
+    (``attn_tp=False``).  The plain attention's scores and values over all
+    S keys, on all heads, add 4·S·H·hd a token forward, 12 with the
+    backward."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.parallel import zero
 
     rec = cli[2]
     cfg = get_config("smollm-135m")
+    assert not cfg.attn_tp
     leaves = _flat(zero.param_shapes(steps.dryrun_config(cfg)))
     assert cfg.tie_embeddings and "/head/w" not in leaves
-    n = sum(t.numel() for path, t in leaves.items() if not path.endswith("/scale"))
+    n = {"tp": 0, "replicated": 0}
+    for path, t in leaves.items():
+        if not path.endswith("/scale"):
+            n["replicated" if "/attn/" in path else "tp"] += t.numel()
+    assert n["tp"] % 16 == 0 and n["replicated"] > 0
     S, D = 4096, 16 * 4096
-    want = 6 * n * D + 12 * cfg.n_layers * S * cfg.n_heads * cfg.head_dim * D
+    want = 6 * (n["replicated"] + n["tp"] // 16) * D \
+        + 12 * cfg.n_layers * S * cfg.n_heads * cfg.head_dim * D
     assert rec["rows_per_rank"] == 16
     assert rec["flops_corrected"] == rec["cost_analysis"]["flops"]
     assert abs(rec["flops_corrected"] - want) <= 1e-9 * want, (rec["flops_corrected"], want)

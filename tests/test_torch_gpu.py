@@ -1995,3 +1995,78 @@ def test_vlm_and_encoder_use_pallas_prefill_matches_plain_path(cuda, arch):
     n_attn = sum(k != "cross" for k in cfg.layer_pattern) * cfg.n_groups
     assert ops.flash_attention.calls == n_attn
     assert float((lg_k - lg_p).abs().max()) <= 1e-5 * float(lg_p.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute along ``model``: internlm2 smoke at tp = 2, two
+# gloo ranks sharing the card, and the two kernels at their per-rank shapes
+# ---------------------------------------------------------------------------
+
+def _ranks_card_tp(rank, world):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.parallel.sharding import model_shard
+    from repro_torch.runtime import ShardPlan
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(1, 2)
+    plan = ShardPlan(mesh)
+    cfg = get_smoke_config("internlm2-20b")
+    params = plan.local_params(cfg, lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    x = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 40)), device=dev)
+    out = {}
+    with model_shard(mesh):
+        for use_pallas in (False, True):
+            c = dataclasses.replace(cfg, use_pallas=use_pallas)
+            calls = ops.flash_attention.calls
+            lg, caches = lm.prefill(params, c, x)
+            out[use_pallas] = (tp.join_vocab(lg, cfg.vocab).cpu().numpy(),
+                               ops.flash_attention.calls - calls,
+                               tuple(caches["groups"]["b0_attn"]["k"].shape))
+    return out
+
+
+def test_internlm2_at_tp2_use_pallas_prefill_matches_plain_on_the_card(cuda):
+    """Each of two gloo ranks on cuda:0 computes internlm2 smoke on its 3
+    query and 1 KV head, ``flash_attention`` once a layer on that shard;
+    the joined logits within 1e-5 of max |logit| of the plain path's."""
+    from repro_torch.launch.spawn import run_ranks
+
+    for out in run_ranks(_ranks_card_tp, 2, backend="gloo", timeout_s=300):
+        plain, calls_p, kshape = out[False]
+        kern, calls_k, _ = out[True]
+        assert calls_p == 0 and calls_k == 2 and kshape == (2, 2, 40, 1, 16)
+        assert np.max(np.abs(kern - plain)) <= 1e-5 * np.max(np.abs(plain))
+
+
+def test_flash_attention_kernel_at_the_tp2_rank_shape(cuda):
+    """Shape (j): internlm2-20b's rank at tp = 2 (24 of 48 query heads, 4
+    of 8 KV heads, hd 128), causal, at 2048 tokens."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    case = dict(B=1, S=2048, T=2048, H=24, KV=4, hd=128)
+    q, k, v = _flash_case(cuda, case, torch.float32, seed=9)
+    launches = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention.launches - launches == kernel.launches_per_call(
+        kernel.splits(q, k, causal=True))
+    torch.testing.assert_close(got, ops.flash_attention_ref(q, k, v, causal=True),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T", [64, 256])
+def test_ssm_scan_kernel_at_the_tp2_rank_channels(cuda, T):
+    """falcon-mamba-7b's rank at tp = 2: 4096 of its 8192 inner channels."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    x, dl, A, B, C, h0 = _scan_case(cuda, 1, T, 4096, 16, seed=T, carry=True)
+    launches = ops.ssm_scan.launches
+    got = ops.ssm_scan(x, dl, A, B, C, h0=h0)
+    assert ops.ssm_scan.launches == launches + 1
+    torch.cuda.synchronize()
+    _close(got, ops.ssm_scan_ref(x, dl, A, B, C, h0), 1e-4)
