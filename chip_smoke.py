@@ -331,6 +331,7 @@ seconds, and on standard error its name and the seconds since the start
 from __future__ import annotations
 
 import asyncio
+import atexit
 import contextlib
 import dataclasses
 import hashlib
@@ -578,6 +579,23 @@ TP_RESIDENT_RTOL = 1e-3         # resident parameter bytes against the reckoned 
 TP_ATTN_SHAPE = ("j_internlm2_tp2_S2048", dict(B=1, S=2048, T=2048, H=24, KV=4, hd=128,
                                                window=0))
 TP_SCAN_SHAPE = (1, 256, 4096, 16)      # (B, T, D, N): falcon-mamba-7b's rank at tp = 2
+
+# 27. MoE experts and MLA heads on the model shard: two gloo ranks share the
+# card; the serving oracles are phase 20's plan=None step() runs, the
+# training one phase 24's mesh=None run at MM_SEQS[0]
+TP_MOE_PICK = {"olmoe-1b-7b": (0, 2, 4, 6), "deepseek-v2-lite-16b": (0, 2, 4, 5)}
+# ^ phase 20's requests: 17, 512 and 2048 tokens and the first 1088-token
+#   shared-prefix one (indices into its traffic, kept as the request ids)
+# of max |logit| where no routing decision differs: at 16 layers two correct
+# fp32 paths of plan=None already sit 2.0621e-05 apart (the SDPA control,
+# ROADMAP.md Queue 3); a wrong expert block or a missing sum gives O(1)
+# deepseek at 9 layers: its naive and absorbed MLA prefills on one device
+# sit 1.419e-05-1.429e-05 apart at 512-2048 tokens (phase 20 prints it)
+TP_MOE_LOGIT_GAP = {"olmoe-1b-7b": 1e-4, "deepseek-v2-lite-16b": 1e-4}
+TP_MOE_PREFIX_BYTES = 1 << 30   # every checkpoint of the four prompts, per rank
+TP_MOE_AGAIN = 1000             # the request ids of the step_block() pass: uid + this
+TP_MOE_ATTN_SHAPE = ("k_olmoe_tp2_S2048", dict(B=1, S=2048, T=2048, H=8, KV=8, hd=128,
+                                               window=0))
 
 START_T0 = time.perf_counter()
 PHASE_T0 = [START_T0]
@@ -1165,9 +1183,22 @@ def launch_serve_cmd(arch: str, device: str) -> list[str]:
             "--persistent", "--device", device]
 
 
+def dryrun_clis(device: str = "cuda") -> dict:
+    """The dry-run CLI's ``DRYRUN_CLI`` cells as :func:`clis_started`
+    commands (records under an emptied ``build/dryrun``).  They trace on
+    fake tensors, on the host only, so ``main`` starts them before phase 20
+    and :func:`entry_points` collects them."""
+    dry_docs = ROOT / "build" / "dryrun"
+    shutil.rmtree(dry_docs, ignore_errors=True)
+    return {f"launch.dryrun --arch {arch} --mesh {mesh}": [
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k",
+        "--mesh", mesh, "--out", str(dry_docs), "--device", device] for arch, mesh in DRYRUN_CLI}
+
+
 def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFFTEST_SEEDS,
                  train_args: tuple[str, ...] = ("--arch", "smollm-135m", "--steps", "2",
-                                                "--seq", "256", "--batch", "4")) -> None:
+                                                "--seq", "256", "--batch", "4"),
+                 started_dryruns: dict | None = None) -> None:
     """Every entry point the smoke runs as a subprocess, all started
     together while this process runs nothing else (each pays the start of a
     Python process that imports torch, tens of seconds on a slow host):
@@ -1182,7 +1213,9 @@ def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFF
     ``python -m repro_torch.launch.train`` at smollm-135m's published
     widths into an emptied checkpoint directory (phase 21; it must print
     ``final_loss=``); ``python -m repro_torch.analyze --lint-src`` (phase
-    17).  Each must exit 0."""
+    17); the dry-run CLI's cells (:func:`dryrun_clis`), unless
+    ``started_dryruns`` holds them already running (:func:`clis_started`'s).
+    Each must exit 0."""
     from repro_torch.obs.check import check_analyze_doc
 
     docs = ROOT / "build" / "serve_loadgen"
@@ -1193,7 +1226,6 @@ def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFF
     train_ckpt = ROOT / "build" / "train" / "launch"
     shutil.rmtree(train_ckpt, ignore_errors=True)      # a full one would be resumed
     dry_docs = ROOT / "build" / "dryrun"
-    shutil.rmtree(dry_docs, ignore_errors=True)
     py = [sys.executable, "-m"]
     commands = {
         "launch.serve": [*py, "repro_torch.launch.serve", "--arch", "paper-lstm",
@@ -1215,9 +1247,7 @@ def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFF
             *py, "repro_torch.launch.train", *train_args,
             "--ckpt-dir", str(train_ckpt), "--device", device],
         "analyze --lint-src": [*py, "repro_torch.analyze", "--lint-src", "--device", device],
-        **{f"launch.dryrun --arch {arch} --mesh {mesh}": [
-            *py, "repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k", "--mesh",
-            mesh, "--out", str(dry_docs), "--device", device] for arch, mesh in DRYRUN_CLI},
+        **({} if started_dryruns is not None else dryrun_clis(device)),
     }
     must_print = {**{f"launch.dryrun --arch {arch} --mesh {mesh}": "[ok]"
                      for arch, mesh in DRYRUN_CLI},
@@ -1225,7 +1255,10 @@ def entry_points(card: str, device: str = "cuda", difftest_seeds: int = BIT_DIFF
                   "launch.serve --arch olmoe-1b-7b": "served 16 requests",
                   "launch.train " + " ".join(train_args): "final_loss="}
     with clis_started(commands, ROOT / "build" / "entry_points") as clis:
-        for name, (rc, lines, seconds) in clis_finished(clis).items():
+        finished = clis_finished(clis)
+        if started_dryruns is not None:
+            finished |= clis_finished(started_dryruns)
+        for name, (rc, lines, seconds) in finished.items():
             for ln in lines[-4:]:
                 say("entry_point", command=name, line=repr(ln))
             say("entry_point_run", command=repr(name), exit=rc, seconds=f"{seconds:.1f}")
@@ -1717,6 +1750,12 @@ def prefill_against_plain(mcfg, params, prompts, dev, card: str,
     return worst, n_calls, n_win, n_launch, peak
 
 
+def prefill_ms_by_len(srv) -> dict:
+    """``{prompt tokens: ms}`` of ``srv``'s one-shot prefill spans."""
+    return {ev["args"]["tokens"]: ev["dur"] / 1e3 for ev in srv.obs.tracer.events()
+            if ev.get("name") == "prefill_oneshot"}
+
+
 def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: bool = False,
                  srv=None, uid0: int = 0, record: dict | None = None, **kw):
     """Drive ``DecodeServer`` over ``traffic``; returns the tokens by
@@ -1742,7 +1781,8 @@ def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: boo
     fa.calls = fa.window_calls = fa.launches = 0
     t0 = time.perf_counter()
     prompts = {} if record is None else {uid0 + i: p for i, (p, _) in enumerate(traffic)}
-    with served_logits(srv, range(srv.B), prompts) as logits:
+    with served_logits(srv, range(srv.B), prompts) as logits, \
+            served_routes(srv, range(srv.B), prompts if mcfg.family == "moe" else {}) as routes:
         done = [r for r in srv.run_until_drained(persistent=block) if r.uid >= uid0]
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1775,7 +1815,8 @@ def dense_serve(mcfg, params, traffic, label: str, dev, card: str, *, block: boo
                     if ev.get("name") in ("decode_step", "decode_block")) / 1e3
     pc = st.get("prefix_cache", {})
     if record is not None:
-        record.update(logits=logits, decode_tok_s=st["decoded_tokens"] / max(decode_ms / 1e3, 1e-9),
+        record.update(logits=logits, routes=routes, prefill_ms_by_len=prefill_ms_by_len(srv),
+                      decode_tok_s=st["decoded_tokens"] / max(decode_ms / 1e3, 1e-9),
                       prefill_ms=(wall_ms - decode_ms) / len(done))
     say("serve", arch=mcfg.name, driver=label, requests=len(done), wall_ms=f"{wall_ms:.1f}",
         decode_tok_s=f"{st['decoded_tokens'] / max(decode_ms / 1e3, 1e-9):.1f}",
@@ -2094,7 +2135,8 @@ def moe_prefill_against_plain(mcfg, params, prompts, dev, card: str,
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import lm, moe
 
-    out = {"gap": 0.0, "flips": 0, "calls": 0, "launches": 0, "peak": 0}
+    out = {"gap": 0.0, "flips": 0, "calls": 0, "launches": 0, "peak": 0, "gaps": {},
+           "absorbed_gaps": {}}
     pcfg = dataclasses.replace(mcfg, use_pallas=False)
     for prompt in prompts:
         toks = torch.as_tensor([prompt], device=dev)
@@ -2140,6 +2182,19 @@ def moe_prefill_against_plain(mcfg, params, prompts, dev, card: str,
                     f"route differently at layer {first['layer']} with a margin of "
                     f"{first['max_margin']:.3e}, not a near-tie (< {ROUTE_MARGIN})")
             extra |= {f"first_flip_{k}": v for k, v in first.items()}
+        out["gaps"][len(prompt)] = gap if fl["flips"] == 0 else f"flip:{gap:.3e}"
+        if mcfg.use_mla:
+            # MLA has no kernel: the spread of two correct plain paths is the
+            # naive prefill's against the absorbed one (the prompt as one chunk)
+            with torch.no_grad(), record_routes() as log_a:
+                lg_a, _ = lm.prefill_chunk(params, pcfg, toks,
+                                           lm.init_cache(pcfg, 1, len(prompt), dev), 0)
+            fa_ = route_flips(log_p, log_a)
+            gap_a = float((lg_a - lg_p).abs().max()) / scale
+            out["absorbed_gaps"][len(prompt)] = gap_a if fa_["flips"] == 0 else \
+                f"flip:{gap_a:.3e}"
+            extra["naive_vs_absorbed"] = out["absorbed_gaps"][len(prompt)]
+            del lg_a, log_a
         say("prefill_check", arch=mcfg.name, prompt_len=len(prompt),
             moe_group=moe.group_size_of(len(prompt), mcfg.moe_group_size or 2048),
             flash_attention_calls=calls, launches=launches, route_flips=fl["flips"],
@@ -2179,7 +2234,8 @@ def greedy_under_route_rule(mcfg, params, prompt, served, n: int, max_seq: int, 
 
 
 def serve_moe(mcfg, params, dev, card: str, traffic, checked, *,
-              max_seq: int = MOE_MAX_SEQ, chunk: int = MOE_CHUNK) -> dict:
+              max_seq: int = MOE_MAX_SEQ, chunk: int = MOE_CHUNK,
+              record: dict | None = None) -> dict:
     """An MoE model's main path: ``traffic`` under one-shot ``step()`` and
     ``step_block()`` (equal tokens), chunked ``step()`` without the prefix
     cache and twice with one sized by ``checkpoint_bytes`` (equal tokens
@@ -2188,7 +2244,13 @@ def serve_moe(mcfg, params, dev, card: str, traffic, checked, *,
     tokens, so it is not held), the requests at ``checked`` under
     ``greedy_under_route_rule``, and every distinct prompt's prefill
     through ``moe_prefill_against_plain``.  Returns the kernel's counts
-    over the runs, ``step()``'s tokens, the flips and the peak allocation."""
+    over the runs, ``step()``'s tokens, the flips and the peak allocation;
+    ``record`` gets the ``step()`` run's logits and routing decisions by
+    request and position (``served_logits``, ``served_routes``), its
+    tokens, traffic and speeds, and each prefill length's gap between two
+    correct plain-path controls (the kernel against the plain attention;
+    under MLA, which has no kernel, the naive prefill against the
+    absorbed one): phase 27's oracle."""
     budget = checkpoint_bytes(mcfg, traffic, chunk)
     say("serve_budget", arch=mcfg.name, prefix_cache_bytes=budget,
         why="every chunk-boundary and prompt-end checkpoint of the cold chunked pass")
@@ -2197,7 +2259,8 @@ def serve_moe(mcfg, params, dev, card: str, traffic, checked, *,
     with torch.no_grad():
         for label, block in (("step", False), ("step_block", True)):
             runs[label], srv, counts = dense_serve(mcfg, params, traffic, label, dev, card,
-                                                    block=block, max_seq=max_seq)
+                                                    block=block, max_seq=max_seq,
+                                                    record=record if label == "step" else None)
             total += counts
             del srv
         require(runs["step_block"] == runs["step"],
@@ -2239,6 +2302,10 @@ def serve_moe(mcfg, params, dev, card: str, traffic, checked, *,
         distinct = list({len(p): p for p, _ in traffic}.values())
         pre = moe_prefill_against_plain(mcfg, params, distinct, dev, card)
         total += (pre["calls"], 0, pre["launches"])
+        if record is not None:
+            record.update(traffic=traffic, tokens=runs["step"],
+                          control="naive_vs_absorbed" if mcfg.use_mla else "kernel_vs_plain",
+                          control_gaps=pre["absorbed_gaps"] if mcfg.use_mla else pre["gaps"])
     say("serve_check", arch=mcfg.name, path="use_pallas", identical_tokens="step=step_block",
         chunked_runs_identical=True,
         plain_greedy=",".join(f"{len(traffic[i][0])}+{traffic[i][1]}:{g}"
@@ -2247,7 +2314,8 @@ def serve_moe(mcfg, params, dev, card: str, traffic, checked, *,
         max_rel_gap=f"{pre['gap']:.3e}", rtol_of_max=MOE_LOGITS_RTOL,
         flash_attention_calls=int(total[0]), launches=int(total[2]), card=repr(card))
     return {"calls": int(total[0]), "window_calls": int(total[1]), "launches": int(total[2]),
-            "tokens": runs["step"], "flips": pre["flips"], "peak_bytes": pre["peak"]}
+            "tokens": runs["step"], "flips": pre["flips"], "peak_bytes": pre["peak"],
+            "oracle": record}
 
 
 def quantize_olmoe(mcfg, params, dev, card: str, prompt) -> tuple:
@@ -2443,7 +2511,7 @@ def serve_moe_phase(dev, card: str) -> dict:
         max_seq=MOE_MAX_SEQ, block_k=BLOCK_K, chunk=MOE_CHUNK)
     long_prompt = traffic[OLMOE_LENGTHS.index(2048)][0]
     olmoe_fa = serve_moe(ocfg, oparams, dev, card, traffic,
-                         [OLMOE_LENGTHS.index(2048), len(traffic) - 1])
+                         [OLMOE_LENGTHS.index(2048), len(traffic) - 1], record={})
     say("serve_memory", arch=ocfg.name, peak_alloc_gb=f"{olmoe_fa['peak_bytes'] / 1e9:.2f}",
         card=repr(card))
     phase_done("serve_olmoe")
@@ -2499,7 +2567,7 @@ def serve_moe_phase(dev, card: str) -> dict:
         max_seq=MOE_MAX_SEQ, block_k=BLOCK_K, chunk=MOE_CHUNK)
     mla_check(dcfg, dparams, dev, card)
     deepseek_fa = serve_moe(dcfg, dparams, dev, card, traffic,
-                            [DEEPSEEK_LENGTHS.index(2048), len(traffic) - 1])
+                            [DEEPSEEK_LENGTHS.index(2048), len(traffic) - 1], record={})
     require(deepseek_fa["calls"] == deepseek_fa["launches"] == 0,
             f"deepseek-v2-lite-16b (MLA) called flash_attention {deepseek_fa['calls']} times")
     say("serve_memory", arch=dcfg.name, peak_alloc_gb=f"{deepseek_fa['peak_bytes'] / 1e9:.2f}",
@@ -3477,14 +3545,36 @@ def moe_mesh_shape(seq: int):
     return ShapeSpec(f"train_S{seq}", seq, MM_BATCH, "train")
 
 
-def moe_mesh_steps(mcfg, seq: int, dev, mesh, *, keep_state: bool = False) -> dict:
+def model_replicated(layout):
+    """The predicate on a state path (``checkpoint._children``' names):
+    whether ``layout``'s spec of that leaf cuts nothing over ``model``."""
+    from repro_torch.checkpoint.checkpoint import _children
+
+    specs = {}
+
+    def walk(t, path):
+        kids = _children(t)
+        if kids is not None:
+            for k, v in kids:
+                walk(v, f"{path}/{k}" if path else k)
+        else:
+            specs[path] = t.entries
+
+    walk(layout.specs, "")
+    return lambda path: not any(  # noqa: E731
+        e is not None and "model" in (e if isinstance(e, tuple) else (e,)) for e in specs[path])
+
+
+def moe_mesh_steps(mcfg, seq: int, dev, mesh, *, keep_state: bool = False,
+                   replicated: bool = False) -> dict:
     """``MM_STEPS`` train steps (``make_train_step(mesh=)``) of ``MM_BATCH``
     × ``seq`` tokens in ``MM_MICRO`` microbatches from seed-0 weights: each
     step's (loss, grad norm, seconds), each step's router calls (the expert
     ids and each token's least gap between two of its k + 1 most probable
     experts: how near a tie its routing was), the last step's collectives, the step's argument bytes (this rank's shards
     and the global batch) and the peak GB; with ``keep_state`` the final
-    full state."""
+    full state; with ``replicated`` each step's ``leaf_checksums`` of the
+    state's leaves replicated along ``model``."""
     from repro_torch import optim
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.launch.steps import make_train_step
@@ -3530,6 +3620,9 @@ def moe_mesh_steps(mcfg, seq: int, dev, mesh, *, keep_state: bool = False) -> di
             out["steps"].append((loss, float(m["grad_norm"]), time.perf_counter() - t0))
             out["collectives"] = comm.counters()
             state = {"params": new_params, "opt": new_opt}
+            if replicated:
+                out.setdefault("replicated", []).append(
+                    leaf_checksums(state, model_replicated(layout)))
             del args, batch, new_params, new_opt
     finally:
         moe.route = inner
@@ -3579,14 +3672,15 @@ def route_gap(got: list, want: list, dp: int, shard: int, spanning: bool) -> dic
 
 
 def moe_mesh_train_phase(dev, card: str, train: dict, *, smoke: bool = False,
-                         rank_backend: str = "nccl") -> None:
+                         rank_backend: str = "nccl") -> dict:
     """Phase 24: olmoe-1b-7b (1 of its 16 layers) through ``make_train_step``
     with ``mesh=None`` in this process, over two gloo ranks sharing the card
     (dp = 2) and under ``rank_backend`` at dp = 1, at S = 1024 (a 2048-token
     group is one rank's rows: aligned) and S = 512 (a group spans both
     ranks: gathered); the dry run of the same cells against the ranks, and
     of phase 21's one-device smollm cell against its measured peak and
-    step time; no kernel launched."""
+    step time; no kernel launched.  Returns the ``mesh=None`` run at
+    ``MM_SEQS[0]`` (its steps and router calls: phase 27's oracle)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import AXES, AbstractMesh, make_local_mesh
@@ -3723,6 +3817,7 @@ def moe_mesh_train_phase(dev, card: str, train: dict, *, smoke: bool = False,
     require(not any(launched.values()), f"a kernel launched on the MoE mesh path: {launched}")
     say("moe_mesh", case="seconds", mesh_none=f"{none_s:.1f}", gloo_ranks_and_dry_runs=f"{gloo_s:.1f}",
         nccl_rank=f"{nccl_s:.1f}")
+    return base[MM_SEQS[0]]
 
 
 # ---------------------------------------------------------------------------
@@ -4050,6 +4145,94 @@ def served_logits(srv, rows, prompts: dict):
                 got.setdefault((uid, int(pos[j])), logits[j])
 
 
+@contextlib.contextmanager
+def served_routes(srv, rows, prompts: dict):
+    """``{("prefill", uid): [(ids [S, k], top-(k+1) probabilities [S, k+1])
+    a layer], (uid, position): [(ids [k], probabilities [k+1]) a layer]}``
+    of every router call that ``srv``'s one-shot prefills and decode calls
+    make for the requests ``prompts`` names, on this process's slot
+    ``rows`` (the first call at a position): each request's routing in
+    depth order, comparable between servers whose decode batches hold other
+    requests (a decode group of ``SERVE_SLOTS`` tokens drops none).  With
+    no ``prompts`` nothing is wrapped."""
+    from repro_torch.models import lm, moe
+
+    got: dict = {}
+    if not prompts:
+        yield got
+        return
+    by_prompt = {tuple(p): uid for uid, p in prompts.items()}
+    calls, now = [], []         # (prefill key | decode uids, positions, layers)
+    inner_pre, inner_dec, inner_route = lm.prefill, lm.decode_step, moe.route
+
+    def prefill(params, cfg, tokens, **kw):
+        uid = by_prompt.get(tuple(tokens[0].tolist()))
+        now[:] = [(None if uid is None else ("prefill", uid), None, [])]
+        out = inner_pre(params, cfg, tokens, **kw)
+        calls.append(now.pop())
+        return out
+
+    def decode(params, cfg, tokens, caches, pos, **kw):
+        uids = [srv.slot_req[b].uid if srv.slot_req[b] is not None
+                and srv.slot_req[b].uid in prompts else None for b in rows]
+        keyed = any(u is not None for u in uids)
+        now[:] = [(uids if keyed else None, torch.as_tensor(pos).clone(), [])]
+        out = inner_dec(params, cfg, tokens, caches, pos, **kw)
+        calls.append(now.pop())
+        return out
+
+    def route(p, cfg, x, data=None):
+        out = inner_route(p, cfg, x, data)
+        if now and now[0][0] is not None:
+            with torch.no_grad():
+                probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"], -1)
+                now[0][2].append((out[0].reshape(-1, cfg.top_k),
+                                  torch.topk(probs, cfg.top_k + 1, dim=-1).values))
+        return out
+
+    lm.prefill, lm.decode_step, moe.route = prefill, decode, route
+    try:
+        yield got
+    finally:
+        lm.prefill, lm.decode_step, moe.route = inner_pre, inner_dec, inner_route
+    for key, pos, layers in calls:
+        if key is None:
+            continue
+        layers = [(i.cpu().numpy(), pr.float().cpu().numpy()) for i, pr in layers]
+        if pos is None:
+            got.setdefault(key, layers)
+            continue
+        pos = pos.reshape(-1).cpu().numpy()
+        pos = np.broadcast_to(pos, (len(key),))
+        for j, uid in enumerate(key):
+            if uid is not None:
+                got.setdefault((uid, int(pos[j])), [(i[j], pr[j]) for i, pr in layers])
+
+
+def route_flip_rule(got: dict, want: dict, uid) -> tuple[list, dict | None]:
+    """One request's routing against another run's, key by key in order
+    (its prefill, then its decode positions): the keys before the first
+    differing decision (whose logits are comparable), and that first flip
+    (its key, layer, tokens, and the margins ``p_j - p_(j+1)`` of the two
+    experts that swapped, in ``want``'s probabilities), or None."""
+    keys = [("prefill", uid)] + sorted(k for k in want if k[0] == uid)
+    clean = []
+    for key in keys:
+        if key not in got:
+            continue
+        for layer, ((ga, _), (wa, wp)) in enumerate(zip(got[key], want[key], strict=True)):
+            diff = np.atleast_2d(ga != wa)
+            if diff.any():
+                wp = np.atleast_2d(wp)
+                toks = np.nonzero(diff.any(-1))[0]
+                j = diff[toks].argmax(-1)
+                margins = wp[toks, j] - wp[toks, j + 1]
+                return clean, {"key": key, "layer": layer, "tokens": int(toks.size),
+                               "max_margin": float(margins.max())}
+        clean.append(key)
+    return clean, None
+
+
 def leaf_checksums(tree, keep) -> dict:
     """``{path: (Σ bits, Σ bits·w)}`` of the leaves whose path ``keep``
     accepts, their bit patterns as int32 summed in int64 on the device, the
@@ -4074,79 +4257,138 @@ def leaf_checksums(tree, keep) -> dict:
     return out
 
 
-def tp_serve(arch: str, n_layers: int, traffic, slots: int, max_seq: int, dev, plan,
-             smoke: bool = False) -> dict:
-    """One model through ``DecodeServer(plan=)`` at tp = 2 on this rank:
-    the weights drawn from seed 0 on the card (as the ``plan=None`` run
-    drew them), cut to this rank's model block; ``traffic`` under
-    ``step()`` with every request's prefill and decode logits recorded;
-    the kernels' counts set to 0 just before the run and read just after."""
+def dry_run_started(arch: str, cfg, shape, microbatches: int, dev_name: str) -> tuple:
+    """``(thread, record)``: the dry run of ``arch``'s ``shape`` cell on a
+    (1, 1, ``TP_RANKS``) mesh (``dryrun.spawn_cell``, a process of its
+    own), running in a thread; after ``thread.join()`` ``record["cell"]``
+    holds the record or the exception."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AXES, AbstractMesh
+
+    record = {}
+
+    def dry():
+        try:
+            record["cell"] = dryrun.spawn_cell(
+                arch, "", False, mesh_shape=AbstractMesh((1, 1, TP_RANKS), AXES), shape=shape,
+                cfg=cfg, microbatches=microbatches, device=dev_name, timeout_s=300)
+        except BaseException as e:  # noqa: BLE001 - read by the caller
+            record["cell"] = e
+
+    thread = threading.Thread(target=dry)
+    thread.start()
+    return thread, record
+
+
+def tp_weights(arch: str, n_layers: int, dev, plan, smoke: bool = False) -> tuple:
+    """``(config, this rank's block of the weights, full bytes, resident
+    bytes)``: the weights drawn from seed 0 on the card (as the ``plan=None``
+    run drew them), cut to this rank's model block (``ShardPlan.
+    local_params``).  The ranks draw one after another, each freeing its
+    whole tree before the next draws (two whole trees of olmoe-1b-7b and
+    their blocks exceed the card)."""
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.launch.mesh import mesh_ranks
     from repro_torch.launch.trace_analysis import tensor_bytes
     from repro_torch.models import lm
-    from repro_torch.obs import Observability
-    from repro_torch.runtime.server import DecodeServer, Request
+
+    from repro_torch.parallel.zero import param_shapes
 
     mcfg = dataclasses.replace((get_smoke_config if smoke else get_config)(arch),
                                n_layers=n_layers, use_pallas=True)
     cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    full = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    full_bytes = tensor_bytes(full)
-    params = plan.local_params(mcfg, full)
-    del full
-    if cuda:
-        torch.cuda.empty_cache()
-    resident = tensor_bytes(params)
-    srv = DecodeServer(mcfg, params, num_slots=slots, max_seq=max_seq, block_k=BLOCK_K,
-                       obs=Observability(trace=True), plan=plan, device=dev)
-    del params
-    for i, (p, n) in enumerate(traffic):
-        srv.submit(Request(uid=i, prompt=list(p), max_new_tokens=n))
+    group = plan.control_group()
+    param_shapes(mcfg)      # the cut's shapes, traced once a process (~10 s the first time)
+    for turn in mesh_ranks(plan.mesh):
+        if turn == torch.distributed.get_rank():
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            full = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            full_bytes = tensor_bytes(full)
+            params = plan.local_params(mcfg, full)
+            del full
+            if cuda:
+                torch.cuda.empty_cache()
+        sync(dev)
+        torch.distributed.barrier(group=group)
+    return mcfg, params, full_bytes, tensor_bytes(params)
+
+
+def tp_drive(mcfg, params, traffic, slots: int, max_seq: int, dev, plan, *,
+             uids=None, block: bool = False, routes: bool = False, srv=None, uid0: int = 0,
+             prefix_cache_bytes: int = 0) -> dict:
+    """``traffic`` (request ids ``uid0 + uids``, ``uids`` default its
+    indices) through ``DecodeServer(plan=)`` on this rank's ``params`` (or
+    through ``srv`` again) under ``step()`` or ``step_block()``, every
+    request's prefill and decode logits recorded (``served_logits``) and,
+    with ``routes``, its routing decisions (``served_routes``), keyed by
+    ``uids``; the kernels' counts set to 0 just before the run and read
+    just after, the launches its one-shot prefills must make beside."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.obs import Observability
+    from repro_torch.runtime.server import DecodeServer, Request
+
+    cuda = dev.type == "cuda"
+    uids = list(range(len(traffic))) if uids is None else list(uids)
+    if srv is None:
+        srv = DecodeServer(mcfg, params, num_slots=slots, max_seq=max_seq, block_k=BLOCK_K,
+                           obs=Observability(trace=True), plan=plan, device=dev,
+                           prefix_cache_bytes=prefix_cache_bytes)
+    srv.reset_stats()
+    srv.obs.tracer.reset()
+    for uid, (p, n) in zip(uids, traffic, strict=True):
+        srv.submit(Request(uid=uid0 + uid, prompt=list(p), max_new_tokens=n))
     sync(dev)
     fa, scan = fa_ops.flash_attention, scan_ops.ssm_scan
     fa.calls = fa.window_calls = fa.launches = scan.launches = 0
     rows = plan.slots_of_shard(plan.local_shard, slots)
+    prompts = {uid0 + uid: p for uid, (p, _) in zip(uids, traffic)}
     t0 = time.perf_counter()
-    with torch.no_grad(), served_logits(srv, rows, {i: p for i, (p, _) in
-                                                    enumerate(traffic)}) as logits:
-        done = srv.run_until_drained()
+    with torch.no_grad(), served_logits(srv, rows, prompts) as logits, \
+            served_routes(srv, rows, prompts if routes else {}) as route_log:
+        done = [r for r in srv.run_until_drained(persistent=block) if r.uid >= uid0]
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     counts = {"flash_attention": (fa.calls, fa.launches), "ssm_scan": scan.launches}
-    # the launches one-shot prefills make at this rank's heads (fa_per_prefill's rule)
+    by_len = prefill_ms_by_len(srv)
+    oneshot = [ev["args"]["tokens"] for ev in srv.obs.tracer.events()
+               if ev.get("name") == "prefill_oneshot"]
+    # the launches those one-shot prefills make at this rank's heads (fa_per_prefill's rule)
     want_fa = 0
-    if mcfg.family == "dense" and cuda:
+    if mcfg.family in ("dense", "moe") and not mcfg.use_mla and cuda:
         from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
         h, kv = mcfg.n_heads // plan.tp, mcfg.n_kv_heads // plan.tp
-        for p, _ in traffic:
-            q = torch.empty((1, len(p), h, mcfg.head_dim), device=dev)
-            k = torch.empty((1, len(p), kv, mcfg.head_dim), device=dev)
+        for n in oneshot:
+            q = torch.empty((1, n, h, mcfg.head_dim), device=dev)
+            k = torch.empty((1, n, kv, mcfg.head_dim), device=dev)
             want_fa += mcfg.n_layers * fa_kernel.launches_per_call(fa_kernel.splits(q, k))
     decode_ms = sum(ev["dur"] for ev in srv.obs.tracer.events()
                     if ev.get("name") in ("decode_step", "decode_block")) / 1e3
     st = srv.stats()
     kv = next(iter(srv.caches["groups"].values()))
-    return {"tokens": {r.uid: list(r.out_tokens) for r in done}, "logits": logits,
-            "counts": counts, "want_fa_launches": want_fa,
-            "full_bytes": full_bytes, "resident_bytes": resident,
+    back = lambda key: (key[0], key[1] - uid0) if key[0] == "prefill" \
+        else (key[0] - uid0, key[1])  # noqa: E731
+    return {"tokens": {r.uid - uid0: list(r.out_tokens) for r in done},
+            "logits": {back(k): v for k, v in logits.items()},
+            "routes": {back(k): v for k, v in route_log.items()}, "counts": counts,
+            "oneshot_prefills": len(oneshot), "want_fa_launches": want_fa,
+            "prefix_hits": st.get("prefix_cache", {}).get("hits", 0),
+            "prompt_steps": st["prefill"]["prompt_steps_computed"],
             "cache_shapes": {k: tuple(v.shape) for k, v in kv.items()},
             "decode_tok_s": st["decoded_tokens"] / max(decode_ms / 1e3, 1e-9),
-            "prefill_ms": (wall_ms - decode_ms) / len(done),
+            "prefill_ms": (wall_ms - decode_ms) / len(done), "prefill_ms_by_len": by_len,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
-            "host_state": hashlib.sha256(repr(srv.host_state()).encode()).hexdigest()}
+            "host_state": hashlib.sha256(repr(srv.host_state()).encode()).hexdigest(),
+            "srv": srv}
 
 
 def tp_train(dev, mesh, smoke: bool, root: Path) -> dict:
     """smollm-135m through ``Trainer(mesh=(1, 1, 2))`` on phase 23's cell:
     each step's (loss, grad norm, seconds), argument bytes and collectives,
     and the checksums of the leaves replicated along ``model``."""
-    from repro_torch.checkpoint.checkpoint import _children
     from repro_torch.launch.trace_analysis import tensor_bytes
     from repro_torch.parallel import comm
 
@@ -4155,20 +4397,7 @@ def tp_train(dev, mesh, smoke: bool, root: Path) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     trainer = mesh_trainer(mcfg, root, dev, mesh)
-    specs = {}
-
-    def walk(t, path):
-        kids = _children(t)
-        if kids is not None:
-            for k, v in kids:
-                walk(v, f"{path}/{k}" if path else k)
-        else:
-            specs[path] = t.entries
-
-    walk(trainer.layout.specs, "")
-    replicated = lambda path: not any(  # noqa: E731
-        e is not None and "model" in (e if isinstance(e, tuple) else (e,))
-        for e in specs[path])
+    replicated = model_replicated(trainer.layout)
     inner, steps = trainer._step_fn, []
 
     def step(params, opt, batch):
@@ -4197,9 +4426,12 @@ def tp_train(dev, mesh, smoke: bool, root: Path) -> dict:
 
 
 def tp_ranks(rank: int, world: int, dev_name: str, serves: dict, smoke: bool, root: str,
-             sizes: dict) -> dict:
+             sizes: dict, moe_serves: dict | None = None) -> dict:
     """One of two ranks sharing the card over gloo: the two models served at
-    tp = 2, then smollm-135m trained at (1, 1, 2)."""
+    tp = 2, then smollm-135m trained at (1, 1, 2); with ``moe_serves``,
+    phase 27's work after (``tp_moe_rank``), in the same processes (a rank
+    pays ~20 s on a slow host to start and to trace the parameters' shapes
+    once)."""
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.runtime import ShardPlan
 
@@ -4207,9 +4439,17 @@ def tp_ranks(rank: int, world: int, dev_name: str, serves: dict, smoke: bool, ro
     dev = _rank_device(dev_name)
     mesh = make_local_mesh(1, world)
     plan = ShardPlan(mesh)
-    out = {name: tp_serve(*args, dev=dev, plan=plan, smoke=smoke)
-           for name, args in serves.items()}
+    out = {}
+    for name, (arch, n_layers, traffic, slots, max_seq) in serves.items():
+        mcfg, params, full_bytes, resident = tp_weights(arch, n_layers, dev, plan, smoke)
+        out[name] = tp_drive(mcfg, params, traffic, slots, max_seq, dev, plan) | {
+            "full_bytes": full_bytes, "resident_bytes": resident}
+        del out[name]["srv"], params
     out["train"] = tp_train(dev, mesh, smoke, Path(root) / "tp2")
+    if moe_serves is not None:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["tp_moe"] = tp_moe_rank(dev, mesh, plan, moe_serves, smoke)
     out["jax"] = "jax" in sys.modules
     return out
 
@@ -4242,17 +4482,50 @@ def tp_share_bytes(arch: str, n_layers: int, tp: int, smoke: bool = False) -> tu
     return full[0], mine[0]
 
 
-def tp_phase(dev, card: str, oracles: dict, train_base, *, smoke: bool = False,
-             layers: dict | None = None) -> dict:
-    """Phase 26.  ``oracles``: ``{"internlm2-20b": phase 18's record,
-    "falcon-mamba-7b": phase 12's}``, each with its traffic, tokens and
-    logits; ``train_base``: phase 23's ``mesh=None`` steps.  Returns the
-    kernels' launches and the (j) and D = 4096 timings for the summary."""
+def fa_time_at(name: str, c: dict, dev, card: str, gen, l2, **beside) -> tuple:
+    """``flash_attention`` at one causal shape ``c`` (B, S, T, H, KV, hd)
+    against its plain version, then timed beside the plain version and
+    SDPA, with its bound; one ``kernel_time`` line (``beside``'s fields
+    added).  Returns (ms, plain ms, SDPA ms, bound ms, bound by, FMA bound
+    ms, key shares, max abs err), ``attn_time``'s tuple."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q = torch.randn((c["B"], c["S"], c["H"], c["hd"]), generator=gen, device=dev)
+    k, v = (torch.randn((c["B"], c["T"], c["KV"], c["hd"]), generator=gen, device=dev)
+            for _ in range(2))
+    with torch.no_grad():
+        err = check_close(f"flash_attention {name}", [fa_ops.flash_attention(q, k, v)],
+                          [fa_ops.flash_attention_ref(q, k, v)], ATTN_TOL)
+        ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), l2)
+        calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v))
+        plain = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v), l2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), l2)
+    bnd, by, fma = attn_bound_ms(c["B"], c["S"], c["T"], c["H"], c["KV"], c["hd"], True, 0)
+    n_splits = fa_kernel.splits(q, k)
+    say("kernel_time", kernel="flash_attention", shape=name,
+        **{n: c[n] for n in ("B", "S", "T", "H", "KV", "hd")}, causal=True, window=0,
+        max_abs_err=f"{err:.3e}", tol=ATTN_TOL, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+        library_ms=f"{lib:.4f}", over_library=f"{ms / lib:.3f}",
+        library="F.scaled_dot_product_attention(enable_gqa)", bound_ms=f"{bnd:.4f}",
+        bound_by=by, bound_share=f"{bnd / ms:.3f}", fma_bound_ms=f"{fma:.4f}",
+        key_splits=n_splits, launches_per_call=calls, reps=REPS, **beside, card=repr(card))
+    require(calls == fa_kernel.launches_per_call(n_splits),
+            f"flash_attention {name}: {calls} launches a call with {n_splits} key shares")
+    return ms, plain, lib, bnd, by, fma, n_splits, err
+
+
+def tp_phase(dev, card: str, oracles: dict, train_base, *, smoke: bool = False,
+             layers: dict | None = None, moe_serves: dict | None = None) -> dict:
+    """Phase 26.  ``oracles``: ``{"internlm2-20b": phase 18's record,
+    "falcon-mamba-7b": phase 12's}``, each with its traffic, tokens and
+    logits; ``train_base``: phase 23's ``mesh=None`` steps; ``moe_serves``:
+    phase 27's (``tp_moe_started``), which its ranks run after theirs.
+    Returns the kernels' launches and the (j) and D = 4096 timings for the
+    summary, and under ``"moe_ranks"`` the ranks' phase-27 results."""
     from repro_torch.kernels.ssm_scan import ops as scan_ops
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import AXES, AbstractMesh
     from repro_torch.launch.spawn import run_ranks
     from repro_torch.models.config import ShapeSpec
 
@@ -4266,25 +4539,15 @@ def tp_phase(dev, card: str, oracles: dict, train_base, *, smoke: bool = False,
                                 SERVE_SLOTS, GEMMA_MAX_SEQ),
               "falcon-mamba-7b": ("falcon-mamba-7b", layers["falcon-mamba-7b"], m_traffic,
                                   NUM_SLOTS, MAX_SEQ)}
-    mcfg = mesh_train_config(smoke)
-    record = {}
-
-    def dry():
-        try:
-            record["cell"] = dryrun.spawn_cell(
-                "smollm-135m", "", False, mesh_shape=AbstractMesh((1, 1, TP_RANKS), AXES),
-                shape=ShapeSpec(f"train_S{MT_SEQ}", MT_SEQ, MT_BATCH, "train"), cfg=mcfg,
-                microbatches=MT_MICRO, device=dev_name, timeout_s=300)
-        except BaseException as e:  # noqa: BLE001 - read below
-            record["cell"] = e
-
     t0 = time.perf_counter()
-    thread = threading.Thread(target=dry)
-    thread.start()
-    sizes = {k: globals()[k] for k in ("MT_SEQ",)}
+    thread, record = dry_run_started("smollm-135m", mesh_train_config(smoke),
+                                     ShapeSpec(f"train_S{MT_SEQ}", MT_SEQ, MT_BATCH, "train"),
+                                     MT_MICRO, dev_name)
+    sizes = {k: globals()[k] for k in ("MT_SEQ", "MM_SEQS", "SERVE_SLOTS")}
     try:
-        ranks = run_ranks(tp_ranks, TP_RANKS, (dev_name, serves, smoke, str(root), sizes),
-                          backend="gloo", timeout_s=400)
+        ranks = run_ranks(tp_ranks, TP_RANKS, (dev_name, serves, smoke, str(root), sizes,
+                                               moe_serves),
+                          backend="gloo", timeout_s=900 if moe_serves else 400)
     finally:
         thread.join()
     ranks_s = time.perf_counter() - t0
@@ -4396,28 +4659,8 @@ def tp_phase(dev, card: str, oracles: dict, train_base, *, smoke: bool = False,
     gen = torch.Generator(device=dev).manual_seed(26)
     l2 = torch.zeros(32 * 1024 * 1024, device=dev)
     name, c = TP_ATTN_SHAPE
-    q = torch.randn((c["B"], c["S"], c["H"], c["hd"]), generator=gen, device=dev)
-    k, v = (torch.randn((c["B"], c["T"], c["KV"], c["hd"]), generator=gen, device=dev)
-            for _ in range(2))
-    with torch.no_grad():
-        a_err = check_close(f"flash_attention {name}", [fa_ops.flash_attention(q, k, v)],
-                            [fa_ops.flash_attention_ref(q, k, v)], ATTN_TOL)
-        a_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), l2)
-        a_calls = launches_per_call(lambda: fa_ops.flash_attention(q, k, v))
-        a_plain = time_ms(lambda: fa_ops.flash_attention_ref(q, k, v), l2)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        a_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), l2)
-    a_bnd, a_by, a_fma = attn_bound_ms(c["B"], c["S"], c["T"], c["H"], c["KV"], c["hd"], True, 0)
-    n_splits = fa_kernel.splits(q, k)
-    say("kernel_time", kernel="flash_attention", shape=name,
-        **{n: c[n] for n in ("B", "S", "T", "H", "KV", "hd")}, causal=True, window=0,
-        max_abs_err=f"{a_err:.3e}", tol=ATTN_TOL, ms=f"{a_ms:.4f}", plain_ms=f"{a_plain:.4f}",
-        library_ms=f"{a_lib:.4f}", over_library=f"{a_ms / a_lib:.3f}",
-        library="F.scaled_dot_product_attention(enable_gqa)", bound_ms=f"{a_bnd:.4f}",
-        bound_by=a_by, bound_share=f"{a_bnd / a_ms:.3f}", fma_bound_ms=f"{a_fma:.4f}",
-        key_splits=n_splits, launches_per_call=a_calls, reps=REPS, card=repr(card))
-    del q, k, v, qt, kt, vt
+    a_time = fa_time_at(name, c, dev, card, gen, l2)
+    a_err = a_time[7]
     Bsz, T, Dm, N = TP_SCAN_SHAPE
     x = torch.randn((Bsz, T, Dm), generator=gen, device=dev)
     dl = 0.001 + 0.799 * torch.rand((Bsz, T, Dm), generator=gen, device=dev)
@@ -4437,12 +4680,263 @@ def tp_phase(dev, card: str, oracles: dict, train_base, *, smoke: bool = False,
         bound_ms=f"{s_bnd:.4f}", bound_by=s_by, bound_share=f"{s_bnd / s_ms:.3f}",
         launches_per_call=s_calls, reps=REPS, card=repr(card))
     require(s_calls == 1, f"ssm_scan at D = {Dm}: {s_calls} launches a call")
-    say("tp", case="seconds", ranks_and_dry_run=f"{ranks_s:.1f}")
+    say("tp", case="seconds", ranks_and_dry_run=f"{ranks_s:.1f}",
+        phase_27_in_the_ranks=moe_serves is not None)
     shutil.rmtree(root, ignore_errors=True)
-    return {"launches": launches, "max_abs_err": max(a_err, s_err),
-            "attn": (name, (a_ms, a_plain, a_lib, a_bnd, a_by, a_fma, n_splits, a_err)),
+    return {"launches": launches, "max_abs_err": max(a_err, s_err), "attn": (name, a_time),
+            "moe_ranks": [r.get("tp_moe") for r in ranks],
             "scan": {"ms_D4096": s_ms, "plain_ms_D4096": s_plain, "bound_ms_D4096": s_bnd,
                      "bound_by_D4096": s_by, "max_abs_err_D4096": s_err}}
+
+
+# ---------------------------------------------------------------------------
+# 27. tp_moe: MoE experts and MLA heads on the model shard
+# ---------------------------------------------------------------------------
+
+def tp_moe_rank(dev, mesh, plan, serves: dict, smoke: bool) -> dict:
+    """Phase 27 on one of two ranks sharing the card over gloo (``tp_ranks``
+    runs it after phase 26's work): olmoe-1b-7b and deepseek-v2-lite-16b
+    served at tp = 2 (their weights drawn in turn), each by one server with
+    a prefix cache: the requests under ``step()`` (one-shot prefills, each
+    checkpointed), then again under ``step_block()`` (every prompt a full
+    hit: the prefills are not repeated), routing recorded; then
+    olmoe-1b-7b (``MM_LAYERS``) trained at (1, 1, 2) on phase 24's
+    ``MM_SEQS[0]`` cell."""
+    out, seconds = {}, {}
+    for arch, (n_layers, traffic, uids) in serves.items():
+        t0 = time.perf_counter()
+        mcfg, params, full_bytes, resident = tp_weights(arch, n_layers, dev, plan, smoke)
+        seconds[f"{arch}:weights"] = time.perf_counter() - t0
+        out[arch] = {"full_bytes": full_bytes, "resident_bytes": resident}
+        srv = None
+        for label, block in (("step", False), ("step_block", True)):
+            t0 = time.perf_counter()
+            run = tp_drive(mcfg, params, traffic, SERVE_SLOTS, MOE_MAX_SEQ, dev, plan,
+                           uids=uids, block=block, routes=True, srv=srv,
+                           uid0=TP_MOE_AGAIN if block else 0,
+                           prefix_cache_bytes=TP_MOE_PREFIX_BYTES)
+            srv = run.pop("srv")
+            out[arch][label] = run
+            seconds[f"{arch}:{label}"] = time.perf_counter() - t0
+        del params, srv
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    out["train"] = moe_mesh_steps(moe_mesh_config(smoke), MM_SEQS[0], dev, mesh,
+                                  replicated=True)
+    seconds["train"] = time.perf_counter() - t0
+    after = kernel_counts()
+    out["train"]["kernels"] = {k: after[k] - before[k] for k in after}
+    out["seconds"] = {k: round(v, 1) for k, v in seconds.items()}
+    return out
+
+
+def tp_moe_started(dev, oracles: dict, *, smoke: bool = False,
+                   layers: dict | None = None) -> dict:
+    """Phase 27's start, before phase 26 spawns the ranks that run it:
+    ``{"serves"}`` for ``tp_ranks`` (olmoe-1b-7b and deepseek-v2-lite-16b
+    on ``TP_MOE_PICK``'s requests of ``oracles``, phase 20's records) and
+    the dry run of 1-layer olmoe's (1, 1, 2) cell, already running in a
+    thread."""
+    layers = layers or {"olmoe-1b-7b": OLMOE_LAYERS, "deepseek-v2-lite-16b": DEEPSEEK_LAYERS}
+    dev_name = "cuda:0" if dev.type == "cuda" else "cpu"
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        say("tp_moe", case="parent_memory", alloc_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+            reserved_gb=f"{torch.cuda.memory_reserved() / 1e9:.2f}")
+    thread, record = dry_run_started("olmoe-1b-7b", moe_mesh_config(smoke),
+                                     moe_mesh_shape(MM_SEQS[0]), MM_MICRO, dev_name)
+    return {"serves": {arch: (layers[arch], [oracles[arch]["traffic"][i] for i in pick], pick)
+                       for arch, pick in TP_MOE_PICK.items()},
+            "thread": thread, "record": record, "t0": time.perf_counter()}
+
+
+def tp_moe_phase(dev, card: str, job: dict, ranks: list, oracles: dict, train_base: dict,
+                 beside: tuple, *, smoke: bool = False) -> dict:
+    """Phase 27's checks.  ``job``: ``tp_moe_started``'s; ``ranks``: each
+    rank's ``tp_moe_rank`` result (phase 26's ``"moe_ranks"``);
+    ``oracles``: phase 20's ``serve_moe`` records of olmoe-1b-7b and
+    deepseek-v2-lite-16b (``plan=None``, ``step()``); ``train_base``: phase
+    24's ``mesh=None`` run at ``MM_SEQS[0]``; ``beside``: (g)'s
+    ``attn_time`` entry, printed beside (k).  Returns the ranks'
+    ``flash_attention`` calls and launches and (k)'s timing."""
+    serves, record = job["serves"], job["record"]
+    job["thread"].join()
+    ranks_s = time.perf_counter() - job["t0"]
+    mcfg = moe_mesh_config(smoke)
+    require(len(ranks) == TP_RANKS and all(r is not None for r in ranks),
+            "tp_moe: the ranks returned no phase-27 results")
+
+    # [tp_moe_serve]: tokens, logits under the routing rule, bytes and launches
+    launches = {"flash_attention": 0, "flash_attention_calls": 0}
+    for arch, (n_layers, traffic, uids) in serves.items():
+        oracle, bar = oracles[arch], TP_MOE_LOGIT_GAP[arch]
+        full_want, share_want = tp_share_bytes(arch, n_layers, TP_RANKS, smoke)
+        for rank, r in enumerate(ranks):
+            res = r[arch]
+            share = res["resident_bytes"] / res["full_bytes"]
+            require(res["full_bytes"] == full_want
+                    and abs(res["resident_bytes"] - share_want) <= TP_RESIDENT_RTOL * share_want,
+                    f"tp_moe {arch} rank {rank}: {res['resident_bytes']} of {res['full_bytes']} "
+                    f"bytes resident, reckoned {share_want} of {full_want}")
+            for label in ("step", "step_block"):
+                run = res[label]
+                # step_block()'s requests resume step()'s prefills from the cache
+                routes = {k: v for k, v in res["step"]["routes"].items()
+                          if k[0] == "prefill"} | run["routes"]
+                held, gaps, scale, flips = 0, {"prefill": 0.0, "decode": 0.0}, 0.0, []
+                for uid in uids:
+                    clean, flip = route_flip_rule(routes, oracle["routes"], uid)
+                    toks, want = run["tokens"][uid], list(oracle["tokens"][uid])
+                    if flip is not None:
+                        require(flip["max_margin"] < ROUTE_MARGIN,
+                                f"tp_moe {arch} rank {rank} {label}: request {uid} routes "
+                                f"differently from plan=None at {flip['key']} layer "
+                                f"{flip['layer']}, margin {flip['max_margin']:.3e}: not a "
+                                f"near-tie (< {ROUTE_MARGIN})")
+                        flips.append(f"{uid}@{flip['key'][1]}:L{flip['layer']}:"
+                                     f"{flip['max_margin']:.2e}")
+                    else:
+                        require(toks == want, f"tp_moe {arch} rank {rank} {label}: request "
+                                f"{uid}'s tokens {toks} differ from phase 20's {want} with "
+                                "equal routing")
+                    for key in clean:
+                        if key not in run["logits"]:
+                            continue
+                        ref = oracle["logits"][key]
+                        kind = "prefill" if key[0] == "prefill" else "decode"
+                        gaps[kind] = max(gaps[kind], float(np.abs(run["logits"][key] - ref).max())
+                                         / float(np.abs(ref).max()))
+                        scale = max(scale, float(np.abs(ref).max()))
+                        held += 1
+                gap = max(gaps.values())
+                require(gap <= bar, f"tp_moe {arch} rank {rank} {label}: logits {gaps} of "
+                                    f"max |logit| from phase 20's where the routing agrees")
+                require(held >= MOE_NEW - 1,
+                        f"tp_moe {arch} rank {rank} {label}: only {held} logit rows held")
+                same_tokens = all(run["tokens"][u] == list(oracle["tokens"][u]) for u in uids)
+                calls, fa_launches = run["counts"]["flash_attention"]
+                fresh = label == "step"       # step_block()'s prompts are all full hits
+                require(run["oneshot_prefills"] == (len(uids) if fresh else 0)
+                        and run["prefix_hits"] == (0 if fresh else len(uids))
+                        and (fresh or run["prompt_steps"] == 0),
+                        f"tp_moe {arch} rank {rank} {label}: {run['oneshot_prefills']} one-shot "
+                        f"prefills, {run['prefix_hits']} prefix hits, {run['prompt_steps']} "
+                        "prompt steps")
+                want_calls = 0 if arch == "deepseek-v2-lite-16b" else \
+                    n_layers * run["oneshot_prefills"]
+                require(calls == want_calls and fa_launches == run["want_fa_launches"],
+                        f"tp_moe {arch} rank {rank} {label}: flash_attention {calls} calls, "
+                        f"{fa_launches} launches for {run['oneshot_prefills']} one-shot "
+                        "prefills")
+                launches["flash_attention"] += fa_launches
+                launches["flash_attention_calls"] += calls
+                say("tp_moe_serve", arch=arch, rank=rank, driver=label, tp=TP_RANKS,
+                    layers=n_layers, requests=",".join(f"{u}:{len(p)}+{n}" for u, (p, n)
+                                                       in zip(uids, traffic)),
+                    prefix_hits=run["prefix_hits"], identical_tokens=same_tokens,
+                    route_flips=flips or "none",
+                    logit_rows_held=held, rel_gap=f"{gap:.3e}",
+                    rel_gap_prefill=f"{gaps['prefill']:.3e}",
+                    rel_gap_decode=f"{gaps['decode']:.3e}", bar=bar,
+                    max_abs_logit=f"{scale:.3e}",
+                    plan_none_control=oracle["control"],
+                    plan_none_control_gap={len(p): oracle["control_gaps"].get(len(p))
+                                           for p, _ in traffic},
+                    resident_gb=f"{res['resident_bytes'] / 1e9:.4f}",
+                    full_gb=f"{res['full_bytes'] / 1e9:.4f}", share=f"{share:.4f}",
+                    reckoned_gb=f"{share_want / 1e9:.4f}", cache=run["cache_shapes"],
+                    flash_attention_calls=calls, launches=fa_launches,
+                    decode_tok_s=f"{run['decode_tok_s']:.1f}",
+                    decode_tok_s_plan_none=f"{oracle['decode_tok_s']:.1f}",
+                    prefill_ms_by_len={n: f"{ms:.1f}" for n, ms in
+                                       sorted(run["prefill_ms_by_len"].items())},
+                    prefill_ms_by_len_plan_none={len(p): f"{oracle['prefill_ms_by_len'][len(p)]:.1f}"
+                                                 for p, _ in traffic},
+                    peak_alloc_gb=f"{run['peak_gb']:.2f}", card=repr(card))
+            require(res["step"]["tokens"] == res["step_block"]["tokens"],
+                    f"tp_moe {arch} rank {rank}: step_block's tokens differ from step()'s")
+        for label in ("step", "step_block"):
+            require(ranks[0][arch][label]["host_state"] == ranks[1][arch][label]["host_state"]
+                    and ranks[0][arch][label]["routes"].keys()
+                    == ranks[1][arch][label]["routes"].keys()
+                    and all(all(np.array_equal(a[0], b[0]) for a, b in
+                                zip(ranks[0][arch][label]["routes"][k],
+                                    ranks[1][arch][label]["routes"][k], strict=True))
+                            for k in ranks[0][arch][label]["routes"]),
+                    f"tp_moe {arch} {label}: the ranks' host states or routing differ")
+
+    # [tp_moe_train]: against phase 24's mesh=None run
+    tokens = MM_BATCH * MM_SEQS[0]
+    for rank, r in enumerate(ranks):
+        tr = r["train"]
+        require(not any(tr["kernels"].values()),
+                f"tp_moe_train rank {rank}: a kernel launched on the training path: "
+                f"{tr['kernels']}")
+        rg = route_gap(tr["routes"], train_base["routes"], 1, 0, True)
+        for i, ((loss, gn, sec), (b_loss, b_gn, _)) in enumerate(zip(tr["steps"],
+                                                                  train_base["steps"])):
+            same_routes = not any(rg["flips"][:i + 1])
+            lg, gg = abs(loss - b_loss) / abs(b_loss), abs(gn - b_gn) / abs(b_gn)
+            tol = TP_TRAIN_RTOL0 if i == 0 else TP_TRAIN_RTOL
+            say("tp_moe_train_step", rank=rank, step=i, loss=f"{loss:.6f}",
+                grad_norm=f"{gn:.6f}", loss_rel_gap=f"{lg:.3e}", grad_norm_rel_gap=f"{gg:.3e}",
+                routing_flips=rg["flips"][i], held_to=tol if same_routes else "none",
+                flip_margin=f"{rg['margin']:.3e}" if rg["flips"][i] else "none",
+                ms=f"{1e3 * sec:.1f}", tokens_per_s=f"{tokens / sec:.0f}",
+                mesh_none_ms=f"{1e3 * train_base['steps'][i][2]:.1f}", card=repr(card))
+            require(math.isfinite(loss) and math.isfinite(gn),
+                    f"tp_moe_train rank {rank} step {i}: loss {loss}, grad norm {gn}")
+            if same_routes:
+                require(lg <= tol and gg <= tol, f"tp_moe_train rank {rank} step {i}: loss "
+                        f"{loss} / {b_loss}, grad norm {gn} / {b_gn}")
+            elif not any(rg["flips"][:i]):
+                require(rg["margin"] < ROUTE_MARGIN,
+                        f"tp_moe_train rank {rank} step {i}: routing flips with margin "
+                        f"{rg['margin']:.3e}, not a near-tie")
+        gathers = sorted(k for k in tr["collectives"] if k.startswith("gather"))
+        require(not gathers, f"tp_moe_train rank {rank}: gathers {gathers} in a step")
+    reps = [r["train"]["replicated"] for r in ranks]
+    n_rep = len(reps[0][0])
+    require(n_rep > 0 and all(a == b for a, b in zip(*reps, strict=True))
+            and any("router" in k for k in reps[0][0]),
+            f"tp_moe_train: the {n_rep} leaves replicated along model differ across the ranks")
+    steady = statistics.median(x[2] for x in ranks[0]["train"]["steps"][1:]) \
+        if len(ranks[0]["train"]["steps"]) > 1 else ranks[0]["train"]["steps"][0][2]
+    say("tp_moe_train", mesh="1x1x2", ranks=TP_RANKS, layers=mcfg.n_layers, steps=MM_STEPS,
+        seq_len=MM_SEQS[0], global_batch=MM_BATCH, microbatches=MM_MICRO,
+        step_ms=f"{1e3 * steady:.1f}", tokens_per_s=f"{tokens / steady:.0f}",
+        mesh_none_step_ms=f"{1e3 * statistics.median(x[2] for x in train_base['steps'][1:]):.1f}",
+        replicated_leaves_bit_identical=n_rep, collectives=ranks[0]["train"]["collectives"],
+        peak_alloc_gb_rank=",".join(f"{r['train']['peak_gb']:.2f}" for r in ranks),
+        card=repr(card))
+
+    # [tp_moe_dryrun]: the (1, 1, 2) cell's record against the ranks' last step
+    rec = record.get("cell")
+    require(isinstance(rec, dict), f"tp_moe dry run of the (1, 1, 2) olmoe cell failed: {rec}")
+    for rank, r in enumerate(ranks):
+        tr = r["train"]
+        same = (rec["memory_analysis"]["argument_size_in_bytes"] == tr["arg_bytes"]
+                and rec["collectives"] == tr["collectives"] and rec["model_shard"])
+        say("tp_moe_dryrun", rank=rank, mesh=rec["mesh"], model_shard=rec["model_shard"],
+            argument_bytes=rec["memory_analysis"]["argument_size_in_bytes"],
+            rank_argument_bytes=tr["arg_bytes"], collectives=rec["collectives"],
+            rank_collectives=tr["collectives"], equal=same,
+            flops=rec["flops_corrected"], lower_s=rec["lower_s"], card=repr(card))
+        require(same, f"tp_moe dry run: arguments and collectives differ from rank {rank}'s")
+
+    # [kernel_time]: flash_attention at a rank's olmoe heads, beside (g)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    l2 = torch.zeros(32 * 1024 * 1024, device=dev)
+    name, c = TP_MOE_ATTN_SHAPE
+    g_name, g = beside
+    a_time = fa_time_at(name, c, dev, card, gen, l2, beside_shape=g_name,
+                        beside_ms=f"{g[0]:.4f}", beside_library_ms=f"{g[2]:.4f}",
+                        beside_over_library=f"{g[0] / g[2]:.3f}")
+    say("tp_moe", case="seconds", since_start_with_phase_26=f"{ranks_s:.1f}",
+        rank0=ranks[0]["seconds"], dry_run_lower_s=rec["lower_s"])
+    return {"launches": launches, "attn": (name, a_time)}
 
 
 def main() -> int:
@@ -5560,10 +6054,16 @@ def main() -> int:
 
     # -- 20. serve olmoe-1b-7b (fp32, then int8 weights) and deepseek-v2-lite-16b
     # at their published widths, depth cut ------------------------------------------
+    # the dry-run CLI's cells trace on the host only: started here, they run
+    # beside phase 20 and are collected with the other entry points
+    early = contextlib.ExitStack()
+    atexit.register(early.close)        # a failed check still stops them
+    dry_clis = early.enter_context(clis_started(dryrun_clis(), ROOT / "build" / "dryrun_clis"))
     moe_fa = serve_moe_phase(dev, card)
 
     # -- 15d. every entry point that runs as a subprocess, started together -----
-    entry_points(card)
+    entry_points(card, started_dryruns=dry_clis)
+    early.close()
     phase_done("entry_points")
 
     # -- 17. the Fig. 10 loop, the chaos suite and the lints ----------------------
@@ -5585,7 +6085,7 @@ def main() -> int:
     phase_done("mesh_train")
 
     # -- 24. MoE training on a data mesh; the dry run against the card ------------
-    moe_mesh_train_phase(dev, card, train)
+    mm_base = moe_mesh_train_phase(dev, card, train)
     phase_done("moe_mesh_train")
 
     # -- 25. cross-attention and the encoder frontend ------------------------------
@@ -5595,12 +6095,24 @@ def main() -> int:
     phase_done("vlm")
 
     # -- 26. tensor-parallel compute along model: serving, training, dry run ---------
+    # (its ranks run phase 27's work too: one start of the rank processes)
+    moe_oracles = {"olmoe-1b-7b": moe_fa["olmoe"]["oracle"],
+                   "deepseek-v2-lite-16b": moe_fa["deepseek"]["oracle"]}
+    moe_job = tp_moe_started(dev, moe_oracles)
     tp = tp_phase(dev, card, {"internlm2-20b": internlm_fa["oracle"],
-                              "falcon-mamba-7b": mamba_oracle}, mt_base)
+                              "falcon-mamba-7b": mamba_oracle}, mt_base,
+                  moe_serves=moe_job["serves"])
     attn_time[tp["attn"][0]] = tp["attn"][1]
     attn_err = max(attn_err, tp["attn"][1][7])
     scan_err = max(scan_err, tp["scan"]["max_abs_err_D4096"])
     phase_done("tp")
+
+    # -- 27. MoE experts and MLA heads on the model shard -----------------------------
+    tp_moe = tp_moe_phase(dev, card, moe_job, tp["moe_ranks"], moe_oracles, mm_base,
+                          ("g_olmoe_S2048", attn_time["g_olmoe_S2048"]))
+    attn_time[tp_moe["attn"][0]] = tp_moe["attn"][1]
+    attn_err = max(attn_err, tp_moe["attn"][1][7])
+    phase_done("tp_moe")
 
     summary = {"kernels": [{
         "name": "lstm_seq",
@@ -5722,25 +6234,29 @@ def main() -> int:
         # deepseek's MLA), the chaos suite (30 per one-shot prefill),
         # hubert-xlarge's forwards (48, non-causal), llama-3.2-vision-90b's
         # prefills (8: its cross blocks are plain) and internlm2-20b's at
-        # tp = 2 (4 a rank, on 24 of 48 heads); times at shape (a)
+        # tp = 2 (4 a rank, on 24 of 48 heads) and olmoe-1b-7b's at tp = 2 (16
+        # a rank and driver, on 8 of 16 heads); times at shape (a)
         "launches": (f1 + f2 + f3 + lg_smollm_launches + p_launch + gemma_fa["launches"]
                      + internlm_fa["launches"] + zamba_fa["launches"]
                      + moe_fa["olmoe"]["launches"] + moe_fa["olmoe_int8"]["launches"]
                      + tc["smollm-135m"] + hubert_fa["launches"] + llama_fa["launches"]
-                     + tp["launches"]["flash_attention"]),
+                     + tp["launches"]["flash_attention"] + tp_moe["launches"]["flash_attention"]),
         "calls": (c1 + c2 + c3 + lg_smollm_calls + p_call + gemma_fa["calls"]
                   + internlm_fa["calls"] + zamba_fa["calls"] + moe_fa["olmoe"]["calls"]
                   + moe_fa["olmoe_int8"]["calls"] + tc["smollm-135m_calls"]
                   + hubert_fa["calls"] + llama_fa["calls"]
-                  + tp["launches"]["flash_attention_calls"]),
+                  + tp["launches"]["flash_attention_calls"]
+                  + tp_moe["launches"]["flash_attention_calls"]),
         "window_calls": gemma_fa["window_calls"],
-        "launches_tp2": {"internlm2-20b": tp["launches"]["flash_attention"]},
+        "launches_tp2": {"internlm2-20b": tp["launches"]["flash_attention"],
+                         "olmoe-1b-7b": tp_moe["launches"]["flash_attention"]},
         "launches_by_model": {"gemma3-27b": gemma_fa["launches"],
                               "internlm2-20b": (internlm_fa["launches"]
                                                 + tp["launches"]["flash_attention"]),
                               "zamba2-1.2b": zamba_fa["launches"],
                               "olmoe-1b-7b": (moe_fa["olmoe"]["launches"]
-                                              + moe_fa["olmoe_int8"]["launches"]),
+                                              + moe_fa["olmoe_int8"]["launches"]
+                                              + tp_moe["launches"]["flash_attention"]),
                               "deepseek-v2-lite-16b": moe_fa["deepseek"]["launches"],
                               "hubert-xlarge": hubert_fa["launches"],
                               "llama-3.2-vision-90b": llama_fa["launches"]},

@@ -22,8 +22,10 @@ documents pass ``python -m repro_torch.obs.check``.
     python -m repro_torch.launch.serve --arch paper-lstm --mesh 8x1 --mesh-layout folded
     # sharded: one rank per mesh position, started by torchrun
     torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch paper-lstm --mesh 2x1
-    # tensor-parallel: the dense and Mamba-1 families on their model shards
+    # tensor-parallel: the dense, Mamba-1 and MoE families on their model shards
     torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch internlm2-20b \
+        --mesh 1x2 --mesh-layout sharded
+    torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --mesh 1x2 --mesh-layout sharded
 
 A sharded run reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
@@ -31,8 +33,8 @@ A sharded run reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
 plane and its ``model`` collectives over gloo, puts each rank on card
 ``LOCAL_RANK`` modulo the cards there are, and leaves the log and the
 documents to rank 0.  Without torchrun's environment it raises and prints
-the command line to use.  ``tp > 1`` on a family outside the dense
-transformer and Mamba-1 raises (ROADMAP.md, Queue 1 item 12c(c)).
+the command line to use.  ``tp > 1`` on the recurrent or hybrid family,
+a VLM or an encoder raises (ROADMAP.md, Queue 1 item 12c(c)).
 """
 
 from __future__ import annotations

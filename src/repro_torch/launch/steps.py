@@ -123,15 +123,16 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     the loss are summed over the data axes and cut to this rank's shards,
     and AdamW updates the shards with the mesh-wide grad norm.
 
-    Where ``sharding.computes_on_model_shard`` holds (the dense and Mamba-1
-    families on a ``model`` axis of size > 1), each leaf keeps its
-    ``model`` block and the step computes on this rank's heads, FFN
-    columns, inner channels and vocabulary rows (``parallel.
-    tensor_parallel``); no TP'd leaf and no ``[B, S, V]`` logits cross the
-    ``model`` group.  Otherwise the parameters are gathered whole and the
-    ranks along ``model`` train the same rows on the whole network
-    (ROADMAP.md, Queue 1 item 12c(c)).  ``train_step.model_shard`` says
-    which path the step takes.  MoE layers form their groups over the
+    Where ``sharding.computes_on_model_shard`` holds (the dense, Mamba-1
+    and MoE families, GQA or MLA, on a ``model`` axis of size > 1), each
+    leaf keeps its ``model`` block and the step computes on this rank's
+    heads, FFN columns, inner channels, experts and vocabulary rows
+    (``parallel.tensor_parallel``); no TP'd leaf, no expert block and no
+    ``[B, S, V]`` logits cross the ``model`` group.  Otherwise (the
+    recurrent and hybrid families, ``cross``, the encoder) the parameters
+    are gathered whole and the ranks along ``model`` train the same rows
+    on the whole network (ROADMAP.md, Queue 1 item 12c(c)).
+    ``train_step.model_shard`` says which path the step takes.  MoE layers form their groups over the
     global microbatch (``models.moe.moe_apply``)."""
     if mesh is None:
         def train_step(params, opt_state, batch):

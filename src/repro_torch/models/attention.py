@@ -237,9 +237,32 @@ def gqa_decode(p, cfg: ModelConfig, x, cache: PyTree, pos, *, window: int = 0):
 # MLA (DeepSeek-V2): compressed-latent cache; naive prefill + absorbed decode
 # ---------------------------------------------------------------------------
 
+def _mla_heads(p, cfg: ModelConfig) -> int:
+    """The query heads ``wq``'s columns hold: this rank's ``H/tp`` on a
+    model shard (``wq``, ``w_uk`` and ``w_uv`` cut in whole heads), else
+    all ``H``."""
+    return p["wq"].shape[-1] // (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_latent(p, cfg: ModelConfig, x, positions):
+    """The latent ``c_kv [B,S,r]`` and the rope key ``[B,S,1,dr]``.  On a
+    model shard the down projections and ``kv_norm`` are whole on every
+    rank and feed only this rank's heads, so their gradients are summed
+    over ``model``."""
+    B, S, _ = x.shape
+    w_dkv, w_krope, kv_norm = p["w_dkv"], p["w_krope"], p["kv_norm"]
+    if _mla_heads(p, cfg) != cfg.n_heads:
+        w_dkv, w_krope = tp_lib.copy_to_model(w_dkv), tp_lib.copy_to_model(w_krope)
+        kv_norm = {"scale": tp_lib.copy_to_model(kv_norm["scale"])}
+    c_kv = rmsnorm(kv_norm, x @ w_dkv, cfg.norm_eps)
+    k_rope = apply_rope((x @ w_krope).reshape(B, S, 1, cfg.qk_rope_head_dim), positions,
+                        cfg.rope_theta)
+    return c_kv, k_rope
+
+
 def _mla_q(p, cfg: ModelConfig, x, positions):
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = _mla_heads(p, cfg)
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
@@ -250,16 +273,17 @@ def _mla_q(p, cfg: ModelConfig, x, positions):
 def mla_prefill(p, cfg: ModelConfig, x, positions=None):
     """Naive (expanded) prefill: the latent is up-projected to per-head K/V.
     Returns (out, (c_kv [B,S,r], k_rope [B,S,dr])) for cache seeding.  The
-    score scale is ``(dn + dr) ** -0.5``; ``cfg.head_dim`` is not read."""
+    score scale is ``(dn + dr) ** -0.5``; ``cfg.head_dim`` is not read.  On
+    a model shard it attends on this rank's heads (``wo`` row-parallel: the
+    caller sums the output over ``model``); the latent is whole."""
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = _mla_heads(p, cfg)
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
 
-    c_kv = rmsnorm(p["kv_norm"], x @ p["w_dkv"], cfg.norm_eps)              # [B,S,r]
-    k_rope = apply_rope((x @ p["w_krope"]).reshape(B, S, 1, dr), positions, cfg.rope_theta)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)                        # [B,S,r]
     k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, dn)
     v = (c_kv @ p["w_uv"]).reshape(B, S, H, dv)
 
@@ -285,18 +309,20 @@ def mla_decode(p, cfg: ModelConfig, x, cache: PyTree, pos):
         score = (q_nope Wuk_h) · c_kv + q_rope · k_rope
         out_h = (probs · c_kv) Wuv_h
     The new latents are scattered into a copy of the cache, which is
-    returned; the caller's cache is not written.
+    returned; the caller's cache is not written.  On a model shard the
+    cache is the whole latent and the rank attends on its heads, as in
+    :func:`mla_prefill`.
     """
     B, S, _ = x.shape
     dev = x.device
-    H = cfg.n_heads
+    H = _mla_heads(p, cfg)
     dn, dr, dv, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
     posv = _posv(pos, B, dev)
     qpos = posv[:, None] + torch.arange(S, device=dev)[None, :]          # [B, S] absolute
     q_nope, q_rope = _mla_q(p, cfg, x, qpos)
 
-    c_new = rmsnorm(p["kv_norm"], x @ p["w_dkv"], cfg.norm_eps)
-    kr_new = apply_rope((x @ p["w_krope"]).reshape(B, S, 1, dr), qpos, cfg.rope_theta)[:, :, 0]
+    c_new, kr_new = _mla_latent(p, cfg, x, qpos)
+    kr_new = kr_new[:, :, 0]
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
     c_kv = cache["c_kv"].index_put((bidx, qpos), c_new.to(cache["c_kv"].dtype))
     k_rope = cache["k_rope"].index_put((bidx, qpos), kr_new.to(cache["k_rope"].dtype))

@@ -25,6 +25,21 @@ loss is a product of two means over every token, so each rank adds its
 tokens' share of the global aux: the shares sum to the reference's aux
 over the data ranks, in value and in gradient.
 
+On a model shard (``parallel.sharding.model_shard``) a rank holds its
+block of the experts (``w_in``/``w_gate``/``w_out`` ``[E/tp, ...]``, the
+rules' expert axis over ``model``) and its columns of the shared experts'
+MLP, while the router stays whole and every model rank holds every token:
+the routing and the slot assignment run whole and identically on every
+model rank (each expert's slots are a running count over its own
+column), the rank keeps its experts' columns of the dispatch and combine
+one-hots, and the partial outputs (its experts' and its shared columns')
+are summed by one ``all_reduce`` over ``model``.  The combine weights and
+the experts' input pass through ``copy_to_model``, so their gradients are
+summed over the ranks; the Switch aux is whole on every rank and its
+router gradient is not summed (the loss is not summed over ``model``).
+Where the axis does not divide ``n_experts`` the rules keep the experts
+whole, and so does the layer, read from the leaves' shapes.
+
 The router state (expert assignments) is part of the layer's
 *combinational logic* in the paper's language; no sequential state is
 carried, so MoE layers drop into the layer stack unchanged.
@@ -36,6 +51,8 @@ from typing import Any, TYPE_CHECKING
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import tensor_parallel as tp_lib
 
 from .layers import dense_init, mlp_apply, mlp_params
 
@@ -152,7 +169,8 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, group_size: int = DEFAULT_GR
 
 
 def _moe_groups(p, cfg: ModelConfig, x: torch.Tensor, g: int, data=None):
-    """The dispatch over groups of ``g`` consecutive tokens of ``x``."""
+    """The dispatch over groups of ``g`` consecutive tokens of ``x``, on
+    this rank's experts (all of them off a model shard)."""
     B, S, D = x.shape
     G = B * S // g
     xt = x.reshape(G, g, D)
@@ -160,6 +178,13 @@ def _moe_groups(p, cfg: ModelConfig, x: torch.Tensor, g: int, data=None):
     top_e, top_w, aux = route(p, cfg, xt, data)  # [G,g,k] ids / weights
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(g, cfg)
+    e0, e1 = tp_lib.own_range(p["w_in"].shape[0], E)
+    split = e1 - e0 < E
+    shared = p.get("shared")
+    shared_split = shared is not None and \
+        shared["w_out"].shape[0] < cfg.n_shared_experts * cfg.d_ff_expert
+    # the input of the parts cut over model, its gradient summed over the ranks
+    xs = tp_lib.copy_to_model(xt) if split or shared_split else xt
 
     # Slot assignment: position of each (token, choice) within its expert's
     # queue, a running count over the flattened (token-major) choice order;
@@ -169,6 +194,11 @@ def _moe_groups(p, cfg: ModelConfig, x: torch.Tensor, g: int, data=None):
     pos = torch.cumsum(flat, dim=1) - flat                         # slots before me
     slot = (pos * flat).sum(-1).reshape(G, g, k)                   # [G,g,k]
     keep = slot < C
+    if split:
+        # this rank's experts' columns; their combine weights' gradient is
+        # a part of the router's, summed over model (the aux's is not)
+        e_onehot = e_onehot[..., e0:e1]
+        top_w = tp_lib.copy_to_model(top_w)
 
     # dispatch/combine tensors [G, g, E, C]: a dropped choice goes to the
     # extra class C, whose column is cut off (the reference's one_hot of an
@@ -178,15 +208,21 @@ def _moe_groups(p, cfg: ModelConfig, x: torch.Tensor, g: int, data=None):
     dispatch = torch.einsum("Gtke,Gtkc->Gtec", e_oh, slot_oh)
     combine = torch.einsum("Gtke,Gtkc->Gtec", e_oh * top_w[..., None], slot_oh)
 
-    xe = torch.einsum("Gtec,Gtd->Gecd", dispatch, xt)              # [G,E,C,D]
+    xe = torch.einsum("Gtec,Gtd->Gecd", dispatch, xs if split else xt)  # [G,E,C,D]
     h = torch.einsum("Gecd,edf->Gecf", xe, p["w_in"])
     hg = torch.einsum("Gecd,edf->Gecf", xe, p["w_gate"])
     h = F.silu(hg) * h
     ye = torch.einsum("Gecf,efd->Gecd", h, p["w_out"])             # [G,E,C,D]
     y = torch.einsum("Gtec,Gecd->Gtd", combine, ye)
 
-    if cfg.n_shared_experts:
-        y = y + mlp_apply(p["shared"], xt, act=cfg.mlp_act)
+    y_sh = None if shared is None else \
+        mlp_apply(shared, xs if shared_split else xt, act=cfg.mlp_act)
+    if y_sh is not None and shared_split == split:
+        y, y_sh = y + y_sh, None                     # both partial: one sum over model
+    if split:
+        y = tp_lib.reduce_from_model(y)
+    if y_sh is not None:
+        y = y + (tp_lib.reduce_from_model(y_sh) if shared_split else y_sh)
 
     return y.reshape(B, S, D), aux
 

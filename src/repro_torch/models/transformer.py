@@ -132,6 +132,7 @@ def _kv_heads(cfg: ModelConfig) -> int:
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device) -> PyTree:
     if kind in ("attn", "moe", "shared_attn"):
         if cfg.use_mla and kind != "shared_attn":
+            # the latent: whole on a model shard too (cache_specs cuts no head of it)
             return {"c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
                                         dtype=cfg.act_dtype, device=device),
                     "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim),
@@ -186,7 +187,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
 # ---------------------------------------------------------------------------
 
 # the block kinds that compute on a model shard (sharding.computes_on_model_shard)
-TP_KINDS = ("attn", "attn_local", "mamba1")
+TP_KINDS = ("attn", "attn_local", "moe", "mamba1")
 
 
 def apply_block(
@@ -215,21 +216,22 @@ def apply_block(
     prefill trajectory.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if current_model_shard() is not None and (kind not in TP_KINDS or cfg.use_mla):
+    if current_model_shard() is not None and kind not in TP_KINDS:
         raise NotImplementedError(
-            f"apply_block: a {'MLA ' if cfg.use_mla else ''}{kind} block does not compute on "
-            "a model shard yet (ROADMAP.md, Queue 1 item 12c(c))")
+            f"apply_block: a {kind} block does not compute on a model shard yet "
+            "(ROADMAP.md, Queue 1 item 12c(c))")
     if kind in ("attn", "attn_local", "moe"):
         window = cfg.sliding_window if kind == "attn_local" else 0
         acfg = cfg
         if kind == "attn" and cfg.global_every and cfg.rope_theta_global:
             acfg = dataclasses.replace(cfg, rope_theta=cfg.rope_theta_global)
         h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
-        # attention on this rank's heads: the block's input whole on every
-        # model rank, wo row-parallel, the output summed before the residual
-        # (a tail block's wo keeps its rows: attn_out joins its output)
-        split = tp_lib.attn_splits(cfg) and not cfg.use_mla \
-            and p_blk["attn"]["wo"].shape[0] < cfg.n_heads * cfg.head_dim
+        # attention on this rank's heads (GQA or MLA): the block's input
+        # whole on every model rank, wo row-parallel, the output summed
+        # before the residual (a tail block's wo keeps its rows: attn_out
+        # joins its output)
+        head_out = cfg.v_head_dim if cfg.use_mla else cfg.head_dim
+        split = tp_lib.attn_splits(cfg) and p_blk["attn"]["wo"].shape[0] < cfg.n_heads * head_out
         if split:
             h = tp_lib.copy_to_model(h)
         decode = mode in ("decode", "chunk")
@@ -253,6 +255,7 @@ def apply_block(
         x = x + a
         h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
         if kind == "moe":
+            # the experts on this rank's block, summed over model inside
             y, aux = moe_lib.moe_apply(p_blk["moe"], cfg, h,
                                        group_size=cfg.moe_group_size or moe_lib.DEFAULT_GROUP_SIZE)
         else:

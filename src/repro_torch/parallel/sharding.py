@@ -369,13 +369,17 @@ def data_share(rows: int):
 # ---------------------------------------------------------------------------
 #
 # The reference's partitioner splits attention heads, FFN columns, Mamba's
-# inner channels and the vocabulary over ``model`` from the rules above.
-# The port computes on its model shard for the families whose split falls
-# between kernels (``parallel/tensor_parallel.py`` holds the collectives):
-# the dense transformer and Mamba-1.  Everything else keeps its parameters
-# whole along ``model`` (ROADMAP.md, Queue 1 item 12c(c)).
+# inner channels, MoE experts and the vocabulary over ``model`` from the
+# rules above.  The port computes on its model shard for the families whose
+# split falls between kernels (``parallel/tensor_parallel.py`` holds the
+# collectives): the dense transformer, Mamba-1 and MoE (its experts cut
+# over ``model`` on tokens that every model rank holds, the router
+# replicated; with GQA or MLA attention, MLA cut by heads and its latent
+# whole).  Everything else keeps its parameters whole along ``model``
+# (ROADMAP.md, Queue 1 item 12c(c)): the recurrent and hybrid families,
+# ``cross`` and the encoder, and ``pure_dp``.
 
-TP_FAMILIES = ("dense", "ssm")
+TP_FAMILIES = ("dense", "ssm", "moe")
 
 
 def model_shard_refusal(cfg: ModelConfig) -> str | None:
@@ -383,26 +387,27 @@ def model_shard_refusal(cfg: ModelConfig) -> str | None:
     None when it can (its attention split may still depend on the width:
     :func:`computes_on_model_shard`)."""
     if cfg.pure_dp:
-        return "a pure_dp plan spreads the batch over the model axis instead"
-    if cfg.family not in TP_FAMILIES or cfg.use_mla:
-        what = "MLA" if cfg.use_mla else f"the {cfg.family} family"
-        return (f"tensor-parallel compute for {what} ({cfg.name}) is not ported yet "
+        return ("a pure_dp plan spreads the batch over the model axis instead "
                 "(ROADMAP.md, Queue 1 item 12c(c))")
+    if cfg.family not in TP_FAMILIES:
+        return (f"tensor-parallel compute for the {cfg.family} family ({cfg.name}) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 12c(c))")
     return None
 
 
 def computes_on_model_shard(cfg: ModelConfig, mesh) -> bool:
     """Whether a step of ``cfg`` on ``mesh`` computes on this rank's model
-    shard: a ``model`` axis of size > 1, a family of :data:`TP_FAMILIES`
-    without MLA, ``pure_dp`` off, and attention either replicated
-    (``attn_tp=False``) or cut into whole query and KV heads.  Otherwise
-    the parameters are gathered whole along ``model`` and every model rank
-    computes the whole network."""
+    shard: a ``model`` axis of size > 1, a family of :data:`TP_FAMILIES`,
+    ``pure_dp`` off, and attention either replicated (``attn_tp=False``)
+    or cut into whole heads (query and KV heads; MLA's query heads, its
+    latent whole).  Otherwise the parameters are gathered whole along
+    ``model`` and every model rank computes the whole network."""
     tp = 1 if mesh is None else axis_sizes(mesh).get("model", 1)
     if tp <= 1 or model_shard_refusal(cfg) is not None:
         return False
-    has_attn = cfg.family == "dense"
-    return not (has_attn and cfg.attn_tp and (cfg.n_heads % tp or cfg.n_kv_heads % tp))
+    if cfg.family == "ssm" or not cfg.attn_tp:
+        return True
+    return not (cfg.n_heads % tp or (not cfg.use_mla and cfg.n_kv_heads % tp))
 
 
 class ModelShard(NamedTuple):

@@ -65,9 +65,22 @@ def local(n: int) -> int:
 
 def attn_splits(cfg) -> bool:
     """Whether attention computes on this rank's heads: ``attn_tp`` and
-    whole query and KV heads (``sharding.computes_on_model_shard`` admits
-    no other split)."""
-    return bool(cfg.attn_tp) and splits(cfg.n_heads) and splits(cfg.n_kv_heads)
+    whole query and KV heads, or under MLA whole query heads (its latent
+    stays whole; ``sharding.computes_on_model_shard`` admits no other
+    split)."""
+    return bool(cfg.attn_tp) and splits(cfg.n_heads) and (cfg.use_mla or splits(cfg.n_kv_heads))
+
+
+def own_range(held: int, n: int) -> tuple[int, int]:
+    """``[e0, e1)``: the indices of a dim of size ``n`` (the experts) of
+    which this rank holds ``held``, its contiguous block over ``model``;
+    ``(0, n)`` where the dim is whole here."""
+    if held == n:
+        return 0, n
+    ms = current_model_shard()
+    if ms is None or held * ms.tp != n:
+        raise ValueError(f"a block of {held} is not this rank's 1/tp of {n}")
+    return ms.index * held, (ms.index + 1) * held
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -219,4 +232,5 @@ def lse_and_gold(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
 
 
 __all__ = ["attn_splits", "copy_to_model", "embed_lookup", "gather_from_model", "join_vocab",
-           "local", "lse_and_gold", "own_part", "reduce_from_model", "splits", "vocab_logits"]
+           "local", "lse_and_gold", "own_part", "own_range", "reduce_from_model", "splits",
+           "vocab_logits"]

@@ -19,10 +19,13 @@ spec does not name the block is replicated.  From there the layout gives
   the data axes and cut to this rank's blocks;
 * both in a ``keep_model`` form for a step that computes on its model
   shard (``parallel.tensor_parallel``): the gather runs along the data
-  axes only and keeps each leaf's ``model`` block, and the gradients of
-  those blocks are cut along the data axes only;
+  axes only and keeps each leaf's ``model`` block (heads, FFN columns,
+  an MoE layer's ``[G, E/tp, ...]`` experts), and the gradients of those
+  blocks are cut along the data axes only;
 * :meth:`~ShardLayout.square_sum`: the sum of squares of a sharded tree,
-  each distinct block counted once (a replica along an axis adds nothing),
+  each distinct block counted once (a replica along an axis adds nothing:
+  a leaf replicated along ``model``, such as the router, the norms or
+  MLA's down projections, counts on its first model rank only),
   the leaves summed in ``jax.tree.leaves`` order as the reference's
   ``global_norm`` sums them.
 

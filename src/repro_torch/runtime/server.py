@@ -75,13 +75,15 @@ of the prompt, then the least loaded one, then the lowest id.  Two layouts:
   and its default scheduler does not age (ROADMAP.md, Queue 1 item 12c).
   At ``tp > 1`` the ranks along ``model`` of a data shard all hold its
   slots and compute them together on their model shards
-  (``sharding.computes_on_model_shard``: the dense transformer and
-  Mamba-1): the server cuts the parameters to this rank's block
-  (``ShardPlan.local_params``), its caches hold this rank's KV heads or
-  inner channels, and every logit row it samples from is joined exactly
-  over ``model`` first (``tensor_parallel.join_vocab``), so the argmax and
-  the draws are the same on every model rank.  Other families at ``tp >
-  1`` raise, citing item 12c(c).
+  (``sharding.computes_on_model_shard``: the dense transformer, Mamba-1
+  and MoE with GQA or MLA attention): the server cuts the parameters to
+  this rank's block (``ShardPlan.local_params``: its heads, FFN columns,
+  inner channels, experts and vocabulary rows), its caches hold this
+  rank's KV heads or inner channels (an MLA latent whole), and every
+  logit row it samples from is joined exactly over ``model`` first
+  (``tensor_parallel.join_vocab``), so the argmax and the draws are the
+  same on every model rank.  The recurrent and hybrid families, ``cross``
+  and the encoder at ``tp > 1`` raise, citing item 12c(c).
 """
 
 from __future__ import annotations
@@ -258,6 +260,9 @@ class DecodeServer:
                  watchdog_s: float | None = None,
                  plan: ShardPlan | None = None,
                  device: str | torch.device | None = None):
+        if plan is not None and not plan.fold_data:
+            # first: a family outside the model-shard slice names item 12c(c)
+            self._check_sharded(cfg, plan, scheduler, watchdog_s)
         if cfg.family == "vlm":
             raise NotImplementedError(
                 f"DecodeServer: {cfg.name} is a VLM, and the reference's server passes no "
@@ -276,7 +281,6 @@ class DecodeServer:
         self._rows = None           # this rank's slots (the sharded layout)
         self._tp_mesh = None        # the mesh whose model shard this rank computes on
         if plan is not None and not plan.fold_data:
-            self._check_sharded(cfg, plan, scheduler, watchdog_s)
             self._rows = plan.slots_of_shard(plan.local_shard, num_slots)
             if plan.tp > 1:
                 # this rank's model block of the parameters; the model code

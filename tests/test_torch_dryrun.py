@@ -13,9 +13,11 @@ half, ``launch.trace_analysis``) against the reference's.
   and on smollm-135m at full size on 16×16, on its model shard, the
   analytic 6·D·(replicated N + TP'd N / 16) plus the plain attention's
   12·L·S·H·hd a token.
-* Collectives: on a (1, 2, 2) olmoe smoke cell the dry run's counts and
-  bytes by kind, and its argument bytes, equal a real ``make_train_step(
-  mesh=)`` step's on four gloo CPU ranks.
+* Collectives: on a (1, 2, 2) olmoe smoke cell, which computes on its
+  model shard (experts and heads over ``model``, the parameters gathered
+  along ``data`` only), the dry run's counts and bytes by kind, and its
+  argument bytes, equal a real ``make_train_step(mesh=)`` step's on four
+  gloo CPU ranks.
 * The CLI writes a record with the reference's keys; a fake group never
   reaches a real step.
 """
@@ -413,7 +415,11 @@ def collectives(background):
 def test_dry_run_collectives_equal_a_real_step_s(collectives):
     rec, ranks = collectives
     assert rec["mesh"] == "1x2x2" and rec["n_devices"] == 4
-    assert set(rec["collectives"]) >= {"all_reduce", "gather_exact", "gather_rows"}
+    # on the model shard: the gather along data only, the spanning MoE
+    # groups' rows, nothing gathered whole over model
+    assert rec["model_shard"] is True
+    assert set(rec["collectives"]) >= {"all_reduce", "gather_data", "gather_rows"}
+    assert "gather_exact" not in rec["collectives"]
     for counters, arg_bytes, loss in ranks:
         assert counters == rec["collectives"] == rec["collectives_corrected"]
         assert arg_bytes == rec["memory_analysis"]["argument_size_in_bytes"]

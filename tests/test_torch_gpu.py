@@ -2070,3 +2070,79 @@ def test_ssm_scan_kernel_at_the_tp2_rank_channels(cuda, T):
     assert ops.ssm_scan.launches == launches + 1
     torch.cuda.synchronize()
     _close(got, ops.ssm_scan_ref(x, dl, A, B, C, h0), 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# MoE experts and MLA heads on the model shard: olmoe smoke at tp = 2, two
+# gloo ranks sharing the card, and flash_attention at a rank's olmoe heads
+# ---------------------------------------------------------------------------
+
+def _ranks_card_tp_moe(rank, world):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm, moe
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.parallel.sharding import model_shard
+    from repro_torch.runtime import ShardPlan
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(1, 2)
+    plan = ShardPlan(mesh)
+    cfg = get_smoke_config("olmoe-1b-7b")
+    params = plan.local_params(cfg, lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    x = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 40)), device=dev)
+    out, inner = {}, moe.route
+    with model_shard(mesh):
+        for use_pallas in (False, True):
+            c = dataclasses.replace(cfg, use_pallas=use_pallas)
+            calls, ids = ops.flash_attention.calls, []
+
+            def spy(p, c_, h, data=None):
+                r = inner(p, c_, h, data)
+                ids.append(r[0].cpu().numpy())
+                return r
+
+            moe.route = spy
+            try:
+                lg, caches = lm.prefill(params, c, x)
+            finally:
+                moe.route = inner
+            out[use_pallas] = (tp.join_vocab(lg, cfg.vocab).cpu().numpy(),
+                               ops.flash_attention.calls - calls,
+                               tuple(caches["groups"]["b0_moe"]["k"].shape),
+                               tuple(params["groups"]["b0_moe"]["moe"]["w_in"].shape), ids)
+    return out
+
+
+def test_olmoe_at_tp2_use_pallas_prefill_matches_plain_on_the_card(cuda):
+    """Each of two gloo ranks on cuda:0 computes olmoe smoke on its 2 of 4
+    heads (``flash_attention`` once a layer) and its 4 of 8 experts; with
+    the same routing on both paths, the joined logits within 1e-5 of max
+    |logit| of the plain path's."""
+    from repro_torch.launch.spawn import run_ranks
+
+    for out in run_ranks(_ranks_card_tp_moe, 2, backend="gloo", timeout_s=300):
+        plain, calls_p, kshape, wshape, ids_p = out[False]
+        kern, calls_k, _, _, ids_k = out[True]
+        assert calls_p == 0 and calls_k == 2 and kshape == (2, 2, 40, 2, 16)
+        assert wshape == (2, 4, 64, 48)
+        assert all(np.array_equal(a, b) for a, b in zip(ids_p, ids_k, strict=True))
+        assert np.max(np.abs(kern - plain)) <= 1e-5 * np.max(np.abs(plain))
+
+
+def test_flash_attention_kernel_at_the_olmoe_tp2_rank_shape(cuda):
+    """Shape (k): olmoe-1b-7b's rank at tp = 2 (8 of 16 query and KV heads,
+    hd 128), causal, at 2048 tokens."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    case = dict(B=1, S=2048, T=2048, H=8, KV=8, hd=128)
+    q, k, v = _flash_case(cuda, case, torch.float32, seed=11)
+    launches = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention.launches - launches == kernel.launches_per_call(
+        kernel.splits(q, k, causal=True))
+    torch.testing.assert_close(got, ops.flash_attention_ref(q, k, v, causal=True),
+                               atol=1e-5, rtol=1e-5)

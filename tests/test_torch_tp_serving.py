@@ -20,8 +20,9 @@ SHAPES  — each rank's parameter and cache leaves have the shapes of their
           block under the reference's ``param_specs(fsdp=False)`` and
           ``cache_specs``.
 HOST    — the host state is the same on every rank after every drain.
-REFUSAL — tp = 2 on a family outside the slice (paper-lstm, olmoe, zamba2)
-          raises ``NotImplementedError`` citing 12c(c).
+REFUSAL — tp = 2 on a family outside the slice (paper-lstm, zamba2, and
+          llama-3.2-vision-90b's ``cross`` kind) raises
+          ``NotImplementedError`` citing 12c(c).
 
 The reference runs in the parent while the ranks (``launch.spawn``) run;
 they import no JAX.
@@ -42,7 +43,7 @@ PROMPTS = [(7, 0), (12, 1), (3, 2), (9, 3)]      # (length, seed)
 NEW = 5
 SLOTS, MAX_SEQ = 4, 32
 LOGIT_GAP = 1e-5
-REFUSED = ("paper-lstm", "olmoe-1b-7b", "zamba2-1.2b")
+REFUSED = ("paper-lstm", "llama-3.2-vision-90b", "zamba2-1.2b")
 
 
 def _prompt(n, seed):
