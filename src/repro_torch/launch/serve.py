@@ -23,6 +23,8 @@ documents pass ``python -m repro_torch.obs.check``.
     # sharded: one rank per mesh position, started by torchrun
     torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch paper-lstm --mesh 2x1
     # tensor-parallel: the dense, Mamba-1 and MoE families on their model shards
+    # (the VLM and the encoder compute there too, but the server refuses
+    # them at any tp: it passes no memory, and an encoder has no decode)
     torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch internlm2-20b \
         --mesh 1x2 --mesh-layout sharded
     torchrun --nproc-per-node=2 -m repro_torch.launch.serve --arch olmoe-1b-7b \
@@ -34,7 +36,9 @@ plane and its ``model`` collectives over gloo, puts each rank on card
 ``LOCAL_RANK`` modulo the cards there are, and leaves the log and the
 documents to rank 0.  Without torchrun's environment it raises and prints
 the command line to use.  ``tp > 1`` on the recurrent or hybrid family,
-a VLM or an encoder raises (ROADMAP.md, Queue 1 item 12c(c)).
+or on attention whose KV heads do not cut whole, raises (ROADMAP.md,
+Queue 1 item 12c(c)); a VLM or an encoder is refused at any mesh, as
+``DecodeServer`` refuses it.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ Under torchrun (its environment: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``) every rank joins a gloo process group and
 trains on ``make_local_mesh()``: every rank on ``"model"``, the reference's
 default mesh (``--mesh DPxTP`` for another), the parameters and AdamW
-moments stored as each rank's shards.  The dense transformer, Mamba-1
-and MoE (GQA or MLA) compute on their model shards there
+moments stored as each rank's shards.  The dense transformer, Mamba-1,
+MoE (GQA or MLA), the VLM (its ``cross`` blocks on a rank's heads; a
+batch carries ``memory``) and the encoder (an ``embeds`` batch) compute on
+their model shards there where their heads cut whole
 (``launch.steps.make_train_step``).
 On the card each rank takes card ``LOCAL_RANK`` modulo the cards there
 are; rank 0 logs and writes the metrics and the checkpoints.

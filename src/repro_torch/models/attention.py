@@ -349,18 +349,34 @@ def mla_decode(p, cfg: ModelConfig, x, cache: PyTree, pos):
 def cross_attn(p, cfg: ModelConfig, x, memory):
     """x: [B,S,D] attends to memory [B,M,frontend_dim] (every query sees
     every memory row; no RoPE; q and k RMS-normed over hd); the output is
-    scaled by ``tanh(gate)``, so a closed gate adds nothing."""
+    scaled by ``tanh(gate)``, so a closed gate adds nothing.
+
+    On a model shard ``wq``'s columns hold this rank's ``H/tp`` query heads
+    and ``wk``/``wv``'s its ``KV/tp`` KV heads (the whole memory projected
+    onto them), ``wo`` is row-parallel and its output is summed over
+    ``model`` here, before the gate: the gate then scales the whole output
+    on every rank, and its gradient is whole (not summed).  ``x`` and the
+    memory feed column-parallel products and the replicated norm scales
+    feed a rank's heads, so their gradients are summed over ``model``."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     M = memory.shape[1]
+    qn, kn = p["q_norm"], p["k_norm"]
+    split = H != cfg.n_heads
+    if split:
+        x, memory = tp_lib.copy_to_model(x), tp_lib.copy_to_model(memory)
+        qn, kn = ({"scale": tp_lib.copy_to_model(t["scale"])} for t in (qn, kn))
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (memory @ p["wk"]).reshape(B, M, KV, hd)
     v = (memory @ p["wv"]).reshape(B, M, KV, hd)
-    q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-    k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = rmsnorm(qn, q, cfg.norm_eps)
+    k = rmsnorm(kn, k, cfg.norm_eps)
     mask = torch.ones((1, 1, S, M), dtype=torch.bool, device=x.device)
-    out = _sdpa(q, k, v, mask)
-    return torch.tanh(p["gate"]) * (out.reshape(B, S, -1) @ p["wo"])
+    out = _sdpa(q, k, v, mask).reshape(B, S, -1) @ p["wo"]
+    if split:
+        out = tp_lib.reduce_from_model(out)
+    return torch.tanh(p["gate"]) * out
 
 
 __all__ = [

@@ -40,7 +40,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.parallel import tensor_parallel as tp_lib
-from repro_torch.parallel.sharding import constrain_activation, recompute_contexts
+from repro_torch.parallel.sharding import (
+    constrain_activation,
+    map_with_path,
+    recompute_contexts,
+)
 
 from .config import ModelConfig
 from .layers import dense_init, embed, embedding_params, rmsnorm, rmsnorm_params
@@ -66,38 +70,56 @@ __all__ = [
 ]
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> PyTree:
+def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None, cut=None) -> PyTree:
     """Random parameters drawn from ``gen`` on ``device`` (default: the
-    card).  The generator must live on that device."""
+    card).  The generator must live on that device.
+
+    ``cut(path, leaf)``, where given, returns the part of each leaf to keep
+    (a view), as soon as the leaf is drawn; a stacked leaf's path names the
+    stacked leaf and ``leaf`` is one group's slice of it.  The whole stream
+    is drawn in the same order, so the kept parts hold the values of the
+    whole tree's, and the peak is the kept parts and one group
+    (``ShardPlan.draw_local``)."""
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator is on {gen.device}, parameters go to {dev}")
+
+    def keep(prefix, tree, stacked=False):
+        if cut is None:
+            return tree
+        return map_with_path(lambda path, t: cut(path, t) if stacked else cut(path, t).clone(),
+                             tree, prefix)
+
     params: dict[str, Any] = {}
     if cfg.family == "encoder":
         # audio frontend stub: precomputed frame embeddings -> linear proj
-        params["embed"] = {"proj": dense_init(gen, (cfg.frontend_dim, cfg.d_model), cfg.p_dtype)}
+        params["embed"] = keep("embed", {"proj": dense_init(gen, (cfg.frontend_dim, cfg.d_model),
+                                                            cfg.p_dtype)})
     else:
-        params["embed"] = embedding_params(gen, cfg.vocab, cfg.d_model, cfg.p_dtype)
+        params["embed"] = keep("embed",
+                               embedding_params(gen, cfg.vocab, cfg.d_model, cfg.p_dtype))
     # each stacked [G, ...] leaf is allocated once and filled group by group,
     # so the peak is the tree plus one group (stacking G per-group trees
     # would hold the tree twice: 58 GB for falcon-mamba-7b in fp32)
-    grp = group_params(gen, cfg)
+    grp = keep("groups", group_params(gen, cfg), stacked=True)
     stacked = tree_map(lambda t: t.new_empty((cfg.n_groups,) + tuple(t.shape)), grp)
     for g in range(cfg.n_groups):
         if g:
-            grp = group_params(gen, cfg)
+            grp = keep("groups", group_params(gen, cfg), stacked=True)
         tree_map(lambda dst, src: dst[g].copy_(src), stacked, grp)
         del grp
     params["groups"] = stacked
     shared = shared_block_params(gen, cfg)
     if shared is not None:
-        params["shared"] = shared
+        params["shared"] = keep("shared", shared)
     tail = tail_params(gen, cfg)
     if tail is not None:
-        params["tail"] = tail
-    params["final_norm"] = rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device)
+        params["tail"] = keep("tail", tail)
+    params["final_norm"] = keep("final_norm",
+                                rmsnorm_params(cfg.d_model, cfg.p_dtype, gen.device))
     if not cfg.tie_embeddings:
-        params["head"] = {"w": dense_init(gen, (cfg.d_model, cfg.vocab), cfg.p_dtype)}
+        params["head"] = keep("head", {"w": dense_init(gen, (cfg.d_model, cfg.vocab),
+                                                       cfg.p_dtype)})
     return params
 
 

@@ -187,7 +187,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> PyTree:
 # ---------------------------------------------------------------------------
 
 # the block kinds that compute on a model shard (sharding.computes_on_model_shard)
-TP_KINDS = ("attn", "attn_local", "moe", "mamba1")
+TP_KINDS = ("attn", "attn_local", "moe", "mamba1", "cross")
 
 
 def apply_block(
@@ -263,10 +263,13 @@ def apply_block(
                           split=p_blk["mlp"]["w_out"].shape[0] < cfg.d_ff)
         return x + y, cache, aux
     if kind == "cross":
+        # on a model shard: a rank's heads (cross_attn sums its output over
+        # model before the gate) and its FFN columns
         h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
         x = x + attn_lib.cross_attn(p_blk["cross"], cfg, h, memory)
         h = rmsnorm(p_blk["ln_mlp"], x, cfg.norm_eps)
-        return x + mlp_apply(p_blk["mlp"], h, cfg.mlp_act), cache, aux
+        return x + mlp_apply(p_blk["mlp"], h, cfg.mlp_act,
+                             split=p_blk["mlp"]["w_out"].shape[0] < cfg.d_ff), cache, aux
     if kind == "shared_attn":
         # the shared weights with this application's LoRA deltas; a chunk
         # attends over the cache as decode does, only a one-shot prefill

@@ -372,14 +372,18 @@ def data_share(rows: int):
 # inner channels, MoE experts and the vocabulary over ``model`` from the
 # rules above.  The port computes on its model shard for the families whose
 # split falls between kernels (``parallel/tensor_parallel.py`` holds the
-# collectives): the dense transformer, Mamba-1 and MoE (its experts cut
-# over ``model`` on tokens that every model rank holds, the router
-# replicated; with GQA or MLA attention, MLA cut by heads and its latent
-# whole).  Everything else keeps its parameters whole along ``model``
-# (ROADMAP.md, Queue 1 item 12c(c)): the recurrent and hybrid families,
-# ``cross`` and the encoder, and ``pure_dp``.
+# collectives): the dense transformer, Mamba-1, MoE (its experts cut over
+# ``model`` on tokens that every model rank holds, the router replicated;
+# with GQA or MLA attention, MLA cut by heads and its latent whole), the
+# VLM (its ``cross`` blocks cut by heads like self-attention, the memory
+# whole on every rank and projected onto a rank's KV columns; the gate and
+# the q/k norms replicated) and the encoder (its ``embed/proj`` replicated,
+# its output whole on every rank).  Everything else keeps its parameters
+# whole along ``model`` (ROADMAP.md, Queue 1 item 12c(c)): the recurrent
+# and hybrid families, attention whose KV heads do not cut whole, and
+# ``pure_dp``.
 
-TP_FAMILIES = ("dense", "ssm", "moe")
+TP_FAMILIES = ("dense", "ssm", "moe", "vlm", "encoder")
 
 
 def model_shard_refusal(cfg: ModelConfig) -> str | None:
@@ -399,8 +403,9 @@ def computes_on_model_shard(cfg: ModelConfig, mesh) -> bool:
     """Whether a step of ``cfg`` on ``mesh`` computes on this rank's model
     shard: a ``model`` axis of size > 1, a family of :data:`TP_FAMILIES`,
     ``pure_dp`` off, and attention either replicated (``attn_tp=False``)
-    or cut into whole heads (query and KV heads; MLA's query heads, its
-    latent whole).  Otherwise the parameters are gathered whole along
+    or cut into whole heads (query and KV heads, those of a ``cross``
+    block's ``wq`` and ``wk``/``wv`` too; MLA's query heads, its latent
+    whole).  Otherwise the parameters are gathered whole along
     ``model`` and every model rank computes the whole network."""
     tp = 1 if mesh is None else axis_sizes(mesh).get("model", 1)
     if tp <= 1 or model_shard_refusal(cfg) is not None:

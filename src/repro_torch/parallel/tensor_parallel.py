@@ -65,9 +65,10 @@ def local(n: int) -> int:
 
 def attn_splits(cfg) -> bool:
     """Whether attention computes on this rank's heads: ``attn_tp`` and
-    whole query and KV heads, or under MLA whole query heads (its latent
-    stays whole; ``sharding.computes_on_model_shard`` admits no other
-    split)."""
+    whole query and KV heads (a ``cross`` block's are the same counts:
+    ``wq``'s and ``wk``/``wv``'s columns), or under MLA whole query heads
+    (its latent stays whole; ``sharding.computes_on_model_shard`` admits
+    no other split)."""
     return bool(cfg.attn_tp) and splits(cfg.n_heads) and (cfg.use_mla or splits(cfg.n_kv_heads))
 
 

@@ -76,14 +76,17 @@ of the prompt, then the least loaded one, then the lowest id.  Two layouts:
   At ``tp > 1`` the ranks along ``model`` of a data shard all hold its
   slots and compute them together on their model shards
   (``sharding.computes_on_model_shard``: the dense transformer, Mamba-1
-  and MoE with GQA or MLA attention): the server cuts the parameters to
+  and MoE with GQA or MLA attention cut into whole heads): the server cuts the parameters to
   this rank's block (``ShardPlan.local_params``: its heads, FFN columns,
   inner channels, experts and vocabulary rows), its caches hold this
   rank's KV heads or inner channels (an MLA latent whole), and every
   logit row it samples from is joined exactly over ``model`` first
   (``tensor_parallel.join_vocab``), so the argmax and the draws are the
-  same on every model rank.  The recurrent and hybrid families, ``cross``
-  and the encoder at ``tp > 1`` raise, citing item 12c(c).
+  same on every model rank.  The recurrent and hybrid families and
+  attention whose KV heads do not cut whole at ``tp > 1`` raise, citing
+  item 12c(c); the VLM and the encoder, which compute on a model shard
+  through ``lm``'s entry points, are refused here at every ``tp`` for
+  the reasons above.
 """
 
 from __future__ import annotations
@@ -261,7 +264,7 @@ class DecodeServer:
                  plan: ShardPlan | None = None,
                  device: str | torch.device | None = None):
         if plan is not None and not plan.fold_data:
-            # first: a family outside the model-shard slice names item 12c(c)
+            # first: what cannot compute on a model shard names item 12c(c)
             self._check_sharded(cfg, plan, scheduler, watchdog_s)
         if cfg.family == "vlm":
             raise NotImplementedError(

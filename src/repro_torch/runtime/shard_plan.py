@@ -148,6 +148,27 @@ class ShardPlan:
 
         return tree_map(one, params, shapes, layout.specs)
 
+    def draw_local(self, cfg, gen: torch.Generator, device=None) -> PyTree:
+        """This rank's serving parameters drawn from ``gen`` on ``device``:
+        the values of :meth:`local_params` of ``lm.init_params(cfg, gen)``,
+        each leaf (a stacked leaf group by group) cut to this rank's block
+        as soon as it is drawn, so the whole tree is never held (the peak is
+        this rank's blocks and one group of the whole)."""
+        from repro_torch.models import lm
+        from repro_torch.parallel.zero import ShardLayout, param_shapes
+
+        shapes = param_shapes(cfg)
+        layout = ShardLayout(self.mesh, self.param_shardings(cfg, shapes))
+
+        def cut(path, t):
+            full, spec = shapes, layout.specs
+            for k in path.split("/"):
+                full, spec = full[k], spec[k]
+            box = layout._box(spec, full.shape)
+            return t[box[len(box) - t.dim():]]    # a stacked leaf's group: no G axis
+
+        return lm.init_params(cfg, gen, device=device, cut=cut)
+
     def replicated(self, *, as_placements: bool = False):
         """The fully replicated spec (splice sources, prefix checkpoints)."""
         return placements((), self.mesh) if as_placements else ()

@@ -185,9 +185,12 @@ def test_every_arch_decodes_in_bf16_on_fake_tensors():
 def test_vlm_and_encoder_cells_trace_on_one_device_and_a_mesh(arch):
     """Every applicable shape of the VLM and the encoder (their smoke
     configs, 4 rows of 32 tokens) traces through the port's step functions
-    on one device and on rank 0 of a fake (1, 2, 1) mesh: the encoder's
-    ``embeds`` and the VLM's ``memory`` reach every step, and each rank
-    computes its half of the rows.  With them ``--all`` sweeps the
+    on one device, on rank 0 of a fake (1, 2, 1) mesh and on rank 0 of a
+    fake (1, 1, 2) one: the encoder's ``embeds`` and the VLM's ``memory``
+    reach every step; on (1, 2, 1) each rank computes its half of the rows,
+    on (1, 1, 2) all 4 rows on its model shard (a ``cross`` block's heads
+    too), about half of the one-device cell's FLOPs (the replicated
+    ``embed/proj`` and norms add the rest).  With them ``--all`` sweeps the
     reference's 36 cells a mesh (``tests/test_archs_smoke.py``'s count)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -201,19 +204,29 @@ def test_vlm_and_encoder_cells_trace_on_one_device_and_a_mesh(arch):
               for s in applicable_shapes(get_config(arch))]
     assert [s.kind for s in shapes] == (["train", "prefill", "decode"] if cfg.is_decoder
                                         else ["train", "prefill"])
+    one = {}
     for shape in shapes:
         cell = steps.lower_cell(cfg, shape, None, device="cpu")
         assert cell.rows == 4 and cell.stats.flops > 0, shape
-    mesh = AbstractMesh((1, 2, 1), AXES)
-    with ThreadPoolExecutor(len(shapes)) as pool:
-        recs = list(pool.map(lambda s: dryrun.spawn_cell(
-            arch, s.name, False, device="cpu", mesh_shape=mesh, shape=s, cfg=cfg,
-            timeout_s=240), shapes))
-    for shape, rec in zip(shapes, recs):
-        assert (rec["mesh"], rec["n_devices"], rec["shape"]) == ("1x2x1", 2, shape.name)
-        assert rec["rows_per_rank"] == 2 and rec["flops_corrected"] > 0, rec
+        one[shape.name] = cell.stats.flops
+    cells = [(AbstractMesh(m, AXES), s) for m in ((1, 2, 1), (1, 1, 2)) for s in shapes]
+    with ThreadPoolExecutor(len(cells)) as pool:
+        recs = list(pool.map(lambda c: dryrun.spawn_cell(
+            arch, c[1].name, False, device="cpu", mesh_shape=c[0], shape=c[1], cfg=cfg,
+            timeout_s=240), cells))
+    for (mesh, shape), rec in zip(cells, recs):
+        name = "x".join(map(str, mesh.axis_sizes))
+        assert (rec["mesh"], rec["n_devices"], rec["shape"]) == (name, 2, shape.name)
+        assert rec["flops_corrected"] > 0, rec
         if shape.kind == "train":      # the loss and the gradients summed over data
             assert rec["collectives"]["all_reduce"]["count"] > 0
+        if name == "1x2x1":
+            assert rec["rows_per_rank"] == 2 and not rec["model_shard"], rec
+            continue
+        assert rec["rows_per_rank"] == 4 and rec["model_shard"] is True, rec
+        assert "gather_exact" not in rec["collectives"], rec["collectives"]
+        share = rec["flops_corrected"] / one[shape.name]
+        assert 0.5 <= share <= 0.52, (shape.name, share)
 
 
 # -- FLOPs -------------------------------------------------------------------

@@ -2146,3 +2146,83 @@ def test_flash_attention_kernel_at_the_olmoe_tp2_rank_shape(cuda):
         kernel.splits(q, k, causal=True))
     torch.testing.assert_close(got, ops.flash_attention_ref(q, k, v, causal=True),
                                atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention and the encoder on the model shard: llama-vision and hubert
+# smoke at tp = 2, two gloo ranks sharing the card, and flash_attention at
+# their ranks' heads
+# ---------------------------------------------------------------------------
+
+def _ranks_card_tp_cross(rank, world, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.parallel.sharding import model_shard
+    from repro_torch.runtime import ShardPlan
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(1, 2)
+    plan = ShardPlan(mesh)
+    cfg = get_smoke_config(arch)
+    params = plan.draw_local(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(8)
+    memory = None
+    if cfg.family == "vlm":
+        params["groups"]["b4_cross"]["cross"]["gate"].fill_(0.5)
+        memory = torch.as_tensor(rng.normal(size=(2, cfg.frontend_tokens, cfg.frontend_dim)),
+                                 dtype=torch.float32, device=dev)
+        x = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)), device=dev)
+    else:
+        x = torch.as_tensor(rng.normal(size=(2, 40, cfg.frontend_dim)), dtype=torch.float32,
+                            device=dev)
+    out = {}
+    with torch.no_grad(), model_shard(mesh):
+        for use_pallas in (False, True):
+            c = dataclasses.replace(cfg, use_pallas=use_pallas)
+            calls = ops.flash_attention.calls
+            lg, _ = lm.forward(params, c, x, memory=memory)
+            out[use_pallas] = (tp.join_vocab(lg, cfg.vocab).cpu().numpy(),
+                               ops.flash_attention.calls - calls)
+    out["wq"] = tuple(params["groups"]["b0_attn"]["attn"]["wq"].shape)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "hubert-xlarge"])
+def test_vlm_and_encoder_at_tp2_use_pallas_forward_matches_plain_on_the_card(cuda, arch):
+    """Each of two gloo ranks on cuda:0 computes the smoke config on its 2
+    of 4 query heads (``flash_attention`` once a self-attention layer,
+    non-causal for the encoder; llama's cross blocks, gates open, on its
+    heads too, plain); the joined logits of every position within 1e-5 of
+    max |logit| of the plain path's."""
+    from repro_torch.launch.spawn import run_ranks
+
+    for out in run_ranks(_ranks_card_tp_cross, 2, (arch,), backend="gloo", timeout_s=300):
+        plain, calls_p = out[False]
+        kern, calls_k = out[True]
+        n_attn = 4 if arch == "llama-3.2-vision-90b" else 2     # the smoke configs' layers
+        assert calls_p == 0 and calls_k == n_attn
+        assert out["wq"][-1] == 2 * 16
+        assert np.max(np.abs(kern - plain)) <= 1e-5 * np.max(np.abs(plain))
+
+
+@pytest.mark.parametrize("case", [dict(H=8, KV=8, hd=80, causal=False),
+                                  dict(H=32, KV=4, hd=128, causal=True)],
+                         ids=["l_hubert_tp2", "m_llama_vision_tp2"])
+def test_flash_attention_kernel_at_the_cross_and_encoder_tp2_rank_shapes(cuda, case):
+    """Shapes (l) and (m): hubert-xlarge's rank at tp = 2 (8 of 16 heads,
+    hd 80, non-causal) and llama-3.2-vision-90b's (32 of 64 query and 4 of
+    8 KV heads, hd 128, causal), at 2048 tokens."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    shape = dict(B=1, S=2048, T=2048, H=case["H"], KV=case["KV"], hd=case["hd"])
+    q, k, v = _flash_case(cuda, shape, torch.float32, seed=13)
+    launches = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=case["causal"])
+    assert ops.flash_attention.launches - launches == kernel.launches_per_call(
+        kernel.splits(q, k, causal=case["causal"]))
+    torch.testing.assert_close(got, ops.flash_attention_ref(q, k, v, causal=case["causal"]),
+                               atol=1e-5, rtol=1e-5)

@@ -20,9 +20,11 @@ SHAPES  — each rank's parameter and cache leaves have the shapes of their
           block under the reference's ``param_specs(fsdp=False)`` and
           ``cache_specs``.
 HOST    — the host state is the same on every rank after every drain.
-REFUSAL — tp = 2 on a family outside the slice (paper-lstm, zamba2, and
-          llama-3.2-vision-90b's ``cross`` kind) raises
-          ``NotImplementedError`` citing 12c(c).
+REFUSAL — tp = 2 on a family outside the slice (paper-lstm, zamba2) raises
+          ``NotImplementedError`` citing 12c(c); the VLM and the encoder,
+          which compute on a model shard (``tests/test_torch_tp_cross.py``),
+          are refused with the server's own reasons (no memory, no
+          decode), which do not name 12c(c).
 
 The reference runs in the parent while the ranks (``launch.spawn``) run;
 they import no JAX.
@@ -43,7 +45,8 @@ PROMPTS = [(7, 0), (12, 1), (3, 2), (9, 3)]      # (length, seed)
 NEW = 5
 SLOTS, MAX_SEQ = 4, 32
 LOGIT_GAP = 1e-5
-REFUSED = ("paper-lstm", "llama-3.2-vision-90b", "zamba2-1.2b")
+REFUSED = ("paper-lstm", "zamba2-1.2b")
+NOT_SERVED = {"llama-3.2-vision-90b": "is a VLM", "hubert-xlarge": "is an encoder"}
 
 
 def _prompt(n, seed):
@@ -136,7 +139,7 @@ def _ranks(rank, world, p0s):
                 toks, pre, dec, digest, srv = _serve(cfg, params, plan, **kw)
                 out["runs"][name, arch, drv] = (toks, pre, dec, digest)
             out["runs"][name, arch, "shapes"] = (_flat(srv.params), _flat(srv.caches))
-        for arch in REFUSED:
+        for arch in REFUSED + tuple(NOT_SERVED):
             cfg = get_smoke_config(arch)
             p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
             try:
@@ -302,3 +305,18 @@ def test_a_family_outside_the_slice_is_refused_at_tp2(ranks, arch):
             if a == arch:
                 assert msg is not None and "12c(c)" in msg, (name, msg)
     assert not any(r["jax"] for r in ranks)
+
+
+@pytest.mark.parametrize("arch", list(NOT_SERVED))
+def test_the_vlm_and_the_encoder_are_refused_for_the_server_s_reasons_at_tp2(ranks, arch):
+    """Both compute on a model shard now; the server still refuses them,
+    as it does without a plan: it passes no memory, and an encoder has no
+    decode."""
+    seen = 0
+    for r in ranks:
+        for (name, a), msg in r["refused"].items():
+            if a == arch:
+                assert msg is not None and NOT_SERVED[arch] in msg, (name, msg)
+                assert "12c" not in msg, (name, msg)
+                seen += 1
+    assert seen == 6           # two ranks on (1, 1, 2), four on (1, 2, 2)
