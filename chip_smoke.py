@@ -343,6 +343,23 @@ Phases, one line per case (any failure exits non-zero and prints no result):
    through ``make_serve_step(mesh=)`` equal to phase 25's, resident bytes
    a rank against the reckoned share; ``flash_attention`` at those two
    ranks' shapes (l) and (m) against its plain version, timed beside SDPA.
+28. tp16 — attention whose heads do not cut whole, on sixteen gloo ranks
+   sharing the card (``make_local_mesh(1, 16)``): 8 KV heads of 128 over
+   16 ranks are half a head each, joined whole exactly before RoPE, the
+   norms and the cache.  ``internlm2-20b`` at phase 18's 4 layers through
+   ``DecodeServer(plan=)`` on phase 18's 17- and 2048-token prompts, 8 new
+   tokens (tokens equal to phase 18's, every logit row within 1e-5 of max
+   |logit| of its ``plan=None`` run, the replicated caches bit-identical
+   across the ranks); ``llama-3.2-vision-90b`` at phase 25's 10 layers, gates at 0.5,
+   phase 25's prompt and memory through the prefill and serve steps
+   (last logits within 1e-4, the 1e-5 reading printed; 4 tokens equal to
+   phase 25's); resident bytes a rank against 1/16 of the whole;
+   ``internlm2-20b`` at 1 layer through ``Trainer(mesh=)`` on 2 × 1024
+   tokens, 2 steps against a ``mesh=None`` run on the card before the
+   ranks (1e-5 at step 0, 1e-4 after), the replicated leaves
+   bit-identical, the dry run of that (1, 1, 16) cell equal to the ranks;
+   ``flash_attention`` at the ranks' shapes (n) and (o) against its plain
+   version, timed beside SDPA.
 
 Then the kernel summary (one JSON line), the card's name and power limit as
 ``nvidia-smi`` reports them, and the result line.  Each phase prints its
@@ -356,10 +373,12 @@ import asyncio
 import atexit
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import math
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -636,6 +655,24 @@ TP_CROSS_ATTN_SHAPES = (
     ("l_hubert_tp2_S2048", dict(B=1, S=2048, T=2048, H=8, KV=8, hd=80, window=0,
                                 causal=False)),
     ("m_llama_vision_tp2_S2048", dict(B=1, S=2048, T=2048, H=32, KV=4, hd=128, window=0)))
+
+# 28. attention whose heads do not cut whole: sixteen gloo ranks share the
+# card; the oracles are phases 18's (internlm2-20b) and 25's (llama) runs,
+# the training one a mesh=None run of the same cell before the ranks start
+TP16_RANKS = 16
+TP16_PICK = (0, 3)              # phase 18's 17- and 2048-token requests (its uids)
+TP16_NEW = 8                    # decode tokens a request (phase 18 ran 16)
+# llama's: phase 25 ran 16; a decode call joins its cross blocks' memory
+# K/V again over sixteen ranks: 2.4-3.4 s a token on an H100 80GB HBM3 at 700 W
+TP16_VLM_NEW = 4
+# one layer: at two, the ranks' AdamW state and its update's transients beside
+# sixteen contexts passed the card's 80 GB (81 GB in use at the failure)
+TP16_TRAIN_LAYERS = 1
+TP16_TRAIN = (2, 1024)          # (global batch, sequence) of the train steps
+TP16_TRAIN_STEPS = 2
+TP16_ATTN_SHAPES = (
+    ("n_internlm2_tp16_S2048", dict(B=1, S=2048, T=2048, H=3, KV=1, hd=128, window=0)),
+    ("o_llama_vision_tp16_S2048", dict(B=1, S=2048, T=2048, H=4, KV=1, hd=128, window=0)))
 
 START_T0 = time.perf_counter()
 PHASE_T0 = [START_T0]
@@ -1721,13 +1758,28 @@ def long_prompt_traffic(vocab: int, lengths=GEMMA_LENGTHS, shared=GEMMA_SHARED,
     return out
 
 
-def fa_per_prefill(mcfg, n: int, dev, tp: int = 1) -> tuple[int, int, int]:
+def rank_attn_heads(mcfg, tp: int = 1, index: int = 0) -> tuple[int, int]:
+    """(query heads, KV heads) that ``flash_attention`` sees on model rank
+    ``index`` of ``tp``: ``H/tp`` and ``KV/tp`` where the heads cut whole,
+    else the query heads that cover the rank's ``wo`` rows and the KV heads
+    they read (``tensor_parallel.query_heads``, ``kv_heads``)."""
+    from repro_torch.parallel import tensor_parallel as tp_lib
+
+    H, KV, hd = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
+    if tp == 1 or KV % tp == 0:
+        return H // tp, KV // tp
+    h0, h1, _ = tp_lib.query_heads(index, H * hd // tp, hd)
+    return h1 - h0, len(tp_lib.kv_heads(h0, h1, H, KV))
+
+
+def fa_per_prefill(mcfg, n: int, dev, tp: int = 1, index: int = 0) -> tuple[int, int, int]:
     """``flash_attention`` calls, windowed calls and CUDA launches of one
     one-shot prefill of ``n`` tokens: one call per attention layer (``attn``,
     ``attn_local``, ``shared_attn``, and ``moe`` without MLA: MLA has no
     kernel), the local layers' with the window, each
-    1 launch or 2 where the host splits the key axis (on a rank's
-    ``1/tp`` of the heads).  Launches are 0 off the card."""
+    1 launch or 2 where the host splits the key axis (on model rank
+    ``index``'s heads of ``tp``: ``rank_attn_heads``).  Launches are 0 off
+    the card."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     attn_kinds = ("attn", "attn_local", "shared_attn") + (() if mcfg.use_mla else ("moe",))
@@ -1736,8 +1788,9 @@ def fa_per_prefill(mcfg, n: int, dev, tp: int = 1) -> tuple[int, int, int]:
     windows = [mcfg.sliding_window if k == "attn_local" else 0 for k in kinds]
     launches = 0
     if dev.type == "cuda":
-        q = torch.empty((1, n, mcfg.n_heads // tp, mcfg.head_dim), device=dev)
-        k = torch.empty((1, n, mcfg.n_kv_heads // tp, mcfg.head_dim), device=dev)
+        h, kv = rank_attn_heads(mcfg, tp, index)
+        q = torch.empty((1, n, h, mcfg.head_dim), device=dev)
+        k = torch.empty((1, n, kv, mcfg.head_dim), device=dev)
         launches = sum(fa_kernel.launches_per_call(
             fa_kernel.splits(q, k, causal=mcfg.causal, window=w)) for w in windows)
     return len(kinds), sum(w > 0 for w in windows), launches
@@ -4403,9 +4456,10 @@ def leaf_checksums(tree, keep) -> dict:
     return out
 
 
-def dry_run_started(arch: str, cfg, shape, microbatches: int, dev_name: str) -> tuple:
+def dry_run_started(arch: str, cfg, shape, microbatches: int, dev_name: str,
+                    tp: int = TP_RANKS) -> tuple:
     """``(thread, record)``: the dry run of ``arch``'s ``shape`` cell on a
-    (1, 1, ``TP_RANKS``) mesh (``dryrun.spawn_cell``, a process of its
+    (1, 1, ``tp``) mesh (``dryrun.spawn_cell``, a process of its
     own), running in a thread; after ``thread.join()`` ``record["cell"]``
     holds the record or the exception."""
     from repro_torch.launch import dryrun
@@ -4416,7 +4470,7 @@ def dry_run_started(arch: str, cfg, shape, microbatches: int, dev_name: str) -> 
     def dry():
         try:
             record["cell"] = dryrun.spawn_cell(
-                arch, "", False, mesh_shape=AbstractMesh((1, 1, TP_RANKS), AXES), shape=shape,
+                arch, "", False, mesh_shape=AbstractMesh((1, 1, tp), AXES), shape=shape,
                 cfg=cfg, microbatches=microbatches, device=dev_name, timeout_s=300)
         except BaseException as e:  # noqa: BLE001 - read by the caller
             record["cell"] = e
@@ -4426,7 +4480,8 @@ def dry_run_started(arch: str, cfg, shape, microbatches: int, dev_name: str) -> 
     return thread, record
 
 
-def tp_weights(arch: str, n_layers: int, dev, plan, smoke: bool = False) -> tuple:
+def tp_weights(arch: str, n_layers: int, dev, plan, smoke: bool = False,
+               at_once: int = 1) -> tuple:
     """``(config, this rank's block of the weights, full bytes, resident
     bytes)``: the weights drawn from seed 0 on the card (as the ``plan=None``
     run drew them), each leaf cut to this rank's model block as soon as it
@@ -4436,27 +4491,38 @@ def tp_weights(arch: str, n_layers: int, dev, plan, smoke: bool = False) -> tupl
     full bytes are those of the tree's shapes.  The ranks draw one after
     another (a drawing rank holds one group of the whole)."""
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.launch.mesh import mesh_ranks
     from repro_torch.launch.trace_analysis import tensor_bytes
     from repro_torch.parallel.zero import param_shapes
 
     mcfg = dataclasses.replace((get_smoke_config if smoke else get_config)(arch),
                                n_layers=n_layers, use_pallas=True)
-    cuda = dev.type == "cuda"
-    group = plan.control_group()
     param_shapes(mcfg)      # the cut's shapes, traced once a process (~10 s the first time)
-    for turn in mesh_ranks(plan.mesh):
-        if turn == torch.distributed.get_rank():
-            if cuda:
+    params = in_turns(lambda: plan.draw_local(mcfg, torch.Generator(device=dev).manual_seed(0),
+                                              device=dev), dev, plan, at_once)
+    return mcfg, params, tensor_bytes(param_shapes(mcfg)), tensor_bytes(params)
+
+
+def in_turns(fn, dev, plan, at_once: int = 1):
+    """``fn()`` on the ranks of ``plan``'s mesh, ``at_once`` at a time in
+    their order (each turn ends at a barrier over the control group): a
+    rank drawing weights holds a whole leaf, or a stacked leaf's whole
+    group, beside the other ranks' blocks.  Its card's cache is emptied
+    before and after."""
+    from repro_torch.launch.mesh import mesh_ranks
+
+    out = None
+    ranks = mesh_ranks(plan.mesh)
+    for turn in range(0, len(ranks), at_once):
+        if torch.distributed.get_rank() in ranks[turn:turn + at_once]:
+            if dev.type == "cuda":
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
-            params = plan.draw_local(mcfg, torch.Generator(device=dev).manual_seed(0),
-                                     device=dev)
-            if cuda:
+            out = fn()
+            if dev.type == "cuda":
                 torch.cuda.empty_cache()
         sync(dev)
-        torch.distributed.barrier(group=group)
-    return mcfg, params, tensor_bytes(param_shapes(mcfg)), tensor_bytes(params)
+        torch.distributed.barrier(group=plan.control_group())
+    return out
 
 
 def tp_drive(mcfg, params, traffic, slots: int, max_seq: int, dev, plan, *,
@@ -4502,13 +4568,10 @@ def tp_drive(mcfg, params, traffic, slots: int, max_seq: int, dev, plan, *,
     # the launches those one-shot prefills make at this rank's heads (fa_per_prefill's rule)
     want_fa = 0
     if mcfg.family in ("dense", "moe") and not mcfg.use_mla and cuda:
-        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        from repro_torch.launch.mesh import model_index
 
-        h, kv = mcfg.n_heads // plan.tp, mcfg.n_kv_heads // plan.tp
-        for n in oneshot:
-            q = torch.empty((1, n, h, mcfg.head_dim), device=dev)
-            k = torch.empty((1, n, kv, mcfg.head_dim), device=dev)
-            want_fa += mcfg.n_layers * fa_kernel.launches_per_call(fa_kernel.splits(q, k))
+        want_fa = sum(fa_per_prefill(mcfg, n, dev, plan.tp, model_index(plan.mesh))[2]
+                      for n in oneshot)
     decode_ms = sum(ev["dur"] for ev in srv.obs.tracer.events()
                     if ev.get("name") in ("decode_step", "decode_block")) / 1e3
     st = srv.stats()
@@ -4529,18 +4592,23 @@ def tp_drive(mcfg, params, traffic, slots: int, max_seq: int, dev, plan, *,
             "srv": srv}
 
 
-def tp_train(dev, mesh, smoke: bool, root: Path) -> dict:
-    """smollm-135m through ``Trainer(mesh=(1, 1, 2))`` on phase 23's cell:
-    each step's (loss, grad norm, seconds), argument bytes and collectives,
-    and the checksums of the leaves replicated along ``model``."""
+def tp_train(dev, mesh, smoke: bool, root: Path, make=None) -> dict:
+    """smollm-135m through ``Trainer(mesh=(1, 1, 2))`` on phase 23's cell
+    (or the trainer ``make()`` returns): each step's (loss, grad norm,
+    seconds), argument bytes and collectives, and the checksums of the
+    leaves replicated along ``model``."""
     from repro_torch.launch.trace_analysis import tensor_bytes
     from repro_torch.parallel import comm
 
-    mcfg = mesh_train_config(smoke)
+    if make is None:
+        mcfg = mesh_train_config(smoke)
+        make = lambda: mesh_trainer(mcfg, root, dev, mesh)  # noqa: E731
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    trainer = mesh_trainer(mcfg, root, dev, mesh)
+    trainer = make()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()        # the draw's whole leaves, cut to this rank's blocks
     replicated = model_replicated(trainer.layout)
     inner, steps = trainer._step_fn, []
 
@@ -4611,16 +4679,14 @@ def tp_cross_rank(dev, mesh, plan, job: dict, smoke: bool) -> dict:
     (``make_train_step(mesh=)``) of phase 25's batch; then
     llama-3.2-vision-90b at ``job["llama_layers"]``, every cross gate at
     ``LLAMA_GATE``: a one-shot prefill of phase 25's prompt against its
-    memory through ``make_prefill_step(mesh=)`` and greedy tokens through
-    ``make_serve_step(mesh=)``.  Each model's weights drawn leaf by leaf in
+    memory and greedy tokens (``vlm_rank_drive``).  Each model's weights drawn leaf by leaf in
     turns (``tp_weights``); the kernels' counts set to 0 just
     before each drive and read just after."""
     from repro_torch import optim
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.trace_analysis import tensor_bytes
     from repro_torch.models import lm
     from repro_torch.parallel import comm, zero
-    from repro_torch.parallel import tensor_parallel as tp_lib
     from repro_torch.parallel.sharding import model_shard
 
     cuda = dev.type == "cuda"
@@ -4674,17 +4740,38 @@ def tp_cross_rank(dev, mesh, plan, job: dict, smoke: bool) -> dict:
 
     # llama-3.2-vision-90b: the prefill, then greedy decode from its cache
     fresh()
-    vj = job["llama"]
+    out["llama"] = vlm_rank_drive(dev, mesh, plan, job["llama"], smoke)
+    fresh()
+    return out
+
+
+def vlm_rank_drive(dev, mesh, plan, vj: dict, smoke: bool, warm: bool = True) -> dict:
+    """llama-3.2-vision-90b at ``vj["n_layers"]`` on this rank's model
+    shard, every cross gate at ``LLAMA_GATE``: its weights drawn leaf by
+    leaf in turns (``tp_weights``), a one-shot prefill of ``vj["tokens"]``
+    against ``vj["memory"]`` through ``make_prefill_step(mesh=)``, then
+    ``len(vj["out"])`` greedy tokens through ``make_serve_step(mesh=)``;
+    the kernel's counts set to 0 just before the prefill and read just
+    after.  ``warm``: a 64-token prefill first (the first call of a
+    process's kernels)."""
+    from repro_torch.launch.mesh import model_index
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.parallel import tensor_parallel as tp_lib
+    from repro_torch.parallel.sharding import model_shard
+
+    cuda = dev.type == "cuda"
     cfg, params, full_bytes, resident = tp_weights("llama-3.2-vision-90b", vj["n_layers"], dev,
                                                    plan, smoke)
     params["groups"]["b4_cross"]["cross"]["gate"].fill_(LLAMA_GATE)
     memory, toks = torch.from_numpy(vj["memory"]).to(dev), torch.from_numpy(vj["tokens"]).to(dev)
     new = len(vj["out"])
     max_seq = toks.shape[1] + new
-    want_calls, _, want_launches = fa_per_prefill(cfg, toks.shape[1], dev, tp=plan.tp)
+    want_calls, _, want_launches = fa_per_prefill(cfg, toks.shape[1], dev, tp=plan.tp,
+                                                  index=model_index(mesh))
     prefill, serve = make_prefill_step(cfg, mesh), make_serve_step(cfg, mesh)
     with torch.no_grad(), model_shard(mesh):
-        prefill(params, {"tokens": toks[:, :64], "memory": memory})   # warm the path
+        if warm:
+            prefill(params, {"tokens": toks[:, :64], "memory": memory})   # warm the path
         fa_reset()
         (lg, caches), pre_ms = timed(lambda: prefill(params, {"tokens": toks, "memory": memory}),
                                      dev)
@@ -4701,14 +4788,14 @@ def tp_cross_rank(dev, mesh, plan, job: dict, smoke: bool) -> dict:
             tokens.append(int(tp_lib.join_vocab(lg_d, cfg.vocab)[0].argmax()))
         sync(dev)
         decode_ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
-    out["llama"] = {"last_logits": lg.cpu().numpy(), "tokens": tokens, "calls": calls,
-                    "launches": launches, "want": (want_calls, want_launches),
-                    "model_shard": prefill.model_shard and serve.model_shard,
-                    "prefill_ms": pre_ms, "decode_ms": decode_ms, "cache": cache_shapes,
-                    "full_bytes": full_bytes, "resident_bytes": resident,
-                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0}
+    out = {"last_logits": lg.cpu().numpy(), "tokens": tokens, "calls": calls,
+           "launches": launches, "want": (want_calls, want_launches),
+           "model_shard": prefill.model_shard and serve.model_shard,
+           "prefill_ms": pre_ms, "decode_ms": decode_ms, "cache": cache_shapes,
+           "cache_sums": leaf_checksums(dcache, lambda path: True),
+           "full_bytes": full_bytes, "resident_bytes": resident,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0}
     del params, dcache, lg, memory, toks
-    fresh()
     return out
 
 
@@ -5369,6 +5456,372 @@ def tp_moe_phase(dev, card: str, job: dict, ranks: list, oracles: dict, train_ba
     say("tp_moe", case="seconds", since_start_with_phase_26=f"{ranks_s:.1f}",
         rank0=ranks[0]["seconds"], dry_run_lower_s=rec["lower_s"])
     return {"launches": launches, "attn": (name, a_time)}
+
+# ---------------------------------------------------------------------------
+# 28. tp16: attention whose heads do not cut whole, at tp = 16
+# ---------------------------------------------------------------------------
+
+def tp16_train_config(smoke: bool = False):
+    """internlm2-20b at its widths, ``TP16_TRAIN_LAYERS`` layers (the smoke
+    config's widths when rehearsing on the CPU)."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    return dataclasses.replace((get_smoke_config if smoke else get_config)("internlm2-20b"),
+                               n_layers=TP16_TRAIN_LAYERS)
+
+
+def tp16_trainer(mcfg, ckpt_dir: Path, dev, mesh):
+    """``TP16_TRAIN_STEPS`` steps of ``TP16_TRAIN``, one microbatch, every
+    step logged, no checkpoint (a rank's shards are drawn from the seed as
+    they are cut: ``ShardLayout.draw``)."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    B, S = TP16_TRAIN
+    tcfg = TrainerConfig(total_steps=TP16_TRAIN_STEPS, ckpt_every=0, ckpt_dir=str(ckpt_dir),
+                         log_every=1, microbatches=1, ckpt_async=False)
+    ocfg = optim.AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=TP16_TRAIN_STEPS)
+    return Trainer(mcfg, tcfg, ocfg, DataConfig(vocab=mcfg.vocab, seq_len=S, global_batch=B),
+                   mesh, device=dev)
+
+
+def tp16_control(dev, root: Path, smoke: bool = False) -> tuple[list, float]:
+    """The training cell with ``mesh=None`` on this process's card: each
+    step's (loss, grad norm, seconds) and the peak GB; its state (~24.5 GB
+    at full width) is freed before the ranks start."""
+    cuda = dev.type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    trainer = tp16_trainer(tp16_train_config(smoke), root / "none", dev, None)
+    res = trainer.run()
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    steps = [(m["loss"], m["grad_norm"], m["sec"]) for m in res["metrics"]]
+    require(len(steps) == TP16_TRAIN_STEPS and all(math.isfinite(x[0]) for x in steps),
+            f"tp16: the mesh=None control logged {len(steps)} steps: {steps}")
+    del trainer, res
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return steps, peak
+
+
+def tp16_rank(rank: int, world: int, dev_name: str, job_path: str, smoke: bool, root: str,
+              sizes: dict) -> dict:
+    """One of ``TP16_RANKS`` ranks sharing the card over gloo at (1, 1,
+    world), on the job ``tp16_phase`` wrote to ``job_path``: first the
+    training cell through ``Trainer(mesh=)`` (``tp_train``: its state
+    fits beside sixteen fresh contexts, not after the serving's kernels
+    grew them), then internlm2-20b served through ``DecodeServer(plan=)``
+    (the collectives of the run and the checksums of its caches beside
+    ``tp_drive``'s record), then llama-3.2-vision-90b's prefill and greedy
+    decode (``vlm_rank_drive``); each model freed before the next, the
+    card's free GB read after each."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.zero import param_shapes
+    from repro_torch.runtime import ShardPlan
+
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    stamps = {"entered": time.time() - job["spawned"]}
+    _phase_sizes(sizes)
+    # sixteen ranks' draws leave their blocks inside segments that held
+    # whole leaves: expandable segments give those pages back
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    dev = _rank_device(dev_name)
+    mesh = make_local_mesh(1, world)
+    plan = ShardPlan(mesh)
+    tcfg = tp16_train_config(smoke)
+    param_shapes(tcfg)      # traced once a process, here and not in a rank's turn
+    # the draw's kernels loaded by every rank at once, not each in its turn
+    torch.randn((1024,), generator=torch.Generator(device=dev).manual_seed(0),
+                device=dev).div(3.0).mul(0.5).clone()
+    stamps["ready"] = time.time() - job["spawned"]
+    # the parent's mesh=None control holds the card until it writes this file
+    while not os.path.exists(job["go"]):
+        time.sleep(0.1)
+    stamps["go"] = time.time() - job["spawned"]
+    cuda = dev.type == "cuda"
+    free = {}
+
+    def fresh(at: str):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            free[at] = torch.cuda.mem_get_info()[0] / 1e9
+
+    out = {"free_gb": free, "stamps": stamps}
+    fresh("start")
+    t0 = time.perf_counter()
+    out["train"] = tp_train(dev, mesh, smoke, Path(root), make=lambda: in_turns(
+        lambda: tp16_trainer(tcfg, Path(root) / "tp16", dev, mesh), dev, plan, at_once=4))
+    out["train"]["seconds"] = time.perf_counter() - t0
+    fresh("trained")
+    t0 = time.perf_counter()
+    mcfg, params, full_bytes, resident = tp_weights("internlm2-20b", job["internlm_layers"],
+                                                    dev, plan, smoke, at_once=4)
+    comm.reset_counts()
+    run = tp_drive(mcfg, params, job["traffic"], SERVE_SLOTS, GEMMA_MAX_SEQ, dev, plan,
+                   uids=job["uids"])
+    srv = run.pop("srv")
+    out["internlm2-20b"] = run | {
+        "collectives": comm.counters(), "full_bytes": full_bytes, "resident_bytes": resident,
+        "cache_sums": leaf_checksums(srv.caches, lambda path: True),
+        "seconds": time.perf_counter() - t0}
+    del srv, params
+    fresh("served")
+    t0 = time.perf_counter()
+    comm.reset_counts()
+    # the serving above ran every kernel the prefill calls: no warm-up
+    out["llama"] = vlm_rank_drive(dev, mesh, plan, job["llama"], smoke, warm=False)
+    out["llama"] |= {"collectives": comm.counters(), "seconds": time.perf_counter() - t0}
+    fresh("vlm_done")
+    out["jax"] = "jax" in sys.modules
+    return out
+
+
+def tp16_phase(dev, card: str, oracles: dict, *, smoke: bool = False,
+               ranks: int = TP16_RANKS) -> dict:
+    """Phase 28.  ``oracles``: ``{"internlm2-20b": phase 18's record,
+    "llama-3.2-vision-90b": phase 25's}``.  The dry run of the training
+    cell at (1, 1, ``ranks``) and ``ranks`` gloo ranks (``tp16_rank``)
+    start first, beside the ``mesh=None`` control (``tp16_control``), which
+    the ranks wait for before they allocate; their results are held to the
+    oracles and the control; then ``flash_attention`` at (n) and (o).
+    Returns the kernel's calls and launches by model and the two shapes'
+    timings."""
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.models.config import ShapeSpec
+
+    root = ROOT / "build" / "tp16"
+    shutil.rmtree(root, ignore_errors=True)
+    dev_name = "cuda:0" if dev.type == "cuda" else "cpu"
+    i_or, v_or = oracles["internlm2-20b"], oracles["llama-3.2-vision-90b"]
+    t0 = time.perf_counter()
+    B, S = TP16_TRAIN
+    thread, record = dry_run_started("internlm2-20b", tp16_train_config(smoke),
+                                     ShapeSpec(f"train_S{S}", S, B, "train"), 1, dev_name,
+                                     tp=ranks)
+    i_layers = INTERNLM_LAYERS if not smoke else 2
+    job = {"internlm_layers": i_layers,
+           "traffic": [(i_or["traffic"][i][0], TP16_NEW) for i in TP16_PICK],
+           "uids": TP16_PICK,
+           "llama": {"n_layers": v_or["n_layers"], "memory": v_or["memory"].numpy(),
+                     "tokens": v_or["tokens"].numpy(), "out": v_or["out"][:TP16_VLM_NEW]},
+           "go": str(root / "go"), "spawned": time.time()}
+    sizes = {k: globals()[k] for k in ("SERVE_SLOTS", "GEMMA_MAX_SEQ", "TP16_TRAIN",
+                                       "TP16_TRAIN_STEPS", "TP16_TRAIN_LAYERS", "TP16_NEW")}
+    # the job goes by file: a spawned rank reads its arguments only after
+    # importing this script, so arguments past a pipe's buffer would start
+    # the ranks one after another
+    job_path = root / "job.pkl"
+    job_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(job_path, "wb") as f:
+        pickle.dump(job, f)
+    spawned = {}
+
+    def spawn():
+        try:
+            spawned["runs"] = run_ranks(tp16_rank, ranks, (dev_name, str(job_path), smoke,
+                                                           str(root), sizes),
+                                        backend="gloo", timeout_s=900)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            spawned["runs"] = e
+
+    # the ranks start (~20 s of imports) while the control runs; they touch
+    # the card's memory only once it is done (job["go"])
+    ranks_thread = threading.Thread(target=spawn)
+    ranks_thread.start()
+    try:
+        free0 = torch.cuda.mem_get_info()[0] / 1e9 if dev.type == "cuda" else 0.0
+        base, base_peak = tp16_control(dev, root, smoke)
+        control_s = time.perf_counter() - t0
+    finally:
+        Path(job["go"]).touch()
+        ranks_thread.join()
+        thread.join()
+    runs = spawned["runs"]
+    if isinstance(runs, BaseException):
+        raise runs
+    ranks_s = time.perf_counter() - t0
+    require(len(runs) == ranks and not any(r["jax"] for r in runs),
+            f"tp16: {len(runs)} ranks returned, or a rank imported jax")
+    launches = {}
+    # the card's free memory as each rank saw it (the least over the ranks)
+    say("tp16", case="card_free_gb", before_ranks=f"{free0:.2f}",
+        **{at: f"{min(r['free_gb'][at] for r in runs):.2f}" for at in runs[0]["free_gb"]})
+    # seconds from the spawn to each rank's start, its readiness (card, mesh,
+    # shapes) and the control's end (the latest rank)
+    say("tp16", case="rank_start_s",
+        **{at: f"{max(r['stamps'][at] for r in runs):.1f}" for at in runs[0]["stamps"]})
+
+    def share(arch, n_layers, run, rank):
+        full_want, share_want = tp_share_bytes(arch, n_layers, ranks, smoke)
+        require(run["full_bytes"] == full_want
+                and abs(run["resident_bytes"] - share_want) <= TP_RESIDENT_RTOL * share_want,
+                f"tp16 {arch} rank {rank}: {run['resident_bytes']} of {run['full_bytes']} "
+                f"bytes resident, reckoned {share_want} of {full_want}")
+
+    def same_on_every_rank(what, values):
+        require(len(values[0]) > 0 and all(v == values[0] for v in values),
+                f"tp16: {what} differ across the ranks")
+
+    def peaks(part):
+        return max(r[part]["peak_gb"] for r in runs), sum(r[part]["peak_gb"] for r in runs)
+
+    # [tp16_serve]: internlm2-20b against phase 18's plan=None run
+    arch, gap, scale = "internlm2-20b", 0.0, 0.0
+    calls = fa_launches = 0
+    for rank, r in enumerate(runs):
+        run = r[arch]
+        for uid, toks in run["tokens"].items():
+            want = list(i_or["tokens"][uid])[:len(toks)]
+            require(len(toks) == TP16_NEW and toks == want,
+                    f"tp16 {arch} rank {rank}: request {uid}'s tokens {toks} differ from the "
+                    f"plan=None run's {want}")
+        keys = sorted(run["logits"], key=str)
+        missing = [k for k in keys if k not in i_or["logits"]]
+        require(keys and not missing, f"tp16 {arch} rank {rank}: {len(missing)} of "
+                                      f"{len(keys)} logit rows missing from the oracle")
+        gap = max(gap, max(float(np.abs(run["logits"][k] - i_or["logits"][k]).max())
+                           for k in keys))
+        scale = max(scale, max(float(np.abs(i_or["logits"][k]).max()) for k in keys))
+        share(arch, job["internlm_layers"], run, rank)
+        n_pre = len(job["traffic"])
+        c, n = run["counts"]["flash_attention"]
+        require(c == job["internlm_layers"] * n_pre and n == run["want_fa_launches"],
+                f"tp16 {arch} rank {rank}: flash_attention {c} calls, {n} launches for "
+                f"{n_pre} one-shot prefills of {job['internlm_layers']} layers")
+        calls, fa_launches = calls + c, fa_launches + n
+    require(gap <= TP_LOGIT_GAP * scale, f"tp16 {arch}: logits {gap:.3e} from the plan=None "
+                                         f"run's (max |logit| {scale:.3e})")
+    same_on_every_rank(f"{arch}'s host states", [r[arch]["host_state"] for r in runs])
+    same_on_every_rank(f"{arch}'s replicated caches", [r[arch]["cache_sums"] for r in runs])
+    launches[arch] = (calls, fa_launches)
+    r0 = runs[0][arch]
+    say("tp16_serve", arch=arch, ranks=ranks, layers=job["internlm_layers"],
+        requests=len(job["traffic"]), new_tokens=TP16_NEW, identical_tokens=True,
+        logit_rows=len(r0["logits"]), max_abs_gap=f"{gap:.3e}", max_abs_logit=f"{scale:.3e}",
+        rel_gap=f"{gap / scale:.3e}", bar=TP_LOGIT_GAP, cache=r0["cache_shapes"],
+        caches_bit_identical=True, resident_gb_rank=f"{r0['resident_bytes'] / 1e9:.4f}",
+        full_gb=f"{r0['full_bytes'] / 1e9:.4f}",
+        sixteenth_gb=f"{r0['full_bytes'] / ranks / 1e9:.4f}",
+        share=f"{r0['resident_bytes'] / r0['full_bytes']:.5f}",
+        flash_attention_calls=calls, launches=fa_launches,
+        decode_tok_s=f"{r0['decode_tok_s']:.1f}",
+        decode_tok_s_plan_none=f"{i_or['decode_tok_s']:.1f}",
+        prefill_ms=f"{r0['prefill_ms']:.2f}", prefill_ms_plan_none=f"{i_or['prefill_ms']:.2f}",
+        prefill_ms_by_len=r0["prefill_ms_by_len"], collectives=r0["collectives"],
+        peak_alloc_gb_max_rank="{:.2f}".format(peaks(arch)[0]),
+        peak_alloc_gb_sum_ranks="{:.2f}".format(peaks(arch)[1]),
+        seconds_rank0=f"{r0['seconds']:.1f}", card=repr(card))
+
+    # [tp16_vlm]: llama-3.2-vision-90b against phase 25's runs
+    arch, worst, worst_plain = "llama-3.2-vision-90b", 0.0, 0.0
+    calls = fa_launches = 0
+    want_out = v_or["out"][:TP16_VLM_NEW]
+    for rank, r in enumerate(runs):
+        run = r["llama"]
+        n = run["last_logits"].shape[-1]
+        scale = float(v_or["last_logits"].abs().max())
+        mine = v_or["last_logits"][..., rank * n:(rank + 1) * n]
+        g = float((torch.from_numpy(run["last_logits"]) - mine).abs().max()) / scale
+        mine_p = v_or["last_logits_plain"][..., rank * n:(rank + 1) * n]
+        gp = float((torch.from_numpy(run["last_logits"]) - mine_p).abs().max()) / scale
+        worst, worst_plain = max(worst, g), max(worst_plain, gp)
+        require(run["model_shard"], f"tp16 {arch}: a step did not compute on its model shard")
+        require(run["tokens"] == want_out, f"tp16 {arch} rank {rank}: greedy tokens "
+                f"{run['tokens']} differ from phase 25's {want_out}")
+        require((run["calls"], run["launches"]) == run["want"]
+                and run["calls"] == v_or["calls_per_prefill"],
+                f"tp16 {arch} rank {rank}: flash_attention calls, launches "
+                f"{(run['calls'], run['launches'])}, not {run['want']}")
+        share(arch, v_or["n_layers"], run, rank)
+        calls, fa_launches = calls + run["calls"], fa_launches + run["launches"]
+    require(worst <= TP_CROSS_VLM_LOGIT_GAP,
+            f"tp16 {arch}: last logits {worst:.3e} of max |logit| from phase 25's kernel prefill")
+    same_on_every_rank(f"{arch}'s replicated caches", [r["llama"]["cache_sums"] for r in runs])
+    launches[arch] = (calls, fa_launches)
+    r0 = runs[0]["llama"]
+    say("tp16_vlm", arch=arch, ranks=ranks, layers=v_or["n_layers"], gate=LLAMA_GATE,
+        prompt_len=v_or["tokens"].shape[1], memory="x".join(map(str, v_or["memory"].shape)),
+        rel_gap=f"{worst:.3e}", bar=TP_CROSS_VLM_LOGIT_GAP, planned_bar=TP_CROSS_LOGIT_GAP,
+        planned_bar_met=worst <= TP_CROSS_LOGIT_GAP, rel_gap_to_plain=f"{worst_plain:.3e}",
+        one_device_plain_rel_gap=f"{v_or['controls']['plain']:.3e}",
+        one_device_chunk_chain_rel_gap=f"{v_or['controls']['chunk_chain']:.3e}",
+        new_tokens=len(want_out), tokens_equal_phase_25=True, cache=r0["cache"],
+        caches_bit_identical=True, flash_attention_calls=calls, launches=fa_launches,
+        prefill_ms=f"{r0['prefill_ms']:.2f}", prefill_ms_plan_none=f"{v_or['prefill_ms']:.2f}",
+        decode_ms_per_token=f"{r0['decode_ms']:.2f}",
+        decode_ms_per_token_plan_none=f"{v_or['decode_ms']:.2f}",
+        resident_gb_rank=f"{r0['resident_bytes'] / 1e9:.4f}",
+        full_gb=f"{r0['full_bytes'] / 1e9:.4f}",
+        sixteenth_gb=f"{r0['full_bytes'] / ranks / 1e9:.4f}",
+        collectives=r0["collectives"], peak_alloc_gb_max_rank="{:.2f}".format(peaks("llama")[0]),
+        peak_alloc_gb_sum_ranks="{:.2f}".format(peaks("llama")[1]),
+        seconds_rank0=f"{r0['seconds']:.1f}", card=repr(card))
+
+    # [tp16_train_step], [tp16_train]: against the mesh=None control
+    tokens = B * S
+    for rank, r in enumerate(runs):
+        tr = r["train"]
+        require(tr["model_shard"], "tp16_train: the step did not compute on its model shard")
+        require(not any(tr["kernels"].values()),
+                f"tp16_train rank {rank}: a kernel launched on the training path: {tr['kernels']}")
+        require(len(tr["steps"]) == len(base) == TP16_TRAIN_STEPS,
+                f"tp16_train rank {rank}: {len(tr['steps'])} steps")
+        for i, (st, (b_loss, b_gn, b_s)) in enumerate(zip(tr["steps"], base)):
+            tol = TP_TRAIN_RTOL0 if i == 0 else TP_TRAIN_RTOL
+            lg, gg = abs(st["loss"] - b_loss) / abs(b_loss), abs(st["grad_norm"] - b_gn) / abs(b_gn)
+            gathers = sorted(k for k in st["collectives"] if k.startswith("gather"))
+            if rank == 0:
+                say("tp16_train_step", rank=rank, step=i, loss=f"{st['loss']:.6f}",
+                    grad_norm=f"{st['grad_norm']:.6f}", loss_rel_gap=f"{lg:.3e}",
+                    grad_norm_rel_gap=f"{gg:.3e}", bar=tol, ms=f"{1e3 * st['s']:.1f}",
+                    mesh_none_ms=f"{1e3 * b_s:.1f}", tokens_per_s=f"{tokens / st['s']:.0f}",
+                    gathers=gathers, collectives=st["collectives"], card=repr(card))
+            require(lg <= tol and gg <= tol, f"tp16_train rank {rank} step {i}: loss "
+                    f"{st['loss']} / {b_loss}, grad norm {st['grad_norm']} / {b_gn}")
+            # the K/V joins over model only: no parameter gathered whole
+            require(gathers == ["gather_heads"],
+                    f"tp16_train rank {rank} step {i}: gathers {gathers} in a step")
+    for i in range(TP16_TRAIN_STEPS):
+        same_on_every_rank(f"step {i}'s replicated leaves",
+                           [r["train"]["steps"][i]["replicated"] for r in runs])
+    say("tp16_train", mesh=f"1x1x{ranks}", layers=TP16_TRAIN_LAYERS, steps=TP16_TRAIN_STEPS,
+        seq_len=S, global_batch=B, replicated_leaves_bit_identical=len(
+            runs[0]["train"]["steps"][0]["replicated"]),
+        param_gb_rank=f"{runs[0]['train']['param_bytes'] / 1e9:.4f}",
+        peak_alloc_gb_max_rank=f"{max(r['train']['peak_gb'] for r in runs):.2f}",
+        mesh_none_peak_gb=f"{base_peak:.2f}", control_s=f"{control_s:.1f}",
+        seconds_rank0=f"{runs[0]['train']['seconds']:.1f}", card=repr(card))
+
+    # [tp16_dryrun]: the (1, 1, ranks) cell's record against every rank's last step
+    rec = record.get("cell")
+    require(isinstance(rec, dict), f"tp16 dry run of the (1, 1, {ranks}) cell failed: {rec}")
+    last = [r["train"]["steps"][-1] for r in runs]
+    same = all(rec["memory_analysis"]["argument_size_in_bytes"] == st["arg_bytes"]
+               and rec["collectives"] == st["collectives"] for st in last) and rec["model_shard"]
+    say("tp16_dryrun", mesh=rec["mesh"], model_shard=rec["model_shard"],
+        argument_bytes=rec["memory_analysis"]["argument_size_in_bytes"],
+        rank0_argument_bytes=last[0]["arg_bytes"], collectives=rec["collectives"],
+        rank0_collectives=last[0]["collectives"], equal_on_every_rank=same,
+        flops=rec["flops_corrected"], lower_s=rec["lower_s"], card=repr(card))
+    require(same, "tp16 dry run: arguments or collectives differ from a rank's")
+
+    # [kernel_time]: flash_attention at the two models' per-rank shapes
+    gen = torch.Generator(device=dev).manual_seed(32)
+    l2 = torch.zeros(32 * 1024 * 1024, device=dev)
+    times = {name: fa_time_at(name, c, dev, card, gen, l2) for name, c in TP16_ATTN_SHAPES}
+    say("tp16", case="seconds", control=f"{control_s:.1f}",
+        control_and_ranks=f"{ranks_s:.1f}", dry_run_lower_s=rec["lower_s"])
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "attn": times}
 
 
 def main() -> int:
@@ -6550,6 +7003,8 @@ def main() -> int:
     for name, t in tp_cross["attn"].items():
         attn_time[name] = t
         attn_err = max(attn_err, t[7])
+    tp16_oracles = {"internlm2-20b": internlm_fa["oracle"],
+                    "llama-3.2-vision-90b": cross_oracles["llama-3.2-vision-90b"]}
     del cross_oracles
     phase_done("tp_cross")
 
@@ -6559,6 +7014,14 @@ def main() -> int:
     attn_time[tp_moe["attn"][0]] = tp_moe["attn"][1]
     attn_err = max(attn_err, tp_moe["attn"][1][7])
     phase_done("tp_moe")
+
+    # -- 28. attention whose heads do not cut whole, at tp = 16 ---------------------
+    tp16 = tp16_phase(dev, card, tp16_oracles)
+    for name, t in tp16["attn"].items():
+        attn_time[name] = t
+        attn_err = max(attn_err, t[7])
+    del tp16_oracles
+    phase_done("tp16")
 
     summary = {"kernels": [{
         "name": "lstm_seq",
@@ -6683,27 +7146,33 @@ def main() -> int:
         # tp = 2 (4 a rank, on 24 of 48 heads), olmoe-1b-7b's at tp = 2 (16
         # a rank and serving loop, on 8 of 16 heads), hubert-xlarge's at tp = 2 (48
         # a rank, on 8 of 16 heads) and llama-3.2-vision-90b's (8 a rank, on
-        # 32 of 64 query heads); times at shape (a)
+        # 32 of 64 query heads), internlm2-20b's and llama-3.2-vision-90b's at
+        # tp = 16 (4 a prefill and 8 a rank, on 3 and 4 query heads and 1 KV
+        # head); times at shape (a)
         "launches": (f1 + f2 + f3 + lg_smollm_launches + p_launch + gemma_fa["launches"]
                      + internlm_fa["launches"] + zamba_fa["launches"]
                      + moe_fa["olmoe"]["launches"] + moe_fa["olmoe_int8"]["launches"]
                      + tc["smollm-135m"] + hubert_fa["launches"] + llama_fa["launches"]
                      + tp["launches"]["flash_attention"] + tp_moe["launches"]["flash_attention"]
-                     + sum(n for _, n in tp_cross["launches"].values())),
+                     + sum(n for _, n in tp_cross["launches"].values())
+                     + sum(n for _, n in tp16["launches"].values())),
         "calls": (c1 + c2 + c3 + lg_smollm_calls + p_call + gemma_fa["calls"]
                   + internlm_fa["calls"] + zamba_fa["calls"] + moe_fa["olmoe"]["calls"]
                   + moe_fa["olmoe_int8"]["calls"] + tc["smollm-135m_calls"]
                   + hubert_fa["calls"] + llama_fa["calls"]
                   + tp["launches"]["flash_attention_calls"]
                   + tp_moe["launches"]["flash_attention_calls"]
-                  + sum(c for c, _ in tp_cross["launches"].values())),
+                  + sum(c for c, _ in tp_cross["launches"].values())
+                  + sum(c for c, _ in tp16["launches"].values())),
         "window_calls": gemma_fa["window_calls"],
         "launches_tp2": {"internlm2-20b": tp["launches"]["flash_attention"],
                          "olmoe-1b-7b": tp_moe["launches"]["flash_attention"],
                          **{m: n for m, (_, n) in tp_cross["launches"].items()}},
+        "launches_tp16": {m: n for m, (_, n) in tp16["launches"].items()},
         "launches_by_model": {"gemma3-27b": gemma_fa["launches"],
                               "internlm2-20b": (internlm_fa["launches"]
-                                                + tp["launches"]["flash_attention"]),
+                                                + tp["launches"]["flash_attention"]
+                                                + tp16["launches"]["internlm2-20b"][1]),
                               "zamba2-1.2b": zamba_fa["launches"],
                               "olmoe-1b-7b": (moe_fa["olmoe"]["launches"]
                                               + moe_fa["olmoe_int8"]["launches"]
@@ -6713,7 +7182,8 @@ def main() -> int:
                                                 + tp_cross["launches"]["hubert-xlarge"][1]),
                               "llama-3.2-vision-90b": (
                                   llama_fa["launches"]
-                                  + tp_cross["launches"]["llama-3.2-vision-90b"][1])},
+                                  + tp_cross["launches"]["llama-3.2-vision-90b"][1]
+                                  + tp16["launches"]["llama-3.2-vision-90b"][1])},
         "max_abs_err": attn_err,
         "ms": attn_time["a_smollm_S256"][0],
         "plain_ms": attn_time["a_smollm_S256"][1],

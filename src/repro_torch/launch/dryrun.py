@@ -27,12 +27,14 @@ trace is unrolled), no ``hlo_bytes`` and no generated-code or alias sizes
 says whether the cell computed on its model shard
 (``sharding.computes_on_model_shard``): the dense transformer, Mamba-1,
 MoE (GQA or MLA), the VLM (its ``cross`` blocks too) and the encoder
-compute on this rank's heads, FFN columns, inner channels, experts and
-vocabulary rows, as a reference device does.  The recurrent and hybrid
-families and attention whose KV heads do not cut whole (llama-vision and
-internlm2 at tp = 16) gather their parameters whole and every rank along
-``model`` computes the same rows (ROADMAP.md, Queue 1 item 12c(c)), so
-their rank's FLOPs are the model axis's size times a reference device's.
+compute on this rank's heads (or, where heads do not cut whole, as
+llama-vision's and internlm2's 8 KV heads over 16, on the query heads
+that cover its ``wo`` rows, K and V joined whole), FFN columns, inner
+channels, experts and vocabulary rows, as a reference device does.  The
+recurrent and hybrid families gather their parameters whole and every
+rank along ``model`` computes the same rows (ROADMAP.md, Queue 1 item
+12c(c)), so their rank's FLOPs are the model axis's size times a
+reference device's.
 """
 
 from __future__ import annotations

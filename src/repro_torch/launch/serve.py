@@ -35,9 +35,9 @@ A sharded run reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
 plane and its ``model`` collectives over gloo, puts each rank on card
 ``LOCAL_RANK`` modulo the cards there are, and leaves the log and the
 documents to rank 0.  Without torchrun's environment it raises and prints
-the command line to use.  ``tp > 1`` on the recurrent or hybrid family,
-or on attention whose KV heads do not cut whole, raises (ROADMAP.md,
-Queue 1 item 12c(c)); a VLM or an encoder is refused at any mesh, as
+the command line to use.  ``tp > 1`` on the recurrent or hybrid family
+raises (ROADMAP.md, Queue 1 item 12c(c)); a VLM or an encoder is refused
+at any mesh, as
 ``DecodeServer`` refuses it.
 """
 

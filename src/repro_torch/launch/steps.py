@@ -124,15 +124,16 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     and AdamW updates the shards with the mesh-wide grad norm.
 
     Where ``sharding.computes_on_model_shard`` holds (the dense, Mamba-1,
-    MoE, VLM and encoder families, with attention cut into whole heads, on
-    a ``model`` axis of size > 1), each leaf keeps its ``model`` block and
-    the step computes on this rank's heads (a ``cross`` block's too),
-    FFN columns, inner channels, experts and vocabulary rows
+    MoE, VLM and encoder families on a ``model`` axis of size > 1), each
+    leaf keeps its ``model`` block and the step computes on this rank's
+    heads (a ``cross`` block's too; where heads do not cut whole, the
+    query heads that cover its ``wo`` rows, K and V joined whole), FFN
+    columns, inner channels, experts and vocabulary rows
     (``parallel.tensor_parallel``); no TP'd leaf, no expert block and no
     ``[B, S, V]`` logits cross the ``model`` group.  Otherwise (the
-    recurrent and hybrid families, KV heads that do not cut whole) the
-    parameters are gathered whole and the ranks along ``model`` train the
-    same rows on the whole network (ROADMAP.md, Queue 1 item 12c(c)).
+    recurrent and hybrid families) the parameters are gathered whole and
+    the ranks along ``model`` train the same rows on the whole network
+    (ROADMAP.md, Queue 1 item 12c(c)).
     ``train_step.model_shard`` says which path the step takes.  MoE layers form their groups over the
     global microbatch (``models.moe.moe_apply``)."""
     if mesh is None:

@@ -17,7 +17,8 @@ default mesh (``--mesh DPxTP`` for another), the parameters and AdamW
 moments stored as each rank's shards.  The dense transformer, Mamba-1,
 MoE (GQA or MLA), the VLM (its ``cross`` blocks on a rank's heads; a
 batch carries ``memory``) and the encoder (an ``embeds`` batch) compute on
-their model shards there where their heads cut whole
+their model shards there, attention on a rank's heads or, where the
+heads do not cut whole, on the query heads that cover its rows of ``wo``
 (``launch.steps.make_train_step``).
 On the card each rank takes card ``LOCAL_RANK`` modulo the cards there
 are; rank 0 logs and writes the metrics and the checkpoints.

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.parallel import tensor_parallel as tp_lib
+from repro_torch.parallel.sharding import current_model_shard
 
 from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_params
 
@@ -130,16 +131,42 @@ def causal_mask(S: int, T: int, offset: int = 0, window: int = 0, causal: bool =
 # GQA forward: prefill + decode
 # ---------------------------------------------------------------------------
 
+def _whole_heads(hd: int, *ts):
+    """Projections' columns ``[..., cols]`` of one leading shape: each as it
+    is when its columns are whole heads (all of them, or this rank's
+    heads), the others (part of a head: 8 KV heads of 128 over 16 ranks)
+    joined whole over ``model`` together, exactly, so RoPE and the norms
+    read whole heads."""
+    part = [t for t in ts if t.shape[-1] % hd]
+    if not part:
+        return ts
+    joined = iter(tp_lib.join_heads(*part))
+    return tuple(next(joined) if t.shape[-1] % hd else t for t in ts)
+
+
+def _rank_heads(p, cfg: ModelConfig) -> tuple[int, int, int]:
+    """``(h0, h1, offset)``: the query heads ``[h0, h1)`` that cover this
+    rank's ``wo`` rows and the rows' first column within them;
+    ``(0, H, 0)`` where ``wo``'s rows are whole."""
+    rows, hd = p["wo"].shape[0], cfg.head_dim
+    if rows == cfg.n_heads * hd:
+        return 0, cfg.n_heads, 0
+    return tp_lib.query_heads(current_model_shard().index, rows, hd)
+
+
 def _project_qkv(p, cfg: ModelConfig, x):
-    """q ``[B, S, H, hd]`` and k, v ``[B, S, KV, hd]``: the heads are the
-    projections' columns, so a rank whose ``wq``/``wk``/``wv`` hold its
-    model shard's columns projects its ``H/tp`` query and ``KV/tp`` KV
-    heads.  The columns are cut in whole heads and query head ``h`` of a
-    shard reads KV head ``h // (H/KV)`` of the same shard: the contiguous
-    cut keeps every GQA group on one rank."""
+    """q ``[B, S, Hq, hd]`` on this rank's query heads and k, v ``[B, S,
+    KVc, hd]`` as its cache holds them.  The heads are the projections'
+    columns.  On a model shard whose columns are whole heads, a rank
+    projects its ``H/tp`` query and ``KV/tp`` KV heads, and query head
+    ``h`` of a shard reads KV head ``h // (H/KV)`` of the same shard: the
+    contiguous cut keeps every GQA group on one rank.  Where the rules cut
+    a projection into part of a head, its columns are joined whole over
+    ``model`` (``_whole_heads``): the rank's query heads are those that
+    cover its ``wo`` rows (``_rank_heads``), and k, v hold every KV head
+    (``_read_kv`` picks the ones they read)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -148,32 +175,56 @@ def _project_qkv(p, cfg: ModelConfig, x):
         q = q + (x @ lo["qA"]) @ lo["qB"]
         k = k + (x @ lo["kA"]) @ lo["kB"]
         v = v + (x @ lo["vA"]) @ lo["vB"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q, k, v = (t.reshape(B, S, -1, hd) for t in _whole_heads(hd, q, k, v))
+    whole_rows = p["wo"].shape[0] == cfg.n_heads * hd
+    if q.shape[2] == cfg.n_heads and not whole_rows:
+        h0, h1, _ = _rank_heads(p, cfg)
+        q = q[:, :, h0:h1]
     if cfg.qk_norm:
         qn, kn = p["q_norm"], p["k_norm"]
-        if H != cfg.n_heads:
+        if not whole_rows:
             # replicated scales on this rank's heads: their gradients are
             # summed over model (each rank's holds its heads' part)
             qn, kn = ({"scale": tp_lib.copy_to_model(t["scale"])} for t in (qn, kn))
         q = rmsnorm(qn, q, cfg.norm_eps)
         k = rmsnorm(kn, k, cfg.norm_eps)
-    if H == cfg.n_heads and tp_lib.attn_splits(cfg):
+    if whole_rows and tp_lib.attn_splits(cfg) and tp_lib.splits(cfg.n_kv_heads):
         # whole projections on a model shard (a tail block): this rank's
         # heads, as its cache holds them
         q, k, v = (tp_lib.own_part(t, 2) for t in (q, k, v))
     return q, k, v
 
 
+def _read_kv(p, cfg: ModelConfig, k, v):
+    """The KV heads this rank's query heads read: k, v as they are, unless
+    they hold every KV head while the rank attends on part of the query
+    heads (heads that do not cut whole)."""
+    if k.shape[2] != cfg.n_kv_heads or p["wo"].shape[0] == cfg.n_heads * cfg.head_dim:
+        return k, v
+    h0, h1, _ = _rank_heads(p, cfg)
+    idx = torch.tensor(tp_lib.kv_heads(h0, h1, cfg.n_heads, cfg.n_kv_heads), device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _rank_columns(p, cfg: ModelConfig, o):
+    """``o [B, S, Hq·hd]``, the attention output of ``_rank_heads``' query
+    heads, cut to this rank's ``wo`` rows (itself where they are all)."""
+    rows = p["wo"].shape[0]
+    if o.shape[-1] == rows or rows == cfg.n_heads * cfg.head_dim:
+        return o
+    _, _, off = _rank_heads(p, cfg)
+    return o[..., off:off + rows]
+
+
 def attn_out(p, cfg: ModelConfig, out):
     """``out [B, S, heads, hd]`` through ``wo``.  On a model shard whose
     ``wo`` keeps its rows whole and cuts its output dim (a tail block), the
     heads are joined over ``model`` first and the output's columns after,
-    so the result is whole on every rank; a row-parallel ``wo`` leaves the
-    sum over ``model`` to the caller."""
+    so the result is whole on every rank; a row-parallel ``wo`` takes this
+    rank's columns of the output (part of a head where the query heads do
+    not cut whole) and leaves the sum over ``model`` to the caller."""
     B, S = out.shape[:2]
-    o = out.reshape(B, S, -1)
+    o = _rank_columns(p, cfg, out.reshape(B, S, -1))
     w = p["wo"]
     if w.shape[0] != o.shape[-1]:
         o = tp_lib.gather_from_model(o)
@@ -190,12 +241,13 @@ def gqa_prefill(p, cfg: ModelConfig, x, *, window: int = 0, positions=None):
         positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+    kr, vr = _read_kv(p, cfg, k, v)
     if cfg.use_pallas:
-        out = fa_ops.flash_attention(q, k, v, causal=cfg.causal, window=window,
+        out = fa_ops.flash_attention(q, kr, vr, causal=cfg.causal, window=window,
                                      softcap=cfg.attn_logit_softcap)
     else:
         mask = causal_mask(S, S, window=window, causal=cfg.causal, device=x.device)
-        out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
+        out = _sdpa(q, kr, vr, mask, cfg.attn_logit_softcap)
     return attn_out(p, cfg, out), (k, v)
 
 
@@ -229,7 +281,7 @@ def gqa_decode(p, cfg: ModelConfig, x, cache: PyTree, pos, *, window: int = 0):
     mask = kpos <= qpos[:, None, :, None]
     if window > 0:
         mask = mask & (kpos > (qpos - window)[:, None, :, None])
-    out = _sdpa(q, ck, cv, mask, cfg.attn_logit_softcap)
+    out = _sdpa(q, *_read_kv(p, cfg, ck, cv), mask, cfg.attn_logit_softcap)
     return attn_out(p, cfg, out), {"k": ck, "v": cv}
 
 
@@ -353,27 +405,33 @@ def cross_attn(p, cfg: ModelConfig, x, memory):
 
     On a model shard ``wq``'s columns hold this rank's ``H/tp`` query heads
     and ``wk``/``wv``'s its ``KV/tp`` KV heads (the whole memory projected
-    onto them), ``wo`` is row-parallel and its output is summed over
+    onto them), or part of a head, whose columns are joined whole over
+    ``model`` before the norms (as in ``_project_qkv``: the rank attends
+    with the query heads that cover its ``wo`` rows, against the KV heads
+    they read).  ``wo`` is row-parallel and its output is summed over
     ``model`` here, before the gate: the gate then scales the whole output
     on every rank, and its gradient is whole (not summed).  ``x`` and the
     memory feed column-parallel products and the replicated norm scales
     feed a rank's heads, so their gradients are summed over ``model``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     M = memory.shape[1]
     qn, kn = p["q_norm"], p["k_norm"]
-    split = H != cfg.n_heads
+    split = p["wo"].shape[0] != cfg.n_heads * hd
     if split:
         x, memory = tp_lib.copy_to_model(x), tp_lib.copy_to_model(memory)
         qn, kn = ({"scale": tp_lib.copy_to_model(t["scale"])} for t in (qn, kn))
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (memory @ p["wk"]).reshape(B, M, KV, hd)
-    v = (memory @ p["wv"]).reshape(B, M, KV, hd)
+    (q,) = (t.reshape(B, S, -1, hd) for t in _whole_heads(hd, x @ p["wq"]))
+    k, v = (t.reshape(B, M, -1, hd) for t in _whole_heads(hd, memory @ p["wk"],
+                                                          memory @ p["wv"]))
+    if split and q.shape[2] == cfg.n_heads:
+        h0, h1, _ = _rank_heads(p, cfg)
+        q = q[:, :, h0:h1]
     q = rmsnorm(qn, q, cfg.norm_eps)
     k = rmsnorm(kn, k, cfg.norm_eps)
     mask = torch.ones((1, 1, S, M), dtype=torch.bool, device=x.device)
-    out = _sdpa(q, k, v, mask).reshape(B, S, -1) @ p["wo"]
+    out = _sdpa(q, *_read_kv(p, cfg, k, v), mask).reshape(B, S, -1)
+    out = _rank_columns(p, cfg, out) @ p["wo"]
     if split:
         out = tp_lib.reduce_from_model(out)
     return torch.tanh(p["gate"]) * out

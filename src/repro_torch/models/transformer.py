@@ -125,7 +125,9 @@ def tail_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree | None:
 
 def _kv_heads(cfg: ModelConfig) -> int:
     """The KV heads a cache holds: this rank's ``KV/tp`` where attention
-    computes on a model shard (``cache_specs`` cuts them so), else all."""
+    computes on a model shard and ``model`` divides them (``cache_specs``
+    cuts them so), else all (its guard keeps 8 KV heads whole over 16
+    ranks: every rank's cache holds them, written from the joined K/V)."""
     return tp_lib.local(cfg.n_kv_heads) if tp_lib.attn_splits(cfg) else cfg.n_kv_heads
 
 
@@ -226,10 +228,11 @@ def apply_block(
         if kind == "attn" and cfg.global_every and cfg.rope_theta_global:
             acfg = dataclasses.replace(cfg, rope_theta=cfg.rope_theta_global)
         h = rmsnorm(p_blk["ln_attn"], x, cfg.norm_eps)
-        # attention on this rank's heads (GQA or MLA): the block's input
-        # whole on every model rank, wo row-parallel, the output summed
-        # before the residual (a tail block's wo keeps its rows: attn_out
-        # joins its output)
+        # attention on this rank's part (GQA or MLA): its heads, or the
+        # query heads covering its wo rows where heads do not cut whole;
+        # the block's input whole on every model rank, wo row-parallel, the
+        # output summed before the residual (a tail block's wo keeps its
+        # rows: attn_out joins its output)
         head_out = cfg.v_head_dim if cfg.use_mla else cfg.head_dim
         split = tp_lib.attn_splits(cfg) and p_blk["attn"]["wo"].shape[0] < cfg.n_heads * head_out
         if split:
@@ -346,8 +349,8 @@ def _gqa_decode_local(p, cfg: ModelConfig, x, cache, pos):
     slots = torch.arange(W, device=dev)[None, :]
     kpos = posv[:, None] - torch.remainder(posv[:, None] - slots, W)   # [B, W] absolute
     mask = (kpos >= 0) & (kpos >= posv[:, None] - W + 1) & (kpos <= posv[:, None])
-    out = attn_lib._sdpa(q, cache["k"], cache["v"], mask[:, None, None, :],
-                         cfg.attn_logit_softcap)
+    out = attn_lib._sdpa(q, *attn_lib._read_kv(p, cfg, cache["k"], cache["v"]),
+                         mask[:, None, None, :], cfg.attn_logit_softcap)
     return attn_lib.attn_out(p, cfg, out), cache
 
 
@@ -379,7 +382,8 @@ def _gqa_local_chunk(p, cfg: ModelConfig, x, cache, pos):
     v_all = torch.cat([cache["v"].to(v.dtype), v], dim=1)
     mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None]) \
         & (kpos[:, None, :] > qpos[:, :, None] - W)
-    out = attn_lib._sdpa(q, k_all, v_all, mask[:, None], cfg.attn_logit_softcap)
+    out = attn_lib._sdpa(q, *attn_lib._read_kv(p, cfg, k_all, v_all), mask[:, None],
+                         cfg.attn_logit_softcap)
 
     # commit the trailing min(S, W) chunk tokens to the ring
     Wp = min(S, W)

@@ -378,10 +378,14 @@ def data_share(rows: int):
 # VLM (its ``cross`` blocks cut by heads like self-attention, the memory
 # whole on every rank and projected onto a rank's KV columns; the gate and
 # the q/k norms replicated) and the encoder (its ``embed/proj`` replicated,
-# its output whole on every rank).  Everything else keeps its parameters
-# whole along ``model`` (ROADMAP.md, Queue 1 item 12c(c)): the recurrent
-# and hybrid families, attention whose KV heads do not cut whole, and
-# ``pure_dp``.
+# its output whole on every rank).  Attention computes on a rank's part
+# where the rules cut ``wq``/``wk``/``wv``'s columns into part of a head
+# too (8 KV heads over 16: half a head a rank): the columns are joined
+# whole exactly, the cache holds every KV head (``cache_specs``' guard
+# drops ``model`` there), and a rank attends with the query heads that
+# cover its ``wo`` rows.  Everything else keeps its parameters whole along
+# ``model`` (ROADMAP.md, Queue 1 item 12c(c)): the recurrent and hybrid
+# families and ``pure_dp``.
 
 TP_FAMILIES = ("dense", "ssm", "moe", "vlm", "encoder")
 
@@ -403,16 +407,20 @@ def computes_on_model_shard(cfg: ModelConfig, mesh) -> bool:
     """Whether a step of ``cfg`` on ``mesh`` computes on this rank's model
     shard: a ``model`` axis of size > 1, a family of :data:`TP_FAMILIES`,
     ``pure_dp`` off, and attention either replicated (``attn_tp=False``)
-    or cut into whole heads (query and KV heads, those of a ``cross``
-    block's ``wq`` and ``wk``/``wv`` too; MLA's query heads, its latent
-    whole).  Otherwise the parameters are gathered whole along
-    ``model`` and every model rank computes the whole network."""
+    or with ``wq``'s and ``wk``/``wv``'s columns cut over ``model`` (those
+    of a ``cross`` block too), in whole heads or not (internlm2-20b's and
+    llama-3.2-vision-90b's 8 KV heads over 16 ranks: half a head each);
+    under MLA whole query heads, its latent whole.  Otherwise the
+    parameters are gathered whole along ``model`` and every model rank
+    computes the whole network."""
     tp = 1 if mesh is None else axis_sizes(mesh).get("model", 1)
     if tp <= 1 or model_shard_refusal(cfg) is not None:
         return False
     if cfg.family == "ssm" or not cfg.attn_tp:
         return True
-    return not (cfg.n_heads % tp or (not cfg.use_mla and cfg.n_kv_heads % tp))
+    if cfg.use_mla:
+        return cfg.n_heads % tp == 0
+    return not (cfg.n_heads * cfg.head_dim % tp or cfg.n_kv_heads * cfg.head_dim % tp)
 
 
 class ModelShard(NamedTuple):

@@ -12,6 +12,15 @@ The Megatron pattern, as a conjugate pair of ``torch.autograd.Function``s:
   backward; it follows a row-parallel product, whose output each rank
   holds a part of.
 
+Where the rules cut a projection's columns into part of a head (8 KV
+heads of 128 over 16 ranks: 64 columns, half a head), the columns are
+joined whole on every rank (:func:`join_heads`: an exact join forward;
+backward, the gradient summed over ``model``, then this rank's block), so
+RoPE and the q/k norms read whole heads and the cache holds every KV head,
+as ``cache_specs`` keeps them; a rank then attends with the query heads
+that cover its ``wo`` rows (:func:`query_heads`) against the KV heads
+they read (:func:`kv_heads`).
+
 A tail block (``tail_pattern``), whose unstacked 2-D leaves the rules cut
 differently (``wq``/``wk``/``wv`` and ``w_in``/``w_gate`` whole, ``wo``
 and ``w_out`` on their output dim), computes its projections whole on
@@ -64,12 +73,41 @@ def local(n: int) -> int:
 
 
 def attn_splits(cfg) -> bool:
-    """Whether attention computes on this rank's heads: ``attn_tp`` and
-    whole query and KV heads (a ``cross`` block's are the same counts:
-    ``wq``'s and ``wk``/``wv``'s columns), or under MLA whole query heads
-    (its latent stays whole; ``sharding.computes_on_model_shard`` admits
-    no other split)."""
-    return bool(cfg.attn_tp) and splits(cfg.n_heads) and (cfg.use_mla or splits(cfg.n_kv_heads))
+    """Whether attention computes on this rank's part: ``attn_tp`` and the
+    rules cutting ``wq``'s and ``wk``/``wv``'s columns (a ``cross``
+    block's are the same counts), in whole heads or not; under MLA whole
+    query heads (its latent stays whole).  ``sharding.
+    computes_on_model_shard`` admits no other split."""
+    if not cfg.attn_tp:
+        return False
+    if cfg.use_mla:
+        return splits(cfg.n_heads)
+    return splits(cfg.n_heads * cfg.head_dim) and splits(cfg.n_kv_heads * cfg.head_dim)
+
+
+def query_heads(index: int, cols: int, hd: int) -> tuple[int, int, int]:
+    """``(h0, h1, offset)``: the query heads ``[h0, h1)`` whose columns
+    cover block ``index`` of ``cols`` columns (``wo``'s rows on model rank
+    ``index``, ``hd`` columns a head), and the block's first column within
+    them."""
+    start = index * cols
+    h0 = start // hd
+    return h0, -(-(start + cols) // hd), start - h0 * hd
+
+
+def kv_heads(h0: int, h1: int, n_heads: int, n_kv: int) -> list[int]:
+    """The KV heads that query heads ``[h0, h1)`` read (head ``h`` reads
+    ``h // (n_heads / n_kv)``), listed so that the attention core's GQA map
+    (local query head ``j`` reads entry ``j // ((h1 - h0) / len)``) is
+    right: the contiguous heads read where the query heads group evenly
+    over them, else one entry a query head."""
+    group = n_heads // n_kv
+    read = [h // group for h in range(h0, h1)]
+    heads = sorted(set(read))
+    per = (h1 - h0) // len(heads)
+    if per * len(heads) == h1 - h0 and all(r == heads[j // per] for j, r in enumerate(read)):
+        return heads
+    return read
 
 
 def own_range(held: int, n: int) -> tuple[int, int]:
@@ -160,6 +198,41 @@ def gather_from_model(x: torch.Tensor) -> torch.Tensor:
     return _join_last(x.detach(), ms, "gather_cols")
 
 
+class _JoinHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ms):
+        ctx.index, ctx.n, ctx.group = ms.index, x.shape[-1], ms.group
+        return _join_last(x, ms, "gather_heads").contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        # ranks whose query heads read the same KV head each hold a part
+        # of its gradient: the sum over model, then this rank's block
+        total = comm.all_reduce(grad.contiguous().clone(), ctx.group)
+        return total[..., ctx.index * ctx.n:(ctx.index + 1) * ctx.n], None
+
+
+def join_heads(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Projections of one leading shape, of each of which this rank holds
+    its block of columns (part of a head), each joined whole on every model
+    rank, bit for bit, in one collective (counted as ``gather_heads``);
+    backward, the gradient summed over ``model``, then this rank's block
+    (each rank's whole gradient is its heads' part only, unlike
+    :func:`gather_from_model`'s)."""
+    ms = current_model_shard()
+    if ms is None:
+        return xs
+    cols = [x.shape[-1] for x in xs]
+    x = torch.cat(xs, -1) if len(xs) > 1 else xs[0]
+    if _needs_grad(x):
+        full = _JoinHeads.apply(x, ms)
+    else:
+        full = _join_last(x.detach(), ms, "gather_heads")
+    # rank blocks of [x0 | x1 | ...] side by side: each x's blocks in rank order
+    full = full.unflatten(-1, (ms.tp, sum(cols)))
+    return tuple(t.reshape(*t.shape[:-2], -1) for t in full.split(cols, -1))
+
+
 def own_part(x: torch.Tensor, dim: int) -> torch.Tensor:
     """This rank's block of dim ``dim`` of an activation every model rank
     computes whole (whole heads of a projection whose weights stay whole);
@@ -232,6 +305,6 @@ def lse_and_gold(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
     return lse, reduce_from_model(torch.where(inside, mine, 0.0))
 
 
-__all__ = ["attn_splits", "copy_to_model", "embed_lookup", "gather_from_model", "join_vocab",
-           "local", "lse_and_gold", "own_part", "own_range", "reduce_from_model", "splits",
-           "vocab_logits"]
+__all__ = ["attn_splits", "copy_to_model", "embed_lookup", "gather_from_model", "join_heads",
+           "join_vocab", "kv_heads", "local", "lse_and_gold", "own_part", "own_range",
+           "query_heads", "reduce_from_model", "splits", "vocab_logits"]

@@ -164,6 +164,27 @@ class ShardLayout:
         """This rank's blocks of ``full``, each a contiguous copy."""
         return tree_map(lambda t, s: t[self._box(s, t.shape)].clone(), full, self.specs)
 
+    def draw(self, cfg, gen: torch.Generator, device=None, *, key: str | None = None) -> PyTree:
+        """This rank's blocks of ``lm.init_params(cfg, gen, device=)``, each
+        leaf (a stacked leaf group by group) cut as soon as it is drawn: the
+        values of :meth:`shard` of the whole draw, which is never held (the
+        peak is this rank's blocks and one group's leaf of the whole).
+        ``key``: where the parameters' specs sit in this layout's tree (a
+        state layout's ``"params"``)."""
+        from repro_torch.models import lm
+
+        shapes = param_shapes(cfg)
+        specs = self.specs if key is None else self.specs[key]
+
+        def cut(path, t):
+            full, spec = shapes, specs
+            for k in path.split("/"):
+                full, spec = full[k], spec[k]
+            box = self._box(spec, full.shape)
+            return t[box[len(box) - t.dim():]]    # a stacked leaf's group: no G axis
+
+        return lm.init_params(cfg, gen, device=device, cut=cut)
+
     def _full_shape(self, spec: _Spec, shape, over: tuple[str, ...] | None = None
                     ) -> tuple[int, ...]:
         return tuple(n * math.prod(self.sizes[a] for a in self._named(spec, d, over))

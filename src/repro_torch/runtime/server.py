@@ -76,15 +76,16 @@ of the prompt, then the least loaded one, then the lowest id.  Two layouts:
   At ``tp > 1`` the ranks along ``model`` of a data shard all hold its
   slots and compute them together on their model shards
   (``sharding.computes_on_model_shard``: the dense transformer, Mamba-1
-  and MoE with GQA or MLA attention cut into whole heads): the server cuts the parameters to
-  this rank's block (``ShardPlan.local_params``: its heads, FFN columns,
-  inner channels, experts and vocabulary rows), its caches hold this
-  rank's KV heads or inner channels (an MLA latent whole), and every
-  logit row it samples from is joined exactly over ``model`` first
+  and MoE with GQA attention, its heads cut whole or not, or MLA): the
+  server cuts the parameters to this rank's block
+  (``ShardPlan.local_params``: its heads or columns of a head, FFN
+  columns, inner channels, experts and vocabulary rows), its caches hold
+  this rank's KV heads or inner channels (every KV head where they do not
+  cut whole, as ``cache_specs`` keeps them; an MLA latent whole), and
+  every logit row it samples from is joined exactly over ``model`` first
   (``tensor_parallel.join_vocab``), so the argmax and the draws are the
-  same on every model rank.  The recurrent and hybrid families and
-  attention whose KV heads do not cut whole at ``tp > 1`` raise, citing
-  item 12c(c); the VLM and the encoder, which compute on a model shard
+  same on every model rank.  The recurrent and hybrid families at
+  ``tp > 1`` raise, citing item 12c(c); the VLM and the encoder, which compute on a model shard
   through ``lm``'s entry points, are refused here at every ``tp`` for
   the reasons above.
 """
@@ -498,8 +499,8 @@ class DecodeServer:
         nothing falls back to one device."""
         if plan.tp > 1 and not computes_on_model_shard(cfg, plan.mesh):
             why = model_shard_refusal(cfg) or (
-                f"{cfg.name}'s attention heads ({cfg.n_heads} query, {cfg.n_kv_heads} KV) "
-                f"do not cut whole over tp={plan.tp} (ROADMAP.md, Queue 1 item 12c(c))")
+                f"{cfg.name}'s attention projections ({cfg.n_heads} query, {cfg.n_kv_heads} "
+                f"KV heads of {cfg.head_dim}) do not cut over tp={plan.tp}")
             raise NotImplementedError(f"DecodeServer(plan) at tp={plan.tp}: {why}")
         plan.require_group()
         cfg = scheduler.cfg if isinstance(scheduler, Scheduler) else scheduler

@@ -154,20 +154,10 @@ class ShardPlan:
         each leaf (a stacked leaf group by group) cut to this rank's block
         as soon as it is drawn, so the whole tree is never held (the peak is
         this rank's blocks and one group of the whole)."""
-        from repro_torch.models import lm
         from repro_torch.parallel.zero import ShardLayout, param_shapes
 
-        shapes = param_shapes(cfg)
-        layout = ShardLayout(self.mesh, self.param_shardings(cfg, shapes))
-
-        def cut(path, t):
-            full, spec = shapes, layout.specs
-            for k in path.split("/"):
-                full, spec = full[k], spec[k]
-            box = layout._box(spec, full.shape)
-            return t[box[len(box) - t.dim():]]    # a stacked leaf's group: no G axis
-
-        return lm.init_params(cfg, gen, device=device, cut=cut)
+        return ShardLayout(self.mesh, self.param_shardings(cfg, param_shapes(cfg))).draw(
+            cfg, gen, device)
 
     def replicated(self, *, as_placements: bool = False):
         """The fully replicated spec (splice sources, prefix checkpoints)."""

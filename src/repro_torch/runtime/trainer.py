@@ -50,7 +50,7 @@ class SimulatedFailure(RuntimeError):
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int = 100
-    ckpt_every: int = 20
+    ckpt_every: int = 20                  # 0: no checkpoint is written
     ckpt_dir: str = dataclasses.field(   # under $TMPDIR
         default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_ckpt"))
     ckpt_async: bool = True
@@ -124,7 +124,13 @@ class Trainer:
         self.monitor = StragglerMonitor(tcfg.straggler_factor, tcfg.straggler_patience)
         self.metrics_log: list[dict] = []
         gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
-        self.load_full(lm.init_params(cfg, gen, device=self.device))
+        if self.layout is None:
+            self.load_full(lm.init_params(cfg, gen, device=self.device))
+        else:
+            # this rank's shards of the seeded draw, cut leaf by leaf (the
+            # whole tree is never held); fresh moments are zeros either way
+            params = self.layout.draw(cfg, gen, self.device, key="params")
+            self.params, self.opt_state = params, optim.init(params)
         self._step_fn = make_train_step(cfg, ocfg, tcfg.microbatches, mesh)
 
     def load_full(self, params: PyTree, opt_state: optim.AdamWState | None = None) -> None:
@@ -181,7 +187,8 @@ class Trainer:
                 rec = {"step": step, "loss": loss, "sec": dt,
                        "lr": float(lr), "grad_norm": float(metrics["grad_norm"])}
                 self.metrics_log.append(rec)
-            if (step + 1) % tcfg.ckpt_every == 0 or step == tcfg.total_steps - 1:
+            if tcfg.ckpt_every and ((step + 1) % tcfg.ckpt_every == 0
+                                    or step == tcfg.total_steps - 1):
                 tree = {"params": self.params, "opt": self.opt_state}
                 save = self.ckpt.save_async if tcfg.ckpt_async else self.ckpt.save
                 save(step + 1, tree, {"step": step + 1}, layout=self.layout)

@@ -12,7 +12,10 @@ half, ``launch.trace_analysis``) against the reference's.
   for smollm and olmoe; zamba2 within ``ZAMBA_FLOPS_RTOL``, see below),
   and on smollm-135m at full size on 16×16, on its model shard, the
   analytic 6·D·(replicated N + TP'd N / 16) plus the plain attention's
-  12·L·S·H·hd a token.
+  12·L·S·H·hd a token; on internlm2-20b at full size on 16×16, whose 8 KV
+  heads cut into half a head a rank, on its model shard too: 6·D·(its
+  matmul parameters / 16) plus the attention of its 3 query heads, and its
+  K/V columns joined over ``model`` (``gather_heads``).
 * Collectives: on a (1, 2, 2) olmoe smoke cell, which computes on its
   model shard (experts and heads over ``model``, the parameters gathered
   along ``data`` only), the dry run's counts and bytes by kind, and its
@@ -333,9 +336,9 @@ FAKE_GROUP_CODE = (
 
 class _Background:
     """The module's slow pieces, started together when the module starts:
-    the CLI (smollm-135m's train_4k cell on 16×16, no remat), the fake
-    group's refusals, and the (1, 2, 2) olmoe smoke cell's dry run beside
-    four real ranks."""
+    the CLI (smollm-135m's and internlm2-20b's train_4k cells on 16×16, no
+    remat), the fake group's refusals, and the (1, 2, 2) olmoe smoke
+    cell's dry run beside four real ranks."""
 
     def __init__(self, out: Path):
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
@@ -343,11 +346,11 @@ class _Background:
             [sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         self.out = out
-        self.procs = {
-            "cli": popen(["-m", "repro_torch.launch.dryrun", "--arch", "smollm-135m",
-                          "--shape", "train_4k", "--mesh", "pod", "--no-remat", "--device",
-                          "cpu", "--out", str(out)]),
-            "fake": popen(["-c", FAKE_GROUP_CODE])}
+        cli = lambda arch: popen(["-m", "repro_torch.launch.dryrun", "--arch", arch,  # noqa: E731
+                                  "--shape", "train_4k", "--mesh", "pod", "--no-remat",
+                                  "--device", "cpu", "--out", str(out)])
+        self.procs = {"cli": cli("smollm-135m"), "cli_heads": cli("internlm2-20b"),
+                      "fake": popen(["-c", FAKE_GROUP_CODE])}
         self.done: dict = {}
         self.threads = [threading.Thread(target=self._run, args=(name, fn))
                         for name, fn in (("ranks", self._ranks), ("record", self._record))]
@@ -415,6 +418,14 @@ def cli(background):
     """(returncode, output, the record) of the CLI's run."""
     rc, text = background.proc("cli")
     rec = background.out / "smollm-135m__train_4k__16x16.json"
+    return rc, text, json.loads(rec.read_text()) if rec.exists() else None
+
+
+@pytest.fixture(scope="module")
+def cli_heads(background):
+    """(returncode, output, the record) of the internlm2-20b CLI run."""
+    rc, text = background.proc("cli_heads")
+    rec = background.out / "internlm2-20b__train_4k__16x16.json"
     return rc, text, json.loads(rec.read_text()) if rec.exists() else None
 
 
@@ -492,6 +503,42 @@ def test_full_size_flops_are_6ND_plus_the_attention(cli):
     assert rec["rows_per_rank"] == 16
     assert rec["flops_corrected"] == rec["cost_analysis"]["flops"]
     assert abs(rec["flops_corrected"] - want) <= 1e-9 * want, (rec["flops_corrected"], want)
+
+
+def test_internlm2_computes_on_its_shard_with_half_kv_heads(cli_heads):
+    """internlm2-20b on 16×16: 16 rows of 4096 tokens a rank, no remat, on
+    its model shard although its 8 KV heads cut into half a head a rank.
+    Every matmul parameter is cut over ``model`` (the table too, whose
+    lookup is no matmul): 6·D·(N / 16); the plain attention on the rank's
+    3 of 48 query heads adds 12·L·S·(H/16)·hd a token.  The K and V
+    columns are joined over ``model`` together, once in each layer's
+    forward (the recompute-free backward joins nothing); the parameters
+    are gathered along ``data`` only."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.parallel import zero
+
+    rc, text, rec = cli_heads
+    assert rc == 0, text[-3000:]
+    cfg = get_config("internlm2-20b")
+    assert cfg.attn_tp and cfg.n_kv_heads % 16 and cfg.n_heads % 16 == 0
+    assert rec["model_shard"] is True and rec["rows_per_rank"] == 16
+    leaves = _flat(zero.param_shapes(steps.dryrun_config(cfg)))
+    n = sum(t.numel() for path, t in leaves.items()
+            if not path.endswith(("/scale", "embed/table")))
+    assert n % 16 == 0
+    S, D = 4096, 16 * 4096
+    want = 6 * n // 16 * D + 12 * cfg.n_layers * S * (cfg.n_heads // 16) * cfg.head_dim * D
+    assert rec["flops_corrected"] == rec["cost_analysis"]["flops"]
+    assert abs(rec["flops_corrected"] - want) <= 1e-9 * want, (rec["flops_corrected"], want)
+    coll = rec["collectives"]
+    assert coll["gather_heads"]["count"] == cfg.n_layers
+    # each join carries the whole K and V of the rank's rows: D tokens × 2 × 1024
+    # columns in the cell's activation dtype
+    size = torch.empty((), dtype=steps.dryrun_config(cfg).act_dtype).element_size()
+    assert coll["gather_heads"]["bytes"] == \
+        cfg.n_layers * D * 2 * cfg.n_kv_heads * cfg.head_dim * size
+    assert coll["gather_data"]["count"] == 1 and "gather_exact" not in coll
 
 
 def test_a_fake_group_never_reaches_a_real_step(background):

@@ -2226,3 +2226,86 @@ def test_flash_attention_kernel_at_the_cross_and_encoder_tp2_rank_shapes(cuda, c
         kernel.splits(q, k, causal=case["causal"]))
     torch.testing.assert_close(got, ops.flash_attention_ref(q, k, v, causal=case["causal"]),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", [dict(H=3, KV=1), dict(H=4, KV=1)],
+                         ids=["n_internlm2_tp16", "o_llama_vision_tp16"])
+def test_flash_attention_kernel_at_the_tp16_rank_shapes(cuda, case):
+    """Shapes (n) and (o): internlm2-20b's and llama-3.2-vision-90b's rank
+    at tp = 16 (3 and 4 query heads against the one KV head they read, hd
+    128), causal, at 2048 tokens."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    shape = dict(B=1, S=2048, T=2048, H=case["H"], KV=case["KV"], hd=128)
+    q, k, v = _flash_case(cuda, shape, torch.float32, seed=17)
+    launches = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention.launches - launches == kernel.launches_per_call(
+        kernel.splits(q, k, causal=True))
+    torch.testing.assert_close(got, ops.flash_attention_ref(q, k, v, causal=True),
+                               atol=1e-5, rtol=1e-5)
+
+
+def _ranks_card_tp_heads(rank, world):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.parallel.sharding import model_shard
+    from repro_torch.runtime import ShardPlan
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(1, world)
+    out = {}
+    # the exact join of 8-column blocks (half a head of 16), and its adjoint:
+    # each rank weighs the whole with its own numbers
+    full = torch.as_tensor(np.random.default_rng(0).normal(size=(2, 5, 8 * world)),
+                           dtype=torch.float32, device=dev)
+    mine = full[..., rank * 8:(rank + 1) * 8].clone().requires_grad_(True)
+    w = torch.as_tensor(np.random.default_rng(1 + rank).normal(size=(2, 5, 8 * world)),
+                        dtype=torch.float32, device=dev)
+    with model_shard(mesh):
+        (joined,) = tp.join_heads(mine)
+        (joined * w).sum().backward()
+    out["joined_equal"] = torch.equal(joined.detach(), full)
+    out["grad"] = mine.grad.cpu().numpy()
+    # internlm2 smoke at tp = 4: 1.5 query heads and half a KV head a rank
+    cfg = get_smoke_config("internlm2-20b")
+    params = ShardPlan(mesh).draw_local(cfg, torch.Generator(device=dev).manual_seed(0),
+                                        device=dev)
+    x = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 40)), device=dev)
+    with torch.no_grad(), model_shard(mesh):
+        for use_pallas in (False, True):
+            c = dataclasses.replace(cfg, use_pallas=use_pallas)
+            calls = ops.flash_attention.calls
+            lg, caches = lm.prefill(params, c, x)
+            out[use_pallas] = (tp.join_vocab(lg, cfg.vocab).cpu().numpy(),
+                               ops.flash_attention.calls - calls,
+                               tuple(caches["groups"]["b0_attn"]["k"].shape))
+    return out
+
+
+def test_heads_cut_into_halves_on_four_gloo_ranks_on_the_card(cuda):
+    """Four gloo ranks on cuda:0: ``join_heads`` joins each rank's half
+    head bit for bit, and its backward gives each rank the sum over the
+    ranks of the gradient's block; internlm2 smoke (6 query and 2 KV heads
+    of 16: 24 and 8 columns a rank) through ``flash_attention`` on the
+    query heads covering each rank's ``wo`` rows (2 heads, against the KV
+    head they read), the cache holding both KV heads; the joined logits
+    within 1e-5 of max |logit| of the plain path's."""
+    from repro_torch.launch.spawn import run_ranks
+
+    world = 4
+    ws = [np.random.default_rng(1 + r).normal(size=(2, 5, 8 * world)) for r in range(world)]
+    total = np.sum(ws, axis=0).astype(np.float32)
+    for rank, out in enumerate(run_ranks(_ranks_card_tp_heads, world, backend="gloo",
+                                         timeout_s=300)):
+        assert out["joined_equal"]
+        np.testing.assert_allclose(out["grad"], total[..., rank * 8:(rank + 1) * 8],
+                                   rtol=1e-6, atol=1e-6)
+        plain, calls_p, kshape = out[False]
+        kern, calls_k, _ = out[True]
+        assert calls_p == 0 and calls_k == 2 and kshape == (2, 2, 40, 2, 16)
+        assert np.max(np.abs(kern - plain)) <= 1e-5 * np.max(np.abs(plain))

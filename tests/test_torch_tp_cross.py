@@ -683,8 +683,10 @@ def test_checkpoints_move_between_tp2_and_one_device_bit_for_bit(ranks):
 
 def test_the_production_meshes_cut_hubert_whole_heads_and_llama_not():
     """hubert computes on its shard at tp = 2 and 16 (16/16 heads; at 16 its
-    504-row head stays whole, as hubert-v33's does above); llama at tp = 2
-    only (8 KV heads do not cut over 16: item 12c(c)2)."""
+    504-row head stays whole, as hubert-v33's does above); llama too, in
+    whole heads at tp = 2 and at 16 with its 8 KV heads cut into half a
+    head a rank (``wk``'s 1024 columns into 64: joined whole,
+    ``tests/test_torch_tp_heads.py``)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import AXES, AbstractMesh
     from repro_torch.parallel.sharding import (
@@ -696,10 +698,12 @@ def test_the_production_meshes_cut_hubert_whole_heads_and_llama_not():
 
     hubert, llama = get_config(HUBERT), get_config(LLAMA)
     assert model_shard_refusal(hubert) is None and model_shard_refusal(llama) is None
-    for tp, h_ok, l_ok in ((2, True, True), (16, True, False)):
+    for tp, h_ok, l_ok in ((2, True, True), (16, True, True)):
         mesh = AbstractMesh((1, 16, tp), AXES)
         assert computes_on_model_shard(hubert, mesh) is h_ok
         assert computes_on_model_shard(llama, mesh) is l_ok
     specs = param_specs(hubert, param_shapes(hubert), AbstractMesh((1, 16, 16), AXES))
     assert specs["head"]["w"] == ("data", None)
     assert specs["groups"]["b0_attn"]["attn"]["wq"] == (None, "data", "model")
+    lspecs = param_specs(llama, param_shapes(llama), AbstractMesh((1, 16, 16), AXES))
+    assert lspecs["groups"]["b0_attn"]["attn"]["wk"] == (None, "data", "model")
